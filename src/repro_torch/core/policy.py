@@ -1,0 +1,225 @@
+"""PrivacyPolicy: the per-parameter-group DP API.
+
+A policy is an ordered list of :class:`ParamGroup` rules matched against the
+flattened param paths (first match wins). Each group carries its own
+clipping fn + threshold R, a norm *scope*, an optional ghost-vs-direct
+override for ``kernels.dispatch``, and a trainable flag:
+
+  scope='flat'   the group joins the shared flat pool: ONE per-sample norm
+                 over every flat-scope param, one clip factor (all flat
+                 groups must agree on clipping/R/gamma).
+  scope='group'  the group is its own clipping unit: its own per-sample norm
+                 and its own C_i^(g) = clip(||g_i^(g)||; R_g).
+  scope='layer'  one clipping unit per param path, streamed through the
+                 fused_clip kernel in the JAX package — not ported yet:
+                 resolving such a policy raises NotImplementedError.
+  trainable=False
+                 the group's params are constants: no taps, no norm, no
+                 weighted grad, no noise; grads come back as zeros.
+
+The L2 sensitivity of one sample's clipped contribution composes as
+sqrt(sum_u R_u^2) over the non-empty trainable units
+(``accounting.compose_sensitivity``); the Gaussian noise on every trainable
+leaf has std sigma times that. (The JAX package's per-group ``sigma_scale``
+and tree-aggregation noise are not ported.)
+
+A bare :class:`repro_torch.core.bk.DPConfig` lowers to a single-group flat
+policy via :func:`as_policy`.
+"""
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from repro_torch.core.accounting import compose_sensitivity
+from repro_torch.core.clipping import get_clip_fn
+
+SCOPES = ("flat", "group", "layer")
+METHODS = ("", "ghost", "direct")
+
+
+@dataclass(frozen=True)
+class ParamGroup:
+    """One ordered matching rule over flattened param paths."""
+    name: str
+    match: str                       # path prefix, or regex (fullmatch)
+    clipping: str = "automatic"      # clipping fn name (core.clipping)
+    R: float = 1.0                   # per-group clipping threshold R_g
+    scope: str = "flat"              # 'flat' | 'group' | 'layer' (norm scope)
+    gamma: float = 0.01              # automatic-clipping stability constant
+    trainable: bool = True           # False = frozen (no taps / grads / noise)
+    method: str = ""                 # '' | 'ghost' | 'direct' dispatch override
+
+    def __post_init__(self):
+        if self.scope not in SCOPES:
+            raise ValueError(f"group {self.name!r}: scope must be one of "
+                             f"{SCOPES}, got {self.scope!r}")
+        if self.method not in METHODS:
+            raise ValueError(f"group {self.name!r}: method must be one of "
+                             f"{METHODS}, got {self.method!r}")
+
+    def matches(self, path: str) -> bool:
+        if path == self.match or path.startswith(self.match + "/"):
+            return True
+        try:
+            return re.fullmatch(self.match, path) is not None
+        except re.error:
+            return False
+
+
+@dataclass(frozen=True)
+class PrivacyPolicy:
+    """Ordered ParamGroup rules + the engine-level knobs."""
+    groups: tuple                    # tuple[ParamGroup, ...], first match wins
+    mode: str = "bk"                 # 'bk' | 'bk-mixghost' | 'bk-mixopt'
+    sigma: float = 0.0               # noise multiplier (0 = clipping only)
+    use_kernels: bool = True         # CUDA kernels (plain torch if False)
+
+    def __post_init__(self):
+        if not self.groups:
+            raise ValueError("policy needs at least one ParamGroup")
+        names = [g.name for g in self.groups]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate group names: {names}")
+
+
+def as_policy(cfg) -> PrivacyPolicy:
+    """DPConfig -> equivalent single-group flat policy; policies pass through."""
+    if isinstance(cfg, PrivacyPolicy):
+        return cfg
+    return PrivacyPolicy(
+        groups=(ParamGroup("all", ".*", clipping=cfg.clipping, R=cfg.R,
+                           scope="flat", gamma=cfg.gamma),),
+        mode=cfg.mode, sigma=cfg.sigma, use_kernels=cfg.use_kernels)
+
+
+# ------------------------------------------------------------------ resolution
+@dataclass(frozen=True)
+class ClipUnit:
+    """One clipping unit: a per-sample norm accumulator + clip factor C_i."""
+    name: str
+    clipping: str
+    R: float
+    gamma: float
+    paths: tuple                     # member param paths (sorted)
+
+    def clip_fn(self) -> Callable:
+        kw = {"gamma": self.gamma} if self.clipping == "automatic" else {}
+        return get_clip_fn(self.clipping, self.R, **kw)
+
+
+@dataclass(frozen=True)
+class ResolvedPolicy:
+    """A policy bound to a concrete set of param paths."""
+    policy: PrivacyPolicy
+    units: tuple                     # tuple[ClipUnit, ...]
+    unit_of: dict                    # path -> unit index (trainable paths only)
+    group_of: dict                   # path -> ParamGroup (every path)
+    frozen: frozenset                # paths of non-trainable groups
+    sensitivity: float               # sqrt(sum_u R_u^2) over non-empty units
+
+    def method_for(self, path: str) -> str:
+        return self.group_of[path].method
+
+
+def resolve_policy(policy: PrivacyPolicy, param_paths) -> ResolvedPolicy:
+    """Bind a policy to the flattened param paths. The ordered groups must
+    form a true partition: unmatched paths raise."""
+    param_paths = sorted(param_paths)
+    group_of, members = {}, {g.name: [] for g in policy.groups}
+    unmatched = []
+    for path in param_paths:
+        for g in policy.groups:
+            if g.matches(path):
+                group_of[path] = g
+                members[g.name].append(path)
+                break
+        else:
+            unmatched.append(path)
+    if unmatched:
+        raise ValueError(
+            "params matched no policy group (add a catch-all rule such as "
+            f"ParamGroup('rest', '.*')): {unmatched}")
+    layer = [g.name for g in policy.groups
+             if g.trainable and g.scope == "layer" and members[g.name]]
+    if layer:
+        raise NotImplementedError(
+            f"scope='layer' (groups {layer}) needs the fused_clip_grad "
+            "kernel and the streamed backward, not ported yet (ROADMAP "
+            "Queue 1 item 8, Queue 2 'fused_clip_grad')")
+
+    flat_groups = [g for g in policy.groups
+                   if g.trainable and g.scope == "flat" and members[g.name]]
+    for g in flat_groups[1:]:
+        ref = flat_groups[0]
+        if (g.clipping, g.R, g.gamma) != (ref.clipping, ref.R, ref.gamma):
+            raise ValueError(
+                "flat-scope groups share ONE norm pool and so must agree on "
+                f"(clipping, R, gamma): {ref.name!r} vs {g.name!r}")
+
+    units, unit_of = [], {}
+    if flat_groups:
+        ref = flat_groups[0]
+        paths = sorted(p for g in flat_groups for p in members[g.name])
+        name = ref.name if len(flat_groups) == 1 else "flat"
+        units.append(ClipUnit(name, ref.clipping, ref.R, ref.gamma,
+                              tuple(paths)))
+        for p in paths:
+            unit_of[p] = 0
+    for g in policy.groups:
+        if g.trainable and members[g.name] and g.scope == "group":
+            units.append(ClipUnit(g.name, g.clipping, g.R, g.gamma,
+                                  tuple(members[g.name])))
+            for p in members[g.name]:
+                unit_of[p] = len(units) - 1
+
+    frozen = frozenset(p for p in param_paths if not group_of[p].trainable)
+    return ResolvedPolicy(policy=policy, units=tuple(units), unit_of=unit_of,
+                          group_of=group_of, frozen=frozen,
+                          sensitivity=compose_sensitivity(
+                              [u.R for u in units]))
+
+
+def unit_clip_factors(res: ResolvedPolicy, sq):
+    """Per-unit per-sample sq norms -> ([norms_u], [C_u]) — phase 2's tail."""
+    norms = [torch.sqrt(s) for s in sq]
+    C = [unit.clip_fn()(n).to(torch.float32)
+         for unit, n in zip(res.units, norms)]
+    return norms, C
+
+
+def norm_aux(res: ResolvedPolicy, losses, sq, unit_norms, unit_C) -> dict:
+    """The aux dict: ``per_sample_norms`` is the total norm across units;
+    single-unit policies also keep ``clip_factors``."""
+    aux = {"loss": losses.mean(),
+           "per_sample_norms": (unit_norms[0] if len(res.units) == 1
+                                else torch.sqrt(sum(sq))),
+           "group_norms": {u.name: n for u, n in zip(res.units, unit_norms)},
+           "group_clip_factors": {u.name: c
+                                  for u, c in zip(res.units, unit_C)}}
+    if len(res.units) == 1:
+        aux["clip_factors"] = unit_C[0]
+    return aux
+
+
+def noise_leaf_fn(policy: PrivacyPolicy, res: ResolvedPolicy, seed: int,
+                  denom: float, step: int = 0, draw=None):
+    """Per-leaf phase 4: -> fn(path, g_sum) -> private grad leaf.
+
+    The fused noise + optimizer update (``Optimizer.update_leaves``) takes
+    leaves one at a time, so only one leaf's noise is live at a time.
+    Frozen leaves pass through. ``draw(path, shape)``, when given, supplies
+    the standard normals (tests feed both packages the same noise)."""
+    from repro_torch.core.noise import GaussianMechanism
+    mech = GaussianMechanism(draw)
+
+    def leaf(path: str, g):
+        if path in res.frozen:
+            return g
+        return mech.add_leaf(path, g, seed, policy.sigma, res.sensitivity,
+                             denom, step=step)
+
+    return leaf
