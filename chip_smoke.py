@@ -2,20 +2,32 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py                      # every phase, one card
+    python3 chip_smoke.py --phases card,build,kernels   # after a kernel edit
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
-  card     the card's name and power limit (nvidia-smi), torch and CUDA
-  build    compile the kernel library from ``src/repro_torch/kernels/csrc``
-  kernels  each of the four kernels against its plain PyTorch version on the
-           card: at the main path's full-width shapes (qwen2-1.5b, B=8,
-           T=512, bf16) and at one ragged f32 shape; times with CUDA events
-  train    3 steps of the full qwen2-1.5b config (28 layers, bf16) under its
-           policy preset: bk-mixopt, sigma=1.0, AdamW, B=8, T=512, through
-           ``repro_torch.launch.train.train``; launch counts per step; the
-           last step runs under torch.profiler (device time by kernel)
-  parity   one BK step of a 2-layer, full-width, f32 model with the kernels
-           and with ``use_kernels=False``: clipped sums and per-sample norms
+  card      the card's name and power limit (nvidia-smi), torch and CUDA
+  build     compile the kernel library from ``src/repro_torch/kernels/csrc``
+  kernels   each of the eight kernels against its plain PyTorch version on
+            the card, at the shapes each train path below gives it (bf16;
+            each tap routed by ``core.bk.norm_route``, MoE records and masks
+            from the path's own step-0 forward) and at ragged f32 shapes;
+            norms run twice must agree bitwise; kernel, plain and one-call
+            library times with CUDA events
+  train             qwen2-1.5b, full (28 layers, bf16), B=8, T=512
+  train_moe         deepseek-moe-16b at full width, 6 of its 28 layers
+                    (dense0_0 + 5 MoE blocks), B=8, T=512
+  train_moe_direct  the same with the experts group forced to the direct
+                    norm (2 steps)
+  train_long        qwen2-1.5b, full, B=2, T=2048: qkv and o take the direct
+                    norm with the mixopt cache off
+            each: the arch's registered policy, bk-mixopt, sigma=1.0, AdamW,
+            through ``repro_torch.launch.train.train``; launch counts per
+            step; the last step runs under torch.profiler
+  parity, parity_moe, parity_long
+            one BK step of a 2-layer, full-width, f32 model of each path
+            with the kernels and with ``use_kernels=False`` (parity_long
+            under bk-mixghost, so that the direct norm runs at 2 layers)
 
 Then a ``kernels`` summary line and, last, the ``ok`` line. Any failed check
 raises, and the script exits non-zero without the ``ok`` line. It needs a
@@ -25,6 +37,7 @@ of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -34,32 +47,125 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("card", "build", "kernels", "train", "parity")
+TRAINS = ("train", "train_moe", "train_moe_direct", "train_long")
+PARITIES = ("parity", "parity_moe", "parity_long")
+PHASES = ("card", "build", "kernels") + TRAINS + PARITIES
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s by type
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
-# kernel-vs-plain tolerances: f32 as tests/test_kernel_parity.py:15; bf16 as
-# its :18 (the plain clipped grads round C to bf16 like the JAX reference)
+# kernel-vs-plain tolerances (rtol, atol). Weighted grads: f32 as
+# tests/test_kernel_parity.py:15, bf16 as its :18 (the plain clipped grads
+# round C to bf16 like the JAX reference). Norms: both versions read the
+# same inputs and sum in f32, so one tight tolerance serves either dtype.
 TOL = {"float32": (1e-3, 1e-4), "bfloat16": (5e-2, 2e-2)}
-TRAIN = dict(batch=8, seq=512, steps=3, sigma=1.0)
-# each kernel's launches per train step at qwen2-1.5b: 5 mm taps, 1 emb tap
-PER_STEP = {"ghost_norm": 5, "clipped_grad": 5, "emb_ghost_norm": 1,
-            "emb_clipped_grad": 1}
+NORM_TOL = (1e-4, 1e-6)
+MOE_LAYERS = 6      # dense0_0 + 5 MoE blocks: the depth one 80 GB card holds
+
+KERNELS = ("ghost_norm", "clipped_grad", "emb_ghost_norm", "emb_clipped_grad",
+           "grad_norm_direct", "moe_ghost_norm", "moe_direct_norm",
+           "moe_clipped_grad")
+CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
-    "ghost_norm": ("src/repro_torch/kernels/csrc/ghost_norm.cu",
-                   "src/repro/kernels/ghost_norm.py:62"),
-    "clipped_grad": ("src/repro_torch/kernels/csrc/clipped_grad.cu",
-                     "src/repro/kernels/clipped_grad.py:39"),
-    "emb_ghost_norm": ("src/repro_torch/kernels/csrc/emb_norm.cu",
-                       "src/repro/kernels/emb_norm.py:50"),
-    "emb_clipped_grad": ("src/repro_torch/kernels/csrc/emb_grad.cu",
-                         "src/repro/kernels/emb_grad.py:50"),
+    "ghost_norm": ("ghost_norm.cu", "ghost_norm.py:62"),
+    "clipped_grad": ("clipped_grad.cu", "clipped_grad.py:39"),
+    "emb_ghost_norm": ("emb_norm.cu", "emb_norm.py:50"),
+    "emb_clipped_grad": ("emb_grad.cu", "emb_grad.py:50"),
+    "grad_norm_direct": ("grad_norm_direct.cu", "grad_norm_direct.py:42"),
+    "moe_ghost_norm": ("moe_ghost_norm.cu", "moe_ghost.py:58"),
+    "moe_direct_norm": ("moe_direct_norm.cu", "moe_ghost.py:98"),
+    "moe_clipped_grad": ("moe_clipped_grad.cu", "moe_ghost.py:146"),
 }
+# no single PyTorch call computes these (say why in the summary)
+NO_LIBRARY = {
+    "emb_ghost_norm": "no single call builds the id-equality mask and "
+                      "contracts it",
+}
+# the kernel each engine route of a tap launches (core.bk.norm_route):
+# the norm, then the weighted grad; the mixopt cache launches neither
+NORM_KERNEL = {("mm", "ghost"): "ghost_norm",
+               ("mm", "direct"): "grad_norm_direct",
+               ("emb", "ghost"): "emb_ghost_norm",
+               ("moe", "ghost"): "moe_ghost_norm",
+               ("moe", "direct"): "moe_direct_norm"}
+GRAD_KERNEL = {"mm": "clipped_grad", "emb": "emb_clipped_grad",
+               "moe": "moe_clipped_grad"}
+
+
+def _per_step(**counts):
+    return {k: counts.get(k, 0) for k in KERNELS}
+
+
+# each train path: config, shapes, steps, and each kernel's launches per
+# step (mm taps: head + 4 per dense layer + 4 stacked; the router (2048->64)
+# goes direct but bk-mixopt caches its small per-sample grad, no kernel)
+RUNS = {
+    "train": dict(arch="qwen2-1.5b", layers=0, batch=8, seq=512, steps=3,
+                  direct=False, per_step=_per_step(
+                      ghost_norm=5, clipped_grad=5, emb_ghost_norm=1,
+                      emb_clipped_grad=1)),
+    "train_moe": dict(arch="deepseek-moe-16b", layers=MOE_LAYERS, batch=8,
+                      seq=512, steps=3, direct=False, per_step=_per_step(
+                          ghost_norm=9, clipped_grad=9, emb_ghost_norm=1,
+                          emb_clipped_grad=1, moe_ghost_norm=2,
+                          moe_clipped_grad=2)),
+    "train_moe_direct": dict(arch="deepseek-moe-16b", layers=MOE_LAYERS,
+                             batch=8, seq=512, steps=2, direct=True,
+                             per_step=_per_step(
+                                 ghost_norm=9, clipped_grad=9,
+                                 emb_ghost_norm=1, emb_clipped_grad=1,
+                                 moe_direct_norm=2, moe_clipped_grad=2)),
+    "train_long": dict(arch="qwen2-1.5b", layers=0, batch=2, seq=2048,
+                       steps=3, direct=False, per_step=_per_step(
+                           grad_norm_direct=2, ghost_norm=3, clipped_grad=5,
+                           emb_ghost_norm=1, emb_clipped_grad=1)),
+}
+# the path whose shapes give each kernel's row in the summary line
+ROW_PATH = {"ghost_norm": "train", "clipped_grad": "train",
+            "emb_ghost_norm": "train", "emb_clipped_grad": "train",
+            "grad_norm_direct": "train_long", "moe_ghost_norm": "train_moe",
+            "moe_direct_norm": "train_moe_direct",
+            "moe_clipped_grad": "train_moe"}
+# train paths that share one model, seed and batch (so one set of records)
+PATH_GROUPS = (("train",), ("train_moe", "train_moe_direct"),
+               ("train_long",))
 
 
 def emit(**obj):
     print(json.dumps(obj), flush=True)
+
+
+def wrappers():
+    from repro_torch.kernels import clipped_grad as cg
+    from repro_torch.kernels import emb_grad as eg
+    from repro_torch.kernels import emb_norm as en
+    from repro_torch.kernels import ghost_norm as gn
+    from repro_torch.kernels import grad_norm_direct as gd
+    from repro_torch.kernels import moe_ghost as mg
+    return {"ghost_norm": gn.ghost_norm, "clipped_grad": cg.clipped_grad,
+            "emb_ghost_norm": en.emb_ghost_norm,
+            "emb_clipped_grad": eg.emb_clipped_grad,
+            "grad_norm_direct": gd.grad_norm_direct,
+            "moe_ghost_norm": mg.moe_ghost_norm,
+            "moe_direct_norm": mg.moe_direct_norm,
+            "moe_clipped_grad": mg.moe_clipped_grad}
+
+
+def run_config(name):
+    """-> (ModelConfig, PrivacyPolicy) of a train path."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import resolve_dp
+    run = RUNS[name]
+    cfg = get_config(run["arch"])
+    if run["layers"]:
+        cfg = cfg.with_(n_layers=run["layers"])
+    dp = resolve_dp(cfg.name, "auto", "bk-mixopt", "automatic", 1.0,
+                    log=lambda m: None)
+    if run["direct"]:
+        dp = dataclasses.replace(dp, groups=tuple(
+            dataclasses.replace(g, method="direct") if g.name == "experts"
+            else g for g in dp.groups))
+    return cfg, dp
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -80,13 +186,14 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def compare(got, want, dtype_name: str) -> dict:
-    """Max abs / rel error of got vs want, and the allclose verdict."""
+def compare(got, want, tol) -> dict:
+    """Max abs / rel error of got vs want, and the allclose verdict at
+    ``tol`` = (rtol, atol)."""
     import torch
-    rtol, atol = TOL[dtype_name]
+    rtol, atol = tol
     g, w = got.reshape(-1), want.reshape(-1)
     max_abs, max_rel, ok, n = 0.0, 0.0, True, 1 << 26
-    for i in range(0, g.numel(), n):     # in slices: outputs reach 3 GB
+    for i in range(0, g.numel(), n):     # in slices: outputs reach 7 GB
         gi, wi = g[i:i + n].double(), w[i:i + n].double()
         if not torch.isfinite(gi).all():
             raise AssertionError("kernel output is not finite")
@@ -124,19 +231,61 @@ def phase_build():
     from repro_torch.kernels import build
     info = build.build()
     regs = [ln.strip() for ln in info["ptxas"].splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln or ln.startswith("==")]
     emit(phase="build", seconds=info["seconds"], cached=info["cached"],
          library=str(Path(info["path"]).relative_to(ROOT)), ptxas=regs)
     build.load()
 
 
-def _mm_taps(cfg):
-    """(name, L, d, p) of the main path's matmul taps."""
-    H, K, h, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
-    L = cfg.n_layers
-    return [("qkv", L, d, (H + 2 * K) * h), ("o", L, H * h, d),
-            ("up", L, d, 2 * cfg.d_ff), ("down", L, cfg.d_ff, d),
-            ("head", 1, d, cfg.vocab)]
+def path_taps(paths, dev):
+    """The taps of a group of train paths that share one model, seed and
+    batch, each routed as the engine routes it (``core.bk.norm_route``)
+    under each path's policy -> (cfg, step-0 batch, [(key, kind, record
+    shape, cotangent shape, {kernel: first path that launches it})], the
+    step-0 MoE records of the path's own model: its router's masks)."""
+    import torch
+    from repro_torch.configs.registry import build
+    from repro_torch.core.bk import norm_route, tap_act_structs
+    from repro_torch.core.policy import as_policy, resolve_policy
+    from repro_torch.core.tape import Tape, parse_key, tap_w
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.utils.tree import flatten
+
+    cfg, _ = run_config(paths[0])
+    run = RUNS[paths[0]]
+    model = build(cfg)
+    params = model.init(0, dev)        # train()'s seed and step-0 batch
+    batch = make_batch(cfg, run["batch"], run["seq"], 0, 0, dev)
+    outs, acts = tap_act_structs(model.apply, params, batch)
+    flat = flatten(params)
+    policies = []
+    for path in paths:
+        pol = as_policy(run_config(path)[1])
+        policies.append((path, pol, resolve_policy(pol, flat)))
+    taps = []
+    for key in sorted(acts):
+        kind = parse_key(key)[1]
+        a_shape = (acts[key]["a"] if kind == "moe" else acts[key])[0]
+        ds_shape = outs[key][0]
+        kernels = {}
+        for path, pol, res in policies:
+            route = norm_route(kind, a_shape, ds_shape, pol.mode,
+                               res.method_for(tap_w(key)))
+            if route != "cache":
+                kernels.setdefault(NORM_KERNEL[kind, route], path)
+                kernels.setdefault(GRAD_KERNEL[kind], path)
+        taps.append((key, kind, a_shape, ds_shape, kernels))
+    records = {}
+    if any(kind == "moe" for _, kind, *_ in taps):
+        tape = Tape()
+        with torch.no_grad():
+            model.apply(params, batch, tape)
+        records = {k: v for k, v in tape.acts.items()
+                   if parse_key(k)[1] == "moe"}
+        del tape
+    del params, flat
+    torch.cuda.empty_cache()
+    return cfg, batch, taps, records
 
 
 def _match_pairs(ids):
@@ -148,37 +297,51 @@ def _match_pairs(ids):
     return int(torch.tril(eq).sum())
 
 
-def phase_kernels(cfg):
-    """Each kernel vs its plain version on the card -> per-kernel summary."""
+def phase_kernels():
+    """Each kernel vs its plain version on the card at the shapes each train
+    path gives it, as the engine routes its taps -> per-kernel summary (from
+    each kernel's ROW_PATH)."""
     import torch
-    from repro_torch.data.synthetic import make_batch
+    from repro_torch.core import ghost
+    from repro_torch.core.tape import parse_key
     from repro_torch.kernels import clipped_grad as cg
     from repro_torch.kernels import emb_grad as eg
     from repro_torch.kernels import emb_norm as en
     from repro_torch.kernels import ghost_norm as gn
+    from repro_torch.kernels import grad_norm_direct as gd
+    from repro_torch.kernels import moe_ghost as mg
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    B, T = TRAIN["batch"], TRAIN["seq"]
     summary = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
                        max_abs_err=0.0, t_bytes=0.0, t_ops=0.0)
-               for k in SOURCES}
+               for k in KERNELS}
 
     def rnd(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def record(name, case, got, want, dtype_name, ms_k, ms_p, nbytes, ops,
-               ms_lib=None, main=True):
-        cmp = compare(got, want, dtype_name)
-        b_ms, b_by = bound(nbytes, ops, dtype_name)
-        emit(phase="kernels", kernel=name, case=case, **cmp, kernel_ms=ms_k,
-             plain_ms=ms_p, library_ms=ms_lib, bound_ms=b_ms, bound_by=b_by,
-             bytes=nbytes, ops=ops)
+    def clip_factors(B, dtype):
+        # clip factors the record dtype holds exactly: the plain version
+        # rounds C to it (as the JAX reference does), the kernel keeps f32
+        return (torch.rand(B, generator=gen, device=dev) + 0.1).to(
+            dtype).float()
+
+    def record(name, path, case, got, want, tol, ms_k, ms_p, nbytes, ops,
+               dname, ms_lib=None, again=None, **extra):
+        cmp = compare(got, want, tol)
+        b_ms, b_by = bound(nbytes, ops, dname)
+        if again is not None:       # a norm run twice: bitwise equal?
+            extra["bitwise_repeat"] = bool(torch.equal(got, again))
+        emit(phase="kernels", kernel=name, path=path, case=case, **cmp,
+             **extra, kernel_ms=ms_k, plain_ms=ms_p, library_ms=ms_lib,
+             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops)
         if not cmp["ok"]:
             raise AssertionError(f"{name} [{case}] disagrees with its plain "
                                  f"version: {cmp}")
-        if main:
+        if again is not None and not extra["bitwise_repeat"]:
+            raise AssertionError(f"{name} [{case}] differs run to run")
+        if path == ROW_PATH[name]:
             s = summary[name]
             s["ms"] += ms_k
             s["plain_ms"] += ms_p
@@ -188,82 +351,193 @@ def phase_kernels(cfg):
             if ms_lib is not None:
                 s["library_ms"] = (s["library_ms"] or 0.0) + ms_lib
 
-    def mm_case(case, L, Bc, Tc, d, p, dtype, main=True):
+    def reps(path, name):
+        return (10, 2) if path == ROW_PATH[name] else (3, 1)
+
+    def einsum_forms(eq, *ops):
+        """One torch.einsum call, by each contraction order torch offers:
+        left to right, and opt_einsum's path where that package is there."""
+        def form(opt):
+            def run():
+                prev = torch.backends.opt_einsum.enabled
+                torch.backends.opt_einsum.enabled = opt
+                try:
+                    return torch.einsum(eq, *ops)
+                finally:
+                    torch.backends.opt_einsum.enabled = prev
+            return run
+        forms = {"left_to_right": form(False)}
+        if torch.backends.opt_einsum.is_available():
+            forms["opt_einsum"] = form(True)
+        return forms
+
+    def norm_case(name, path, case, fn, plain, args, nbytes, ops, dname,
+                  library=None, **extra):
+        got, again = fn(*args), fn(*args)
+        want = plain(*args)
+        r, w = reps(path, name)
+        ms_k = cuda_ms(lambda: fn(*args), r, w)
+        ms_p = cuda_ms(lambda: plain(*args), 3, 1)
+        ms_lib = None
+        if library:
+            forms = {f: cuda_ms(run, r, w) for f, run in library.items()}
+            ms_lib = min(forms.values())
+            extra["library_forms_ms"] = forms
+        record(name, path, case, got, want, NORM_TOL, ms_k, ms_p, nbytes,
+               ops, dname, ms_lib, again, **extra)
+
+    def grad_case(name, path, case, fn, plain, args, nbytes, ops, dname,
+                  library=None, **extra):
+        got = fn(*args)
+        want = plain(*args)
+        r, w = reps(path, name)
+        ms_k = cuda_ms(lambda: fn(*args), min(r, 5), 1)
+        ms_p = cuda_ms(lambda: plain(*args), 3, 1)
+        ms_lib = cuda_ms(library, r, w) if library else None
+        record(name, path, case, got, want, TOL[dname], ms_k, ms_p, nbytes,
+               ops, dname, ms_lib, **extra)
+        del got, want
+
+    def mm_case(case, L, Bc, Tc, d, p, dtype, kernels):
+        """``kernels``: {kernel: the path it runs for} of this tap."""
         dname = str(dtype).split(".")[-1]
         a, ds = rnd(L, Bc, Tc, d, dtype=dtype), rnd(L, Bc, Tc, p, dtype=dtype)
-        # clip factors the record dtype holds exactly: the plain version
-        # rounds C to it (as the JAX reference does), the kernel keeps f32
-        C = (torch.rand(Bc, generator=gen, device=dev) + 0.1).to(dtype).float()
+        C = clip_factors(Bc, dtype)
         esz = a.element_size()
-        # ghost_norm
-        got = gn.ghost_norm(a, ds)
-        want = gn.plain(a, ds)
-        ms_k = cuda_ms(lambda: gn.ghost_norm(a, ds))
-        ms_p = cuda_ms(lambda: gn.plain(a, ds), reps=3, warmup=1)
-        record("ghost_norm", case, got, want, dname, ms_k, ms_p,
-               (a.numel() + ds.numel()) * esz + Bc * 4,
-               2.0 * (d + p) * L * Bc * Tc * (Tc + 1) / 2, main=main)
-        # clipped_grad
-        got = cg.clipped_grad(a, C, ds)
-        want = cg.plain(a, C, ds)
-        ms_k = cuda_ms(lambda: cg.clipped_grad(a, C, ds), reps=5, warmup=1)
-        ms_p = cuda_ms(lambda: cg.plain(a, C, ds), reps=3, warmup=1)
-        ms_lib = cuda_ms(lambda: torch.einsum("lbtd,b,lbtp->ldp", a,
-                                              C.to(dtype), ds))
-        record("clipped_grad", case, got, want, dname, ms_k, ms_p,
-               (a.numel() + ds.numel()) * esz + Bc * 4 + L * d * p * 4,
-               2.0 * L * Bc * Tc * d * p, ms_lib, main=main)
-        del a, ds, got, want
+        rec_bytes = (a.numel() + ds.numel()) * esz
+        # the one-call library version of either norm: the same function
+        library = einsum_forms("lbtd,lbsd,lbtp,lbsp->b", a, a, ds, ds)
+        if "ghost_norm" in kernels:
+            norm_case("ghost_norm", kernels["ghost_norm"], case,
+                      gn.ghost_norm, gn.plain, (a, ds), rec_bytes + Bc * 4,
+                      2.0 * (d + p) * L * Bc * Tc * (Tc + 1) / 2, dname,
+                      library)
+        if "grad_norm_direct" in kernels:
+            norm_case("grad_norm_direct", kernels["grad_norm_direct"], case,
+                      gd.grad_norm_direct, gd.plain, (a, ds),
+                      rec_bytes + Bc * 4, 2.0 * L * Bc * Tc * d * p, dname,
+                      library)
+        if "clipped_grad" in kernels:
+            grad_case("clipped_grad", kernels["clipped_grad"], case,
+                      cg.clipped_grad, cg.plain, (a, C, ds),
+                      rec_bytes + Bc * 4 + L * d * p * 4,
+                      2.0 * L * Bc * Tc * d * p, dname,
+                      lambda: torch.einsum("lbtd,b,lbtp->ldp", a,
+                                           C.to(dtype), ds))
+        del a, ds, library
         torch.cuda.empty_cache()
 
-    def emb_case(case, ids, d, V, dtype, main=True):
+    def emb_case(case, ids, d, V, dtype, kernels):
         dname = str(dtype).split(".")[-1]
         L, Bc, Tc = (ids if ids.dim() == 3 else ids[None]).shape
         ds = rnd(*ids.shape, d, dtype=dtype)
         C = torch.rand(Bc, generator=gen, device=dev) + 0.1
         esz = ds.element_size()
-        got = en.emb_ghost_norm(ids, ds)
-        want = en.plain(ids, ds)
-        ms_k = cuda_ms(lambda: en.emb_ghost_norm(ids, ds))
-        ms_p = cuda_ms(lambda: en.plain(ids, ds), reps=3, warmup=1)
-        record("emb_ghost_norm", case, got, want, dname, ms_k, ms_p,
-               ids.numel() * 4 + ds.numel() * esz + Bc * 4,
-               2.0 * d * _match_pairs(ids), main=main)
-        got = eg.emb_clipped_grad(ids, C, ds, V)
-        want = eg.plain(ids, C, ds, V)
+        norm_case("emb_ghost_norm", kernels["emb_ghost_norm"], case,
+                  en.emb_ghost_norm, en.plain, (ids, ds),
+                  ids.numel() * 4 + ds.numel() * esz + Bc * 4,
+                  2.0 * d * _match_pairs(ids), dname)
         valid = ((ids >= 0) & (ids < V)).reshape(-1)
         flat = (ids.long() + torch.arange(L, device=dev)[:, None, None] * V
                 ).reshape(-1)[valid]
         w = (ds.float() * C[:, None, None]).reshape(-1, d)[valid]
-
-        def library():
-            return torch.zeros(L * V, d, device=dev).index_add_(0, flat, w)
-
-        ms_k = cuda_ms(lambda: eg.emb_clipped_grad(ids, C, ds, V))
-        ms_p = cuda_ms(lambda: eg.plain(ids, C, ds, V), reps=3, warmup=1)
-        ms_lib = cuda_ms(library)
-        record("emb_clipped_grad", case, got, want, dname, ms_k, ms_p,
-               ids.numel() * 4 + Bc * 4 + ds.numel() * esz + L * V * d * 4,
-               2.0 * int(valid.sum()) * d, ms_lib, main=main)
-        del ds, got, want, w
+        grad_case("emb_clipped_grad", kernels["emb_clipped_grad"], case,
+                  lambda *a: eg.emb_clipped_grad(*a, V),
+                  lambda *a: eg.plain(*a, V), (ids, C, ds),
+                  ids.numel() * 4 + Bc * 4 + ds.numel() * esz + L * V * d * 4,
+                  2.0 * int(valid.sum()) * d, dname,
+                  lambda: torch.zeros(L * V, d, device=dev).index_add_(
+                      0, flat, w))
+        del ds, w
         torch.cuda.empty_cache()
 
-    for name, L, d, p in _mm_taps(cfg):
-        mm_case(f"{name} L={L} B={B} T={T} d={d} p={p} bf16", L, B, T, d, p,
-                torch.bfloat16)
-    tokens = make_batch(cfg, B, T, seed=0, step=0, device=dev)["tokens"]
-    emb_case(f"embed B={B} T={T} d={cfg.d_model} V={cfg.vocab} bf16",
-             tokens, cfg.d_model, cfg.vocab, torch.bfloat16)
-    # ragged: T not a multiple of any tile, odd d / p / V, stacked, f32;
-    # some ids outside [0, V) (dropped by both versions)
-    mm_case("ragged L=3 B=3 T=509 d=37 p=53 f32", 3, 3, 509, 37, 53,
-            torch.float32, main=False)
+    def moe_case(case, a, mask, p, kernels):
+        """Records a (L,B,E,C,d) and mask (L,B,E,C): the model's own (path
+        shapes, a pre-masked) or raw (ragged: the kernels' own masking is
+        what is checked); cotangents random, unmasked."""
+        dtype = a.dtype
+        dname = str(dtype).split(".")[-1]
+        L, Bc, E, Cap, d = a.shape
+        ds = rnd(L, Bc, E, Cap, p, dtype=dtype)
+        m = mask[..., None].to(dtype)
+        am, dm = a * m, ds * m                   # for the library calls
+        C = clip_factors(Bc, dtype)
+        esz = a.element_size()
+        nv = mask.reshape(-1, Cap).sum(-1).double()   # kept slots / (l,b,e)
+        kept = float(nv.sum())
+        # the function reads the kept slots' rows and the mask
+        rec_bytes = kept * (d + p) * esz + mask.numel() * 4
+        fill = kept / mask.numel()
+        library = einsum_forms("lbecd,lbefd,lbecp,lbefp->b", am, am, dm, dm)
+        if "moe_ghost_norm" in kernels:
+            norm_case("moe_ghost_norm", kernels["moe_ghost_norm"], case,
+                      mg.moe_ghost_norm, ghost.sq_norm_moe_ghost,
+                      (a, mask, ds), rec_bytes + Bc * 4,
+                      float((d + p) * (nv * (nv + 1)).sum()), dname, library,
+                      fill=fill)
+        if "moe_direct_norm" in kernels:
+            norm_case("moe_direct_norm", kernels["moe_direct_norm"], case,
+                      mg.moe_direct_norm, ghost.sq_norm_moe_direct,
+                      (a, mask, ds), rec_bytes + Bc * 4,
+                      2.0 * kept * d * p, dname, library, fill=fill)
+        if "moe_clipped_grad" in kernels:
+            grad_case("moe_clipped_grad", kernels["moe_clipped_grad"], case,
+                      mg.moe_clipped_grad, mg.plain_clipped_grad,
+                      (a, mask, C, ds),
+                      rec_bytes + Bc * 4 + L * E * d * p * 4,
+                      2.0 * kept * d * p, dname,
+                      lambda: torch.einsum("lbecd,b,lbecp->ledp", a,
+                                           C.to(dtype), dm), fill=fill)
+        del ds, dm, am, library
+        torch.cuda.empty_cache()
+
+    # ---- the train paths' shapes, each tap routed as the engine routes it
+    for paths in PATH_GROUPS:
+        cfg, batch, taps, records = path_taps(paths, dev)
+        B, T = RUNS[paths[0]]["batch"], RUNS[paths[0]]["seq"]
+        for key, kind, a_shape, ds_shape, kernels in taps:
+            if not kernels:
+                continue            # the mixopt cache (an einsum), no kernel
+            where = f"{paths[0]} {parse_key(key)[0]}"
+            if kind == "mm":
+                L = a_shape[0] if len(a_shape) == 4 else 1
+                d, p = a_shape[-1], ds_shape[-1]
+                mm_case(f"{where} L={L} B={B} T={T} d={d} p={p} bf16", L, B,
+                        T, d, p, torch.bfloat16, kernels)
+            elif kind == "emb":
+                emb_case(f"{where} B={B} T={T} d={ds_shape[-1]} "
+                         f"V={cfg.vocab} bf16", batch["tokens"], ds_shape[-1],
+                         cfg.vocab, torch.bfloat16, kernels)
+            else:
+                a, mask = records[key]["a"], records[key]["mask"]
+                L, _, E, Cap, d = a.shape
+                moe_case(f"{where} L={L} B={B} E={E} C={Cap} d={d} "
+                         f"p={ds_shape[-1]} bf16", a, mask, ds_shape[-1],
+                         kernels)
+        del records
+
+    # ---- ragged: T / C not a multiple of any tile, odd d / p / V, stacked,
+    # f32; some ids outside [0, V) (dropped by both versions); masked slots.
+    # d, p of one tile and of several, neither a multiple of 128
+    mm_all = dict.fromkeys(("ghost_norm", "grad_norm_direct",
+                            "clipped_grad"), "ragged")
+    moe_all = dict.fromkeys(("moe_ghost_norm", "moe_direct_norm",
+                             "moe_clipped_grad"), "ragged")
+    for d, p in ((37, 53), (165, 301)):
+        mm_case(f"ragged L=3 B=3 T=509 d={d} p={p} f32", 3, 3, 509, d, p,
+                torch.float32, mm_all)
+        mask = (torch.rand(2, 3, 5, 7, generator=gen, device=dev) < 0.7
+                ).float()
+        mask[0, :, 0] = 0.0             # an expert that no sample reached
+        moe_case(f"ragged L=2 B=3 E=5 C=7 d={d} p={p} f32",
+                 rnd(2, 3, 5, 7, d, dtype=torch.float32), mask, p, moe_all)
     ids = torch.randint(0, 1001, (3, 3, 509), generator=gen, device=dev,
                         dtype=torch.int32)
     ids[:, :, ::97] = -1
     ids[:, :, 5::101] = 1001 + 7
     emb_case("ragged L=3 B=3 T=509 d=37 V=1001 f32", ids, 37, 1001,
-             torch.float32, main=False)
+             torch.float32, dict.fromkeys(("emb_ghost_norm",
+                                           "emb_clipped_grad"), "ragged"))
     return summary
 
 
@@ -275,8 +549,10 @@ def _profile_summary(prof, window_ms: float) -> dict:
         if e.device_type == DeviceType.CUDA:
             us = e.time_range.elapsed_us()
             by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
-    ours = ("ghost_norm_kernel", "clipped_grad_kernel", "emb_norm_kernel",
-            "emb_grad_kernel", "reduce_rows_kernel")
+    ours = tuple(f"{k}_kernel" for k in (
+        "ghost_norm", "clipped_grad", "emb_norm", "emb_grad", "reduce_rows",
+        "grad_norm_direct", "moe_ghost_norm", "moe_direct_norm",
+        "moe_clipped_grad"))
     kinds = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
     for name, ms in by_name.items():
         low = name.lower()
@@ -293,113 +569,143 @@ def _profile_summary(prof, window_ms: float) -> dict:
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
 
 
-def phase_train(cfg):
-    """Full-depth steps through the train entry point; -> launch counts.
+def phase_train(name):
+    """One train path through the train entry point -> launch totals.
     The last step runs under torch.profiler."""
     import torch
     from repro_torch.configs.base import TrainConfig
-    from repro_torch.kernels import clipped_grad as cg
-    from repro_torch.kernels import emb_grad as eg
-    from repro_torch.kernels import emb_norm as en
-    from repro_torch.kernels import ghost_norm as gn
-    from repro_torch.launch.train import resolve_dp, train
+    from repro_torch.launch.train import train
 
-    wrappers = {"ghost_norm": gn.ghost_norm, "clipped_grad": cg.clipped_grad,
-                "emb_ghost_norm": en.emb_ghost_norm,
-                "emb_clipped_grad": eg.emb_clipped_grad}
-    tc = TrainConfig(global_batch=TRAIN["batch"], seq_len=TRAIN["seq"],
-                     steps=TRAIN["steps"], lr=3e-4, optimizer="adamw")
-    dp = resolve_dp(cfg.name, "auto", "bk-mixopt", "automatic",
-                    TRAIN["sigma"], log=lambda m: None)
+    run = RUNS[name]
+    cfg, dp = run_config(name)
+    ws = wrappers()
+    tc = TrainConfig(global_batch=run["batch"], seq_len=run["seq"],
+                     steps=run["steps"], lr=3e-4, optimizer="adamw")
     per_step, prof = [], {}
 
     def on_step(step, loss, seconds):
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = {k: w.launches for k, w in ws.items()}
         prev = per_step[-1]["total"] if per_step else dict.fromkeys(counts, 0)
         per_step.append({"step": step, "loss": loss, "seconds": seconds,
                          "launches": {k: counts[k] - prev[k] for k in counts},
                          "total": counts})
-        if step == TRAIN["steps"] - 2:
+        if step == tc.steps - 2:
             acts = [torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]
             prof["p"] = torch.profiler.profile(activities=acts)
             prof["p"].start()
             prof["t0"] = time.perf_counter()
-        elif "p" in prof and step == TRAIN["steps"] - 1:
+        elif "p" in prof and step == tc.steps - 1:
             torch.cuda.synchronize()
             prof["ms"] = (time.perf_counter() - prof["t0"]) * 1e3
             prof["p"].stop()
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for w in wrappers.values():       # counts from here on are the path's
+    for w in ws.values():             # counts from here on are the path's
         w.launches = 0
     _, losses = train(cfg, tc, dp, device="cuda", log=lambda m: None,
                       on_step=on_step)
     torch.cuda.synchronize()
-    totals = {k: w.launches for k, w in wrappers.items()}
+    totals = {k: w.launches for k, w in ws.items()}
     peak = torch.cuda.max_memory_allocated()
     for s in per_step:
-        emit(phase="train", step=s["step"], loss=s["loss"],
+        emit(phase=name, step=s["step"], loss=s["loss"],
              step_seconds=s["seconds"], launches=s["launches"])
-    emit(phase="train", arch=cfg.name, layers=cfg.n_layers,
+    emit(phase=name, arch=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.param_dtype,
-         mode="bk-mixopt", policy=cfg.name, optimizer="adamw", **TRAIN,
-         losses=losses, max_memory_allocated=peak, launches=totals,
-         grad_norm_direct="absent (not on this path, no kernel ported)")
-    emit(phase="profile", step=TRAIN["steps"] - 1,
+         mode=dp.mode, policy=cfg.name,
+         methods={g.name: g.method or "rule" for g in dp.groups},
+         optimizer="adamw", batch=tc.global_batch, seq=tc.seq_len,
+         steps=tc.steps, sigma=dp.sigma, losses=losses,
+         max_memory_allocated=peak, launches=totals)
+    emit(phase=f"{name}_profile", step=tc.steps - 1,
          **_profile_summary(prof["p"], prof["ms"]))
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
+    if abs(losses[0] - math.log(cfg.vocab)) > 0.5:
+        raise AssertionError(f"{name}: step-0 loss {losses[0]} is not near "
+                             f"ln(vocab) = {math.log(cfg.vocab)}")
     for s in per_step:
         for k, n in s["launches"].items():
-            if n != PER_STEP[k]:
-                raise AssertionError(f"step {s['step']}: {k} launched {n} "
-                                     f"times, want {PER_STEP[k]}")
+            if n != run["per_step"][k]:
+                raise AssertionError(f"{name} step {s['step']}: {k} launched "
+                                     f"{n} times, want {run['per_step'][k]}")
     return totals
 
 
-def phase_parity(cfg):
-    """One BK step with and without the kernels, 2 layers, full width, f32."""
+# one BK step with and without the kernels: (path, layers, mode, expected
+# kernel launches in the kernel run, per policy)
+PARITY = {
+    "parity": ("train", 2, "bk-mixopt", ("ghost_norm", "clipped_grad")),
+    "parity_moe": ("train_moe", 2, "bk-mixopt",
+                   ("moe_ghost_norm", "moe_clipped_grad")),
+    "parity_long": ("train_long", 2, "bk-mixghost", ("grad_norm_direct",)),
+}
+
+
+def phase_parity(name):
+    """One BK step with and without the kernels, 2 layers, full width, f32,
+    under the path's policy (and, for the MoE path, with the experts forced
+    to the direct norm too)."""
     import torch
-    from repro_torch.configs.registry import build, get_policy
+    from repro_torch.configs.registry import build
     from repro_torch.core.bk import bk_clipped_sum
     from repro_torch.data.synthetic import make_batch
 
+    path, layers, mode, expect = PARITY[name]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    small = cfg.with_(n_layers=2, param_dtype="float32")
+    cfg, dp = run_config(path)
+    small = cfg.with_(n_layers=layers, param_dtype="float32")
     model = build(small)
     params = model.init(seed=1, device="cuda")
-    batch = make_batch(small, TRAIN["batch"], TRAIN["seq"], seed=1,
-                       device="cuda")
+    B, T = RUNS[path]["batch"], RUNS[path]["seq"]
+    batch = make_batch(small, B, T, seed=1, device="cuda")
+    policies = [(mode, dp, expect)]
+    if path == "train_moe":
+        policies.append(("bk-mixopt experts=direct",
+                         run_config("train_moe_direct")[1],
+                         ("moe_direct_norm", "moe_clipped_grad")))
     rtol, atol = TOL["float32"]
-    out = {}
-    for use in (True, False):
-        pol = get_policy(cfg.name, mode="bk-mixopt", use_kernels=use)
-        sums, aux = bk_clipped_sum(model.apply, params, batch, pol)
-        out[use] = (sums, aux)
-        torch.cuda.synchronize()
-    (sk, ak), (sp, ap) = out[True], out[False]
-    worst, bad = 0.0, []
-    pairs = [(f"sum:{k}", sk[k], sp[k]) for k in sorted(sk)]
-    pairs.append(("per_sample_norms", ak["per_sample_norms"],
-                  ap["per_sample_norms"]))
-    pairs += [(f"group_norms:{k}", ak["group_norms"][k], ap["group_norms"][k])
-              for k in ak["group_norms"]]
-    for name, g, w in pairs:
-        diff = (g.double() - w.double()).abs()
-        worst = max(worst, float(diff.max()))
-        if not bool((diff <= atol + rtol * w.double().abs()).all()):
-            bad.append(name)
-    emit(phase="parity", layers=2, d_model=small.d_model, vocab=small.vocab,
-         dtype="float32", batch=TRAIN["batch"], seq=TRAIN["seq"],
-         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32, rtol=rtol,
-         atol=atol, compared=len(pairs), max_abs_err=worst, failed=bad)
-    if bad:
-        raise AssertionError(f"kernel path disagrees with use_kernels=False "
-                             f"on {bad}")
+    ws = wrappers()
+    for label, pol, want_launched in policies:
+        out, launched = {}, {}
+        for use in (True, False):
+            before = {k: w.launches for k, w in ws.items()}
+            p = dataclasses.replace(pol, mode=mode, use_kernels=use)
+            out[use] = bk_clipped_sum(model.apply, params, batch, p)
+            torch.cuda.synchronize()
+            launched[use] = {k: w.launches - before[k] for k, w in ws.items()
+                             if w.launches > before[k]}
+        (sk, ak), (sp, ap) = out[True], out[False]
+        worst, bad = 0.0, []
+        pairs = [(f"sum:{k}", sk[k], sp[k]) for k in sorted(sk)]
+        pairs.append(("per_sample_norms", ak["per_sample_norms"],
+                      ap["per_sample_norms"]))
+        pairs += [(f"group_norms:{k}", ak["group_norms"][k],
+                   ap["group_norms"][k]) for k in ak["group_norms"]]
+        for key, g, w in pairs:
+            diff = (g.double() - w.double()).abs()
+            worst = max(worst, float(diff.max()))
+            if not bool((diff <= atol + rtol * w.double().abs()).all()):
+                bad.append(key)
+        emit(phase=name, policy=label, arch=small.name, layers=layers,
+             d_model=small.d_model, vocab=small.vocab, dtype="float32",
+             batch=B, seq=T, allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+             cudnn_allow_tf32=torch.backends.cudnn.allow_tf32, rtol=rtol,
+             atol=atol, compared=len(pairs), max_abs_err=worst, failed=bad,
+             launched=launched[True])
+        if bad:
+            raise AssertionError(f"{name} [{label}]: kernel path disagrees "
+                                 f"with use_kernels=False on {bad}")
+        if launched[False] or not all(launched[True].get(k)
+                                      for k in want_launched):
+            raise AssertionError(f"{name} [{label}]: launches {launched}, "
+                                 f"want {want_launched} in the kernel run "
+                                 "and none in the plain run")
+        del out, sk, sp
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -408,6 +714,9 @@ def main(argv=None) -> int:
                     help=f"comma-separated subset of {PHASES}")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}; known: {PHASES}")
 
     import torch
     if not torch.cuda.is_available():
@@ -419,30 +728,41 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs.registry import get_config
-    cfg = get_config("qwen2-1.5b")
 
     t0 = time.perf_counter()
     phase_card()
     if "build" in phases or "kernels" in phases:
         phase_build()
-    summary = phase_kernels(cfg) if "kernels" in phases else None
-    launches = phase_train(cfg) if "train" in phases else None
-    if "parity" in phases:
-        phase_parity(cfg)
+    summary = phase_kernels() if "kernels" in phases else None
+    launches = {}
+    for name in TRAINS:
+        if name in phases:
+            for k, n in phase_train(name).items():
+                launches[k] = launches.get(k, 0) + n
+    for name in PARITIES:
+        if name in phases:
+            phase_parity(name)
     if summary is not None:
         kernels = []
         for name, s in summary.items():
             kernels.append({
-                "name": name, "route": "cuda", "source": SOURCES[name][0],
-                "replaces": SOURCES[name][1],
-                "launches": launches[name] if launches else None,
+                "name": name, "route": "cuda",
+                "source": CSRC + SOURCES[name][0],
+                "replaces": "src/repro/kernels/" + SOURCES[name][1],
+                "launches": launches.get(name) if launches else None,
                 "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                 "bound_by": ("bytes" if s["t_bytes"] >= s["t_ops"]
                              else "operations"),
-                "library_ms": s["library_ms"]})
+                "library_ms": s["library_ms"],
+                **({"library": "none: " + NO_LIBRARY[name]}
+                   if name in NO_LIBRARY else {})})
         emit(kernels=kernels)
+        if all(p in phases for p in TRAINS):
+            idle = [k["name"] for k in kernels if not k["launches"]]
+            if idle:
+                raise AssertionError(f"kernels never launched on the train "
+                                     f"paths: {idle}")
     emit(phase="done", seconds=time.perf_counter() - t0)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Model / training configuration dataclasses (the subset the port runs).
 
 Field names and defaults follow ``repro.configs.base`` so a config reads the
-same in both packages. The port's dense model is the qwen2 / llama block
-(RMSNorm, SwiGLU, rope, GQA); activations follow ``param_dtype``."""
+same in both packages. The port's block is the qwen2 / llama block (RMSNorm,
+SwiGLU, rope, GQA), with a DeepSeekMoE feed-forward in the ``moe`` family;
+activations follow ``param_dtype``."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -11,7 +12,7 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"        # only the dense decoder is ported
+    family: str = "dense"        # dense | moe
     n_layers: int = 2
     d_model: int = 64
     n_heads: int = 4
@@ -23,6 +24,15 @@ class ModelConfig:
     rope_theta: float = 10000.0
     attn_chunk: int = 0          # q-chunked attention block (0 = full)
     param_dtype: str = "float32"
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    moe_d_ff: int = 0
+    first_k_dense: int = 0       # leading dense-FFN layers (DeepSeekMoE style)
+    capacity_factor: float = 2.0
+    renorm_topk: bool = True
 
     @property
     def hd(self) -> int:

@@ -1,5 +1,6 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, plus named
-PrivacyPolicy presets. Only qwen2-1.5b is registered in the port so far."""
+PrivacyPolicy presets. The port registers qwen2-1.5b (dense) and
+deepseek-moe-16b (moe)."""
 from __future__ import annotations
 
 import dataclasses
@@ -57,7 +58,7 @@ def list_archs():
 
 
 def build(cfg: ModelConfig):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         from repro_torch.models.transformer import TransformerLM
         return TransformerLM(cfg)
     raise NotImplementedError(
@@ -67,10 +68,15 @@ def build(cfg: ModelConfig):
 def smoke_config(name: str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests (the JAX rule)."""
     cfg = get_config(name)
-    return cfg.with_(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
-                     head_dim=8, d_ff=48, vocab=64)
+    kw = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, head_dim=8,
+              d_ff=48, vocab=64)
+    if cfg.family == "moe":
+        kw.update(n_experts=4, top_k=2, moe_d_ff=16,
+                  first_k_dense=min(1, cfg.first_k_dense),
+                  n_shared=min(1, cfg.n_shared))
+    return cfg.with_(**kw)
 
 
 # import arch modules so registration runs
-for _m in ("qwen2_1_5b",):
+for _m in ("qwen2_1_5b", "deepseek_moe_16b"):
     importlib.import_module(f"repro_torch.configs.{_m}")

@@ -24,8 +24,7 @@ Modes:
                  per-sample grads for module 5 when direct is chosen)
 
 With ``use_kernels`` the norms and weighted grads of CUDA records go
-through the hand-written kernels (``repro_torch.kernels``); a plan that
-needs a kernel not yet ported raises NotImplementedError on the card.
+through the hand-written kernels (``repro_torch.kernels``).
 """
 from __future__ import annotations
 
@@ -42,6 +41,9 @@ from repro_torch.kernels.clipped_grad import clipped_grad
 from repro_torch.kernels.emb_grad import emb_clipped_grad
 from repro_torch.kernels.emb_norm import emb_ghost_norm
 from repro_torch.kernels.ghost_norm import ghost_norm
+from repro_torch.kernels.grad_norm_direct import grad_norm_direct
+from repro_torch.kernels.moe_ghost import (moe_clipped_grad, moe_direct_norm,
+                                           moe_ghost_norm)
 from repro_torch.utils.tree import flatten, unflatten
 
 F32 = torch.float32
@@ -77,6 +79,8 @@ def tap_act_structs(apply_fn, params, batch):
     def struct(x):
         if isinstance(x, list):
             return (torch.Size((len(x), *x[0].shape)), x[0].dtype)
+        if isinstance(x, dict):          # moe record {'a', 'mask'}
+            return {k: struct(v) for k, v in x.items()}
         return (x.shape, x.dtype)
 
     return ({k: struct(v) for k, v in tape.outs.items()},
@@ -101,24 +105,38 @@ def split_param_paths(flat_params: dict, tap_keys):
 
 
 # ------------------------------------------------------------- norm dispatch
+def norm_route(kind: str, act_shape, ds_shape, mode: str, method: str = "",
+               allow_cache: bool = True) -> str:
+    """How :func:`record_sq_norm` takes a tap's norm: 'ghost', 'direct', or
+    'cache' (bk-mixopt instantiates a direct mm tap's per-sample grads and
+    reuses them in phase 3, when they fit ``ghost.MAP_THRESHOLD``)."""
+    plan = dispatch.norm_plan(kind, act_shape, ds_shape, mode, method)
+    if kind != "mm" or plan.method == "ghost":
+        return plan.method
+    B, d, p = act_shape[-3], act_shape[-1], ds_shape[-1]
+    L = act_shape[0] if len(act_shape) == 4 else 1
+    if mode == "bk-mixopt" and allow_cache and \
+            L * B * d * p <= ghost.MAP_THRESHOLD:
+        return "cache"
+    return "direct"
+
+
 def record_sq_norm(key: str, act, ds, mode: str, use_kernels: bool,
                    method: str = "", allow_cache: bool = True):
     """Per-sample squared norm for one tapped op -> (sq (B,), cached).
 
-    The plan fixes ghost-vs-direct (mode 'bk' forces ghost; a ParamGroup
-    ``method`` override wins). ``cached`` optionally carries the
-    instantiated per-sample grads for mixopt's phase-3 reuse."""
+    The route (:func:`norm_route`) fixes ghost-vs-direct (mode 'bk' forces
+    ghost; a ParamGroup ``method`` override wins). ``cached`` optionally
+    carries the instantiated per-sample grads for mixopt's phase-3 reuse."""
     _, kind, _ = parse_key(key)
     if kind == "mm":
-        plan = dispatch.norm_plan("mm", act.shape, ds.shape, mode, method)
-        if plan.method == "ghost":
+        route = norm_route("mm", act.shape, ds.shape, mode, method,
+                           allow_cache)
+        if route == "ghost":
             if use_kernels:
                 return ghost_norm(act, ds), None
             return ghost.sq_norm_mm_ghost(act, ds), None
-        B, d, p = act.shape[-3], act.shape[-1], ds.shape[-1]
-        L = act.shape[0] if act.dim() == 4 else 1
-        if mode == "bk-mixopt" and allow_cache and \
-                L * B * d * p <= ghost.MAP_THRESHOLD:
+        if route == "cache":
             # mixopt's defining move (paper Sec 3.3): instantiate once,
             # reuse for module 5 in phase 3 (only when cheap to keep)
             eq = "lbtd,lbtp->lbdp" if act.dim() == 4 else "btd,btp->bdp"
@@ -126,16 +144,20 @@ def record_sq_norm(key: str, act, ds, mode: str, use_kernels: bool,
             axes = tuple(i for i in range(g.dim())
                          if i != (1 if g.dim() == 4 else 0))
             return torch.sum(g * g, dim=axes), g
-        if use_kernels and act.device.type != "cpu":
-            raise NotImplementedError(
-                f"tap {key!r} takes the direct norm, which needs the "
-                "grad_norm_direct kernel: no CUDA port yet (ROADMAP Queue 2 "
-                "item 1); run with use_kernels=False or on the CPU")
+        if use_kernels:
+            return grad_norm_direct(act, ds), None
         return ghost.sq_norm_mm_direct(act, ds), None
     if kind == "emb":
         if use_kernels:
             return emb_ghost_norm(act, ds), None
         return ghost.sq_norm_emb(act, ds), None
+    if kind == "moe":
+        a, mask = act["a"], act["mask"]
+        if norm_route("moe", a.shape, ds.shape, mode, method) == "ghost":
+            fn = moe_ghost_norm if use_kernels else ghost.sq_norm_moe_ghost
+        else:
+            fn = moe_direct_norm if use_kernels else ghost.sq_norm_moe_direct
+        return fn(a, mask, ds), None
     raise ValueError(f"unknown tap kind in key {key!r}")
 
 
@@ -154,6 +176,12 @@ def record_weighted_grad(key: str, act, ds, C, cached, use_kernels: bool,
         if use_kernels:
             return emb_clipped_grad(act, C, ds, vocab).to(out_dtype)
         return ghost.weighted_grad_emb(act, C, ds, vocab, out_dtype)
+    if kind == "moe":
+        if use_kernels:
+            return moe_clipped_grad(act["a"], act["mask"], C,
+                                    ds).to(out_dtype)
+        return ghost.weighted_grad_moe(act["a"], act["mask"], C, ds,
+                                       out_dtype)
     raise ValueError(f"unknown tap kind in key {key!r}")
 
 
@@ -221,7 +249,8 @@ def _book_kept_sums(policy, res, flat_params, psp_active, tape, losses,
             # the (L,B,T,p) layout the kernels read — the one extra copy of
             # the cotangents the engine makes; each tap's per-layer pieces
             # are released as soon as its stack exists
-            n = acts[key].shape[0]
+            rec = acts[key]
+            n = (rec["a"] if isinstance(rec, dict) else rec).shape[0]
             ds_taps[key] = torch.stack(grads[i:i + n])
             grads[i:i + n] = [None] * n
             i += n

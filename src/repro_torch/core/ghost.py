@@ -9,6 +9,7 @@ The paper's modules on book-kept tensors:
 Layouts (see core.tape):
   mm   a (B,T,d)  ds (B,T,p)      stacked: (L,B,T,d) / (L,B,T,p)
   emb  ids (B,T)  ds (B,T,d)      stacked: (L,B,T)   / (L,B,T,d)
+  moe  a (B,E,C,d)  mask (B,E,C)  ds (B,E,C,p)   stacked: leading L axis
 
 All accumulation is float32: low-precision records are widened to f32 before
 each contraction, which is exact and matches the JAX package's
@@ -124,6 +125,75 @@ def weighted_grad_emb(ids: torch.Tensor, C: torch.Tensor, ds: torch.Tensor,
     out.index_add_(0, flat_ids[valid], w[valid])
     out = out.reshape(L, vocab, d).to(out_dtype)
     return out if stacked else out[0]
+
+
+# ================================================================= MoE (moe)
+def _moe5(a, mask, ds):
+    """Canonicalize moe records to (G, B, E, C, .) with G = stacked layers."""
+    if a.dim() == 4:
+        return a[None], mask[None], ds[None]
+    if a.dim() == 5:
+        return a, mask, ds
+    raise ValueError(f"moe record must be 4D or 5D, got {tuple(a.shape)}")
+
+
+def sq_norm_moe_ghost(a: torch.Tensor, mask: torch.Tensor,
+                      ds: torch.Tensor) -> torch.Tensor:
+    """Ghost norm over capacity-gathered expert slots: a per-(sample,
+    expert) Gram over the C slots, rows masked, summed over experts (the
+    expert weights are disjoint parameters). Returns (B,) f32."""
+    a, mask, ds = _moe5(a, mask, ds)
+    G, B, E, C, _ = a.shape
+    if G * B * E * C * C <= MAP_THRESHOLD:
+        m = mask.to(F32)[..., None]
+        am, dm = a.to(F32) * m, ds.to(F32) * m
+        ga = torch.einsum("gbecd,gbefd->gbecf", am, am)
+        gg = torch.einsum("gbecp,gbefp->gbecf", dm, dm)
+        return torch.einsum("gbecf,gbecf->b", ga, gg)
+    out = torch.zeros(G, B, dtype=F32, device=a.device)
+    for g in range(G):
+        for b in range(B):
+            m = mask[g, b].to(F32)[..., None]
+            am, dm = a[g, b].to(F32) * m, ds[g, b].to(F32) * m
+            out[g, b] = torch.sum(am @ am.transpose(1, 2)
+                                  * (dm @ dm.transpose(1, 2)))
+    return out.sum(0)
+
+
+def sq_norm_moe_direct(a: torch.Tensor, mask: torch.Tensor,
+                       ds: torch.Tensor) -> torch.Tensor:
+    """Per-(sample, expert) gradient instantiation g_be = a_be^T (m ds_be),
+    squared and summed over experts. Returns (B,) f32."""
+    a, mask, ds = _moe5(a, mask, ds)
+    G, B, E, _, d = a.shape
+    p = ds.shape[-1]
+    if G * B * E * d * p <= MAP_THRESHOLD:
+        dm = ds.to(F32) * mask.to(F32)[..., None]
+        g = torch.einsum("gbecd,gbecp->gbedp", a.to(F32), dm)
+        return torch.einsum("gbedp,gbedp->b", g, g)
+    out = torch.zeros(G, B, dtype=F32, device=a.device)
+    for gi in range(G):
+        for b in range(B):
+            dm = ds[gi, b].to(F32) * mask[gi, b].to(F32)[..., None]
+            g = a[gi, b].to(F32).transpose(1, 2) @ dm
+            out[gi, b] = torch.sum(g * g)
+    return out.sum(0)
+
+
+def weighted_grad_moe(a: torch.Tensor, mask: torch.Tensor, C: torch.Tensor,
+                      ds: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """G_e = sum_b C_b a_be^T (m ds_be) -> (E,d,p) or (L,E,d,p). Like the
+    JAX reference, C and the mask are rounded to the record dtype first."""
+    out_dtype = out_dtype or a.dtype
+    c = C.to(a.dtype).to(F32)
+    dm = ds.to(F32) * mask.to(ds.dtype).to(F32)[..., None]
+    if a.dim() == 4:
+        g = torch.einsum("becd,b,becp->edp", a.to(F32), c, dm)
+    elif a.dim() == 5:
+        g = torch.einsum("lbecd,b,lbecp->ledp", a.to(F32), c, dm)
+    else:
+        raise ValueError(f"moe record must be 4D or 5D, got {tuple(a.shape)}")
+    return g.to(out_dtype)
 
 
 # ====================================================== hybrid decision rule

@@ -13,6 +13,8 @@ costs no extra tensor.
 Key naming: ``<path>#<kind>[.s]`` where kind is one of
   mm   — matmul: record = activation a, layouts (B,T,d) / stacked (L,B,T,d)
   emb  — embedding lookup: record = int ids (B,T) / (L,B,T)
+  moe  — gathered expert matmul: record = {'a': (B,E,C,d), 'mask': (B,E,C)}
+         (each entry stacked to (L, ...) in a stacked scope)
 and the ``.s`` suffix marks records stacked over a leading layer axis (the
 blocks the JAX package runs under ``lax.scan``; a Python loop here).
 The parameter owned by a tapped op lives at ``<path>/w``; all other
@@ -105,7 +107,10 @@ class Tape:
             # one copy of the activations into the (L, ...) layout the
             # kernels read; the per-layer tensors die with this dict
             for key, acts in per_layer.items():
-                tape.acts[key] = torch.stack(acts)
+                tape.acts[key] = ({k: torch.stack([a[k] for a in acts])
+                                   for k in acts[0]}
+                                  if isinstance(acts[0], dict)
+                                  else torch.stack(acts))
 
     def stacked(self, name: str) -> "_Stacked":
         """Scope for a loop over the layers of stacked params: records made
@@ -130,7 +135,9 @@ class Tape:
         if not self.collect:
             return s
         key = self.key(name, kind)
-        act = act.detach()     # records are read, never differentiated
+        # records are read, never differentiated
+        act = ({k: v.detach() for k, v in act.items()}
+               if isinstance(act, dict) else act.detach())
         if self._stack is not None:
             self._stack.setdefault(key, []).append(act)
         elif key in self.acts:

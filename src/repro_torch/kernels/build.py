@@ -35,6 +35,12 @@ SIGNATURES = {
     "dp_emb_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "dp_emb_grad_smem_bytes": [_I, _I],
     "dp_emb_grad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dp_grad_norm_direct_nparts": [_I, _I],
+    "dp_grad_norm_direct": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dp_moe_ghost_norm": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+    "dp_moe_direct_norm_nparts": [_I, _I],
+    "dp_moe_direct_norm": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+    "dp_moe_clipped_grad": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
 }
 
 
@@ -116,12 +122,14 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def check_inputs(name: str, floats, ints=()) -> bool:
+def check_inputs(name: str, floats, ints=(), f32=()) -> bool:
     """Validate a kernel's operands before their pointers go to C: all on
-    one CUDA device and contiguous; ``floats`` share one dtype, float32 or
-    bfloat16; ``ints`` are int32. -> True when the floats are bfloat16."""
+    one CUDA device and contiguous; ``floats`` (the records) share one
+    dtype, float32 or bfloat16; ``ints`` are int32; ``f32`` (clip factors,
+    slot masks) are float32 whatever the records are. -> True when the
+    floats are bfloat16."""
     dev = floats[0].device
-    for t in (*floats, *ints):
+    for t in (*floats, *ints, *f32):
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: operands must share one CUDA device, "
                              f"got {t.device} and {dev}")
@@ -134,6 +142,8 @@ def check_inputs(name: str, floats, ints=()) -> bool:
                          f"got {[t.dtype for t in floats]}")
     if any(t.dtype != torch.int32 for t in ints):
         raise ValueError(f"{name}: ids must be int32")
+    if any(t.dtype != torch.float32 for t in f32):
+        raise ValueError(f"{name}: clip factors and masks must be float32")
     return dt == torch.bfloat16
 
 

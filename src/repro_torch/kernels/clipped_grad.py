@@ -29,14 +29,13 @@ def clipped_grad(a: torch.Tensor, C: torch.Tensor,
     if a.device.type == "cpu":
         return plain(a, C, ds)
     a4, d4 = ghost._norm4(a, ds)
-    bf16 = build.check_inputs("clipped_grad", (a4, d4))
+    C = C.to(torch.float32).contiguous()
+    bf16 = build.check_inputs("clipped_grad", (a4, d4), f32=(C,))
     L, B, T, d = a4.shape
     p = d4.shape[-1]
     if tuple(d4.shape[:3]) != (L, B, T) or tuple(C.shape) != (B,):
         raise ValueError(f"clipped_grad: a {tuple(a.shape)}, C "
                          f"{tuple(C.shape)}, ds {tuple(ds.shape)} disagree")
-    C = C.to(torch.float32).contiguous()
-    build.check_inputs("clipped_grad", (C,))
     out = torch.empty(L, d, p, dtype=torch.float32, device=a.device)
     build.check(build.load().dp_clipped_grad(
         a4.data_ptr(), C.data_ptr(), d4.data_ptr(), out.data_ptr(),

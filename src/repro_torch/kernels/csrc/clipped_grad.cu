@@ -19,10 +19,10 @@
 
 namespace {
 
-constexpr int BM = 128;       // d tile
-constexpr int BN = 128;       // p tile
-constexpr int BK = 16;        // rows of (b, t) per shared-memory stage
-constexpr int THREADS = 256;  // 16 x 16 threads, 8 x 8 outputs each
+using atb::BK;
+using atb::BM;
+using atb::BN;
+using atb::THREADS;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -31,59 +31,16 @@ __global__ void __launch_bounds__(THREADS)
                         int B, int Tn, int d, int p) {
   __shared__ float sa[BK][BM];
   __shared__ float sg[BK][BN];
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int p0 = blockIdx.x * BN, d0 = blockIdx.y * BM, l = blockIdx.z;
 
   float acc[8][8];
-#pragma unroll
-  for (int m = 0; m < 8; ++m)
-#pragma unroll
-    for (int n = 0; n < 8; ++n) acc[m][n] = 0.f;
-
+  atb::zero(acc);
   for (int b = 0; b < B; ++b) {
-    const float cb = C[b];
     const long long row0 = ((long long)l * B + b) * Tn;
-    const T* ab = a + row0 * d;
-    const T* gb = g + row0 * p;
-    for (int t0 = 0; t0 < Tn; t0 += BK) {
-      // consecutive threads take consecutive columns: coalesced reads,
-      // conflict-free shared stores
-#pragma unroll
-      for (int e = tid; e < BK * BM; e += THREADS) {
-        const int r = e / BM, c = e % BM, t = t0 + r;
-        sa[r][c] = (t < Tn && d0 + c < d)
-                       ? cb * to_f32(ab[(long long)t * d + d0 + c]) : 0.f;
-        sg[r][c] = (t < Tn && p0 + c < p)
-                       ? to_f32(gb[(long long)t * p + p0 + c]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float u[8], v[8];
-#pragma unroll
-        for (int m = 0; m < 8; ++m) u[m] = sa[kk][ty + 16 * m];
-#pragma unroll
-        for (int n = 0; n < 8; ++n) v[n] = sg[kk][tx + 16 * n];
-#pragma unroll
-        for (int m = 0; m < 8; ++m)
-#pragma unroll
-          for (int n = 0; n < 8; ++n) acc[m][n] = fmaf(u[m], v[n], acc[m][n]);
-      }
-      __syncthreads();
-    }
+    atb::accumulate<T>(acc, a + row0 * d, g + row0 * p, Tn, d, p, d0, p0,
+                       RowScale{nullptr, C[b]}, sa, sg);
   }
-
-  float* o = out + (long long)l * d * p;
-#pragma unroll
-  for (int m = 0; m < 8; ++m) {
-    const int r = d0 + ty + 16 * m;
-    if (r >= d) continue;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int c = p0 + tx + 16 * n;
-      if (c < p) o[(long long)r * p + c] = acc[m][n];
-    }
-  }
+  atb::store(out + (long long)l * d * p, acc, d, p, d0, p0);
 }
 
 }  // namespace

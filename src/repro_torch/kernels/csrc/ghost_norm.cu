@@ -21,45 +21,9 @@
 
 namespace {
 
-constexpr int BT = 64;        // T tile (rows of a Gram tile)
-constexpr int BK = 32;        // reduction chunk over d or p
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 Gram entries each
-
-// acc[m][n] += sum_k X[ri0 + ty + 16m, k] * X[rj0 + tx + 16n, k] over k < K,
-// with X row-major (Tn, K). Rows >= Tn read as zero.
-template <typename T>
-__device__ __forceinline__ void gram_tile(float acc[4][4],
-                                          const T* __restrict__ x, int ri0,
-                                          int rj0, int Tn, int K,
-                                          float (*si)[BT + 1],
-                                          float (*sj)[BT + 1]) {
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // a warp reads 32 consecutive k of one row: coalesced; stored k-major
-    // with a stride of 65 so the transposed stores hit 32 distinct banks
-#pragma unroll
-    for (int e = tid; e < BT * BK; e += THREADS) {
-      const int r = e / BK, kk = e % BK, k = k0 + kk;
-      const int ri = ri0 + r, rj = rj0 + r;
-      si[kk][r] = (ri < Tn && k < K) ? to_f32(x[(long long)ri * K + k]) : 0.f;
-      sj[kk][r] = (rj < Tn && k < K) ? to_f32(x[(long long)rj * K + k]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float u[4], v[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) u[m] = si[kk][ty + 16 * m];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) v[n] = sj[kk][tx + 16 * n];
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(u[m], v[n], acc[m][n]);
-    }
-    __syncthreads();
-  }
-}
+using gram::BK;
+using gram::BT;
+using gram::THREADS;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -76,20 +40,12 @@ __global__ void __launch_bounds__(THREADS)
   const int j = k - i * (i + 1) / 2;
 
   const long long row0 = ((long long)l * B + b) * Tn;
-  float ga[4][4], gg[4][4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) ga[m][n] = gg[m][n] = 0.f;
-  gram_tile<T>(ga, a + row0 * d, i * BT, j * BT, Tn, d, si, sj);
-  gram_tile<T>(gg, ds + row0 * p, i * BT, j * BT, Tn, p, si, sj);
+  const RowScale one{nullptr, 1.f};
+  float ga[4][4] = {}, gg[4][4] = {};
+  gram::tile<T>(ga, a + row0 * d, i * BT, j * BT, Tn, d, one, si, sj);
+  gram::tile<T>(gg, ds + row0 * p, i * BT, j * BT, Tn, p, one, si, sj);
 
-  float s = 0.f;
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) s = fmaf(ga[m][n], gg[m][n], s);
-  s = block_sum(s);
+  const float s = block_sum(gram::dot(ga, gg));
   if (threadIdx.x == 0)
     partial[((long long)b * L + l) * ntri + k] = (i == j ? 1.f : 2.f) * s;
 }

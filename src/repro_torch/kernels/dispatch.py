@@ -8,6 +8,9 @@ layerwise rule, one level down per tapped op:
 
   mode 'bk' forces ghost norms; otherwise ghost iff 2T^2 < pd
   (``core.ghost.prefer_ghost``); a ParamGroup ``method`` override wins.
+
+For a ``moe`` tap the rule reads the capacity C in place of T: the Gram is
+per (sample, expert) over the C slots.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ class Plan:
 def norm_plan(kind: str, act_shape, ds_shape, mode: str,
               method: str = "") -> Plan:
     """Per-tap plan for the phase-2 per-sample squared norm."""
-    if kind == "mm":
+    if kind in ("mm", "moe"):
         T, d, p = act_shape[-2], act_shape[-1], ds_shape[-1]
         return Plan(method or ("ghost" if mode == "bk" or prefer_ghost(T, d, p)
                                else "direct"))
@@ -33,4 +36,3 @@ def norm_plan(kind: str, act_shape, ds_shape, mode: str,
         # instantiate (B, V, d); a 'direct' group override is ignored
         return Plan("ghost")
     raise ValueError(f"unknown tap kind {kind!r}")
-

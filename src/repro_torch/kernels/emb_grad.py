@@ -36,8 +36,7 @@ def emb_clipped_grad(ids: torch.Tensor, C: torch.Tensor, ds: torch.Tensor,
     if not stacked:
         ids, ds = ids[None], ds[None]
     C = C.to(torch.float32).contiguous()
-    bf16 = build.check_inputs("emb_clipped_grad", (ds,), (ids,))
-    build.check_inputs("emb_clipped_grad", (C,))
+    bf16 = build.check_inputs("emb_clipped_grad", (ds,), (ids,), (C,))
     L, B, T = ids.shape
     d = ds.shape[-1]
     if ds.dim() != 4 or tuple(ds.shape[:3]) != (L, B, T) or \

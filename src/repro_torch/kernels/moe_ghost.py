@@ -1,0 +1,106 @@
+"""The MoE expert-tap kernels over the per-(sample, expert) capacity layout
+of ``models.moe``, as CUDA kernels:
+
+    a (L,B,E,C,d)  mask (L,B,E,C) f32  ds (L,B,E,C,p)     (or without L)
+
+  moe_ghost_norm    n_b  = sum_{l,e} < am am^T , dm dm^T >_F
+  moe_direct_norm   n_b  = sum_{l,e} || a_e^T dm_e ||_F^2
+  moe_clipped_grad  G_le = sum_b C_b a_be^T dm_be          -> (L,E,d,p) f32
+
+with am, dm the records with the slot mask applied to each row. They replace
+the TPU kernels of ``repro/kernels/moe_ghost.py`` of the same names. Sources:
+``csrc/moe_{ghost_norm,direct_norm,clipped_grad}.cu``, each of which says
+what bounds it on the H100. The mask is applied in registers, so no masked
+copy, no (B,E,C,C) Gram and no (B,E,d,p) per-sample grad exists in device
+memory; reductions run in a fixed order (deterministic).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import ghost
+from repro_torch.kernels import build
+
+F32 = torch.float32
+
+
+def _operands(name, a, mask, ds, C=None):
+    """-> (a5, mask5, ds5, C, bf16, (L, B, E, Cap, d, p)), validated."""
+    a5, m5, d5 = ghost._moe5(a, mask, ds)
+    m5 = m5.to(F32).contiguous()
+    f32 = (m5,) if C is None else (m5, C.to(F32).contiguous())
+    bf16 = build.check_inputs(name, (a5, d5), f32=f32)
+    L, B, E, Cap, d = a5.shape
+    p = d5.shape[-1]
+    if tuple(d5.shape[:4]) != (L, B, E, Cap) or \
+            tuple(m5.shape) != (L, B, E, Cap) or \
+            (C is not None and tuple(C.shape) != (B,)):
+        raise ValueError(f"{name}: a {tuple(a.shape)}, mask "
+                         f"{tuple(mask.shape)}, ds {tuple(ds.shape)} "
+                         "disagree")
+    return a5, m5, d5, f32[-1], bf16, (L, B, E, Cap, d, p)
+
+
+# ------------------------------------------------------------- ghost norm
+def moe_ghost_norm(a: torch.Tensor, mask: torch.Tensor,
+                   ds: torch.Tensor) -> torch.Tensor:
+    """-> (B,) f32."""
+    if a.device.type == "cpu":
+        return ghost.sq_norm_moe_ghost(a, mask, ds)
+    a5, m5, d5, _, bf16, (L, B, E, Cap, d, p) = _operands(
+        "moe_ghost_norm", a, mask, ds)
+    partial = torch.empty(B, L * E, dtype=F32, device=a.device)
+    out = torch.empty(B, dtype=F32, device=a.device)
+    build.check(build.load().dp_moe_ghost_norm(
+        a5.data_ptr(), m5.data_ptr(), d5.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), L, B, E, Cap, d, p, int(bf16), build.stream_ptr(a)),
+        "moe_ghost_norm")
+    moe_ghost_norm.launches += 1
+    return out
+
+
+# ------------------------------------------------------------ direct norm
+def moe_direct_norm(a: torch.Tensor, mask: torch.Tensor,
+                    ds: torch.Tensor) -> torch.Tensor:
+    """-> (B,) f32."""
+    if a.device.type == "cpu":
+        return ghost.sq_norm_moe_direct(a, mask, ds)
+    a5, m5, d5, _, bf16, (L, B, E, Cap, d, p) = _operands(
+        "moe_direct_norm", a, mask, ds)
+    lib = build.load()
+    partial = torch.empty(B, L * lib.dp_moe_direct_norm_nparts(d, p),
+                          dtype=F32, device=a.device)
+    out = torch.empty(B, dtype=F32, device=a.device)
+    build.check(lib.dp_moe_direct_norm(
+        a5.data_ptr(), m5.data_ptr(), d5.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), L, B, E, Cap, d, p, int(bf16), build.stream_ptr(a)),
+        "moe_direct_norm")
+    moe_direct_norm.launches += 1
+    return out
+
+
+# ----------------------------------------------------------- clipped grad
+def plain_clipped_grad(a, mask, C, ds):
+    """The plain version (f32 output, like the kernel)."""
+    return ghost.weighted_grad_moe(a, mask, C, ds, F32)
+
+
+def moe_clipped_grad(a: torch.Tensor, mask: torch.Tensor, C: torch.Tensor,
+                     ds: torch.Tensor) -> torch.Tensor:
+    """C (B,) -> (L,E,d,p) f32, or (E,d,p) for unstacked records."""
+    if a.device.type == "cpu":
+        return plain_clipped_grad(a, mask, C, ds)
+    a5, m5, d5, C, bf16, (L, B, E, Cap, d, p) = _operands(
+        "moe_clipped_grad", a, mask, ds, C)
+    out = torch.empty(L, E, d, p, dtype=F32, device=a.device)
+    build.check(build.load().dp_moe_clipped_grad(
+        a5.data_ptr(), m5.data_ptr(), C.data_ptr(), d5.data_ptr(),
+        out.data_ptr(), L, B, E, Cap, d, p, int(bf16), build.stream_ptr(a)),
+        "moe_clipped_grad")
+    moe_clipped_grad.launches += 1
+    return out if a.dim() == 5 else out[0]
+
+
+moe_ghost_norm.launches = 0
+moe_direct_norm.launches = 0
+moe_clipped_grad.launches = 0

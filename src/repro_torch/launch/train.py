@@ -3,6 +3,8 @@ optimizer, one step at a time, printing the loss of every step.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
         --steps 3 --batch 8 --seq 512 --sigma 1.0
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-moe-16b --smoke --device cpu --steps 2
 
 Runs on the CUDA card by default; ``--device cpu`` runs the same engine with
 the kernels' plain PyTorch versions (tests, small configs). Without a card

@@ -1,9 +1,11 @@
-"""Dense decoder-only transformer: the qwen2 / llama block (RMSNorm, GQA
-attention with rope and optional QKV bias, SwiGLU MLP). Block params are
-stacked (L, ...) under ``blocks`` as in the JAX package; its ``lax.scan``
-over blocks is a Python loop over layer slices here, and the tape stacks the
-records to (L, B, T, .) under ``.s`` keys. Rematerialization (the JAX
-config's ``remat``) is not ported.
+"""Decoder-only transformer, dense and MoE: the qwen2 / llama block
+(RMSNorm, GQA attention with rope and optional QKV bias, SwiGLU MLP), with
+the DeepSeekMoE feed-forward (``models.moe``) in the ``moe`` family. Block
+params are stacked (L, ...) under ``blocks`` as in the JAX package; its
+``lax.scan`` over blocks is a Python loop over layer slices here, and the
+tape stacks the records to (L, B, T, .) under ``.s`` keys. The MoE family's
+``first_k_dense`` leading dense layers are unstacked, at ``dense0_{i}``.
+Rematerialization (the JAX config's ``remat``) is not ported.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tape import Tape
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.attention import multihead_attention
 
 
@@ -38,8 +41,8 @@ def attn_apply(p, tape, x, cfg: ModelConfig, cos, sin):
 
 
 # ------------------------------------------------------------------------ mlp
-def mlp_init(gen, cfg: ModelConfig, dt, layers=()):
-    d, ff = cfg.d_model, cfg.d_ff
+def mlp_init(gen, cfg: ModelConfig, dt, layers=(), d_ff=0):
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     return {"up": L.linear_init(gen, d, 2 * ff, dt, layers=layers),
             "down": L.linear_init(gen, ff, d, dt, layers=layers)}
 
@@ -50,28 +53,32 @@ def mlp_apply(p, tape, x):
 
 
 # --------------------------------------------------------------- dense block
-def dense_block_init(gen, cfg: ModelConfig, dt, layers=()):
+def dense_block_init(gen, cfg: ModelConfig, dt, layers=(), use_moe=False):
     return {"ln1": L.rmsnorm_init(gen, cfg.d_model, dt, layers),
             "attn": attn_init(gen, cfg, dt, layers),
             "ln2": L.rmsnorm_init(gen, cfg.d_model, dt, layers),
-            "mlp": mlp_init(gen, cfg, dt, layers)}
+            "mlp": (M.moe_init(gen, cfg, dt, layers) if use_moe
+                    else mlp_init(gen, cfg, dt, layers))}
 
 
-def dense_block_apply(p, tape, x, cfg: ModelConfig, cos, sin):
+def dense_block_apply(p, tape, x, cfg: ModelConfig, cos, sin, use_moe=False):
     with tape.scope("attn"):
         x = x + attn_apply(p["attn"], tape, L.rmsnorm(p["ln1"], x), cfg, cos,
                            sin)
     with tape.scope("mlp"):
-        x = x + mlp_apply(p["mlp"], tape, L.rmsnorm(p["ln2"], x))
+        h = L.rmsnorm(p["ln2"], x)
+        x = x + (M.moe_apply(p["mlp"], tape, h, cfg) if use_moe
+                 else mlp_apply(p["mlp"], tape, h))
     return x
 
 
 # ------------------------------------------------------------------ LM model
 class TransformerLM:
-    """Decoder-only LM (dense family)."""
+    """Decoder-only LM (dense and moe families)."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
+        self.use_moe = cfg.family == "moe"
 
     def init(self, seed: int = 0, device="cuda") -> dict:
         """Random params from ``seed`` (a torch.Generator on ``device``), in
@@ -80,22 +87,32 @@ class TransformerLM:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         dt = getattr(torch, cfg.param_dtype)
-        return {
+        params = {
             "embed": L.embedding_init(gen, cfg.vocab, cfg.d_model, dt),
             "final_norm": L.rmsnorm_init(gen, cfg.d_model, dt),
             # mu-P-style small readout, as the JAX package initializes it
             "head": L.linear_init(gen, cfg.d_model, cfg.vocab, dt,
                                   scale=0.1 / math.sqrt(cfg.d_model)),
-            "blocks": dense_block_init(gen, cfg, dt, layers=(cfg.n_layers,)),
         }
+        for i in range(cfg.first_k_dense):
+            params[f"dense0_{i}"] = dense_block_init(gen, cfg, dt)
+        params["blocks"] = dense_block_init(
+            gen, cfg, dt, layers=(cfg.n_layers - cfg.first_k_dense,),
+            use_moe=self.use_moe)
+        return params
 
     def _trunk(self, params, tape: Tape, x):
         cfg = self.cfg
         cos, sin = L.rope_freqs(cfg.hd, x.shape[1], cfg.rope_theta, x.device)
+        for i in range(cfg.first_k_dense):
+            with tape.scope(f"dense0_{i}"):
+                x = dense_block_apply(params[f"dense0_{i}"], tape, x, cfg,
+                                      cos, sin)
         with tape.stacked("blocks"):
-            for l in range(cfg.n_layers):
+            for l in range(cfg.n_layers - cfg.first_k_dense):
                 p_l = tape.layer_params("blocks", params["blocks"], l)
-                x = dense_block_apply(p_l, tape, x, cfg, cos, sin)
+                x = dense_block_apply(p_l, tape, x, cfg, cos, sin,
+                                      use_moe=self.use_moe)
         return L.rmsnorm(params["final_norm"], x)
 
     def apply(self, params, batch, tape: Tape):

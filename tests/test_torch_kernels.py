@@ -1,4 +1,4 @@
-"""The port's four kernel modules on the CPU against the JAX package's Pallas
+"""The port's kernel modules on the CPU against the JAX package's Pallas
 kernels (run in interpret mode through ``repro.kernels.ops``, as
 tests/test_kernel_parity.py runs them): the same numpy inputs, the odd and
 stacked shapes of that file, f32 and bf16. On a CPU tensor each wrapper runs
@@ -12,16 +12,23 @@ import torch
 
 from repro.kernels import ops
 from repro_torch.core import bk as tbk
+from repro_torch.core import ghost
+from repro_torch.core.policy import ParamGroup, PrivacyPolicy, resolve_policy
 from repro_torch.kernels.clipped_grad import clipped_grad
 from repro_torch.kernels.emb_grad import emb_clipped_grad
 from repro_torch.kernels.emb_norm import emb_ghost_norm
 from repro_torch.kernels.ghost_norm import ghost_norm
+from repro_torch.kernels.grad_norm_direct import grad_norm_direct
+from repro_torch.kernels.moe_ghost import (moe_clipped_grad, moe_direct_norm,
+                                           moe_ghost_norm)
 
 TOL = dict(rtol=1e-3, atol=1e-4)        # tests/test_kernel_parity.py:15
 TOL_BF16 = dict(rtol=5e-2, atol=2e-2)   # tests/test_kernel_parity.py:18
 MM_SHAPES = [(1, 2, 7, 5, 9), (1, 3, 33, 17, 23), (2, 2, 50, 24, 40),
              (3, 2, 64, 31, 13)]        # tests/test_kernel_parity.py:31-36
 EMB_SHAPES = [(1, 2, 9, 6, 11), (2, 3, 33, 16, 50), (3, 2, 50, 24, 37)]
+MOE_SHAPES = [(1, 2, 3, 5, 12, 20), (2, 2, 4, 7, 9, 13),
+              (2, 3, 2, 16, 24, 8)]     # tests/test_kernel_parity.py:140
 DTYPES = ["float32", "bfloat16"]
 
 
@@ -69,6 +76,66 @@ def test_clipped_grad_matches_pallas(L, B, T, d, p, dtype):
     got = clipped_grad(ta, tc, td)
     assert got.shape == (L, d, p) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, **_tol(dtype))
+
+
+@pytest.mark.parametrize("L,B,T,d,p", MM_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_grad_norm_direct_matches_pallas(L, B, T, d, p, dtype):
+    (ja, ta), (jd, td) = _pair(_np((L, B, T, d), dtype, 0)), \
+        _pair(_np((L, B, T, p), dtype, 1))
+    want = np.asarray(ops.direct_norm_mm(ja, jd, block_d=16, block_p=16))
+    np.testing.assert_allclose(grad_norm_direct(ta, td).numpy(), want,
+                               **_tol(dtype))
+
+
+def _moe(L, B, E, C, d, p, dtype):
+    """-> (jax rec, jax ds), (torch a, mask, ds); a third of the slots
+    masked off."""
+    (ja, ta), (jd, td) = _pair(_np((L, B, E, C, d), dtype, 0)), \
+        _pair(_np((L, B, E, C, p), dtype, 1))
+    mask = (np.random.default_rng(4).random((L, B, E, C)) > 0.3).astype(
+        np.float32)
+    jm, tm = _pair(mask)
+    return ({"a": ja, "mask": jm}, jd), (ta, tm, td)
+
+
+@pytest.mark.parametrize("L,B,E,C,d,p", MOE_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_ghost_norm_matches_pallas(L, B, E, C, d, p, dtype):
+    (jrec, jd), (ta, tm, td) = _moe(L, B, E, C, d, p, dtype)
+    want = np.asarray(ops.ghost_norm_moe(jrec, jd))
+    np.testing.assert_allclose(moe_ghost_norm(ta, tm, td).numpy(), want,
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("L,B,E,C,d,p", MOE_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_direct_norm_matches_pallas(L, B, E, C, d, p, dtype):
+    (jrec, jd), (ta, tm, td) = _moe(L, B, E, C, d, p, dtype)
+    want = np.asarray(ops.direct_norm_moe(jrec, jd, block_d=8, block_p=8))
+    np.testing.assert_allclose(moe_direct_norm(ta, tm, td).numpy(), want,
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("L,B,E,C,d,p", MOE_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_clipped_grad_matches_pallas(L, B, E, C, d, p, dtype):
+    (jrec, jd), (ta, tm, td) = _moe(L, B, E, C, d, p, dtype)
+    jc, tc = _pair(_c(B))
+    want = np.asarray(ops.clipped_grad_moe(jrec, jc, jd, block_d=8,
+                                           block_p=8))
+    got = moe_clipped_grad(ta, tm, tc, td)
+    assert got.shape == (L, E, d, p) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **_tol(dtype))
+
+
+def test_moe_unstacked_records_equal_stacked():
+    _, (a, m, ds) = _moe(1, 2, 3, 5, 12, 20, "float32")
+    C = torch.tensor([0.5, 1.5])
+    for fn in (moe_ghost_norm, moe_direct_norm):
+        torch.testing.assert_close(fn(a[0], m[0], ds[0]), fn(a, m, ds))
+    torch.testing.assert_close(moe_clipped_grad(a[0], m[0], C, ds[0]),
+                               moe_clipped_grad(a, m, C, ds)[0])
 
 
 @pytest.mark.parametrize("L,B,T,d,V", EMB_SHAPES)
@@ -123,6 +190,13 @@ def _meta(*shape, dtype=torch.float32):
     lambda: emb_ghost_norm(_meta(2, 3, dtype=torch.int32), _meta(2, 3, 4)),
     lambda: emb_clipped_grad(_meta(2, 3, dtype=torch.int32), _meta(2),
                              _meta(2, 3, 4), 7),
+    lambda: grad_norm_direct(_meta(2, 3, 4), _meta(2, 3, 5)),
+    lambda: moe_ghost_norm(_meta(2, 3, 4, 5), _meta(2, 3, 4),
+                           _meta(2, 3, 4, 6)),
+    lambda: moe_direct_norm(_meta(2, 3, 4, 5), _meta(2, 3, 4),
+                            _meta(2, 3, 4, 6)),
+    lambda: moe_clipped_grad(_meta(2, 3, 4, 5), _meta(2, 3, 4), _meta(2),
+                             _meta(2, 3, 4, 6)),
 ])
 def test_wrappers_take_the_plain_version_only_on_cpu(call):
     """A tensor that is not on the CPU never reaches the plain version: the
@@ -132,13 +206,45 @@ def test_wrappers_take_the_plain_version_only_on_cpu(call):
 
 
 def test_unported_direct_norm_raises_off_cpu():
-    """A direct-norm plan with the mixopt cache off needs grad_norm_direct,
-    which has no CUDA kernel yet: off the CPU it raises, naming it."""
+    """A direct-norm plan with the mixopt cache off now reaches the
+    grad_norm_direct wrapper (which refuses a tensor that is neither CPU nor
+    CUDA); only scope='layer' still needs an unported kernel
+    (fused_clip_grad) and raises, naming it."""
     a, ds = _meta(2, 3, 40, 4), _meta(2, 3, 40, 5)   # 2T^2 >= pd: direct
-    with pytest.raises(NotImplementedError, match="grad_norm_direct"):
+    with pytest.raises(ValueError, match="grad_norm_direct.*CUDA device"):
         tbk.record_sq_norm("blocks/x#mm.s", a, ds, "bk-mixghost", True)
     # the same plan on the CPU runs the plain direct norm
     a = torch.randn(2, 3, 40, 4)
     ds = torch.randn(2, 3, 40, 5)
     n, cached = tbk.record_sq_norm("blocks/x#mm.s", a, ds, "bk-mixghost", True)
     assert n.shape == (3,) and cached is None
+    torch.testing.assert_close(n, ghost.sq_norm_mm_direct(a, ds))
+    with pytest.raises(NotImplementedError, match="fused_clip_grad"):
+        resolve_policy(PrivacyPolicy((ParamGroup("all", ".*", scope="layer"),)),
+                       ["blocks/x/w"])
+
+
+@pytest.mark.parametrize("kind,a_shape,ds_shape,mode,method,want", [
+    # qwen2-1.5b, 28 layers, B=8, T=512: 2T^2 < pd, ghost
+    ("mm", (28, 8, 512, 1536), (28, 8, 512, 2048), "bk-mixopt", "", "ghost"),
+    # the same at B=2, T=2048: direct, and 28*2*1536*2048 > 2^24, no cache
+    ("mm", (28, 2, 2048, 1536), (28, 2, 2048, 2048), "bk-mixopt", "",
+     "direct"),
+    # deepseek-moe router (2048->64), 5 stacked layers: direct, cached
+    ("mm", (5, 8, 512, 2048), (5, 8, 512, 64), "bk-mixopt", "", "cache"),
+    # the cache is bk-mixopt's alone; mode 'bk' forces ghost
+    ("mm", (5, 8, 512, 2048), (5, 8, 512, 64), "bk-mixghost", "", "direct"),
+    ("mm", (5, 8, 512, 2048), (5, 8, 512, 64), "bk", "", "ghost"),
+    # unstacked, and a group override that wins over the rule
+    ("mm", (8, 512, 2048), (8, 512, 64), "bk-mixopt", "", "cache"),
+    ("mm", (8, 512, 2048), (8, 512, 6144), "bk-mixopt", "direct", "direct"),
+    # MoE experts: C=60 slots, ghost by the rule, direct by override (no
+    # cache for moe taps)
+    ("moe", (5, 8, 64, 60, 2048), (5, 8, 64, 60, 2816), "bk-mixopt", "",
+     "ghost"),
+    ("moe", (5, 8, 64, 60, 2048), (5, 8, 64, 60, 2816), "bk-mixopt",
+     "direct", "direct"),
+])
+def test_norm_route(kind, a_shape, ds_shape, mode, method, want):
+    """The route record_sq_norm takes for a tap, at the train paths' shapes."""
+    assert tbk.norm_route(kind, a_shape, ds_shape, mode, method) == want
