@@ -8,12 +8,14 @@ Phases, each printing JSON lines:
 
   card      the card's name and power limit (nvidia-smi), torch and CUDA
   build     compile the kernel library from ``src/repro_torch/kernels/csrc``
-  kernels   each of the eight kernels against its plain PyTorch version on
+  kernels   each of the nine kernels against its plain PyTorch version on
             the card, at the shapes each train path below gives it (bf16;
-            each tap routed by ``core.bk.norm_route``, MoE records and masks
-            from the path's own step-0 forward) and at ragged f32 shapes;
-            norms run twice must agree bitwise; kernel, plain and one-call
-            library times with CUDA events
+            each tap routed as ``core.bk.plan_report`` says, MoE records and
+            masks from the path's own step-0 forward) and at ragged f32
+            shapes; norms (and fused_clip_grad's outputs, under all four
+            clip functions, w with a zero) run twice must agree bitwise;
+            kernel, plain and one-call library times with CUDA events, and
+            for fused_clip_grad the composed route it replaces
   train             qwen2-1.5b, full (28 layers, bf16), B=8, T=512
   train_moe         deepseek-moe-16b at full width, 6 of its 28 layers
                     (dense0_0 + 5 MoE blocks), B=8, T=512
@@ -21,10 +23,15 @@ Phases, each printing JSON lines:
                     norm (2 steps)
   train_long        qwen2-1.5b, full, B=2, T=2048: qkv and o take the direct
                     norm with the mixopt cache off
+  train_layer       qwen2-1.5b, full, B=8, T=512, clipping scope 'layer':
+                    each mm unit streams through fused_clip_grad
+  train_tape        qwen2-1.5b, full, B=2, T=2048, tape 'recompute': no
+                    weighted-grad kernel, a reweighted backward per unit
+                    (2 steps)
             each: the arch's registered policy, bk-mixopt, sigma=1.0, AdamW,
             through ``repro_torch.launch.train.train``; launch counts per
             step; the last step runs under torch.profiler
-  parity, parity_moe, parity_long
+  parity, parity_moe, parity_long, parity_layer
             one BK step of a 2-layer, full-width, f32 model of each path
             with the kernels and with ``use_kernels=False`` (parity_long
             under bk-mixghost, so that the direct norm runs at 2 layers)
@@ -47,8 +54,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-TRAINS = ("train", "train_moe", "train_moe_direct", "train_long")
-PARITIES = ("parity", "parity_moe", "parity_long")
+TRAINS = ("train", "train_moe", "train_moe_direct", "train_long",
+          "train_layer", "train_tape")
+PARITIES = ("parity", "parity_moe", "parity_long", "parity_layer")
 PHASES = ("card", "build", "kernels") + TRAINS + PARITIES
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s by type
@@ -64,7 +72,7 @@ MOE_LAYERS = 6      # dense0_0 + 5 MoE blocks: the depth one 80 GB card holds
 
 KERNELS = ("ghost_norm", "clipped_grad", "emb_ghost_norm", "emb_clipped_grad",
            "grad_norm_direct", "moe_ghost_norm", "moe_direct_norm",
-           "moe_clipped_grad")
+           "moe_clipped_grad", "fused_clip_grad")
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "ghost_norm": ("ghost_norm.cu", "ghost_norm.py:62"),
@@ -75,21 +83,23 @@ SOURCES = {
     "moe_ghost_norm": ("moe_ghost_norm.cu", "moe_ghost.py:58"),
     "moe_direct_norm": ("moe_direct_norm.cu", "moe_ghost.py:98"),
     "moe_clipped_grad": ("moe_clipped_grad.cu", "moe_ghost.py:146"),
+    "fused_clip_grad": ("fused_clip.cu", "fused_clip.py:56"),
 }
 # no single PyTorch call computes these (say why in the summary)
 NO_LIBRARY = {
     "emb_ghost_norm": "no single call builds the id-equality mask and "
                       "contracts it",
+    "fused_clip_grad": "no single call clips per sample (composed_ms: the "
+                       "norm + weighted-grad kernels it replaces)",
 }
-# the kernel each engine route of a tap launches (core.bk.norm_route):
-# the norm, then the weighted grad; the mixopt cache launches neither
+# the norm kernel of each route of a tap (core.bk.plan_report's 'norm'
+# plan); its 'grad' entry names the weighted-grad kernel, fused_clip_grad,
+# or a route with no kernel ('cache', 'reweighted_backward')
 NORM_KERNEL = {("mm", "ghost"): "ghost_norm",
                ("mm", "direct"): "grad_norm_direct",
                ("emb", "ghost"): "emb_ghost_norm",
                ("moe", "ghost"): "moe_ghost_norm",
                ("moe", "direct"): "moe_direct_norm"}
-GRAD_KERNEL = {"mm": "clipped_grad", "emb": "emb_clipped_grad",
-               "moe": "moe_clipped_grad"}
 
 
 def _per_step(**counts):
@@ -119,16 +129,28 @@ RUNS = {
                        steps=3, direct=False, per_step=_per_step(
                            grad_norm_direct=2, ghost_norm=3, clipped_grad=5,
                            emb_ghost_norm=1, emb_clipped_grad=1)),
+    # every param path its own clip unit: the five mm units stream through
+    # fused_clip_grad, the embedding by the composed route
+    "train_layer": dict(arch="qwen2-1.5b", layers=0, batch=8, seq=512,
+                        steps=3, direct=False, scope="layer",
+                        per_step=_per_step(fused_clip_grad=5,
+                                           emb_ghost_norm=1,
+                                           emb_clipped_grad=1)),
+    # no cotangent held: norms only, then one reweighted backward per unit
+    "train_tape": dict(arch="qwen2-1.5b", layers=0, batch=2, seq=2048,
+                       steps=2, direct=False, tape="recompute",
+                       per_step=_per_step(grad_norm_direct=2, ghost_norm=3,
+                                          emb_ghost_norm=1)),
 }
 # the path whose shapes give each kernel's row in the summary line
 ROW_PATH = {"ghost_norm": "train", "clipped_grad": "train",
             "emb_ghost_norm": "train", "emb_clipped_grad": "train",
             "grad_norm_direct": "train_long", "moe_ghost_norm": "train_moe",
             "moe_direct_norm": "train_moe_direct",
-            "moe_clipped_grad": "train_moe"}
+            "moe_clipped_grad": "train_moe", "fused_clip_grad": "train_layer"}
 # train paths that share one model, seed and batch (so one set of records)
-PATH_GROUPS = (("train",), ("train_moe", "train_moe_direct"),
-               ("train_long",))
+PATH_GROUPS = (("train", "train_layer"), ("train_moe", "train_moe_direct"),
+               ("train_long", "train_tape"))
 
 
 def emit(**obj):
@@ -139,6 +161,7 @@ def wrappers():
     from repro_torch.kernels import clipped_grad as cg
     from repro_torch.kernels import emb_grad as eg
     from repro_torch.kernels import emb_norm as en
+    from repro_torch.kernels import fused_clip as fc
     from repro_torch.kernels import ghost_norm as gn
     from repro_torch.kernels import grad_norm_direct as gd
     from repro_torch.kernels import moe_ghost as mg
@@ -148,13 +171,27 @@ def wrappers():
             "grad_norm_direct": gd.grad_norm_direct,
             "moe_ghost_norm": mg.moe_ghost_norm,
             "moe_direct_norm": mg.moe_direct_norm,
-            "moe_clipped_grad": mg.moe_clipped_grad}
+            "moe_clipped_grad": mg.moe_clipped_grad,
+            "fused_clip_grad": fc.fused_clip_grad}
 
 
-def run_config(name):
-    """-> (ModelConfig, PrivacyPolicy) of a train path."""
+def train_config(name):
+    """The TrainConfig a train path hands ``train``: its shapes, steps and
+    the clipping-scope / tape flags of the CLI."""
+    from repro_torch.configs.base import TrainConfig
+    run = RUNS[name]
+    return TrainConfig(global_batch=run["batch"], seq_len=run["seq"],
+                       steps=run["steps"], lr=3e-4, optimizer="adamw",
+                       clipping_scope=run.get("scope", ""),
+                       tape=run.get("tape", ""))
+
+
+def run_config(name, flags=True):
+    """-> (ModelConfig, PrivacyPolicy) of a train path: the policy ``train``
+    runs, or with ``flags=False`` the one it is handed (before its
+    TrainConfig's scope and tape flags)."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.train import resolve_dp
+    from repro_torch.launch.train import resolve_dp, train_policy
     run = RUNS[name]
     cfg = get_config(run["arch"])
     if run["layers"]:
@@ -165,7 +202,7 @@ def run_config(name):
         dp = dataclasses.replace(dp, groups=tuple(
             dataclasses.replace(g, method="direct") if g.name == "experts"
             else g for g in dp.groups))
-    return cfg, dp
+    return cfg, train_policy(dp, train_config(name)) if flags else dp
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -239,17 +276,15 @@ def phase_build():
 
 def path_taps(paths, dev):
     """The taps of a group of train paths that share one model, seed and
-    batch, each routed as the engine routes it (``core.bk.norm_route``)
+    batch, each routed as the engine routes it (``core.bk.plan_report``)
     under each path's policy -> (cfg, step-0 batch, [(key, kind, record
     shape, cotangent shape, {kernel: first path that launches it})], the
     step-0 MoE records of the path's own model: its router's masks)."""
     import torch
     from repro_torch.configs.registry import build
-    from repro_torch.core.bk import norm_route, tap_act_structs
-    from repro_torch.core.policy import as_policy, resolve_policy
-    from repro_torch.core.tape import Tape, parse_key, tap_w
+    from repro_torch.core.bk import plan_report, tap_act_structs
+    from repro_torch.core.tape import Tape, parse_key
     from repro_torch.data.synthetic import make_batch
-    from repro_torch.utils.tree import flatten
 
     cfg, _ = run_config(paths[0])
     run = RUNS[paths[0]]
@@ -257,23 +292,21 @@ def path_taps(paths, dev):
     params = model.init(0, dev)        # train()'s seed and step-0 batch
     batch = make_batch(cfg, run["batch"], run["seq"], 0, 0, dev)
     outs, acts = tap_act_structs(model.apply, params, batch)
-    flat = flatten(params)
-    policies = []
-    for path in paths:
-        pol = as_policy(run_config(path)[1])
-        policies.append((path, pol, resolve_policy(pol, flat)))
+    reports = [(path, plan_report(model.apply, params, batch,
+                                  run_config(path)[1])) for path in paths]
     taps = []
     for key in sorted(acts):
         kind = parse_key(key)[1]
         a_shape = (acts[key]["a"] if kind == "moe" else acts[key])[0]
         ds_shape = outs[key][0]
         kernels = {}
-        for path, pol, res in policies:
-            route = norm_route(kind, a_shape, ds_shape, pol.mode,
-                               res.method_for(tap_w(key)))
-            if route != "cache":
-                kernels.setdefault(NORM_KERNEL[kind, route], path)
-                kernels.setdefault(GRAD_KERNEL[kind], path)
+        for path, report in reports:
+            grad = report[key]["grad"]
+            if grad not in ("fused_clip_grad", "cache"):
+                kernels.setdefault(
+                    NORM_KERNEL[kind, report[key]["norm"].method], path)
+            if grad in KERNELS:
+                kernels.setdefault(grad, path)
         taps.append((key, kind, a_shape, ds_shape, kernels))
     records = {}
     if any(kind == "moe" for _, kind, *_ in taps):
@@ -283,7 +316,7 @@ def path_taps(paths, dev):
         records = {k: v for k, v in tape.acts.items()
                    if parse_key(k)[1] == "moe"}
         del tape
-    del params, flat
+    del params
     torch.cuda.empty_cache()
     return cfg, batch, taps, records
 
@@ -306,7 +339,10 @@ def phase_kernels():
     from repro_torch.core.tape import parse_key
     from repro_torch.kernels import clipped_grad as cg
     from repro_torch.kernels import emb_grad as eg
+    from repro_torch.core.clipping import get_clip_fn
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels import emb_norm as en
+    from repro_torch.kernels import fused_clip as fc
     from repro_torch.kernels import ghost_norm as gn
     from repro_torch.kernels import grad_norm_direct as gd
     from repro_torch.kernels import moe_ghost as mg
@@ -317,6 +353,7 @@ def phase_kernels():
     summary = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
                        max_abs_err=0.0, t_bytes=0.0, t_ops=0.0)
                for k in KERNELS}
+    summary["fused_clip_grad"]["composed_ms"] = 0.0
 
     def rnd(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -328,7 +365,7 @@ def phase_kernels():
             dtype).float()
 
     def record(name, path, case, got, want, tol, ms_k, ms_p, nbytes, ops,
-               dname, ms_lib=None, again=None, **extra):
+               dname, ms_lib=None, again=None, timed=True, **extra):
         cmp = compare(got, want, tol)
         b_ms, b_by = bound(nbytes, ops, dname)
         if again is not None:       # a norm run twice: bitwise equal?
@@ -341,7 +378,7 @@ def phase_kernels():
                                  f"version: {cmp}")
         if again is not None and not extra["bitwise_repeat"]:
             raise AssertionError(f"{name} [{case}] differs run to run")
-        if path == ROW_PATH[name]:
+        if path == ROW_PATH[name] and timed:
             s = summary[name]
             s["ms"] += ms_k
             s["plain_ms"] += ms_p
@@ -350,6 +387,8 @@ def phase_kernels():
             s["max_abs_err"] = max(s["max_abs_err"], cmp["max_abs_err"])
             if ms_lib is not None:
                 s["library_ms"] = (s["library_ms"] or 0.0) + ms_lib
+            if "composed_ms" in extra:
+                s["composed_ms"] += extra["composed_ms"]
 
     def reps(path, name):
         return (10, 2) if path == ROW_PATH[name] else (3, 1)
@@ -398,8 +437,78 @@ def phase_kernels():
                ops, dname, ms_lib, **extra)
         del got, want
 
-    def mm_case(case, L, Bc, Tc, d, p, dtype, kernels):
-        """``kernels``: {kernel: the path it runs for} of this tap."""
+    def fused_case(path, case, a, ds, dname, clips):
+        """fused_clip_grad against its plain version under each clip
+        function of ``clips`` (the first timed, with the composed route it
+        replaces): G at TOL, sq at NORM_TOL, both bitwise run to run; w
+        has a zero (a masked sample)."""
+        L, Bc, Tc, d = a.shape
+        p = ds.shape[-1]
+        w = torch.rand(Bc, generator=gen, device=dev) + 0.5
+        w[1] = 0.0
+        gamma = 0.01
+        sq0 = fc.plain(a, ds, w, "automatic", 1.0, gamma)[1]   # the norms
+        # flat: R midway in the widest gap between the norms, at least 1e-5
+        # (relative) from each, so that the 1e-6 the two versions' sums may
+        # differ by cannot flip the indicator
+        n = torch.sort(torch.sqrt(sq0.double())).values
+        i = int(torch.argmax(n[1:] - n[:-1]))
+        R_flat = float((n[i] + n[i + 1]) / 2)
+        if float(n[i + 1] - n[i]) / 2 < 1e-5 * R_flat:
+            raise AssertionError(f"fused_clip_grad [{case}]: norms too "
+                                 f"close for the flat indicator: {n}")
+        # the others: R at the median norm, so C is near 1 (G keeps the
+        # size of the per-sample grads, and the tolerances bite) and abadi
+        # clips some samples and keeps others
+        R_mid = float(n[len(n) // 2])
+        nbytes = (a.numel() + ds.numel()) * a.element_size() + Bc * 4 * 2 \
+            + L * d * p * 4
+        ops = 2.0 * L * Bc * Tc * d * p
+        for k, clip in enumerate(clips):
+            R = R_flat if clip == "flat" else R_mid
+            args = (a, ds, w, clip, R, gamma)
+            G, sq = fc.fused_clip_grad(*args)
+            G2, sq2 = fc.fused_clip_grad(*args)
+            bitwise = bool(torch.equal(G, G2) and torch.equal(sq, sq2))
+            del G2, sq2
+            Gp, sqp = fc.plain(*args)
+            cmp_sq = compare(sq, sqp, NORM_TOL)
+            extra = {"clip": clip, "R": R, "sq_max_abs_err":
+                     cmp_sq["max_abs_err"], "sq_max_rel_err":
+                     cmp_sq["max_rel_err"], "bitwise_repeat": bitwise}
+            if not cmp_sq["ok"]:
+                raise AssertionError(f"fused_clip_grad [{case}, {clip}]: sq "
+                                     f"disagrees with the plain version: "
+                                     f"{cmp_sq}")
+            if not bitwise:
+                raise AssertionError(f"fused_clip_grad [{case}, {clip}] "
+                                     "differs run to run")
+            ms_k = ms_p = 0.0
+            if k == 0:
+                r = reps(path, "fused_clip_grad")[0]
+                ms_k = cuda_ms(lambda: fc.fused_clip_grad(*args), min(r, 5),
+                               1)
+                ms_p = cuda_ms(lambda: fc.plain(*args), 3, 1)
+                clip_fn = get_clip_fn(clip, R, **(
+                    {"gamma": gamma} if clip == "automatic" else {}))
+                norm = {"ghost": gn.ghost_norm, "direct": gd.grad_norm_direct
+                        }[dispatch.norm_plan("mm", a.shape, ds.shape,
+                                             "bk-mixopt").method]
+
+                def composed():
+                    C = clip_fn(torch.sqrt(norm(a, ds))) * w
+                    return cg.clipped_grad(a, C, ds)
+
+                extra["composed_ms"] = cuda_ms(composed, 3, 1)
+            record("fused_clip_grad", path, f"{case} {clip}", G, Gp,
+                   TOL[dname], ms_k, ms_p, nbytes, ops, dname,
+                   timed=k == 0, **extra)
+            del G, sq, Gp, sqp
+        torch.cuda.empty_cache()
+
+    def mm_case(case, L, Bc, Tc, d, p, dtype, kernels, clips=("automatic",)):
+        """``kernels``: {kernel: the path it runs for} of this tap;
+        ``clips``: the clip functions fused_clip_grad is checked under."""
         dname = str(dtype).split(".")[-1]
         a, ds = rnd(L, Bc, Tc, d, dtype=dtype), rnd(L, Bc, Tc, p, dtype=dtype)
         C = clip_factors(Bc, dtype)
@@ -424,6 +533,8 @@ def phase_kernels():
                       2.0 * L * Bc * Tc * d * p, dname,
                       lambda: torch.einsum("lbtd,b,lbtp->ldp", a,
                                            C.to(dtype), ds))
+        if "fused_clip_grad" in kernels:
+            fused_case(kernels["fused_clip_grad"], case, a, ds, dname, clips)
         del a, ds, library
         torch.cuda.empty_cache()
 
@@ -502,8 +613,11 @@ def phase_kernels():
             if kind == "mm":
                 L = a_shape[0] if len(a_shape) == 4 else 1
                 d, p = a_shape[-1], ds_shape[-1]
+                # every clip function on the smallest unit, o
                 mm_case(f"{where} L={L} B={B} T={T} d={d} p={p} bf16", L, B,
-                        T, d, p, torch.bfloat16, kernels)
+                        T, d, p, torch.bfloat16, kernels,
+                        fc.CLIPS if key.endswith("/o#mm.s") else
+                        ("automatic",))
             elif kind == "emb":
                 emb_case(f"{where} B={B} T={T} d={ds_shape[-1]} "
                          f"V={cfg.vocab} bf16", batch["tokens"], ds_shape[-1],
@@ -520,12 +634,12 @@ def phase_kernels():
     # f32; some ids outside [0, V) (dropped by both versions); masked slots.
     # d, p of one tile and of several, neither a multiple of 128
     mm_all = dict.fromkeys(("ghost_norm", "grad_norm_direct",
-                            "clipped_grad"), "ragged")
+                            "clipped_grad", "fused_clip_grad"), "ragged")
     moe_all = dict.fromkeys(("moe_ghost_norm", "moe_direct_norm",
                              "moe_clipped_grad"), "ragged")
     for d, p in ((37, 53), (165, 301)):
         mm_case(f"ragged L=3 B=3 T=509 d={d} p={p} f32", 3, 3, 509, d, p,
-                torch.float32, mm_all)
+                torch.float32, mm_all, fc.CLIPS)
         mask = (torch.rand(2, 3, 5, 7, generator=gen, device=dev) < 0.7
                 ).float()
         mask[0, :, 0] = 0.0             # an expert that no sample reached
@@ -552,7 +666,7 @@ def _profile_summary(prof, window_ms: float) -> dict:
     ours = tuple(f"{k}_kernel" for k in (
         "ghost_norm", "clipped_grad", "emb_norm", "emb_grad", "reduce_rows",
         "grad_norm_direct", "moe_ghost_norm", "moe_direct_norm",
-        "moe_clipped_grad"))
+        "moe_clipped_grad", "fused_clip_tile", "fused_clip_apply"))
     kinds = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
     for name, ms in by_name.items():
         low = name.lower()
@@ -573,14 +687,12 @@ def phase_train(name):
     """One train path through the train entry point -> launch totals.
     The last step runs under torch.profiler."""
     import torch
-    from repro_torch.configs.base import TrainConfig
-    from repro_torch.launch.train import train
+    from repro_torch.launch.train import train, train_policy
 
     run = RUNS[name]
-    cfg, dp = run_config(name)
+    cfg, dp = run_config(name, flags=False)
     ws = wrappers()
-    tc = TrainConfig(global_batch=run["batch"], seq_len=run["seq"],
-                     steps=run["steps"], lr=3e-4, optimizer="adamw")
+    tc = train_config(name)
     per_step, prof = [], {}
 
     def on_step(step, loss, seconds):
@@ -612,10 +724,13 @@ def phase_train(name):
     for s in per_step:
         emit(phase=name, step=s["step"], loss=s["loss"],
              step_seconds=s["seconds"], launches=s["launches"])
+    ran = train_policy(dp, tc)
     emit(phase=name, arch=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.param_dtype,
          mode=dp.mode, policy=cfg.name,
          methods={g.name: g.method or "rule" for g in dp.groups},
+         scopes={g.name: g.scope for g in ran.groups},
+         tape=ran.tape_policy,
          optimizer="adamw", batch=tc.global_batch, seq=tc.seq_len,
          steps=tc.steps, sigma=dp.sigma, losses=losses,
          max_memory_allocated=peak, launches=totals)
@@ -641,6 +756,9 @@ PARITY = {
     "parity_moe": ("train_moe", 2, "bk-mixopt",
                    ("moe_ghost_norm", "moe_clipped_grad")),
     "parity_long": ("train_long", 2, "bk-mixghost", ("grad_norm_direct",)),
+    "parity_layer": ("train_layer", 2, "bk-mixopt",
+                     ("fused_clip_grad", "emb_ghost_norm",
+                      "emb_clipped_grad")),
 }
 
 
@@ -756,7 +874,9 @@ def main(argv=None) -> int:
                              else "operations"),
                 "library_ms": s["library_ms"],
                 **({"library": "none: " + NO_LIBRARY[name]}
-                   if name in NO_LIBRARY else {})})
+                   if name in NO_LIBRARY else {}),
+                **({"composed_ms": s["composed_ms"]}
+                   if "composed_ms" in s else {})})
         emit(kernels=kernels)
         if all(p in phases for p in TRAINS):
             idle = [k["name"] for k in kernels if not k["launches"]]

@@ -54,3 +54,10 @@ class TrainConfig:
     weight_decay: float = 0.0
     warmup: int = 0
     seed: int = 0
+    # tape residency override (core.tape.TAPE_POLICIES): "" keeps whatever
+    # the DPConfig / policy preset configured; tape_chunks 0 likewise
+    tape: str = ""
+    tape_chunks: int = 0
+    # "" keeps the policy's scopes; flat | group | layer re-scopes every
+    # trainable group (core.policy.with_scope)
+    clipping_scope: str = ""

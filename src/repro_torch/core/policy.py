@@ -10,9 +10,15 @@ override for ``kernels.dispatch``, and a trainable flag:
                  groups must agree on clipping/R/gamma).
   scope='group'  the group is its own clipping unit: its own per-sample norm
                  and its own C_i^(g) = clip(||g_i^(g)||; R_g).
-  scope='layer'  one clipping unit per param path, streamed through the
-                 fused_clip kernel in the JAX package — not ported yet:
-                 resolving such a policy raises NotImplementedError.
+  scope='layer'  EVERY trainable param path the group matches becomes its
+                 own clipping unit, named ``<group>:<path>`` (per-layer
+                 clipping). Each unit's norm closes over a single tap's
+                 cotangent, so the BK engine STREAMS it: norm, clip factor
+                 and weighted grad are emitted at the tap and nothing is
+                 held between phases 2 and 3 (``core.bk``). A stacked path
+                 (``blocks/attn/qkv/w``) is one unit over all its layers.
+  tape           per-group residency override for the group's tap records
+                 ('' = the policy's ``tape_policy``; ``core.tape``).
   trainable=False
                  the group's params are constants: no taps, no norm, no
                  weighted grad, no noise; grads come back as zeros.
@@ -28,6 +34,7 @@ policy via :func:`as_policy`.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from dataclasses import dataclass
 from typing import Callable
@@ -36,9 +43,11 @@ import torch
 
 from repro_torch.core.accounting import compose_sensitivity
 from repro_torch.core.clipping import get_clip_fn
+from repro_torch.core.tape import TAPE_POLICIES
 
 SCOPES = ("flat", "group", "layer")
 METHODS = ("", "ghost", "direct")
+TAPES = ("",) + TAPE_POLICIES
 
 
 @dataclass(frozen=True)
@@ -52,6 +61,8 @@ class ParamGroup:
     gamma: float = 0.01              # automatic-clipping stability constant
     trainable: bool = True           # False = frozen (no taps / grads / noise)
     method: str = ""                 # '' | 'ghost' | 'direct' dispatch override
+    tape: str = ""                   # tape residency override ('' = the
+                                     # policy default; core.tape)
 
     def __post_init__(self):
         if self.scope not in SCOPES:
@@ -60,6 +71,9 @@ class ParamGroup:
         if self.method not in METHODS:
             raise ValueError(f"group {self.name!r}: method must be one of "
                              f"{METHODS}, got {self.method!r}")
+        if self.tape not in TAPES:
+            raise ValueError(f"group {self.name!r}: tape must be one of "
+                             f"{TAPES}, got {self.tape!r}")
 
     def matches(self, path: str) -> bool:
         if path == self.match or path.startswith(self.match + "/"):
@@ -77,10 +91,21 @@ class PrivacyPolicy:
     mode: str = "bk"                 # 'bk' | 'bk-mixghost' | 'bk-mixopt'
     sigma: float = 0.0               # noise multiplier (0 = clipping only)
     use_kernels: bool = True         # CUDA kernels (plain torch if False)
+    tape_policy: str = "native"      # default tape residency of every tap
+                                     # (core.tape.TAPE_POLICIES; 'auto' lets
+                                     # kernels.dispatch.tape_plan pick)
+    tape_chunks: int = 1             # phase-3 re-derivation chunks of the
+                                     # 'recompute' taps of one unit
 
     def __post_init__(self):
         if not self.groups:
             raise ValueError("policy needs at least one ParamGroup")
+        if self.tape_policy not in TAPE_POLICIES:
+            raise ValueError(f"tape_policy must be one of {TAPE_POLICIES}, "
+                             f"got {self.tape_policy!r}")
+        if self.tape_chunks < 1:
+            raise ValueError(f"tape_chunks must be >= 1 "
+                             f"(got {self.tape_chunks})")
         names = [g.name for g in self.groups]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate group names: {names}")
@@ -93,7 +118,24 @@ def as_policy(cfg) -> PrivacyPolicy:
     return PrivacyPolicy(
         groups=(ParamGroup("all", ".*", clipping=cfg.clipping, R=cfg.R,
                            scope="flat", gamma=cfg.gamma),),
-        mode=cfg.mode, sigma=cfg.sigma, use_kernels=cfg.use_kernels)
+        mode=cfg.mode, sigma=cfg.sigma, use_kernels=cfg.use_kernels,
+        tape_policy=cfg.tape_policy, tape_chunks=cfg.tape_chunks)
+
+
+def with_scope(cfg, scope: str) -> PrivacyPolicy:
+    """Re-scope a DPConfig / PrivacyPolicy: every TRAINABLE group's norm
+    scope becomes ``scope`` (frozen groups have no norm and are untouched);
+    each group keeps its clipping, R and gamma. '' returns the policy as
+    it is. The ``--clipping-scope`` CLI flag routes here."""
+    policy = as_policy(cfg)
+    if not scope:
+        return policy
+    if scope not in SCOPES:
+        raise ValueError(f"clipping scope must be one of {SCOPES}, "
+                         f"got {scope!r}")
+    groups = tuple(dataclasses.replace(g, scope=scope) if g.trainable else g
+                   for g in policy.groups)
+    return dataclasses.replace(policy, groups=groups)
 
 
 # ------------------------------------------------------------------ resolution
@@ -143,14 +185,6 @@ def resolve_policy(policy: PrivacyPolicy, param_paths) -> ResolvedPolicy:
         raise ValueError(
             "params matched no policy group (add a catch-all rule such as "
             f"ParamGroup('rest', '.*')): {unmatched}")
-    layer = [g.name for g in policy.groups
-             if g.trainable and g.scope == "layer" and members[g.name]]
-    if layer:
-        raise NotImplementedError(
-            f"scope='layer' (groups {layer}) needs the fused_clip_grad "
-            "kernel and the streamed backward, not ported yet (ROADMAP "
-            "Queue 1 item 8, Queue 2 'fused_clip_grad')")
-
     flat_groups = [g for g in policy.groups
                    if g.trainable and g.scope == "flat" and members[g.name]]
     for g in flat_groups[1:]:
@@ -170,10 +204,19 @@ def resolve_policy(policy: PrivacyPolicy, param_paths) -> ResolvedPolicy:
         for p in paths:
             unit_of[p] = 0
     for g in policy.groups:
-        if g.trainable and members[g.name] and g.scope == "group":
+        if not (g.trainable and members[g.name]):
+            continue
+        if g.scope == "group":
             units.append(ClipUnit(g.name, g.clipping, g.R, g.gamma,
                                   tuple(members[g.name])))
             for p in members[g.name]:
+                unit_of[p] = len(units) - 1
+        elif g.scope == "layer":
+            # one single-path unit per member; the name carries the path so
+            # group_norms stay addressable per layer
+            for p in members[g.name]:
+                units.append(ClipUnit(f"{g.name}:{p}", g.clipping, g.R,
+                                      g.gamma, (p,)))
                 unit_of[p] = len(units) - 1
 
     frozen = frozenset(p for p in param_paths if not group_of[p].trainable)

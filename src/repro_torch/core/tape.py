@@ -19,6 +19,11 @@ and the ``.s`` suffix marks records stacked over a leading layer axis (the
 blocks the JAX package runs under ``lax.scan``; a Python loop here).
 The parameter owned by a tapped op lives at ``<path>/w``; all other
 parameter leaves are handled by the per-sample-parameter (psp) route.
+
+Tape residency: a record can be held in a smaller form between the BK
+phases (``TAPE_POLICIES``). Activations take their stored form at record
+time, inside :meth:`Tape.record`, so the stacked (L, ...) copy is built
+from the stored per-layer pieces and the native stack never exists.
 """
 from __future__ import annotations
 
@@ -49,13 +54,19 @@ class Tape:
     list for stacked keys). A key absent from ``active`` is a frozen-group op.
     ``per_sample`` names the param paths that carry a leading batch axis
     (the psp route), so stacked blocks slice them per layer correctly.
+    ``store(key)``, when given, names the residency store of each record
+    (``store_record``); ``gen`` draws the int8 store's rounding.
     """
 
     def __init__(self, active: Optional[Callable[[str], bool]] = None,
-                 collect: bool = True, per_sample=frozenset()):
+                 collect: bool = True, per_sample=frozenset(),
+                 store: Optional[Callable[[str], str]] = None,
+                 gen: Optional[torch.Generator] = None):
         self.active = active
         self.collect = collect
         self.per_sample = frozenset(per_sample)
+        self.store = store
+        self.gen = gen
         self.acts: dict = {}
         self.outs: dict = {}
         self._prefix: list = []
@@ -107,10 +118,7 @@ class Tape:
             # one copy of the activations into the (L, ...) layout the
             # kernels read; the per-layer tensors die with this dict
             for key, acts in per_layer.items():
-                tape.acts[key] = ({k: torch.stack([a[k] for a in acts])
-                                   for k in acts[0]}
-                                  if isinstance(acts[0], dict)
-                                  else torch.stack(acts))
+                tape.acts[key] = _stack(acts)
 
     def stacked(self, name: str) -> "_Stacked":
         """Scope for a loop over the layers of stacked params: records made
@@ -138,6 +146,8 @@ class Tape:
         # records are read, never differentiated
         act = ({k: v.detach() for k, v in act.items()}
                if isinstance(act, dict) else act.detach())
+        if self.store is not None:
+            act = store_record(act, self.store(key), self.gen)
         if self._stack is not None:
             self._stack.setdefault(key, []).append(act)
         elif key in self.acts:
@@ -154,3 +164,65 @@ class Tape:
             else:
                 self.outs[key] = s
         return s
+
+
+def _stack(records: list):
+    """Per-layer records (tensors, or dicts of them: MoE records, int8
+    pairs) -> one record with a leading layer axis."""
+    if isinstance(records[0], dict):
+        return {k: _stack([r[k] for r in records]) for k in records[0]}
+    return torch.stack(records)
+
+
+# ------------------------------------------------------------ tape residency
+# Storage policies for book-kept tap records (activations, held cotangents)
+# between BK phases 2 and 3:
+#   native     keep the tensor as produced (the engine's bitwise path)
+#   bf16       hold a bfloat16 copy; norms and clip factors stay f32
+#   int8       hold an int8 stochastic-rounding quantization (per-tensor
+#              scale, runtime.compression.quantize): unbiased, loosest
+#   recompute  hold NO cotangent; phase 3 re-derives the weighted gradient
+#              with a reweighted-loss backward (activations stay native:
+#              they are the standard tape)
+#   auto       per-tap choice by kernels.dispatch.tape_plan
+# Integer / bool leaves (embedding ids, MoE masks) pass through untouched.
+TAPE_POLICIES = ("native", "bf16", "int8", "recompute", "auto")
+
+
+def store_record(x, policy: str, gen: Optional[torch.Generator] = None):
+    """One record -> its held form under a storage policy. int8 needs
+    ``gen`` for the stochastic rounding draw."""
+    if policy in ("native", "recompute"):
+        return x
+    if isinstance(x, dict):          # moe record {'a': float, 'mask': ...}
+        out = dict(x)
+        out["a"] = store_record(x["a"], policy, gen)
+        return out
+    if not x.is_floating_point():
+        return x                     # ids / masks: already compact
+    if policy == "bf16":
+        return x.to(torch.bfloat16)
+    if policy == "int8":
+        from repro_torch.runtime.compression import quantize
+        q, scale = quantize(x, gen)
+        return {"q": q, "scale": scale}
+    raise ValueError(f"unknown tape storage policy {policy!r}; options: "
+                     f"{TAPE_POLICIES[:-1]}")
+
+
+def load_record(stored, dtype=None):
+    """Inverse of :func:`store_record`: -> the record with its float
+    tensors in ``dtype`` (the record's native dtype), ready for the norm and
+    weighted-grad consumers."""
+    if isinstance(stored, dict):
+        if "q" in stored:            # int8 (q, scale) pair
+            from repro_torch.runtime.compression import dequantize
+            return dequantize(stored["q"], stored["scale"],
+                              dtype or torch.float32)
+        out = dict(stored)
+        out["a"] = load_record(stored["a"], dtype)
+        return out
+    if dtype is not None and stored.dtype != dtype and \
+            stored.is_floating_point():
+        return stored.to(dtype)
+    return stored

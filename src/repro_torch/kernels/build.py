@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = "arch=compute_90a,code=sm_90a"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argument types; every entry returns an int (a cudaError_t)
 SIGNATURES = {
     "dp_ghost_norm_nparts": [_I],
@@ -41,6 +41,8 @@ SIGNATURES = {
     "dp_moe_direct_norm_nparts": [_I, _I],
     "dp_moe_direct_norm": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "dp_moe_clipped_grad": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+    "dp_fused_clip_nparts": [_I, _I],
+    "dp_fused_clip_grad": [_P] * 7 + [_I] * 7 + [_F, _F, _P],
 }
 
 

@@ -1,16 +1,32 @@
-"""Per-tap method rule: ghost vs direct norm.
+"""Per-tap plans: ghost vs direct norm, fused vs split streaming, and tape
+residency.
 
 The JAX package's dispatch layer also chose kernel vs einsum by a size
 threshold and fitted block sizes to the TPU's VMEM; neither applies here. On
 the card a kernel wrapper launches its kernel for every record it is given,
-and the CUDA kernels fix their own tiles. What stays is the paper's
-layerwise rule, one level down per tapped op:
+and the CUDA kernels fix their own tiles. What stays:
 
-  mode 'bk' forces ghost norms; otherwise ghost iff 2T^2 < pd
-  (``core.ghost.prefer_ghost``); a ParamGroup ``method`` override wins.
-
-For a ``moe`` tap the rule reads the capacity C in place of T: the Gram is
-per (sample, expert) over the C slots.
+  norm_plan   the paper's layerwise rule, one level down per tapped op:
+              mode 'bk' forces ghost norms; otherwise ghost iff 2T^2 < pd
+              (``core.ghost.prefer_ghost``); a ParamGroup ``method``
+              override wins. For a ``moe`` tap the rule reads the capacity
+              C in place of T: the Gram is per (sample, expert) over the C
+              slots.
+  fused_plan  how a STREAMED single-tap clip unit (scope='layer') runs
+              phases 2+3: one ``fused_clip_grad`` launch, or the composed
+              norm + weighted-grad route. The JAX package fuses only when
+              one sample's whole (L,d,p) gradient fits the TPU's VMEM, which
+              no full-width unit does. The CUDA kernel holds nothing per
+              sample on chip (it streams g_b through a device scratch), so
+              here there is no size gate: every mm unit fuses, except under
+              mode 'bk' (forced ghost norms) or a 'ghost' group override,
+              the JAX package's own two exclusions.
+  tape_plan   where a tap's book-kept state resides between phases 2 and 3
+              (native, bf16, int8, recompute), by the JAX package's byte
+              thresholds; ``fit_tape_budget`` upgrades stores until a byte
+              budget holds. Pure shape arithmetic: the same inputs give the
+              JAX package's plans. (Its REPRO_TAPE* environment overrides
+              are not ported.)
 """
 from __future__ import annotations
 
@@ -21,7 +37,7 @@ from repro_torch.core.ghost import prefer_ghost
 
 @dataclass(frozen=True)
 class Plan:
-    method: str      # 'ghost' | 'direct'
+    method: str      # 'ghost' | 'direct' (norm) | 'fused' | 'split' (stream)
 
 
 def norm_plan(kind: str, act_shape, ds_shape, mode: str,
@@ -36,3 +52,96 @@ def norm_plan(kind: str, act_shape, ds_shape, mode: str,
         # instantiate (B, V, d); a 'direct' group override is ignored
         return Plan("ghost")
     raise ValueError(f"unknown tap kind {kind!r}")
+
+
+def fused_plan(kind: str, act_shape, ds_shape, mode: str,
+               method: str = "") -> Plan:
+    """Per-tap plan for a streamed single-tap clip unit: 'fused' (one
+    ``fused_clip_grad`` launch: the contraction a^T ds runs once, for the
+    norm and the weighted grad) or 'split' (norm, then weighted grad)."""
+    if kind != "mm" or mode == "bk" or method == "ghost":
+        return Plan("split")
+    return Plan("fused")
+
+
+# -------------------------------------------------------- residency planner
+# Compression is nearly free and recompute costs a reweighted backward, so
+# small records stay native, mid-size records hold bf16, and only records
+# big enough to dominate the book-kept footprint pay the re-derivation.
+TAPE_STORES = ("native", "bf16", "int8", "recompute")
+
+TAPE_BF16_MIN = 64 * 2 ** 10
+TAPE_RECOMPUTE_MIN = 8 * 2 ** 20
+
+
+@dataclass(frozen=True)
+class TapePlan:
+    store: str            # one of TAPE_STORES, or the engine's 'stream'
+    hold_bytes: int       # bytes this tap holds live between phases 2 and 3
+    recompute_flops: int  # modeled phase-3 re-derivation cost (paid only
+                          # when store == 'recompute')
+    itemsize: int = 4     # the cotangent's native dtype width (model dtype)
+
+
+def _prod(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return n
+
+
+def _hold_bytes(store: str, ds_elems: int, itemsize: int = 4) -> int:
+    """Held cotangent bytes between phases. ``itemsize`` is the cotangent's
+    native width: a bf16 model holds 2 bytes an element natively, so the
+    'bf16' store is a no-op there, never a halving."""
+    return {"native": itemsize * ds_elems,
+            "bf16": min(2, itemsize) * ds_elems,
+            "int8": ds_elems + 4, "recompute": 0, "stream": 0}[store]
+
+
+def tape_plan(kind: str, act_shape, ds_shape, policy: str = "auto",
+              itemsize: int = 4) -> TapePlan:
+    """Residency decision for one tap's book-kept state.
+
+    ``policy`` is the resolved request ('auto' lets the byte thresholds
+    pick; an explicit store pins it and still reports its costs; 'stream'
+    is assigned by the engine to a streamed tap, which holds nothing).
+    ``recompute_flops`` models the re-derivation, ~2 |ds| d_in."""
+    if policy == "stream":
+        return TapePlan("stream", 0, 0, int(itemsize))
+    ds_elems = _prod(ds_shape)
+    d_in = act_shape[-1] if kind in ("mm", "moe") else ds_shape[-1]
+    flops = 2 * ds_elems * int(d_in)
+    store = policy
+    if store == "auto":
+        nat = _hold_bytes("native", ds_elems, itemsize)
+        store = ("recompute" if nat >= TAPE_RECOMPUTE_MIN
+                 else "bf16" if nat >= TAPE_BF16_MIN else "native")
+    if store not in TAPE_STORES:
+        raise ValueError(f"unknown tape store {store!r}; options: "
+                         f"{TAPE_STORES} (or 'auto')")
+    return TapePlan(store, _hold_bytes(store, ds_elems, itemsize), flops,
+                    int(itemsize))
+
+
+def fit_tape_budget(plans: dict, budget_bytes: int) -> dict:
+    """Upgrade per-tap stores ({key: TapePlan}) biggest-first along
+    native -> bf16 -> recompute until the total held bytes fit the budget
+    (int8 stays opt-in). Returns a new {key: TapePlan} dict."""
+    order = {"native": "bf16", "bf16": "recompute"}
+    out = dict(plans)
+
+    def total() -> int:
+        return sum(p.hold_bytes for p in out.values())
+
+    while total() > budget_bytes:
+        cands = [(k, p) for k, p in out.items() if p.store in order]
+        if not cands:
+            break
+        k, p = max(cands, key=lambda kp: kp[1].hold_bytes)
+        per = {"native": p.itemsize, "bf16": min(2, p.itemsize)}[p.store]
+        ds_elems = p.hold_bytes // per
+        nxt = order[p.store]
+        out[k] = TapePlan(nxt, _hold_bytes(nxt, ds_elems, p.itemsize),
+                          p.recompute_flops, p.itemsize)
+    return out

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from repro_torch.core.noise import path_seed
 from repro_torch.core.policy import as_policy, noise_leaf_fn, resolve_policy
 from repro_torch.optim.accumulate import accumulated_clipped_sum
 from repro_torch.utils.tree import flatten
@@ -37,8 +38,9 @@ def make_train_step(apply_fn, params_like, opt, dp, microbatch: int = 0,
     res = resolve_policy(policy, flatten(params_like))
 
     def step_fn(state: TrainState, batch):
-        sums, aux, B = accumulated_clipped_sum(apply_fn, state.params, batch,
-                                               policy, microbatch)
+        sums, aux, B = accumulated_clipped_sum(
+            apply_fn, state.params, batch, policy, microbatch,
+            path_seed(state.seed, state.step, "tape"))
         draw = noise_draw(state.step) if noise_draw is not None else None
         leaf = noise_leaf_fn(policy, res, state.seed, float(B), state.step,
                              draw)

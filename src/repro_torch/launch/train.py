@@ -5,6 +5,8 @@ optimizer, one step at a time, printing the loss of every step.
         --steps 3 --batch 8 --seq 512 --sigma 1.0
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch deepseek-moe-16b --smoke --device cpu --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --steps 2 --clipping-scope layer --tape recompute
 
 Runs on the CUDA card by default; ``--device cpu`` runs the same engine with
 the kernels' plain PyTorch versions (tests, small configs). Without a card
@@ -13,6 +15,7 @@ the default raises instead of falling back to the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -22,6 +25,8 @@ from repro_torch.configs.registry import (build, get_config, get_policy,
                                           has_policy, list_archs,
                                           list_policies, smoke_config)
 from repro_torch.core.bk import DPConfig
+from repro_torch.core.policy import with_scope
+from repro_torch.core.tape import TAPE_POLICIES
 from repro_torch.data.synthetic import make_batch
 from repro_torch.launch.steps import TrainState, make_train_step
 from repro_torch.optim.optimizers import make_optimizer
@@ -57,12 +62,27 @@ def resolve_dp(arch: str, policy_name: str, mode: str, clipping: str,
     return dp
 
 
+def train_policy(dp, tc: TrainConfig):
+    """``dp`` with the TrainConfig's overrides, as :func:`train` runs it:
+    ``tc.tape`` / ``tc.tape_chunks`` replace the tape residency when set,
+    and ``tc.clipping_scope`` re-scopes every trainable group
+    (``with_scope``; 'layer' makes each param path its own clip unit, and
+    the BK backward streams)."""
+    if tc.tape or tc.tape_chunks:
+        dp = dataclasses.replace(
+            dp, **({"tape_policy": tc.tape} if tc.tape else {}),
+            **({"tape_chunks": tc.tape_chunks} if tc.tape_chunks else {}))
+    return with_scope(dp, tc.clipping_scope) if tc.clipping_scope else dp
+
+
 def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
           on_step=None):
-    """Run ``tc.steps`` DP steps from a random init (seed ``tc.seed``).
-    ``on_step(step, loss, seconds)`` is called after every step; the time
-    covers the step up to its loss on the host. -> (params, losses)."""
+    """Run ``tc.steps`` DP steps from a random init (seed ``tc.seed``)
+    under ``train_policy(dp, tc)``. ``on_step(step, loss, seconds)`` is
+    called after every step; the time covers the step up to its loss on the
+    host. -> (params, losses)."""
     dev = resolve_device(device)
+    dp = train_policy(dp, tc)
     model = build(model_cfg)
     opt = make_optimizer(tc.optimizer,
                          make_schedule(tc.lr_schedule, tc.lr, tc.warmup,
@@ -105,6 +125,21 @@ def main(argv=None):
                     help="PrivacyPolicy preset name; 'auto' = the arch's "
                          f"registered preset (known: {list_policies()}), "
                          "'' = flat DPConfig")
+    ap.add_argument("--tape", default="", choices=("",) + TAPE_POLICIES,
+                    help="tape residency of the book-kept tap state between "
+                         "BK phases 2-3: hold native, compressed (bf16, "
+                         "int8), re-derive in phase 3 (recompute), or let "
+                         "the planner pick per tap (auto); '' keeps the "
+                         "policy's")
+    ap.add_argument("--tape-chunks", type=int, default=0,
+                    help="phase-3 re-derivation chunks of the recompute "
+                         "taps of one clip unit (0 keeps the policy's)")
+    ap.add_argument("--clipping-scope", default="",
+                    choices=["", "flat", "group", "layer"],
+                    help="re-scope every trainable group's clipping norm: "
+                         "flat (one pool), group (per policy group), layer "
+                         "(each param path its own clip unit, streamed); "
+                         "'' keeps the policy's scopes")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -114,7 +149,9 @@ def main(argv=None):
         mc = mc.with_(param_dtype="float32")
     tc = TrainConfig(global_batch=args.batch, microbatch=args.microbatch,
                      seq_len=args.seq, steps=args.steps, lr=args.lr,
-                     optimizer=args.optimizer, seed=args.seed)
+                     optimizer=args.optimizer, seed=args.seed,
+                     tape=args.tape, tape_chunks=args.tape_chunks,
+                     clipping_scope=args.clipping_scope)
     dp = resolve_dp(args.arch, args.policy, args.mode, args.clipping,
                     args.sigma)
     return train(mc, tc, dp, device=args.device)

@@ -12,23 +12,25 @@ from repro_torch.core.bk import BK_MODES, batch_size_of, bk_clipped_sum
 from repro_torch.core.policy import as_policy
 
 
-def accumulated_clipped_sum(apply_fn, params, batch, cfg, microbatch: int):
+def accumulated_clipped_sum(apply_fn, params, batch, cfg, microbatch: int,
+                            seed: int = 0):
     """Phases 1-3 over the logical batch -> (flat_sums, aux, B_logical).
-    One microbatch's book-keeping is live at a time."""
+    One microbatch's book-keeping is live at a time. ``seed`` keys the int8
+    tape store's rounding (offset by each microbatch's first row)."""
     policy = as_policy(cfg)
     if policy.mode not in BK_MODES:
         raise ValueError(f"mode must be one of {BK_MODES}, got "
                          f"{policy.mode!r}")
     B = batch_size_of(batch)
     if microbatch <= 0 or microbatch >= B:
-        sums, aux = bk_clipped_sum(apply_fn, params, batch, policy)
+        sums, aux = bk_clipped_sum(apply_fn, params, batch, policy, seed)
         return sums, aux, B
     if B % microbatch:
         raise ValueError(f"microbatch {microbatch} must divide batch {B}")
     sums, losses, norms = None, [], []
     for lo in range(0, B, microbatch):
         mb = {k: v[lo:lo + microbatch] for k, v in batch.items()}
-        s, aux = bk_clipped_sum(apply_fn, params, mb, policy)
+        s, aux = bk_clipped_sum(apply_fn, params, mb, policy, seed + lo)
         if sums is None:
             sums = s
         else:

@@ -113,10 +113,16 @@ def test_frozen_group_and_method_override_match_jax():
 
 
 def test_layer_scope_is_not_ported():
-    _, _, _, tm, tp, tb = _setup(16)
-    pol = PrivacyPolicy((ParamGroup("all", ".*", scope="layer"),))
-    with pytest.raises(NotImplementedError, match="fused_clip_grad"):
-        bk_clipped_sum(tm.apply, tp, tb, pol)
+    """(The name is kept from when layer scope raised.) Layer scope now
+    resolves and runs: one clip unit per param path, each with its own
+    norm and clip factor, matching the JAX package
+    (tests/test_torch_layer.py holds the rest)."""
+    def policy(PG, PP, **kw):
+        return PP((PG("all", ".*", scope="layer", clipping="abadi",
+                      R=R_AT[16]),), mode="bk-mixopt", **kw)
+
+    _compare(policy(JParamGroup, JPrivacyPolicy, use_kernels=False),
+             policy(ParamGroup, PrivacyPolicy), 16)
 
 
 def test_weights_take_no_grad_and_params_are_untouched():

@@ -17,6 +17,7 @@ from repro_torch.core.policy import ParamGroup, PrivacyPolicy, resolve_policy
 from repro_torch.kernels.clipped_grad import clipped_grad
 from repro_torch.kernels.emb_grad import emb_clipped_grad
 from repro_torch.kernels.emb_norm import emb_ghost_norm
+from repro_torch.kernels.fused_clip import fused_clip_grad
 from repro_torch.kernels.ghost_norm import ghost_norm
 from repro_torch.kernels.grad_norm_direct import grad_norm_direct
 from repro_torch.kernels.moe_ghost import (moe_clipped_grad, moe_direct_norm,
@@ -186,6 +187,8 @@ def _meta(*shape, dtype=torch.float32):
 
 @pytest.mark.parametrize("call", [
     lambda: ghost_norm(_meta(2, 3, 4), _meta(2, 3, 5)),
+    lambda: fused_clip_grad(_meta(2, 3, 4), _meta(2, 3, 5), _meta(2),
+                            "automatic", 1.0, 0.01),
     lambda: clipped_grad(_meta(2, 3, 4), _meta(2), _meta(2, 3, 5)),
     lambda: emb_ghost_norm(_meta(2, 3, dtype=torch.int32), _meta(2, 3, 4)),
     lambda: emb_clipped_grad(_meta(2, 3, dtype=torch.int32), _meta(2),
@@ -208,8 +211,8 @@ def test_wrappers_take_the_plain_version_only_on_cpu(call):
 def test_unported_direct_norm_raises_off_cpu():
     """A direct-norm plan with the mixopt cache off now reaches the
     grad_norm_direct wrapper (which refuses a tensor that is neither CPU nor
-    CUDA); only scope='layer' still needs an unported kernel
-    (fused_clip_grad) and raises, naming it."""
+    CUDA); scope='layer' (once unported too) resolves to one unit per
+    path."""
     a, ds = _meta(2, 3, 40, 4), _meta(2, 3, 40, 5)   # 2T^2 >= pd: direct
     with pytest.raises(ValueError, match="grad_norm_direct.*CUDA device"):
         tbk.record_sq_norm("blocks/x#mm.s", a, ds, "bk-mixghost", True)
@@ -219,9 +222,11 @@ def test_unported_direct_norm_raises_off_cpu():
     n, cached = tbk.record_sq_norm("blocks/x#mm.s", a, ds, "bk-mixghost", True)
     assert n.shape == (3,) and cached is None
     torch.testing.assert_close(n, ghost.sq_norm_mm_direct(a, ds))
-    with pytest.raises(NotImplementedError, match="fused_clip_grad"):
-        resolve_policy(PrivacyPolicy((ParamGroup("all", ".*", scope="layer"),)),
-                       ["blocks/x/w"])
+    # scope='layer' resolves now: one unit per path, for fused_clip_grad
+    res = resolve_policy(PrivacyPolicy((ParamGroup("all", ".*",
+                                                   scope="layer"),)),
+                         ["blocks/x/w", "head/w"])
+    assert [u.paths for u in res.units] == [("blocks/x/w",), ("head/w",)]
 
 
 @pytest.mark.parametrize("kind,a_shape,ds_shape,mode,method,want", [
