@@ -8,14 +8,17 @@ Phases, each printing JSON lines:
 
   card      the card's name and power limit (nvidia-smi), torch and CUDA
   build     compile the kernel library from ``src/repro_torch/kernels/csrc``
-  kernels   each of the nine kernels against its plain PyTorch version on
+  kernels   each of the eleven kernels against its plain PyTorch version on
             the card, at the shapes each train path below gives it (bf16;
             each tap routed as ``core.bk.plan_report`` says, MoE records and
-            masks from the path's own step-0 forward) and at ragged f32
-            shapes; norms (and fused_clip_grad's outputs, under all four
-            clip functions, w with a zero) run twice must agree bitwise;
-            kernel, plain and one-call library times with CUDA events, and
-            for fused_clip_grad the composed route it replaces
+            masks from the path's own step-0 forward), at the prefill
+            paths' shapes (flash_attention, wkv6; bf16) and at ragged f32
+            shapes (wkv6 also under strong constant decay, w = 0.1 and
+            0.01); norms, fused_clip_grad's outputs (under all four clip
+            functions, w with a zero), flash_attention and wkv6 run twice
+            must agree bitwise; kernel, plain and one-call library times
+            with CUDA events, and for fused_clip_grad the composed route it
+            replaces
   train             qwen2-1.5b, full (28 layers, bf16), B=8, T=512
   train_moe         deepseek-moe-16b at full width, 6 of its 28 layers
                     (dense0_0 + 5 MoE blocks), B=8, T=512
@@ -31,10 +34,25 @@ Phases, each printing JSON lines:
             each: the arch's registered policy, bk-mixopt, sigma=1.0, AdamW,
             through ``repro_torch.launch.train.train``; launch counts per
             step; the last step runs under torch.profiler
+  prefill       qwen2-1.5b, full (28 layers, bf16), B=4, T=4096, through
+                ``model.prefill``: flash_attention once a layer
+  prefill_rwkv  rwkv6-3b, full (32 layers, bf16), B=4, T=4096: wkv6 once a
+                layer
+            each: three prefills (warm-up, timed, profiled); launches per
+            prefill; finite last-position logits
+  serve, serve_rwkv
+            ``launch.serve.generate`` of each model, full: B=4 prompts of
+            16 tokens, 16 generated (teacher-forced prompt, greedy decode
+            against the cache); decode ms/token, peak memory
   parity, parity_moe, parity_long, parity_layer
             one BK step of a 2-layer, full-width, f32 model of each path
             with the kernels and with ``use_kernels=False`` (parity_long
             under bk-mixghost, so that the direct norm runs at 2 layers)
+  parity_prefill, parity_prefill_rwkv
+            a 2-layer, full-width, f32 model of each family: the prefill on
+            the card (kernels) against the same params' prefill on the CPU
+            (plain versions), and the teacher-forced decode's logits at the
+            last prompt position against the card's prefill
 
 Then a ``kernels`` summary line and, last, the ``ok`` line. Any failed check
 raises, and the script exits non-zero without the ``ok`` line. It needs a
@@ -56,8 +74,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TRAINS = ("train", "train_moe", "train_moe_direct", "train_long",
           "train_layer", "train_tape")
+PREFILLS = ("prefill", "prefill_rwkv")
+SERVES = ("serve", "serve_rwkv")
 PARITIES = ("parity", "parity_moe", "parity_long", "parity_layer")
-PHASES = ("card", "build", "kernels") + TRAINS + PARITIES
+SERVE_PARITIES = ("parity_prefill", "parity_prefill_rwkv")
+PHASES = (("card", "build", "kernels") + TRAINS + PREFILLS + SERVES
+          + PARITIES + SERVE_PARITIES)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s by type
 PEAK_BYTES = 3.35e12
@@ -68,11 +90,17 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 # same inputs and sum in f32, so one tight tolerance serves either dtype.
 TOL = {"float32": (1e-3, 1e-4), "bfloat16": (5e-2, 2e-2)}
 NORM_TOL = (1e-4, 1e-6)
+# flash_attention: f32 as tests/test_kernels.py:78; bf16 as TOL (the output
+# is rounded to bf16 by both versions). wkv6: ragged as
+# tests/test_kernels.py:93; at T=4096 (bf16 inputs, f32 recurrence) 1e-3
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (5e-2, 2e-2)}
+WKV_TOL = (2e-4, 2e-4)
+WKV_LONG_TOL = (1e-3, 1e-3)
 MOE_LAYERS = 6      # dense0_0 + 5 MoE blocks: the depth one 80 GB card holds
 
 KERNELS = ("ghost_norm", "clipped_grad", "emb_ghost_norm", "emb_clipped_grad",
            "grad_norm_direct", "moe_ghost_norm", "moe_direct_norm",
-           "moe_clipped_grad", "fused_clip_grad")
+           "moe_clipped_grad", "fused_clip_grad", "flash_attention", "wkv6")
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "ghost_norm": ("ghost_norm.cu", "ghost_norm.py:62"),
@@ -84,6 +112,8 @@ SOURCES = {
     "moe_direct_norm": ("moe_direct_norm.cu", "moe_ghost.py:98"),
     "moe_clipped_grad": ("moe_clipped_grad.cu", "moe_ghost.py:146"),
     "fused_clip_grad": ("fused_clip.cu", "fused_clip.py:56"),
+    "flash_attention": ("flash_attention.cu", "flash_attention.py:64"),
+    "wkv6": ("wkv6.cu", "wkv6.py:76"),
 }
 # no single PyTorch call computes these (say why in the summary)
 NO_LIBRARY = {
@@ -91,6 +121,7 @@ NO_LIBRARY = {
                       "contracts it",
     "fused_clip_grad": "no single call clips per sample (composed_ms: the "
                        "norm + weighted-grad kernels it replaces)",
+    "wkv6": "no single call runs the recurrence",
 }
 # the norm kernel of each route of a tap (core.bk.plan_report's 'norm'
 # plan); its 'grad' entry names the weighted-grad kernel, fused_clip_grad,
@@ -147,7 +178,20 @@ ROW_PATH = {"ghost_norm": "train", "clipped_grad": "train",
             "emb_ghost_norm": "train", "emb_clipped_grad": "train",
             "grad_norm_direct": "train_long", "moe_ghost_norm": "train_moe",
             "moe_direct_norm": "train_moe_direct",
-            "moe_clipped_grad": "train_moe", "fused_clip_grad": "train_layer"}
+            "moe_clipped_grad": "train_moe", "fused_clip_grad": "train_layer",
+            "flash_attention": "prefill", "wkv6": "prefill_rwkv"}
+# the serving paths: arch, shapes, and the kernel each prefill launches once
+# a layer
+SERVING = {"prefill": dict(arch="qwen2-1.5b", batch=4, seq=4096,
+                           kernel="flash_attention"),
+           "prefill_rwkv": dict(arch="rwkv6-3b", batch=4, seq=4096,
+                                kernel="wkv6"),
+           "serve": dict(arch="qwen2-1.5b", batch=4, prompt=16, gen=16),
+           "serve_rwkv": dict(arch="rwkv6-3b", batch=4, prompt=16, gen=16),
+           "parity_prefill": dict(arch="qwen2-1.5b", batch=2, seq=100,
+                                  kernel="flash_attention"),
+           "parity_prefill_rwkv": dict(arch="rwkv6-3b", batch=2, seq=100,
+                                       kernel="wkv6")}
 # train paths that share one model, seed and batch (so one set of records)
 PATH_GROUPS = (("train", "train_layer"), ("train_moe", "train_moe_direct"),
                ("train_long", "train_tape"))
@@ -161,10 +205,12 @@ def wrappers():
     from repro_torch.kernels import clipped_grad as cg
     from repro_torch.kernels import emb_grad as eg
     from repro_torch.kernels import emb_norm as en
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_clip as fc
     from repro_torch.kernels import ghost_norm as gn
     from repro_torch.kernels import grad_norm_direct as gd
     from repro_torch.kernels import moe_ghost as mg
+    from repro_torch.kernels import wkv6 as wk
     return {"ghost_norm": gn.ghost_norm, "clipped_grad": cg.clipped_grad,
             "emb_ghost_norm": en.emb_ghost_norm,
             "emb_clipped_grad": eg.emb_clipped_grad,
@@ -172,7 +218,8 @@ def wrappers():
             "moe_ghost_norm": mg.moe_ghost_norm,
             "moe_direct_norm": mg.moe_direct_norm,
             "moe_clipped_grad": mg.moe_clipped_grad,
-            "fused_clip_grad": fc.fused_clip_grad}
+            "fused_clip_grad": fc.fused_clip_grad,
+            "flash_attention": fa.flash_attention, "wkv6": wk.wkv6}
 
 
 def train_config(name):
@@ -339,15 +386,20 @@ def phase_kernels():
     from repro_torch.core.tape import parse_key
     from repro_torch.kernels import clipped_grad as cg
     from repro_torch.kernels import emb_grad as eg
+    from repro_torch.configs.registry import get_config
     from repro_torch.core.clipping import get_clip_fn
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import emb_norm as en
     from repro_torch.kernels import fused_clip as fc
     from repro_torch.kernels import ghost_norm as gn
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grad_norm_direct as gd
     from repro_torch.kernels import moe_ghost as mg
+    from repro_torch.kernels import wkv6 as wk
 
     dev = torch.device("cuda")
+    # the f32 plain versions' products in full f32 (PyTorch's default)
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     summary = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
@@ -652,6 +704,78 @@ def phase_kernels():
     emb_case("ragged L=3 B=3 T=509 d=37 V=1001 f32", ids, 37, 1001,
              torch.float32, dict.fromkeys(("emb_ghost_norm",
                                            "emb_clipped_grad"), "ragged"))
+
+    # ---- the serving kernels: each run twice (bitwise), against its plain
+    # version, timed beside it and (flash) beside one SDPA call
+    def repeat_case(name, path, case, fn, plain, args, tol, nbytes, ops,
+                    dname, library=None):
+        got, again = fn(*args), fn(*args)
+        want = plain(*args)
+        r, w = reps(path, name)
+        ms_k = cuda_ms(lambda: fn(*args), r, w)
+        ms_p = cuda_ms(lambda: plain(*args), 2, 1)
+        ms_lib = cuda_ms(library, r, w) if library else None
+        record(name, path, case, got, want, tol, ms_k, ms_p, nbytes, ops,
+               dname, ms_lib, again)
+        del got, again, want
+        torch.cuda.empty_cache()
+
+    def flash_case(path, B, T, S, H, K, h, causal, dtype):
+        dname = str(dtype).split(".")[-1]
+        q, k, v = rnd(B, T, H, h, dtype=dtype), rnd(B, S, K, h, dtype=dtype), \
+            rnd(B, S, K, h, dtype=dtype)
+        # the (t, s) pairs this run computes: s <= t (causal) or all
+        pairs = sum(min(t + 1, S) for t in range(T)) if causal else T * S
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        repeat_case(
+            "flash_attention", path,
+            f"{path} B={B} T={T} S={S} H={H} K={K} h={h} "
+            f"{'causal' if causal else 'bidirectional'} {dname[:4]}",
+            fa.flash_attention, fa.plain, (q, k, v, causal),
+            FLASH_TOL[dname],
+            (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+            4.0 * B * H * h * pairs, dname,
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
+        del q, k, v, qt, kt, vt
+
+    def wkv_case(path, case, B, T, H, h, dtype, tol, decay=None):
+        """r, k, v standard normal, w uniform in [0.5, 0.999] (or the
+        constant ``decay``), u normal * 0.5 (f32, as the wrapper hands it
+        to the kernel)."""
+        dname = str(dtype).split(".")[-1]
+        r_, k_, v_ = (rnd(B, T, H, h, dtype=dtype) for _ in range(3))
+        w = (torch.rand(B, T, H, h, generator=gen, device=dev) * 0.499 + 0.5
+             if decay is None else torch.full((B, T, H, h), decay,
+                                              device=dev)).to(dtype)
+        u = torch.randn(H, h, generator=gen, device=dev) * 0.5
+        n = B * T * H * h
+        repeat_case("wkv6", path, f"{path} {case} B={B} T={T} H={H} h={h} "
+                    f"{dname[:4]}", wk.wkv6, wk.plain, (r_, k_, v_, w, u), tol,
+                    4 * n * r_.element_size() + u.numel() * 4 + n * 4,
+                    B * T * H * (5.0 * h * h + 5.0 * h), dname)
+        del r_, k_, v_, w, u
+
+    fp = SERVING["prefill"]
+    q_cfg = get_config(fp["arch"])
+    flash_case("prefill", fp["batch"], fp["seq"], fp["seq"], q_cfg.n_heads,
+               q_cfg.n_kv_heads, q_cfg.hd, True, torch.bfloat16)
+    rp = SERVING["prefill_rwkv"]
+    r_cfg = get_config(rp["arch"])
+    wkv_case("prefill_rwkv", "w~U[0.5,0.999]", rp["batch"], rp["seq"],
+             r_cfg.d_model // r_cfg.hd, r_cfg.hd, torch.bfloat16,
+             WKV_LONG_TOL)
+    for h in (16, 64, 128):
+        for H in (2, 12):                       # G = 1 and 6 over K = 2
+            for causal in (True, False):
+                flash_case("ragged", 2, 509, 509, H, 2, h, causal,
+                           torch.float32)
+    for h in (16, 64):
+        wkv_case("ragged", "w~U[0.5,0.999]", 3, 509, 3, h, torch.float32,
+                 WKV_TOL)
+    for decay in (0.1, 0.01):               # where the chunked forms fail
+        wkv_case("ragged", f"strong decay w={decay}", 1, 64, 2, 64,
+                 torch.float32, WKV_TOL, decay)
     return summary
 
 
@@ -666,7 +790,8 @@ def _profile_summary(prof, window_ms: float) -> dict:
     ours = tuple(f"{k}_kernel" for k in (
         "ghost_norm", "clipped_grad", "emb_norm", "emb_grad", "reduce_rows",
         "grad_norm_direct", "moe_ghost_norm", "moe_direct_norm",
-        "moe_clipped_grad", "fused_clip_tile", "fused_clip_apply"))
+        "moe_clipped_grad", "fused_clip_tile", "fused_clip_apply",
+        "flash_attention", "wkv6"))
     kinds = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
     for name, ms in by_name.items():
         low = name.lower()
@@ -747,6 +872,166 @@ def phase_train(name):
                 raise AssertionError(f"{name} step {s['step']}: {k} launched "
                                      f"{n} times, want {run['per_step'][k]}")
     return totals
+
+
+def _serving_model(name, layers=0, dtype=""):
+    """-> (cfg, model, params on the card from seed 0) of a serving path,
+    cut to ``layers`` and cast to ``dtype`` where given."""
+    from repro_torch.configs.registry import build, get_config
+    cfg = get_config(SERVING[name]["arch"])
+    if layers:
+        cfg = cfg.with_(n_layers=layers)
+    if dtype:
+        cfg = cfg.with_(param_dtype=dtype)
+    model = build(cfg)
+    return cfg, model, model.init(0, "cuda")
+
+
+def _tokens(vocab, B, T):
+    """(B, T) int32 tokens on the card, from seed 1."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    return torch.randint(0, vocab, (B, T), generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def phase_prefill(name):
+    """Three prefills of a full model through ``model.prefill`` (warm-up,
+    timed, profiled) -> launch totals. Each prefill launches its kernel
+    once a layer and no other kernel."""
+    import torch
+    run = SERVING[name]
+    cfg, model, params = _serving_model(name)
+    B, T = run["batch"], run["seq"]
+    tokens = _tokens(cfg.vocab, B, T)
+    ws = wrappers()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in ws.values():             # counts from here on are the path's
+        w.launches = 0
+    seconds, per_call = [], []
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    for i in range(3):
+        before = {k: w.launches for k, w in ws.items()}
+        if i == 2:
+            prof.start()
+        t0 = time.perf_counter()
+        logits = model.prefill(params, tokens)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if i == 2:
+            prof.stop()
+        per_call.append({k: w.launches - before[k] for k, w in ws.items()})
+    totals = {k: w.launches for k, w in ws.items()}
+    peak = torch.cuda.max_memory_allocated()
+    emit(phase=name, arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.param_dtype,
+         batch=B, seq=T, prefill_seconds=seconds,
+         tokens_per_s=B * T / seconds[1], max_memory_allocated=peak,
+         launches_per_prefill={k: n for k, n in per_call[-1].items() if n},
+         logits_shape=list(logits.shape))
+    emit(phase=f"{name}_profile", call=2,
+         **_profile_summary(prof, seconds[2] * 1e3))
+    if tuple(logits.shape) != (B, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name}: logits {tuple(logits.shape)} are not "
+                             f"finite (B, vocab) = {(B, cfg.vocab)}")
+    want = _per_step(**{run["kernel"]: cfg.n_layers})
+    for i, got in enumerate(per_call):
+        if got != want:
+            raise AssertionError(f"{name} prefill {i}: launches {got}, want "
+                                 f"{want}")
+    del params, logits
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_serve(name):
+    """``launch.serve.generate`` of a full model, twice (the second timed):
+    B prompts teacher-forced through decode_step, then greedy tokens."""
+    import torch
+    from repro_torch.launch.serve import generate
+    run = SERVING[name]
+    cfg, model, params = _serving_model(name)
+    B, Tp, gen_len = run["batch"], run["prompt"], run["gen"]
+    prompts = _tokens(cfg.vocab, B, Tp)
+    ws = wrappers()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in ws.values():
+        w.launches = 0
+    seconds = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = generate(model, params, prompts, gen_len)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    steps = Tp + gen_len
+    emit(phase=name, arch=cfg.name, layers=cfg.n_layers, dtype=cfg.param_dtype,
+         batch=B, prompt=Tp, gen=gen_len, generate_seconds=seconds,
+         decode_ms_per_token=seconds[1] / steps * 1e3,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches={k: w.launches for k, w in ws.items() if w.launches},
+         sample=out[0].tolist())
+    if tuple(out.shape) != (B, steps) or not torch.equal(out[:, :Tp],
+                                                         prompts):
+        raise AssertionError(f"{name}: tokens {tuple(out.shape)} do not "
+                             "continue the prompts")
+    if int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        raise AssertionError(f"{name}: tokens outside [0, {cfg.vocab})")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_serve_parity(name):
+    """A 2-layer, full-width, f32 model: the prefill on the card (kernels)
+    against the same params' prefill on the CPU (plain versions); and the
+    teacher-forced decode's logits at the last prompt position against the
+    card's prefill (the gate of ``generate``)."""
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.utils.tree import flatten, unflatten
+    run = SERVING[name]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, model, params = _serving_model(name, layers=2, dtype="float32")
+    tokens = _tokens(cfg.vocab, run["batch"], run["seq"])
+    ws = wrappers()
+    before = {k: w.launches for k, w in ws.items()}
+    got = model.prefill(params, tokens)
+    torch.cuda.synchronize()
+    launched = {k: w.launches - before[k] for k, w in ws.items()}
+    cpu = unflatten({k: v.cpu() for k, v in flatten(params).items()})
+    before = {k: w.launches for k, w in ws.items()}
+    want = model.prefill(cpu, tokens.cpu())
+    _, steps = generate(model, params, tokens, 0, return_logits=True)
+    torch.cuda.synchronize()
+    plain_launched = {k: w.launches - before[k] for k, w in ws.items()
+                      if w.launches > before[k]}
+    tol = TOL["float32"]
+    cmp_cpu = compare(got.cpu(), want, tol)
+    cmp_dec = compare(steps[:, -1], got, tol)
+    emit(phase=name, arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab, dtype="float32",
+         batch=run["batch"], seq=run["seq"],
+         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         prefill_vs_cpu=cmp_cpu, decode_vs_prefill=cmp_dec,
+         launched={k: n for k, n in launched.items() if n},
+         launched_cpu_and_decode=plain_launched)
+    if not (cmp_cpu["ok"] and cmp_dec["ok"]):
+        raise AssertionError(f"{name}: card prefill vs CPU {cmp_cpu}, decode "
+                             f"vs prefill {cmp_dec}")
+    if launched != _per_step(**{run["kernel"]: cfg.n_layers}) or \
+            plain_launched:
+        raise AssertionError(f"{name}: launches {launched} in the card "
+                             f"prefill, {plain_launched} on the CPU and in "
+                             f"decode; want {run['kernel']} x "
+                             f"{cfg.n_layers} and none")
+    del params, cpu, steps
+    torch.cuda.empty_cache()
 
 
 # one BK step with and without the kernels: (path, layers, mode, expected
@@ -853,13 +1138,20 @@ def main(argv=None) -> int:
         phase_build()
     summary = phase_kernels() if "kernels" in phases else None
     launches = {}
-    for name in TRAINS:
+    for name in TRAINS + PREFILLS:
         if name in phases:
-            for k, n in phase_train(name).items():
+            run = phase_train if name in TRAINS else phase_prefill
+            for k, n in run(name).items():
                 launches[k] = launches.get(k, 0) + n
+    for name in SERVES:
+        if name in phases:
+            phase_serve(name)
     for name in PARITIES:
         if name in phases:
             phase_parity(name)
+    for name in SERVE_PARITIES:
+        if name in phases:
+            phase_serve_parity(name)
     if summary is not None:
         kernels = []
         for name, s in summary.items():
@@ -878,11 +1170,11 @@ def main(argv=None) -> int:
                 **({"composed_ms": s["composed_ms"]}
                    if "composed_ms" in s else {})})
         emit(kernels=kernels)
-        if all(p in phases for p in TRAINS):
+        if all(p in phases for p in TRAINS + PREFILLS):
             idle = [k["name"] for k in kernels if not k["launches"]]
             if idle:
                 raise AssertionError(f"kernels never launched on the train "
-                                     f"paths: {idle}")
+                                     f"and prefill paths: {idle}")
     emit(phase="done", seconds=time.perf_counter() - t0)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

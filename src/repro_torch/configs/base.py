@@ -1,9 +1,10 @@
 """Model / training configuration dataclasses (the subset the port runs).
 
 Field names and defaults follow ``repro.configs.base`` so a config reads the
-same in both packages. The port's block is the qwen2 / llama block (RMSNorm,
-SwiGLU, rope, GQA), with a DeepSeekMoE feed-forward in the ``moe`` family;
-activations follow ``param_dtype``."""
+same in both packages. The port's transformer block is the qwen2 / llama
+block (RMSNorm, SwiGLU, rope, GQA), with a DeepSeekMoE feed-forward in the
+``moe`` family; the ``ssm`` family is RWKV6 (``models.rwkv6``, layernorm
+and its squared-ReLU channel mix). Activations follow ``param_dtype``."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -12,7 +13,7 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"        # dense | moe
+    family: str = "dense"        # dense | moe | ssm
     n_layers: int = 2
     d_model: int = 64
     n_heads: int = 4
@@ -21,6 +22,8 @@ class ModelConfig:
     vocab: int = 256
     head_dim: int = 0            # 0 -> d_model // n_heads
     qkv_bias: bool = False
+    norm: str = "rmsnorm"        # rmsnorm (transformer) | layernorm (rwkv6)
+    act: str = "swiglu"          # swiglu (transformer) | relu_sq (rwkv6)
     rope_theta: float = 10000.0
     attn_chunk: int = 0          # q-chunked attention block (0 = full)
     param_dtype: str = "float32"
@@ -33,6 +36,9 @@ class ModelConfig:
     first_k_dense: int = 0       # leading dense-FFN layers (DeepSeekMoE style)
     capacity_factor: float = 2.0
     renorm_topk: bool = True
+
+    # SSM
+    ssm_chunk: int = 32          # wkv chunked-scan length (CPU route)
 
     @property
     def hd(self) -> int:

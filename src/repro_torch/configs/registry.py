@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, plus named
-PrivacyPolicy presets. The port registers qwen2-1.5b (dense) and
-deepseek-moe-16b (moe)."""
+PrivacyPolicy presets. The port registers qwen2-1.5b (dense),
+deepseek-moe-16b (moe) and rwkv6-3b (ssm)."""
 from __future__ import annotations
 
 import dataclasses
@@ -61,6 +61,9 @@ def build(cfg: ModelConfig):
     if cfg.family in ("dense", "moe"):
         from repro_torch.models.transformer import TransformerLM
         return TransformerLM(cfg)
+    if cfg.family == "ssm":
+        from repro_torch.models.rwkv6 import Rwkv6LM
+        return Rwkv6LM(cfg)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 9)")
 
@@ -74,9 +77,11 @@ def smoke_config(name: str) -> ModelConfig:
         kw.update(n_experts=4, top_k=2, moe_d_ff=16,
                   first_k_dense=min(1, cfg.first_k_dense),
                   n_shared=min(1, cfg.n_shared))
+    if cfg.family == "ssm":
+        kw.update(d_model=128, n_heads=2, head_dim=64)  # rwkv head size 64
     return cfg.with_(**kw)
 
 
 # import arch modules so registration runs
-for _m in ("qwen2_1_5b", "deepseek_moe_16b"):
+for _m in ("qwen2_1_5b", "deepseek_moe_16b", "rwkv6_3b"):
     importlib.import_module(f"repro_torch.configs.{_m}")

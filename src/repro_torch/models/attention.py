@@ -1,6 +1,7 @@
 """Attention math (param-free; projections live in the blocks).
 
-GQA, the causal mask and q-chunking, in plain PyTorch ops. The
+GQA, the causal mask and q-chunking, in plain PyTorch ops, and one-step
+decode against a KV cache. The
 softmax statistics are float32 and masked with NEG_INF = -1e30 (not -inf),
 as the JAX package's ``_attend`` has them; the normalized probabilities are
 cast back to the model dtype before the PV product.
@@ -48,3 +49,22 @@ def multihead_attention(q, k, v, *, chunk=0):
         return torch.cat(outs, dim=1).reshape(B, T, H, h)
 
     return _attend(qg, k, v, _mask(q_pos, k_pos)).reshape(B, T, H, h)
+
+
+def decode_attention(q, k_cache, v_cache, pos: int):
+    """One-step decode. q (B,1,H,h); caches (B,S,K,h); ``pos`` the index of
+    the current token (cache[pos] holds its k/v) -> (B,1,H,h)."""
+    B, _, H, h = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    valid = torch.arange(S, device=q.device)[None, :] <= pos     # (1, S)
+    return _attend(q.reshape(B, 1, K, H // K, h), k_cache, v_cache,
+                   valid).reshape(B, 1, H, h)
+
+
+def update_cache(cache_k, cache_v, k_new, v_new, pos: int):
+    """Write k/v (B,1,K,h) at index ``pos`` of the caches (B,S,K,h), in
+    place (the JAX package's functional update gives the same values).
+    -> the caches."""
+    cache_k[:, pos:pos + 1] = k_new.to(cache_k.dtype)
+    cache_v[:, pos:pos + 1] = v_new.to(cache_v.dtype)
+    return cache_k, cache_v

@@ -82,6 +82,20 @@ def rmsnorm(p, x, eps: float = 1e-6):
     return (nrm * align(p["g"], x).to(F32)).to(x.dtype)
 
 
+def layernorm_init(gen, d, dtype, layers=()):
+    return {"g": ones_init(gen, (*layers, d), dtype),
+            "b": zeros_init(gen, (*layers, d), dtype)}
+
+
+def layernorm(p, x, eps: float = 1e-5):
+    x32 = x.to(F32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    nrm = (x32 - mu) * torch.rsqrt(var + eps)
+    return (nrm * align(p["g"], x).to(F32)
+            + align(p["b"], x).to(F32)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------- rope
 def rope_freqs(head_dim: int, max_T: int, theta: float, device):
     inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=F32,
@@ -91,10 +105,13 @@ def rope_freqs(head_dim: int, max_T: int, theta: float, device):
     return torch.cos(freqs), torch.sin(freqs)
 
 
-def apply_rope(x, cos, sin):
-    """x (B, T, H, hd); cos/sin (maxT, hd/2)."""
-    T = x.shape[1]
-    cos, sin = cos[None, :T, None, :], sin[None, :T, None, :]
+def apply_rope(x, cos, sin, positions=None):
+    """x (B, T, H, hd); cos/sin (maxT, hd/2); positions (B, T) optional."""
+    if positions is not None:
+        cos, sin = cos[positions][:, :, None, :], sin[positions][:, :, None, :]
+    else:
+        T = x.shape[1]
+        cos, sin = cos[None, :T, None, :], sin[None, :T, None, :]
     x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

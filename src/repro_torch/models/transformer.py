@@ -6,6 +6,11 @@ params are stacked (L, ...) under ``blocks`` as in the JAX package; its
 tape stacks the records to (L, B, T, .) under ``.s`` keys. The MoE family's
 ``first_k_dense`` leading dense layers are unstacked, at ``dense0_{i}``.
 Rematerialization (the JAX config's ``remat``) is not ported.
+
+Serving: ``prefill`` runs the trunk with its attention through the
+``flash_attention`` kernel (training's ``apply`` keeps
+``multihead_attention``, as in the JAX package); ``decode_step`` runs one
+token against the KV cache of ``init_cache``, which it updates in place.
 """
 from __future__ import annotations
 
@@ -15,9 +20,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tape import Tape
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
-from repro_torch.models.attention import multihead_attention
+from repro_torch.models.attention import (decode_attention,
+                                          multihead_attention, update_cache)
 
 
 # ------------------------------------------------------------------ attention
@@ -28,16 +35,41 @@ def attn_init(gen, cfg: ModelConfig, dt, layers=()):
             "o": L.linear_init(gen, H * h, d, dt, layers=layers)}
 
 
-def attn_apply(p, tape, x, cfg: ModelConfig, cos, sin):
+def _qkv(p, tape, x, cfg: ModelConfig, cos, sin, positions=None):
     B, T = x.shape[0], x.shape[1]
     H, K, h = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     qkv = L.linear(tape, "qkv", p["qkv"], x)
     q, k, v = torch.split(qkv, [H * h, K * h, K * h], dim=-1)
-    q = L.apply_rope(q.reshape(B, T, H, h), cos, sin)
-    k = L.apply_rope(k.reshape(B, T, K, h), cos, sin)
-    out = multihead_attention(q, k, v.reshape(B, T, K, h),
-                              chunk=cfg.attn_chunk)
+    q = L.apply_rope(q.reshape(B, T, H, h), cos, sin, positions)
+    k = L.apply_rope(k.reshape(B, T, K, h), cos, sin, positions)
+    return q, k, v.reshape(B, T, K, h)
+
+
+def _flash(q, k, v):
+    """Prefill's attention: the causal flash_attention kernel."""
+    return flash_attention(q, k, v.contiguous())
+
+
+def attn_apply(p, tape, x, cfg: ModelConfig, cos, sin, attend=None):
+    """``attend(q, k, v)``: the attention (None: training's
+    ``multihead_attention``)."""
+    B, T = x.shape[0], x.shape[1]
+    q, k, v = _qkv(p, tape, x, cfg, cos, sin)
+    out = (multihead_attention(q, k, v, chunk=cfg.attn_chunk)
+           if attend is None else attend(q, k, v))
     return L.linear(tape, "o", p["o"], out.reshape(B, T, -1))
+
+
+def attn_decode(p, tape, x, cfg: ModelConfig, cos, sin, cache, pos: int):
+    """x (B,1,d); cache {'k','v'} (B,S,K,h), written in place at ``pos``.
+    -> out, cache."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q, k, v = _qkv(p, tape, x, cfg, cos, sin, positions)
+    ck, cv = update_cache(cache["k"], cache["v"], k, v, pos)
+    out = decode_attention(q, ck, cv, pos)
+    return (L.linear(tape, "o", p["o"], out.reshape(B, 1, -1)),
+            {"k": ck, "v": cv})
 
 
 # ------------------------------------------------------------------------ mlp
@@ -61,15 +93,27 @@ def dense_block_init(gen, cfg: ModelConfig, dt, layers=(), use_moe=False):
                     else mlp_init(gen, cfg, dt, layers))}
 
 
-def dense_block_apply(p, tape, x, cfg: ModelConfig, cos, sin, use_moe=False):
+def _ffn(p, tape, h, cfg: ModelConfig, use_moe):
+    return M.moe_apply(p, tape, h, cfg) if use_moe else mlp_apply(p, tape, h)
+
+
+def dense_block_apply(p, tape, x, cfg: ModelConfig, cos, sin, use_moe=False,
+                      attend=None):
     with tape.scope("attn"):
         x = x + attn_apply(p["attn"], tape, L.rmsnorm(p["ln1"], x), cfg, cos,
-                           sin)
+                           sin, attend)
     with tape.scope("mlp"):
-        h = L.rmsnorm(p["ln2"], x)
-        x = x + (M.moe_apply(p["mlp"], tape, h, cfg) if use_moe
-                 else mlp_apply(p["mlp"], tape, h))
+        x = x + _ffn(p["mlp"], tape, L.rmsnorm(p["ln2"], x), cfg, use_moe)
     return x
+
+
+def dense_block_decode(p, tape, x, cfg: ModelConfig, cos, sin, cache,
+                       pos: int, use_moe=False):
+    a, cache = attn_decode(p["attn"], tape, L.rmsnorm(p["ln1"], x), cfg, cos,
+                           sin, cache, pos)
+    x = x + a
+    return x + _ffn(p["mlp"], tape, L.rmsnorm(p["ln2"], x), cfg,
+                    use_moe), cache
 
 
 # ------------------------------------------------------------------ LM model
@@ -77,6 +121,10 @@ class TransformerLM:
     """Decoder-only LM (dense and moe families)."""
 
     def __init__(self, cfg: ModelConfig):
+        if (cfg.norm, cfg.act) != ("rmsnorm", "swiglu"):
+            raise NotImplementedError(
+                f"the port's transformer block is RMSNorm + SwiGLU, got "
+                f"norm={cfg.norm!r} act={cfg.act!r}")
         self.cfg = cfg
         self.use_moe = cfg.family == "moe"
 
@@ -101,18 +149,18 @@ class TransformerLM:
             use_moe=self.use_moe)
         return params
 
-    def _trunk(self, params, tape: Tape, x):
+    def _trunk(self, params, tape: Tape, x, attend=None):
         cfg = self.cfg
         cos, sin = L.rope_freqs(cfg.hd, x.shape[1], cfg.rope_theta, x.device)
         for i in range(cfg.first_k_dense):
             with tape.scope(f"dense0_{i}"):
                 x = dense_block_apply(params[f"dense0_{i}"], tape, x, cfg,
-                                      cos, sin)
+                                      cos, sin, attend=attend)
         with tape.stacked("blocks"):
             for l in range(cfg.n_layers - cfg.first_k_dense):
                 p_l = tape.layer_params("blocks", params["blocks"], l)
                 x = dense_block_apply(p_l, tape, x, cfg, cos, sin,
-                                      use_moe=self.use_moe)
+                                      use_moe=self.use_moe, attend=attend)
         return L.rmsnorm(params["final_norm"], x)
 
     def apply(self, params, batch, tape: Tape):
@@ -125,3 +173,52 @@ class TransformerLM:
         mask = batch.get("mask")
         mask = mask[:, 1:] if mask is not None else None
         return L.lm_per_sample_loss(logits[:, :-1], labels, mask)
+
+    # --------------------------------------------------------------- serving
+    @torch.no_grad()
+    def prefill(self, params, tokens):
+        """Serving prefill: tokens (B,T) -> last-position logits (B,V), the
+        attention through the flash_attention kernel."""
+        tape = Tape.null()
+        x = L.embedding(tape, "embed", params["embed"], tokens)
+        x = self._trunk(params, tape, x, attend=_flash)
+        return L.linear(tape, "head", params["head"], x[:, -1:, :])[:, 0]
+
+    def init_cache(self, B, S, dtype=None, device="cuda"):
+        """Zero KV caches for S positions: {'blocks': {'k','v'}
+        (L,B,S,K,h)} and {'k','v'} (B,S,K,h) per unstacked dense layer."""
+        cfg = self.cfg
+        dt = getattr(torch, dtype or cfg.param_dtype)
+
+        def kv(*lead):
+            return {n: torch.zeros(*lead, B, S, cfg.n_kv_heads, cfg.hd,
+                                   dtype=dt, device=device)
+                    for n in ("k", "v")}
+
+        cache = {"blocks": kv(cfg.n_layers - cfg.first_k_dense)}
+        for i in range(cfg.first_k_dense):
+            cache[f"dense0_{i}"] = kv()
+        return cache
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, tokens, pos: int):
+        """tokens (B,) int; ``pos`` the index being written. -> logits
+        (B,V), the cache (updated in place)."""
+        cfg = self.cfg
+        tape = Tape.null()
+        blocks = cache["blocks"]
+        cos, sin = L.rope_freqs(cfg.hd, blocks["k"].shape[2], cfg.rope_theta,
+                                tokens.device)
+        x = L.embedding(tape, "embed", params["embed"], tokens[:, None])
+        for i in range(cfg.first_k_dense):
+            name = f"dense0_{i}"
+            x, cache[name] = dense_block_decode(params[name], tape, x, cfg,
+                                                cos, sin, cache[name], pos)
+        for l in range(cfg.n_layers - cfg.first_k_dense):
+            p_l = tape.layer_params("blocks", params["blocks"], l)
+            x, _ = dense_block_decode(p_l, tape, x, cfg, cos, sin,
+                                      {"k": blocks["k"][l],
+                                       "v": blocks["v"][l]}, pos,
+                                      use_moe=self.use_moe)
+        x = L.rmsnorm(params["final_norm"], x)
+        return L.linear(tape, "head", params["head"], x)[:, 0], cache

@@ -11,17 +11,22 @@ import pytest
 import torch
 
 from repro.kernels import ops
+from repro.kernels import ref
+from repro.models.rwkv6 import wkv6_chunked as jwkv6_chunked
 from repro_torch.core import bk as tbk
 from repro_torch.core import ghost
 from repro_torch.core.policy import ParamGroup, PrivacyPolicy, resolve_policy
 from repro_torch.kernels.clipped_grad import clipped_grad
 from repro_torch.kernels.emb_grad import emb_clipped_grad
 from repro_torch.kernels.emb_norm import emb_ghost_norm
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_clip import fused_clip_grad
 from repro_torch.kernels.ghost_norm import ghost_norm
 from repro_torch.kernels.grad_norm_direct import grad_norm_direct
 from repro_torch.kernels.moe_ghost import (moe_clipped_grad, moe_direct_norm,
                                            moe_ghost_norm)
+from repro_torch.kernels.wkv6 import wkv6
+from repro_torch.models.rwkv6 import wkv6_chunked
 
 TOL = dict(rtol=1e-3, atol=1e-4)        # tests/test_kernel_parity.py:15
 TOL_BF16 = dict(rtol=5e-2, atol=2e-2)   # tests/test_kernel_parity.py:18
@@ -31,6 +36,13 @@ EMB_SHAPES = [(1, 2, 9, 6, 11), (2, 3, 33, 16, 50), (3, 2, 50, 24, 37)]
 MOE_SHAPES = [(1, 2, 3, 5, 12, 20), (2, 2, 4, 7, 9, 13),
               (2, 3, 2, 16, 24, 8)]     # tests/test_kernel_parity.py:140
 DTYPES = ["float32", "bfloat16"]
+FLASH_SHAPES = [(1, 64, 64, 4, 2, 16),
+                (2, 128, 128, 4, 4, 32)]   # tests/test_kernels.py:68-69
+FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+             "bfloat16": dict(rtol=3e-2, atol=3e-2)}  # test_kernels.py:78
+WKV_SHAPES = [(1, 16, 2, 8), (2, 50, 3, 16),
+              (1, 64, 2, 64)]              # tests/test_kernels.py:82
+WKV_TOL = dict(rtol=2e-4, atol=2e-4)      # tests/test_kernels.py:93
 
 
 def _np(shape, dtype, seed):
@@ -200,6 +212,9 @@ def _meta(*shape, dtype=torch.float32):
                             _meta(2, 3, 4, 6)),
     lambda: moe_clipped_grad(_meta(2, 3, 4, 5), _meta(2, 3, 4), _meta(2),
                              _meta(2, 3, 4, 6)),
+    lambda: flash_attention(_meta(2, 3, 4, 8), _meta(2, 3, 2, 8),
+                            _meta(2, 3, 2, 8)),
+    lambda: wkv6(*(_meta(2, 3, 4, 8),) * 4, _meta(4, 8)),
 ])
 def test_wrappers_take_the_plain_version_only_on_cpu(call):
     """A tensor that is not on the CPU never reaches the plain version: the
@@ -253,3 +268,78 @@ def test_unported_direct_norm_raises_off_cpu():
 def test_norm_route(kind, a_shape, ds_shape, mode, method, want):
     """The route record_sq_norm takes for a tap, at the train paths' shapes."""
     assert tbk.norm_route(kind, a_shape, ds_shape, mode, method) == want
+
+
+# ------------------------------------------------------- serving kernels
+def _flash_inputs(B, T, S, H, K, h, dtype):
+    return [_pair(_np(shape, dtype, i)) for i, shape in
+            enumerate(((B, T, H, h), (B, S, K, h), (B, S, K, h)))]
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+@pytest.mark.parametrize("B,T,S,H,K,h", FLASH_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_matches_pallas(B, T, S, H, K, h, causal, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _flash_inputs(B, T, S, H, K, h, dtype)
+    got = flash_attention(tq, tk, tv, causal=causal)
+    assert got.shape == (B, T, H, h) and got.dtype == tq.dtype
+    for want in (ops.flash_attention(jq, jk, jv, causal=causal, block_q=32,
+                                     block_k=32),
+                 ref.flash_attention_ref(jq, jk, jv, causal=causal)):
+        np.testing.assert_allclose(_f32(got), _f32(want), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("B,T,S,H,K,h", [(2, 37, 37, 6, 1, 24),
+                                         (1, 50, 61, 4, 2, 16),
+                                         (1, 61, 50, 6, 6, 8)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_ragged_matches_ref(B, T, S, H, K, h, causal):
+    """T, S not block multiples (the Pallas kernel asserts them; the port's
+    prefill takes any prompt length): against the JAX oracle."""
+    (jq, tq), (jk, tk), (jv, tv) = _flash_inputs(B, T, S, H, K, h, "float32")
+    np.testing.assert_allclose(
+        flash_attention(tq, tk, tv, causal=causal).numpy(),
+        np.asarray(ref.flash_attention_ref(jq, jk, jv, causal=causal)),
+        **FLASH_TOL["float32"])
+
+
+def _wkv_inputs(B, T, H, h, w=None):
+    """r, k, v standard normal, w uniform in [0.5, 0.999] (the JAX kernel
+    test's range) or the constant ``w``, u normal * 0.5 -> [(jax, torch)]."""
+    rng = np.random.default_rng(0)
+    x = [rng.standard_normal((B, T, H, h)).astype(np.float32)
+         for _ in range(3)]
+    x.append(rng.uniform(0.5, 0.999, (B, T, H, h)).astype(np.float32)
+             if w is None else np.full((B, T, H, h), w, np.float32))
+    x.append((rng.standard_normal((H, h)) * 0.5).astype(np.float32))
+    return [_pair(a) for a in x]
+
+
+@pytest.mark.parametrize("B,T,H,h", WKV_SHAPES)
+def test_wkv6_matches_pallas_and_the_chunked_forms(B, T, H, h):
+    pairs = _wkv_inputs(B, T, H, h)
+    j, t = [p[0] for p in pairs], [p[1] for p in pairs]
+    got = wkv6(*t)
+    assert got.shape == (B, T, H, h) and got.dtype == torch.float32
+    for want in (ref.wkv6_ref(*j), ops.wkv6(*j, chunk=16),
+                 jwkv6_chunked(*j, chunk=32)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **WKV_TOL)
+    # the port's chunked form is the JAX package's, step for step
+    np.testing.assert_allclose(wkv6_chunked(*t, chunk=16).numpy(),
+                               np.asarray(jwkv6_chunked(*j, chunk=16)),
+                               **WKV_TOL)
+
+
+@pytest.mark.parametrize("w", [0.1, 0.01])
+def test_wkv6_strong_decay_matches_the_recurrence(w):
+    """Constant strong decay, where the chunked forms' k / P underflows f32:
+    the port's wkv6 is the recurrence (JAX's ``wkv6_ref``)."""
+    pairs = _wkv_inputs(1, 64, 2, 64, w=w)
+    j, t = [p[0] for p in pairs], [p[1] for p in pairs]
+    np.testing.assert_allclose(wkv6(*t).numpy(), np.asarray(ref.wkv6_ref(*j)),
+                               **WKV_TOL)
