@@ -7,7 +7,10 @@
 Phases, each printing JSON lines:
 
   card      the card's name and power limit (nvidia-smi), torch and CUDA
-  build     compile the kernel library from ``src/repro_torch/kernels/csrc``
+  build     compile the kernel library from ``src/repro_torch/kernels/csrc``;
+            each tensor-core kernel's registers, shared memory and spills
+            (ptxas), and its HGMMA and UTMALDG instructions counted in the
+            library's SASS (cuobjdump; none is a failure)
   kernels   each of the eleven kernels against its plain PyTorch version on
             the card, at the shapes each train path below gives it (bf16;
             each tap routed as ``core.bk.plan_report`` says, MoE records and
@@ -18,7 +21,17 @@ Phases, each printing JSON lines:
             functions, w with a zero), flash_attention and wkv6 run twice
             must agree bitwise; kernel, plain and one-call library times
             with CUDA events, and for fused_clip_grad the composed route it
-            replaces
+            replaces. clipped_grad and flash_attention take their wgmma
+            kernels on bf16 (``route``): there each is also held to its
+            SIMT kernel on the same inputs (clipped_grad at SIMT_GRAD_TOL,
+            flash at the bf16 tolerance) and to itself run twice (bitwise),
+            with the SIMT kernel timed beside it (simt_ms), at every train
+            path's / the prefill's shapes, at one tile, and at ragged bf16
+            shapes
+  wgmma     (not in the default run) the short call after a tensor-core
+            kernel edit: those checks at one tile, the ragged bf16 shapes
+            and one row shape of each (the head tap of ``train``, the
+            ``prefill`` attention), without building a model
   train             qwen2-1.5b, full (28 layers, bf16), B=8, T=512
   train_moe         deepseek-moe-16b at full width, 6 of its 28 layers
                     (dense0_0 + 5 MoE blocks), B=8, T=512
@@ -63,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -80,6 +94,7 @@ PARITIES = ("parity", "parity_moe", "parity_long", "parity_layer")
 SERVE_PARITIES = ("parity_prefill", "parity_prefill_rwkv")
 PHASES = (("card", "build", "kernels") + TRAINS + PREFILLS + SERVES
           + PARITIES + SERVE_PARITIES)
+EXTRA_PHASES = ("wgmma",)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s by type
 PEAK_BYTES = 3.35e12
@@ -90,6 +105,13 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 # same inputs and sum in f32, so one tight tolerance serves either dtype.
 TOL = {"float32": (1e-3, 1e-4), "bfloat16": (5e-2, 2e-2)}
 NORM_TOL = (1e-4, 1e-6)
+# clipped_grad's wgmma kernel against its SIMT kernel: TOL's f32 rtol, and
+# its atol in units of the output's RMS (at least 1). Both kernels sum the
+# same exact bf16 products in f32, in other orders; over B*T = 4096 terms
+# the outputs' RMS is ~40 and two f32 orders differ by up to ~1e-3 where an
+# entry cancels to near zero (cuBLAS's f32 einsum vs the SIMT kernel: 7.8e-4
+# at the head tap, PR 14's run), which a bare atol of 1e-4 cannot hold.
+SIMT_GRAD_TOL = (1e-3, 1e-4)
 # flash_attention: f32 as tests/test_kernels.py:78; bf16 as TOL (the output
 # is rounded to bf16 by both versions). wkv6: ragged as
 # tests/test_kernels.py:93; at T=4096 (bf16 inputs, f32 recurrence) 1e-3
@@ -104,7 +126,7 @@ KERNELS = ("ghost_norm", "clipped_grad", "emb_ghost_norm", "emb_clipped_grad",
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "ghost_norm": ("ghost_norm.cu", "ghost_norm.py:62"),
-    "clipped_grad": ("clipped_grad.cu", "clipped_grad.py:39"),
+    "clipped_grad": ("clipped_grad_wgmma.cu", "clipped_grad.py:39"),
     "emb_ghost_norm": ("emb_norm.cu", "emb_norm.py:50"),
     "emb_clipped_grad": ("emb_grad.cu", "emb_grad.py:50"),
     "grad_norm_direct": ("grad_norm_direct.cu", "grad_norm_direct.py:42"),
@@ -112,9 +134,13 @@ SOURCES = {
     "moe_direct_norm": ("moe_direct_norm.cu", "moe_ghost.py:98"),
     "moe_clipped_grad": ("moe_clipped_grad.cu", "moe_ghost.py:146"),
     "fused_clip_grad": ("fused_clip.cu", "fused_clip.py:56"),
-    "flash_attention": ("flash_attention.cu", "flash_attention.py:64"),
+    "flash_attention": ("flash_attention_wgmma.cu", "flash_attention.py:64"),
     "wkv6": ("wkv6.cu", "wkv6.py:76"),
 }
+# the tensor-core kernels: their SIMT kernels (f32 and unaligned inputs),
+# and their names in the SASS
+WGMMA = {"clipped_grad": ("clipped_grad.cu", "clipped_grad_wgmma_kernel"),
+         "flash_attention": ("flash_attention.cu", "flash_wgmma_kernel")}
 # no single PyTorch call computes these (say why in the summary)
 NO_LIBRARY = {
     "emb_ghost_norm": "no single call builds the id-equality mask and "
@@ -222,6 +248,38 @@ def wrappers():
             "flash_attention": fa.flash_attention, "wkv6": wk.wkv6}
 
 
+def reset_counts(ws):
+    """Every launch count to 0, the wgmma routes' counts too."""
+    for w in ws.values():
+        w.launches = 0
+        if hasattr(w, "wgmma_launches"):
+            w.wgmma_launches = 0
+
+
+def check_routes(name, ws, want_wgmma: bool):
+    """-> {kernel: wgmma launches}; raises unless every launch of each
+    tensor-core kernel took the wgmma route (``want_wgmma``: bf16 paths) or
+    none did (f32 paths: the SIMT route)."""
+    got = {k: ws[k].wgmma_launches for k in WGMMA}
+    for k in WGMMA:
+        want = ws[k].launches if want_wgmma else 0
+        if got[k] != want:
+            raise AssertionError(f"{name}: {got[k]} of {ws[k].launches} "
+                                 f"{k} launches took the wgmma route, want "
+                                 f"{want}")
+    return got
+
+
+def fresh_peak() -> int:
+    """Collect what earlier phases left for the garbage collector, reset the
+    peak-memory count -> the bytes still allocated (the count's floor)."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
 def train_config(name):
     """The TrainConfig a train path hands ``train``: its shapes, steps and
     the clipping-scope / tape flags of the CLI."""
@@ -311,6 +369,44 @@ def phase_card():
     return line
 
 
+def sass_counts(lib: str) -> dict:
+    """HGMMA and UTMALDG instructions in each tensor-core kernel's SASS
+    (``cuobjdump -sass`` of the built library: the toolkit's, else
+    Triton's copy)."""
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        import importlib.util
+        spec = importlib.util.find_spec("triton")
+        tool = (Path(spec.origin).parent / "backends" / "nvidia" / "bin"
+                / "cuobjdump") if spec else tool
+    out = subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts = {k: {"HGMMA": 0, "UTMALDG": 0} for k in WGMMA}
+    current = None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            current = next((k for k, (_, fn) in WGMMA.items() if fn in ln),
+                           None)
+        elif current:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[current][op] += f" {op}." in ln or f" {op} " in ln
+    return counts
+
+
+def ptxas_lines(report: str, source: str) -> list:
+    """The ptxas lines of one source: registers, shared memory, spills, and
+    any wgmma warning."""
+    lines, inside = [], False
+    for ln in report.splitlines():
+        if ln.startswith("=="):
+            inside = ln == f"== {source}"
+        elif inside and any(w in ln for w in ("registers", "spill",
+                                              "wgmma", "Warning")):
+            lines.append(ln.strip())
+    return lines
+
+
 def phase_build():
     from repro_torch.kernels import build
     info = build.build()
@@ -318,6 +414,16 @@ def phase_build():
             if "registers" in ln or "spill" in ln or ln.startswith("==")]
     emit(phase="build", seconds=info["seconds"], cached=info["cached"],
          library=str(Path(info["path"]).relative_to(ROOT)), ptxas=regs)
+    sass = sass_counts(info["path"])
+    emit(phase="build", tensor_core_kernels={
+        k: {"source": SOURCES[k][0],
+            "ptxas": ptxas_lines(info["ptxas"], SOURCES[k][0]), **sass[k]}
+        for k in WGMMA})
+    empty = [f"{k} {op}" for k, c in sass.items() for op, n in c.items()
+             if not n]
+    if empty:
+        raise AssertionError(f"no tensor-core / TMA instructions in the SASS "
+                             f"of: {empty}")
     build.load()
 
 
@@ -377,10 +483,11 @@ def _match_pairs(ids):
     return int(torch.tril(eq).sum())
 
 
-def phase_kernels():
+def phase_kernels(only_wgmma=False):
     """Each kernel vs its plain version on the card at the shapes each train
     path gives it, as the engine routes its taps -> per-kernel summary (from
-    each kernel's ROW_PATH)."""
+    each kernel's ROW_PATH). ``only_wgmma``: the tensor-core kernels' checks
+    alone, at one tile, the ragged bf16 shapes and one row shape each."""
     import torch
     from repro_torch.core import ghost
     from repro_torch.core.tape import parse_key
@@ -406,6 +513,8 @@ def phase_kernels():
                        max_abs_err=0.0, t_bytes=0.0, t_ops=0.0)
                for k in KERNELS}
     summary["fused_clip_grad"]["composed_ms"] = 0.0
+    for k in WGMMA:
+        summary[k]["simt_ms"] = 0.0
 
     def rnd(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -439,8 +548,9 @@ def phase_kernels():
             s["max_abs_err"] = max(s["max_abs_err"], cmp["max_abs_err"])
             if ms_lib is not None:
                 s["library_ms"] = (s["library_ms"] or 0.0) + ms_lib
-            if "composed_ms" in extra:
-                s["composed_ms"] += extra["composed_ms"]
+            for key in ("composed_ms", "simt_ms"):
+                if key in extra:
+                    s[key] += extra[key]
 
     def reps(path, name):
         return (10, 2) if path == ROW_PATH[name] else (3, 1)
@@ -488,6 +598,46 @@ def phase_kernels():
         record(name, path, case, got, want, TOL[dname], ms_k, ms_p, nbytes,
                ops, dname, ms_lib, **extra)
         del got, want
+
+    def simt_check(name, case, got, simt, tol):
+        """(b): the wgmma kernel against its SIMT kernel on the same inputs
+        at ``tol`` (SIMT_GRAD_TOL: its atol times the SIMT output's RMS)
+        -> the comparison's fields for the kernels line."""
+        if tol is SIMT_GRAD_TOL:
+            rms = float(torch.linalg.vector_norm(simt)) / simt.numel() ** 0.5
+            tol = (tol[0], tol[1] * max(1.0, rms))
+        cmp = compare(got, simt, tol)
+        if not cmp["ok"]:
+            raise AssertionError(f"{name} [{case}]: the wgmma kernel "
+                                 f"disagrees with the SIMT kernel: {cmp}")
+        return {"vs_simt_max_abs_err": cmp["max_abs_err"],
+                "vs_simt_max_rel_err": cmp["max_rel_err"],
+                "vs_simt_rtol": tol[0], "vs_simt_atol": tol[1]}
+
+    def wgmma_grad_case(path, case, a, C, ds, nbytes, ops, library):
+        """clipped_grad on its wgmma route: (a) against the plain version at
+        TOL, (b) against the SIMT kernel at SIMT_GRAD_TOL (both sum exact
+        bf16 products in f32, in other orders), (c) itself run twice,
+        bitwise; kernel, SIMT, plain and library times."""
+        if cg.route(a.dtype, a.shape[-1], ds.shape[-1]) != "wgmma":
+            raise AssertionError(f"clipped_grad [{case}]: not on the wgmma "
+                                 "route")
+        got, again = cg.clipped_grad(a, C, ds), cg.clipped_grad(a, C, ds)
+        simt = cg.clipped_grad(a, C, ds, kernel="simt")
+        extra = simt_check("clipped_grad", case, got, simt, SIMT_GRAD_TOL)
+        del simt
+        want = cg.plain(a, C, ds)
+        r = min(reps(path, "clipped_grad")[0], 5)
+        ms_k = cuda_ms(lambda: cg.clipped_grad(a, C, ds), r, 1)
+        extra["simt_ms"] = cuda_ms(
+            lambda: cg.clipped_grad(a, C, ds, kernel="simt"), min(r, 3), 1)
+        ms_p = cuda_ms(lambda: cg.plain(a, C, ds), 3, 1)
+        ms_lib = cuda_ms(library, r, 1) if library else None
+        record("clipped_grad", path, case, got, want, TOL["bfloat16"], ms_k,
+               ms_p, nbytes, ops, "bfloat16", ms_lib, again, route="wgmma",
+               **extra)
+        del got, again, want
+        torch.cuda.empty_cache()
 
     def fused_case(path, case, a, ds, dname, clips):
         """fused_clip_grad against its plain version under each clip
@@ -579,12 +729,16 @@ def phase_kernels():
                       rec_bytes + Bc * 4, 2.0 * L * Bc * Tc * d * p, dname,
                       library)
         if "clipped_grad" in kernels:
-            grad_case("clipped_grad", kernels["clipped_grad"], case,
-                      cg.clipped_grad, cg.plain, (a, C, ds),
-                      rec_bytes + Bc * 4 + L * d * p * 4,
-                      2.0 * L * Bc * Tc * d * p, dname,
-                      lambda: torch.einsum("lbtd,b,lbtp->ldp", a,
-                                           C.to(dtype), ds))
+            path = kernels["clipped_grad"]
+            lib = lambda: torch.einsum("lbtd,b,lbtp->ldp", a, C.to(dtype),
+                                       ds)
+            nbytes = rec_bytes + Bc * 4 + L * d * p * 4
+            ops = 2.0 * L * Bc * Tc * d * p
+            if cg.route(dtype, d, p) == "wgmma":
+                wgmma_grad_case(path, case, a, C, ds, nbytes, ops, lib)
+            else:
+                grad_case("clipped_grad", path, case, cg.clipped_grad,
+                          cg.plain, (a, C, ds), nbytes, ops, dname, lib)
         if "fused_clip_grad" in kernels:
             fused_case(kernels["fused_clip_grad"], case, a, ds, dname, clips)
         del a, ds, library
@@ -654,6 +808,95 @@ def phase_kernels():
         del ds, dm, am, library
         torch.cuda.empty_cache()
 
+    # ---- the serving kernels: each run twice (bitwise), against its plain
+    # version, timed beside it and (flash) beside one SDPA call
+    def repeat_case(name, path, case, fn, plain, args, tol, nbytes, ops,
+                    dname, library=None, simt=None):
+        """``simt``: the SIMT kernel of a wgmma route, held to it at ``tol``
+        and timed beside it."""
+        got, again = fn(*args), fn(*args)
+        want = plain(*args)
+        r, w = reps(path, name)
+        extra = {}
+        if simt is not None:
+            extra = simt_check(name, case, got, simt(*args), tol)
+            extra["simt_ms"] = cuda_ms(lambda: simt(*args), r, w)
+            extra["route"] = "wgmma"
+        ms_k = cuda_ms(lambda: fn(*args), r, w)
+        ms_p = cuda_ms(lambda: plain(*args), 2, 1)
+        ms_lib = cuda_ms(library, r, w) if library else None
+        record(name, path, case, got, want, tol, ms_k, ms_p, nbytes, ops,
+               dname, ms_lib, again, **extra)
+        del got, again, want
+        torch.cuda.empty_cache()
+
+    def flash_case(path, B, T, S, H, K, h, causal, dtype):
+        dname = str(dtype).split(".")[-1]
+        q, k, v = rnd(B, T, H, h, dtype=dtype), rnd(B, S, K, h, dtype=dtype), \
+            rnd(B, S, K, h, dtype=dtype)
+        # the (t, s) pairs this run computes: s <= t (causal) or all
+        pairs = sum(min(t + 1, S) for t in range(T)) if causal else T * S
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        repeat_case(
+            "flash_attention", path,
+            f"{path} B={B} T={T} S={S} H={H} K={K} h={h} "
+            f"{'causal' if causal else 'bidirectional'} {dname[:4]}",
+            fa.flash_attention, fa.plain, (q, k, v, causal),
+            FLASH_TOL[dname],
+            (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+            4.0 * B * H * h * pairs, dname,
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True),
+            simt=(lambda *a: fa.flash_attention(*a, kernel="simt"))
+            if fa.route(dtype, h) == "wgmma" else None)
+        del q, k, v, qt, kt, vt
+
+    def wkv_case(path, case, B, T, H, h, dtype, tol, decay=None):
+        """r, k, v standard normal, w uniform in [0.5, 0.999] (or the
+        constant ``decay``), u normal * 0.5 (f32, as the wrapper hands it
+        to the kernel)."""
+        dname = str(dtype).split(".")[-1]
+        r_, k_, v_ = (rnd(B, T, H, h, dtype=dtype) for _ in range(3))
+        w = (torch.rand(B, T, H, h, generator=gen, device=dev) * 0.499 + 0.5
+             if decay is None else torch.full((B, T, H, h), decay,
+                                              device=dev)).to(dtype)
+        u = torch.randn(H, h, generator=gen, device=dev) * 0.5
+        n = B * T * H * h
+        repeat_case("wkv6", path, f"{path} {case} B={B} T={T} H={H} h={h} "
+                    f"{dname[:4]}", wk.wkv6, wk.plain, (r_, k_, v_, w, u), tol,
+                    4 * n * r_.element_size() + u.numel() * 4 + n * 4,
+                    B * T * H * (5.0 * h * h + 5.0 * h), dname)
+        del r_, k_, v_, w, u
+
+    bf16 = torch.bfloat16
+    fp = SERVING["prefill"]
+    q_cfg = get_config(fp["arch"])
+
+    def wgmma_shapes():
+        """The wgmma routes at one tile and at ragged bf16 shapes: widths
+        multiples of 8 but of no tile, T not a multiple of any tile; flash
+        with h 64 and 128, G 1 and 6, causal and bidirectional."""
+        cg_only = {"clipped_grad": "ragged"}
+        mm_case("tile L=1 B=1 T=64 d=128 p=128 bf16", 1, 1, 64, 128, 128,
+                bf16, cg_only)
+        mm_case("ragged L=3 B=3 T=509 d=136 p=264 bf16", 3, 3, 509, 136, 264,
+                bf16, cg_only)
+        for causal in (True, False):
+            flash_case("tile", 1, 128, 128, 1, 1, 128, causal, bf16)
+        for h in (64, 128):
+            for H in (2, 12):                   # G = 1 and 6 over K = 2
+                for causal in (True, False):
+                    flash_case("ragged", 2, 509, 509, H, 2, h, causal, bf16)
+
+    if only_wgmma:
+        wgmma_shapes()
+        d, V = q_cfg.d_model, q_cfg.vocab
+        mm_case(f"train head L=1 B=8 T=512 d={d} p={V} bf16", 1, 8, 512, d,
+                V, bf16, {"clipped_grad": "train"})
+        flash_case("prefill", fp["batch"], fp["seq"], fp["seq"],
+                   q_cfg.n_heads, q_cfg.n_kv_heads, q_cfg.hd, True, bf16)
+        return summary
+
     # ---- the train paths' shapes, each tap routed as the engine routes it
     for paths in PATH_GROUPS:
         cfg, batch, taps, records = path_taps(paths, dev)
@@ -705,59 +948,6 @@ def phase_kernels():
              torch.float32, dict.fromkeys(("emb_ghost_norm",
                                            "emb_clipped_grad"), "ragged"))
 
-    # ---- the serving kernels: each run twice (bitwise), against its plain
-    # version, timed beside it and (flash) beside one SDPA call
-    def repeat_case(name, path, case, fn, plain, args, tol, nbytes, ops,
-                    dname, library=None):
-        got, again = fn(*args), fn(*args)
-        want = plain(*args)
-        r, w = reps(path, name)
-        ms_k = cuda_ms(lambda: fn(*args), r, w)
-        ms_p = cuda_ms(lambda: plain(*args), 2, 1)
-        ms_lib = cuda_ms(library, r, w) if library else None
-        record(name, path, case, got, want, tol, ms_k, ms_p, nbytes, ops,
-               dname, ms_lib, again)
-        del got, again, want
-        torch.cuda.empty_cache()
-
-    def flash_case(path, B, T, S, H, K, h, causal, dtype):
-        dname = str(dtype).split(".")[-1]
-        q, k, v = rnd(B, T, H, h, dtype=dtype), rnd(B, S, K, h, dtype=dtype), \
-            rnd(B, S, K, h, dtype=dtype)
-        # the (t, s) pairs this run computes: s <= t (causal) or all
-        pairs = sum(min(t + 1, S) for t in range(T)) if causal else T * S
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        repeat_case(
-            "flash_attention", path,
-            f"{path} B={B} T={T} S={S} H={H} K={K} h={h} "
-            f"{'causal' if causal else 'bidirectional'} {dname[:4]}",
-            fa.flash_attention, fa.plain, (q, k, v, causal),
-            FLASH_TOL[dname],
-            (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
-            4.0 * B * H * h * pairs, dname,
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True))
-        del q, k, v, qt, kt, vt
-
-    def wkv_case(path, case, B, T, H, h, dtype, tol, decay=None):
-        """r, k, v standard normal, w uniform in [0.5, 0.999] (or the
-        constant ``decay``), u normal * 0.5 (f32, as the wrapper hands it
-        to the kernel)."""
-        dname = str(dtype).split(".")[-1]
-        r_, k_, v_ = (rnd(B, T, H, h, dtype=dtype) for _ in range(3))
-        w = (torch.rand(B, T, H, h, generator=gen, device=dev) * 0.499 + 0.5
-             if decay is None else torch.full((B, T, H, h), decay,
-                                              device=dev)).to(dtype)
-        u = torch.randn(H, h, generator=gen, device=dev) * 0.5
-        n = B * T * H * h
-        repeat_case("wkv6", path, f"{path} {case} B={B} T={T} H={H} h={h} "
-                    f"{dname[:4]}", wk.wkv6, wk.plain, (r_, k_, v_, w, u), tol,
-                    4 * n * r_.element_size() + u.numel() * 4 + n * 4,
-                    B * T * H * (5.0 * h * h + 5.0 * h), dname)
-        del r_, k_, v_, w, u
-
-    fp = SERVING["prefill"]
-    q_cfg = get_config(fp["arch"])
     flash_case("prefill", fp["batch"], fp["seq"], fp["seq"], q_cfg.n_heads,
                q_cfg.n_kv_heads, q_cfg.hd, True, torch.bfloat16)
     rp = SERVING["prefill_rwkv"]
@@ -770,6 +960,7 @@ def phase_kernels():
             for causal in (True, False):
                 flash_case("ragged", 2, 509, 509, H, 2, h, causal,
                            torch.float32)
+    wgmma_shapes()
     for h in (16, 64):
         wkv_case("ragged", "w~U[0.5,0.999]", 3, 509, 3, h, torch.float32,
                  WKV_TOL)
@@ -788,7 +979,8 @@ def _profile_summary(prof, window_ms: float) -> dict:
             us = e.time_range.elapsed_us()
             by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
     ours = tuple(f"{k}_kernel" for k in (
-        "ghost_norm", "clipped_grad", "emb_norm", "emb_grad", "reduce_rows",
+        "ghost_norm", "clipped_grad", "clipped_grad_wgmma", "flash_wgmma",
+        "emb_norm", "emb_grad", "reduce_rows",
         "grad_norm_direct", "moe_ghost_norm", "moe_direct_norm",
         "moe_clipped_grad", "fused_clip_tile", "fused_clip_apply",
         "flash_attention", "wkv6"))
@@ -837,14 +1029,13 @@ def phase_train(name):
             prof["ms"] = (time.perf_counter() - prof["t0"]) * 1e3
             prof["p"].stop()
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    for w in ws.values():             # counts from here on are the path's
-        w.launches = 0
+    floor = fresh_peak()
+    reset_counts(ws)                  # counts from here on are the path's
     _, losses = train(cfg, tc, dp, device="cuda", log=lambda m: None,
                       on_step=on_step)
     torch.cuda.synchronize()
     totals = {k: w.launches for k, w in ws.items()}
+    wgmma = check_routes(name, ws, True)
     peak = torch.cuda.max_memory_allocated()
     for s in per_step:
         emit(phase=name, step=s["step"], loss=s["loss"],
@@ -858,7 +1049,8 @@ def phase_train(name):
          tape=ran.tape_policy,
          optimizer="adamw", batch=tc.global_batch, seq=tc.seq_len,
          steps=tc.steps, sigma=dp.sigma, losses=losses,
-         max_memory_allocated=peak, launches=totals)
+         max_memory_allocated=peak, allocated_at_start=floor,
+         launches=totals, wgmma_launches=wgmma)
     emit(phase=f"{name}_profile", step=tc.steps - 1,
          **_profile_summary(prof["p"], prof["ms"]))
     if not all(math.isfinite(x) for x in losses):
@@ -906,10 +1098,8 @@ def phase_prefill(name):
     B, T = run["batch"], run["seq"]
     tokens = _tokens(cfg.vocab, B, T)
     ws = wrappers()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    for w in ws.values():             # counts from here on are the path's
-        w.launches = 0
+    fresh_peak()
+    reset_counts(ws)                  # counts from here on are the path's
     seconds, per_call = [], []
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
@@ -926,10 +1116,11 @@ def phase_prefill(name):
             prof.stop()
         per_call.append({k: w.launches - before[k] for k, w in ws.items()})
     totals = {k: w.launches for k, w in ws.items()}
+    wgmma = check_routes(name, ws, True)
     peak = torch.cuda.max_memory_allocated()
     emit(phase=name, arch=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.param_dtype,
-         batch=B, seq=T, prefill_seconds=seconds,
+         batch=B, seq=T, prefill_seconds=seconds, wgmma_launches=wgmma,
          tokens_per_s=B * T / seconds[1], max_memory_allocated=peak,
          launches_per_prefill={k: n for k, n in per_call[-1].items() if n},
          logits_shape=list(logits.shape))
@@ -959,10 +1150,8 @@ def phase_serve(name):
     B, Tp, gen_len = run["batch"], run["prompt"], run["gen"]
     prompts = _tokens(cfg.vocab, B, Tp)
     ws = wrappers()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    for w in ws.values():
-        w.launches = 0
+    fresh_peak()
+    reset_counts(ws)
     seconds = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -1000,6 +1189,7 @@ def phase_serve_parity(name):
     cfg, model, params = _serving_model(name, layers=2, dtype="float32")
     tokens = _tokens(cfg.vocab, run["batch"], run["seq"])
     ws = wrappers()
+    reset_counts(ws)
     before = {k: w.launches for k, w in ws.items()}
     got = model.prefill(params, tokens)
     torch.cuda.synchronize()
@@ -1024,6 +1214,7 @@ def phase_serve_parity(name):
     if not (cmp_cpu["ok"] and cmp_dec["ok"]):
         raise AssertionError(f"{name}: card prefill vs CPU {cmp_cpu}, decode "
                              f"vs prefill {cmp_dec}")
+    check_routes(name, ws, False)     # f32: the SIMT routes
     if launched != _per_step(**{run["kernel"]: cfg.n_layers}) or \
             plain_launched:
         raise AssertionError(f"{name}: launches {launched} in the card "
@@ -1072,6 +1263,7 @@ def phase_parity(name):
                          ("moe_direct_norm", "moe_clipped_grad")))
     rtol, atol = TOL["float32"]
     ws = wrappers()
+    reset_counts(ws)
     for label, pol, want_launched in policies:
         out, launched = {}, {}
         for use in (True, False):
@@ -1107,6 +1299,7 @@ def phase_parity(name):
             raise AssertionError(f"{name} [{label}]: launches {launched}, "
                                  f"want {want_launched} in the kernel run "
                                  "and none in the plain run")
+        check_routes(name, ws, False)     # f32: the SIMT routes
         del out, sk, sp
         torch.cuda.empty_cache()
 
@@ -1114,12 +1307,13 @@ def phase_parity(name):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {PHASES}")
+                    help=f"comma-separated subset of {PHASES + EXTRA_PHASES}")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
-    unknown = sorted(set(phases) - set(PHASES))
+    unknown = sorted(set(phases) - set(PHASES + EXTRA_PHASES))
     if unknown:
-        ap.error(f"unknown phases {unknown}; known: {PHASES}")
+        ap.error(f"unknown phases {unknown}; known: "
+                 f"{PHASES + EXTRA_PHASES}")
 
     import torch
     if not torch.cuda.is_available():
@@ -1134,8 +1328,10 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     phase_card()
-    if "build" in phases or "kernels" in phases:
+    if {"build", "kernels", "wgmma"} & set(phases):
         phase_build()
+    if "wgmma" in phases:
+        phase_kernels(only_wgmma=True)
     summary = phase_kernels() if "kernels" in phases else None
     launches = {}
     for name in TRAINS + PREFILLS:
@@ -1168,7 +1364,10 @@ def main(argv=None) -> int:
                 **({"library": "none: " + NO_LIBRARY[name]}
                    if name in NO_LIBRARY else {}),
                 **({"composed_ms": s["composed_ms"]}
-                   if "composed_ms" in s else {})})
+                   if "composed_ms" in s else {}),
+                **({"simt_ms": s["simt_ms"],
+                    "simt_source": CSRC + WGMMA[name][0]}
+                   if name in WGMMA else {})})
         emit(kernels=kernels)
         if all(p in phases for p in TRAINS + PREFILLS):
             idle = [k["name"] for k in kernels if not k["launches"]]

@@ -6,6 +6,9 @@ file, all started together, then linked into one shared library under
 carries a hash of the sources, so an edit rebuilds it and an unchanged tree
 reuses it. Nothing is built at import: the first kernel launch calls
 :func:`load`, and ``chip_smoke.py`` calls :func:`build` to time the build.
+The library links against the CUDA runtime alone: the tensor-core kernels
+take the driver's ``cuTensorMapEncodeTiled`` through
+``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh``), so no ``-lcuda``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ SIGNATURES = {
     "dp_ghost_norm_nparts": [_I],
     "dp_ghost_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dp_clipped_grad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dp_clipped_grad_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "dp_emb_norm_nparts": [_I],
     "dp_emb_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "dp_emb_grad_smem_bytes": [_I, _I],
@@ -44,6 +48,7 @@ SIGNATURES = {
     "dp_fused_clip_nparts": [_I, _I],
     "dp_fused_clip_grad": [_P] * 7 + [_I] * 7 + [_F, _F, _P],
     "dp_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
+    "dp_flash_attention_wgmma": [_P] * 4 + [_I] * 7 + [_P],
     "dp_wkv6": [_P] * 6 + [_I] * 5 + [_P],
 }
 

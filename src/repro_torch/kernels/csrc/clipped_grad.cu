@@ -12,9 +12,10 @@
 //
 // Bound on the H100: 2 L B T d p operations against (L B T (d+p)) inputs and
 // L d p outputs — about 12.6 TFLOP per step summed over the five taps at
-// B=8, T=512 — so it is compute-bound. This first version runs on the f32
-// SIMT cores with an 8 x 8 register tile per thread; tensor cores (wgmma with
-// TMA-fed operands) are later work.
+// B=8, T=512 — so it is compute-bound. This kernel runs on the f32 SIMT
+// cores with an 8 x 8 register tile per thread; it serves f32 records and
+// bf16 records with unaligned widths. bf16 records with d, p multiples of 8
+// (every train path's taps) take clipped_grad_wgmma.cu (tensor cores).
 #include "common.cuh"
 
 namespace {

@@ -18,11 +18,13 @@
 //
 // Bound on the H100: 4 B H T S h / 2 operations (causal) against the bytes of
 // q, k, v and o — at qwen2-1.5b's prefill (B=4, T=S=4096, H=12, K=2, h=128)
-// 206 GFLOP against 151 MB per layer, so it is compute-bound. This first
-// version runs both products on the f32 SIMT cores: 256 threads, each with
-// a 4 x 4 tile of S = QK^T and a 4 x 8 tile of the output, q^T, k^T, v and
-// P^T staged in shared memory as f32. Tensor cores (mma.sync / wgmma) and
-// TMA are later work. The reduction order is fixed: bitwise run to run.
+// 206 GFLOP against 151 MB per layer, so it is compute-bound. This kernel
+// runs both products on the f32 SIMT cores: 256 threads, each with a 4 x 4
+// tile of S = QK^T and a 4 x 8 tile of the output, q^T, k^T, v and P^T
+// staged in shared memory as f32. It serves f32 inputs and head sizes other
+// than 64 and 128; bf16 with h = 64 or 128 (the prefill) takes
+// flash_attention_wgmma.cu (tensor cores, TMA). The reduction order is
+// fixed: bitwise run to run.
 #include "common.cuh"
 
 namespace {

@@ -4,6 +4,9 @@ tests/test_kernel_parity.py runs them): the same numpy inputs, the odd and
 stacked shapes of that file, f32 and bf16. On a CPU tensor each wrapper runs
 its plain version; the CUDA kernels themselves are held to those plain
 versions on the card by chip_smoke.py."""
+import ctypes
+import re
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -16,6 +19,9 @@ from repro.models.rwkv6 import wkv6_chunked as jwkv6_chunked
 from repro_torch.core import bk as tbk
 from repro_torch.core import ghost
 from repro_torch.core.policy import ParamGroup, PrivacyPolicy, resolve_policy
+from repro_torch.kernels import build, syntax_check
+from repro_torch.kernels import clipped_grad as cg_mod
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels.clipped_grad import clipped_grad
 from repro_torch.kernels.emb_grad import emb_clipped_grad
 from repro_torch.kernels.emb_norm import emb_ghost_norm
@@ -214,6 +220,18 @@ def _meta(*shape, dtype=torch.float32):
                              _meta(2, 3, 4, 6)),
     lambda: flash_attention(_meta(2, 3, 4, 8), _meta(2, 3, 2, 8),
                             _meta(2, 3, 2, 8)),
+    # bf16 inputs that the wgmma routes take
+    lambda: clipped_grad(_meta(2, 3, 8, dtype=torch.bfloat16), _meta(2),
+                         _meta(2, 3, 16, dtype=torch.bfloat16)),
+    lambda: clipped_grad(_meta(2, 2, 3, 64, dtype=torch.bfloat16), _meta(2),
+                         _meta(2, 2, 3, 128, dtype=torch.bfloat16)),
+    lambda: flash_attention(*(_meta(2, 3, 4, 128, dtype=torch.bfloat16),
+                              _meta(2, 3, 2, 128, dtype=torch.bfloat16),
+                              _meta(2, 3, 2, 128, dtype=torch.bfloat16))),
+    lambda: flash_attention(*(_meta(2, 3, 4, 64, dtype=torch.bfloat16),
+                              _meta(2, 3, 2, 64, dtype=torch.bfloat16),
+                              _meta(2, 3, 2, 64, dtype=torch.bfloat16)),
+                            causal=False),
     lambda: wkv6(*(_meta(2, 3, 4, 8),) * 4, _meta(4, 8)),
 ])
 def test_wrappers_take_the_plain_version_only_on_cpu(call):
@@ -343,3 +361,164 @@ def test_wkv6_strong_decay_matches_the_recurrence(w):
     j, t = [p[0] for p in pairs], [p[1] for p in pairs]
     np.testing.assert_allclose(wkv6(*t).numpy(), np.asarray(ref.wkv6_ref(*j)),
                                **WKV_TOL)
+
+
+# ------------------------------------------------- the tensor-core routes
+@pytest.mark.parametrize("dtype,d,p,want", [
+    # the mm taps of the train paths: qwen2-1.5b (qkv, o, gate+up, down,
+    # head) and deepseek-moe-16b (dense and shared widths, head)
+    (torch.bfloat16, 1536, 2048, "wgmma"),
+    (torch.bfloat16, 1536, 1536, "wgmma"),
+    (torch.bfloat16, 1536, 17920, "wgmma"),
+    (torch.bfloat16, 8960, 1536, "wgmma"),
+    (torch.bfloat16, 1536, 151936, "wgmma"),
+    (torch.bfloat16, 2048, 2816, "wgmma"),
+    (torch.bfloat16, 1408, 2048, "wgmma"),
+    (torch.bfloat16, 2048, 102400, "wgmma"),
+    (torch.bfloat16, 136, 264, "wgmma"),      # multiples of 8, of no tile
+    # unaligned widths and f32 records keep the SIMT kernel
+    (torch.bfloat16, 37, 53, "simt"),
+    (torch.bfloat16, 1536, 2044, "simt"),
+    (torch.bfloat16, 1532, 2048, "simt"),
+    (torch.float32, 1536, 2048, "simt"),
+    (torch.float32, 165, 301, "simt"),
+])
+def test_clipped_grad_route(dtype, d, p, want):
+    assert cg_mod.route(dtype, d, p) == want
+
+
+@pytest.mark.parametrize("dtype,h,want", [
+    (torch.bfloat16, 128, "wgmma"),    # qwen2-1.5b's prefill
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 16, "simt"),
+    (torch.bfloat16, 96, "simt"),
+    (torch.float32, 128, "simt"),      # the f32 parity prefill
+    (torch.float32, 64, "simt"),
+    (torch.float32, 16, "simt"),
+])
+def test_flash_attention_route(dtype, h, want):
+    assert fa_mod.route(dtype, h) == want
+
+
+class _FakeLib:
+    """Stands in for the kernel library: records each C entry's name and
+    argument count, returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("dp_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, len(args))) or 0
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    """Wrappers on meta tensors reach a fake library: the routing, the
+    checks and the launch counts run as on the card."""
+    lib = _FakeLib()
+    monkeypatch.setattr(build, "load", lambda: lib)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(build, "check_inputs",
+                        lambda name, floats, ints=(), f32=():
+                        floats[0].dtype == torch.bfloat16)
+    return lib
+
+
+@pytest.mark.parametrize("dtype,d,p,kernel,entry", [
+    (torch.bfloat16, 64, 128, None, "dp_clipped_grad_wgmma"),
+    (torch.bfloat16, 37, 53, None, "dp_clipped_grad"),
+    (torch.float32, 64, 128, None, "dp_clipped_grad"),
+    (torch.bfloat16, 64, 128, "simt", "dp_clipped_grad"),
+])
+def test_clipped_grad_launches_its_route(fake_lib, dtype, d, p, kernel,
+                                         entry):
+    """The wrapper launches the C entry its route names, with the argument
+    count of its signature, and counts every launch and the wgmma ones."""
+    n0, w0 = clipped_grad.launches, clipped_grad.wgmma_launches
+    out = clipped_grad(_meta(2, 3, 5, d, dtype=dtype), _meta(3),
+                       _meta(2, 3, 5, p, dtype=dtype), kernel=kernel)
+    assert out.shape == (2, d, p) and out.dtype == torch.float32
+    assert fake_lib.calls == [(entry, len(build.SIGNATURES[entry]))]
+    assert clipped_grad.launches == n0 + 1
+    assert clipped_grad.wgmma_launches == w0 + (entry.endswith("wgmma"))
+
+
+@pytest.mark.parametrize("dtype,h,kernel,entry", [
+    (torch.bfloat16, 128, None, "dp_flash_attention_wgmma"),
+    (torch.bfloat16, 64, None, "dp_flash_attention_wgmma"),
+    (torch.bfloat16, 16, None, "dp_flash_attention"),
+    (torch.float32, 128, None, "dp_flash_attention"),
+    (torch.bfloat16, 128, "simt", "dp_flash_attention"),
+])
+def test_flash_attention_launches_its_route(fake_lib, dtype, h, kernel,
+                                            entry):
+    n0, w0 = flash_attention.launches, flash_attention.wgmma_launches
+    out = flash_attention(_meta(2, 5, 6, h, dtype=dtype),
+                          _meta(2, 5, 2, h, dtype=dtype),
+                          _meta(2, 5, 2, h, dtype=dtype), kernel=kernel)
+    assert out.shape == (2, 5, 6, h) and out.dtype == dtype
+    assert fake_lib.calls == [(entry, len(build.SIGNATURES[entry]))]
+    assert flash_attention.launches == n0 + 1
+    assert flash_attention.wgmma_launches == w0 + (entry.endswith("wgmma"))
+
+
+@pytest.mark.parametrize("call", [
+    # f32 records, unaligned widths, other head sizes: no wgmma kernel
+    lambda: clipped_grad(_meta(2, 3, 8), _meta(2), _meta(2, 3, 16),
+                         kernel="wgmma"),
+    lambda: clipped_grad(_meta(2, 3, 12, dtype=torch.bfloat16), _meta(2),
+                         _meta(2, 3, 16, dtype=torch.bfloat16),
+                         kernel="wgmma"),
+    lambda: flash_attention(*(_meta(2, 3, 2, 32, dtype=torch.bfloat16),) * 3,
+                            kernel="wgmma"),
+    lambda: flash_attention(*(_meta(2, 3, 2, 128),) * 3, kernel="wgmma"),
+    lambda: clipped_grad(_meta(2, 3, 8), _meta(2), _meta(2, 3, 16),
+                         kernel="tensor"),
+])
+def test_forced_wgmma_route_raises_on_inputs_it_does_not_take(fake_lib,
+                                                              call):
+    with pytest.raises(ValueError, match="kernel"):
+        call()
+    assert fake_lib.calls == []
+
+
+def _kind(decl: str) -> str:
+    decl = decl.strip()
+    return "P" if "*" in decl else {"int": "I", "float": "F"}[decl.split()[0]]
+
+
+def _c_entries() -> dict:
+    """Every ``extern "C" int dp_...(`` under csrc/ -> its argument kinds
+    (P pointer, I int, F float)."""
+    entries = {}
+    for cu in sorted(build.CSRC.glob("*.cu")):
+        for m in re.finditer(r'extern "C" int (dp_\w+)\((.*?)\)',
+                             cu.read_text(), re.S):
+            args = [a for a in m.group(2).split(",") if a.strip()]
+            entries[m.group(1)] = [_kind(a) for a in args]
+    return entries
+
+
+_CTYPES = {ctypes.c_void_p: "P", ctypes.c_int: "I", ctypes.c_float: "F"}
+
+
+def test_every_c_entry_has_a_signature():
+    assert sorted(_c_entries()) == sorted(build.SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(build.SIGNATURES))
+def test_c_entry_signature_matches_ctypes(name):
+    """The argument count and pointer / int / float kinds that ctypes
+    declares are the C entry's: a mismatch would pass a cut pointer."""
+    assert [_CTYPES[t] for t in build.SIGNATURES[name]] == _c_entries()[name]
+
+
+@pytest.mark.parametrize("cu", sorted(p.name for p in build.CSRC.glob("*.cu")))
+def test_cuda_source_parses_against_the_stub_headers(cu):
+    """g++ -fsyntax-only over each kernel source with the stub CUDA headers
+    (launch configurations stripped): C++ errors show here, before a build
+    on the card."""
+    ok, out = syntax_check.check(build.CSRC / cu)
+    assert ok, out
