@@ -9,8 +9,9 @@ Phases, each printing JSON lines:
   card      the card's name and power limit (nvidia-smi), torch and CUDA
   build     compile the kernel library from ``src/repro_torch/kernels/csrc``;
             each tensor-core kernel's registers, shared memory and spills
-            (ptxas), and its HGMMA and UTMALDG instructions counted in the
-            library's SASS (cuobjdump; none is a failure)
+            (ptxas; a spill is a failure), and its HGMMA and UTMALDG
+            instructions counted in the library's SASS (cuobjdump; none is
+            a failure)
   kernels   each of the eleven kernels against its plain PyTorch version on
             the card, at the shapes each train path below gives it (bf16;
             each tap routed as ``core.bk.plan_report`` says, MoE records and
@@ -20,18 +21,21 @@ Phases, each printing JSON lines:
             0.01); norms, fused_clip_grad's outputs (under all four clip
             functions, w with a zero), flash_attention and wkv6 run twice
             must agree bitwise; kernel, plain and one-call library times
-            with CUDA events, and for fused_clip_grad the composed route it
-            replaces. clipped_grad and flash_attention take their wgmma
-            kernels on bf16 (``route``): there each is also held to its
-            SIMT kernel on the same inputs (clipped_grad at SIMT_GRAD_TOL,
-            flash at the bf16 tolerance) and to itself run twice (bitwise),
-            with the SIMT kernel timed beside it (simt_ms), at every train
-            path's / the prefill's shapes, at one tile, and at ragged bf16
-            shapes
+            with CUDA events, and for fused_clip_grad (at the smoke-width
+            parity_layer model's units, the path that launches it) the
+            composed route it replaces. clipped_grad, flash_attention,
+            moe_direct_norm and moe_clipped_grad take their wgmma kernels
+            on bf16 (``route``): there each is also held to its SIMT kernel
+            on the same inputs (the weighted grads at SIMT_GRAD_TOL, the
+            norm at NORM_TOL, flash at the bf16 tolerance) and to itself
+            run twice (bitwise), with the SIMT kernel timed beside it
+            (simt_ms), at every train path's / the prefill's shapes, at one
+            tile, and at ragged bf16 shapes
   wgmma     (not in the default run) the short call after a tensor-core
             kernel edit: those checks at one tile, the ragged bf16 shapes
             and one row shape of each (the head tap of ``train``, the
-            ``prefill`` attention), without building a model
+            ``prefill`` attention, ``train_moe``'s up tap with random
+            records under a router-like mask), without building a model
   train             qwen2-1.5b, full (28 layers, bf16), B=8, T=512
   train_moe         deepseek-moe-16b at full width, 6 of its 28 layers
                     (dense0_0 + 5 MoE blocks), B=8, T=512
@@ -40,7 +44,9 @@ Phases, each printing JSON lines:
   train_long        qwen2-1.5b, full, B=2, T=2048: qkv and o take the direct
                     norm with the mixopt cache off
   train_layer       qwen2-1.5b, full, B=8, T=512, clipping scope 'layer':
-                    each mm unit streams through fused_clip_grad
+                    each mm unit streams through the composed route
+                    (ghost_norm, then clipped_grad): none fits the fused
+                    budget of ``kernels.dispatch.fused_plan``
   train_tape        qwen2-1.5b, full, B=2, T=2048, tape 'recompute': no
                     weighted-grad kernel, a reweighted backward per unit
                     (2 steps)
@@ -60,7 +66,10 @@ Phases, each printing JSON lines:
   parity, parity_moe, parity_long, parity_layer
             one BK step of a 2-layer, full-width, f32 model of each path
             with the kernels and with ``use_kernels=False`` (parity_long
-            under bk-mixghost, so that the direct norm runs at 2 layers)
+            under bk-mixghost, so that the direct norm runs at 2 layers;
+            parity_layer also at qwen2-1.5b's smoke_config width, where
+            every mm unit fuses: fused_clip_grad's driven path, whose
+            launches count)
   parity_prefill, parity_prefill_rwkv
             a 2-layer, full-width, f32 model of each family: the prefill on
             the card (kernels) against the same params' prefill on the CPU
@@ -79,6 +88,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -131,8 +141,8 @@ SOURCES = {
     "emb_clipped_grad": ("emb_grad.cu", "emb_grad.py:50"),
     "grad_norm_direct": ("grad_norm_direct.cu", "grad_norm_direct.py:42"),
     "moe_ghost_norm": ("moe_ghost_norm.cu", "moe_ghost.py:58"),
-    "moe_direct_norm": ("moe_direct_norm.cu", "moe_ghost.py:98"),
-    "moe_clipped_grad": ("moe_clipped_grad.cu", "moe_ghost.py:146"),
+    "moe_direct_norm": ("moe_direct_norm_wgmma.cu", "moe_ghost.py:98"),
+    "moe_clipped_grad": ("moe_clipped_grad_wgmma.cu", "moe_ghost.py:146"),
     "fused_clip_grad": ("fused_clip.cu", "fused_clip.py:56"),
     "flash_attention": ("flash_attention_wgmma.cu", "flash_attention.py:64"),
     "wkv6": ("wkv6.cu", "wkv6.py:76"),
@@ -140,7 +150,10 @@ SOURCES = {
 # the tensor-core kernels: their SIMT kernels (f32 and unaligned inputs),
 # and their names in the SASS
 WGMMA = {"clipped_grad": ("clipped_grad.cu", "clipped_grad_wgmma_kernel"),
-         "flash_attention": ("flash_attention.cu", "flash_wgmma_kernel")}
+         "flash_attention": ("flash_attention.cu", "flash_wgmma_kernel"),
+         "moe_direct_norm": ("moe_direct_norm.cu", "moe_norm_wgmma_kernel"),
+         "moe_clipped_grad": ("moe_clipped_grad.cu",
+                              "moe_grad_wgmma_kernel")}
 # no single PyTorch call computes these (say why in the summary)
 NO_LIBRARY = {
     "emb_ghost_norm": "no single call builds the id-equality mask and "
@@ -186,11 +199,12 @@ RUNS = {
                        steps=3, direct=False, per_step=_per_step(
                            grad_norm_direct=2, ghost_norm=3, clipped_grad=5,
                            emb_ghost_norm=1, emb_clipped_grad=1)),
-    # every param path its own clip unit: the five mm units stream through
-    # fused_clip_grad, the embedding by the composed route
+    # every param path its own clip unit, each streamed by the composed
+    # route: no full-width mm unit fits fused_plan's budget (the smoke-width
+    # case of parity_layer drives fused_clip_grad)
     "train_layer": dict(arch="qwen2-1.5b", layers=0, batch=8, seq=512,
                         steps=3, direct=False, scope="layer",
-                        per_step=_per_step(fused_clip_grad=5,
+                        per_step=_per_step(ghost_norm=5, clipped_grad=5,
                                            emb_ghost_norm=1,
                                            emb_clipped_grad=1)),
     # no cotangent held: norms only, then one reweighted backward per unit
@@ -204,7 +218,7 @@ ROW_PATH = {"ghost_norm": "train", "clipped_grad": "train",
             "emb_ghost_norm": "train", "emb_clipped_grad": "train",
             "grad_norm_direct": "train_long", "moe_ghost_norm": "train_moe",
             "moe_direct_norm": "train_moe_direct",
-            "moe_clipped_grad": "train_moe", "fused_clip_grad": "train_layer",
+            "moe_clipped_grad": "train_moe", "fused_clip_grad": "parity_layer",
             "flash_attention": "prefill", "wkv6": "prefill_rwkv"}
 # the serving paths: arch, shapes, and the kernel each prefill launches once
 # a layer
@@ -424,22 +438,32 @@ def phase_build():
     if empty:
         raise AssertionError(f"no tensor-core / TMA instructions in the SASS "
                              f"of: {empty}")
+    spills = sorted({k for k in WGMMA
+                     for ln in ptxas_lines(info["ptxas"], SOURCES[k][0])
+                     if any(int(n) for n in re.findall(r"(\d+) bytes spill",
+                                                       ln))})
+    if spills:
+        raise AssertionError(f"tensor-core kernels that spill: {spills}")
     build.load()
 
 
-def path_taps(paths, dev):
+def path_taps(paths, dev, smoke=False):
     """The taps of a group of train paths that share one model, seed and
     batch, each routed as the engine routes it (``core.bk.plan_report``)
     under each path's policy -> (cfg, step-0 batch, [(key, kind, record
     shape, cotangent shape, {kernel: first path that launches it})], the
-    step-0 MoE records of the path's own model: its router's masks)."""
+    step-0 MoE records of the path's own model: its router's masks).
+    ``smoke``: the arch's smoke_config width in f32 instead (the model of
+    a parity phase's smoke-width case)."""
     import torch
-    from repro_torch.configs.registry import build
+    from repro_torch.configs.registry import build, smoke_config
     from repro_torch.core.bk import plan_report, tap_act_structs
     from repro_torch.core.tape import Tape, parse_key
     from repro_torch.data.synthetic import make_batch
 
     cfg, _ = run_config(paths[0])
+    if smoke:
+        cfg = smoke_config(cfg.name).with_(param_dtype="float32")
     run = RUNS[paths[0]]
     model = build(cfg)
     params = model.init(0, dev)        # train()'s seed and step-0 batch
@@ -614,30 +638,43 @@ def phase_kernels(only_wgmma=False):
                 "vs_simt_max_rel_err": cmp["max_rel_err"],
                 "vs_simt_rtol": tol[0], "vs_simt_atol": tol[1]}
 
+    def wgmma_case(name, path, case, fn, plain, args, tol, simt_tol, nbytes,
+                   ops, library, **extra):
+        """A kernel on its wgmma route: (a) against the plain version at
+        ``tol``, (b) against its SIMT kernel (``fn(..., kernel="simt")``) at
+        ``simt_tol``, (c) itself run twice, bitwise; kernel, SIMT, plain and
+        library times (``library``: one call, or {form: call})."""
+        got, again = fn(*args), fn(*args)
+        simt = fn(*args, kernel="simt")
+        extra.update(simt_check(name, case, got, simt, simt_tol))
+        del simt
+        want = plain(*args)
+        r = min(reps(path, name)[0], 5)
+        ms_k = cuda_ms(lambda: fn(*args), r, 1)
+        extra["simt_ms"] = cuda_ms(lambda: fn(*args, kernel="simt"),
+                                   min(r, 3), 1)
+        ms_p = cuda_ms(lambda: plain(*args), 3, 1)
+        ms_lib = None
+        if isinstance(library, dict):
+            forms = {f: cuda_ms(run, r, 1) for f, run in library.items()}
+            ms_lib = min(forms.values())
+            extra["library_forms_ms"] = forms
+        elif library:
+            ms_lib = cuda_ms(library, r, 1)
+        record(name, path, case, got, want, tol, ms_k, ms_p, nbytes, ops,
+               "bfloat16", ms_lib, again, route="wgmma", **extra)
+        del got, again, want
+        torch.cuda.empty_cache()
+
     def wgmma_grad_case(path, case, a, C, ds, nbytes, ops, library):
-        """clipped_grad on its wgmma route: (a) against the plain version at
-        TOL, (b) against the SIMT kernel at SIMT_GRAD_TOL (both sum exact
-        bf16 products in f32, in other orders), (c) itself run twice,
-        bitwise; kernel, SIMT, plain and library times."""
+        """clipped_grad on its wgmma route: (b) at SIMT_GRAD_TOL (both sum
+        exact bf16 products in f32, in other orders)."""
         if cg.route(a.dtype, a.shape[-1], ds.shape[-1]) != "wgmma":
             raise AssertionError(f"clipped_grad [{case}]: not on the wgmma "
                                  "route")
-        got, again = cg.clipped_grad(a, C, ds), cg.clipped_grad(a, C, ds)
-        simt = cg.clipped_grad(a, C, ds, kernel="simt")
-        extra = simt_check("clipped_grad", case, got, simt, SIMT_GRAD_TOL)
-        del simt
-        want = cg.plain(a, C, ds)
-        r = min(reps(path, "clipped_grad")[0], 5)
-        ms_k = cuda_ms(lambda: cg.clipped_grad(a, C, ds), r, 1)
-        extra["simt_ms"] = cuda_ms(
-            lambda: cg.clipped_grad(a, C, ds, kernel="simt"), min(r, 3), 1)
-        ms_p = cuda_ms(lambda: cg.plain(a, C, ds), 3, 1)
-        ms_lib = cuda_ms(library, r, 1) if library else None
-        record("clipped_grad", path, case, got, want, TOL["bfloat16"], ms_k,
-               ms_p, nbytes, ops, "bfloat16", ms_lib, again, route="wgmma",
-               **extra)
-        del got, again, want
-        torch.cuda.empty_cache()
+        wgmma_case("clipped_grad", path, case, cg.clipped_grad, cg.plain,
+                   (a, C, ds), TOL["bfloat16"], SIMT_GRAD_TOL, nbytes, ops,
+                   library)
 
     def fused_case(path, case, a, ds, dname, clips):
         """fused_clip_grad against its plain version under each clip
@@ -786,6 +823,7 @@ def phase_kernels(only_wgmma=False):
         rec_bytes = kept * (d + p) * esz + mask.numel() * 4
         fill = kept / mask.numel()
         library = einsum_forms("lbecd,lbefd,lbecp,lbefp->b", am, am, dm, dm)
+        wgmma = mg.route(dtype, d, p) == "wgmma"
         if "moe_ghost_norm" in kernels:
             norm_case("moe_ghost_norm", kernels["moe_ghost_norm"], case,
                       mg.moe_ghost_norm, ghost.sq_norm_moe_ghost,
@@ -793,18 +831,28 @@ def phase_kernels(only_wgmma=False):
                       float((d + p) * (nv * (nv + 1)).sum()), dname, library,
                       fill=fill)
         if "moe_direct_norm" in kernels:
-            norm_case("moe_direct_norm", kernels["moe_direct_norm"], case,
-                      mg.moe_direct_norm, ghost.sq_norm_moe_direct,
-                      (a, mask, ds), rec_bytes + Bc * 4,
-                      2.0 * kept * d * p, dname, library, fill=fill)
+            args = ("moe_direct_norm", kernels["moe_direct_norm"], case,
+                    mg.moe_direct_norm, ghost.sq_norm_moe_direct,
+                    (a, mask, ds))
+            nbytes, ops = rec_bytes + Bc * 4, 2.0 * kept * d * p
+            if wgmma:
+                wgmma_case(*args, NORM_TOL, NORM_TOL, nbytes, ops, library,
+                           fill=fill)
+            else:
+                norm_case(*args, nbytes, ops, dname, library, fill=fill)
         if "moe_clipped_grad" in kernels:
-            grad_case("moe_clipped_grad", kernels["moe_clipped_grad"], case,
-                      mg.moe_clipped_grad, mg.plain_clipped_grad,
-                      (a, mask, C, ds),
-                      rec_bytes + Bc * 4 + L * E * d * p * 4,
-                      2.0 * kept * d * p, dname,
-                      lambda: torch.einsum("lbecd,b,lbecp->ledp", a,
-                                           C.to(dtype), dm), fill=fill)
+            args = ("moe_clipped_grad", kernels["moe_clipped_grad"], case,
+                    mg.moe_clipped_grad, mg.plain_clipped_grad,
+                    (a, mask, C, ds))
+            nbytes = rec_bytes + Bc * 4 + L * E * d * p * 4
+            ops = 2.0 * kept * d * p
+            lib = lambda: torch.einsum("lbecd,b,lbecp->ledp", a, C.to(dtype),
+                                       dm)
+            if wgmma:
+                wgmma_case(*args, TOL["bfloat16"], SIMT_GRAD_TOL, nbytes, ops,
+                           lib, fill=fill)
+            else:
+                grad_case(*args, nbytes, ops, dname, lib, fill=fill)
         del ds, dm, am, library
         torch.cuda.empty_cache()
 
@@ -872,15 +920,36 @@ def phase_kernels(only_wgmma=False):
     fp = SERVING["prefill"]
     q_cfg = get_config(fp["arch"])
 
+    moe_wgmma = dict.fromkeys(("moe_direct_norm", "moe_clipped_grad"),
+                              "ragged")
+
+    def router_mask(L, Bc, E, Cap, fill):
+        """A 0/1 slot mask as the router leaves it: each (l, b, e) keeps a
+        random count of slots (mean ~ fill * Cap), the kept ones first."""
+        n = torch.randint(0, Cap + 1, (L, Bc, E, 1), generator=gen,
+                          device=dev).float() * (2 * fill)
+        return (torch.arange(Cap, device=dev).float() < n).float()
+
     def wgmma_shapes():
         """The wgmma routes at one tile and at ragged bf16 shapes: widths
-        multiples of 8 but of no tile, T not a multiple of any tile; flash
-        with h 64 and 128, G 1 and 6, causal and bidirectional."""
+        multiples of 8 but of no tile, T / C not a multiple of any tile
+        (MoE: a random 0/1 mask with an all-zero expert and a sample with no
+        kept slot); flash with h 64 and 128, G 1 and 6, causal and
+        bidirectional."""
         cg_only = {"clipped_grad": "ragged"}
         mm_case("tile L=1 B=1 T=64 d=128 p=128 bf16", 1, 1, 64, 128, 128,
                 bf16, cg_only)
         mm_case("ragged L=3 B=3 T=509 d=136 p=264 bf16", 3, 3, 509, 136, 264,
                 bf16, cg_only)
+        moe_case("tile L=1 B=1 E=1 C=64 d=128 p=128 bf16",
+                 rnd(1, 1, 1, 64, 128), torch.ones(1, 1, 1, 64, device=dev),
+                 128, moe_wgmma)
+        mask = (torch.rand(2, 3, 5, 37, generator=gen, device=dev) < 0.7
+                ).float()
+        mask[:, :, 0] = 0.0             # an expert that no sample reached
+        mask[:, 1] = 0.0                # a sample with no kept slot
+        moe_case("ragged L=2 B=3 E=5 C=37 d=136 p=264 bf16",
+                 rnd(2, 3, 5, 37, 136), mask, 264, moe_wgmma)
         for causal in (True, False):
             flash_case("tile", 1, 128, 128, 1, 1, 128, causal, bf16)
         for h in (64, 128):
@@ -893,6 +962,16 @@ def phase_kernels(only_wgmma=False):
         d, V = q_cfg.d_model, q_cfg.vocab
         mm_case(f"train head L=1 B=8 T=512 d={d} p={V} bf16", 1, 8, 512, d,
                 V, bf16, {"clipped_grad": "train"})
+        # train_moe's up tap, random records under a router-like mask
+        m_cfg = get_config(RUNS["train_moe"]["arch"])
+        L, E, Cap = MOE_LAYERS - 1, m_cfg.n_experts, 60
+        mask = router_mask(L, 8, E, Cap, 0.75)
+        moe_case(f"train_moe up L={L} B=8 E={E} C={Cap} d={m_cfg.d_model} "
+                 f"p={2 * m_cfg.moe_d_ff} bf16 (random records)",
+                 rnd(L, 8, E, Cap, m_cfg.d_model) * mask[..., None].to(bf16),
+                 mask, 2 * m_cfg.moe_d_ff,
+                 {"moe_direct_norm": "train_moe_direct",
+                  "moe_clipped_grad": "train_moe"})
         flash_case("prefill", fp["batch"], fp["seq"], fp["seq"],
                    q_cfg.n_heads, q_cfg.n_kv_heads, q_cfg.hd, True, bf16)
         return summary
@@ -924,6 +1003,20 @@ def phase_kernels(only_wgmma=False):
                          f"p={ds_shape[-1]} bf16", a, mask, ds_shape[-1],
                          kernels)
         del records
+
+    # ---- fused_clip_grad where a driven path launches it: the smoke-width
+    # case of parity_layer (f32), whose every mm unit fits fused_plan's
+    # budget (every clip function on the smallest unit, o)
+    B, T = RUNS["train_layer"]["batch"], RUNS["train_layer"]["seq"]
+    for key, kind, a_shape, ds_shape, kernels in path_taps(
+            ("train_layer",), dev, smoke=True)[2]:
+        if "fused_clip_grad" in kernels:
+            L = a_shape[0] if len(a_shape) == 4 else 1
+            d, p = a_shape[-1], ds_shape[-1]
+            mm_case(f"parity_layer smoke {parse_key(key)[0]} L={L} B={B} "
+                    f"T={T} d={d} p={p} f32", L, B, T, d, p, torch.float32,
+                    {"fused_clip_grad": "parity_layer"},
+                    fc.CLIPS if key.endswith("/o#mm.s") else ("automatic",))
 
     # ---- ragged: T / C not a multiple of any tile, odd d / p / V, stacked,
     # f32; some ids outside [0, V) (dropped by both versions); masked slots.
@@ -982,7 +1075,8 @@ def _profile_summary(prof, window_ms: float) -> dict:
         "ghost_norm", "clipped_grad", "clipped_grad_wgmma", "flash_wgmma",
         "emb_norm", "emb_grad", "reduce_rows",
         "grad_norm_direct", "moe_ghost_norm", "moe_direct_norm",
-        "moe_clipped_grad", "fused_clip_tile", "fused_clip_apply",
+        "moe_clipped_grad", "moe_norm_wgmma", "moe_grad_wgmma",
+        "fused_clip_tile", "fused_clip_apply",
         "flash_attention", "wkv6"))
     kinds = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
     for name, ms in by_name.items():
@@ -1233,17 +1327,23 @@ PARITY = {
                    ("moe_ghost_norm", "moe_clipped_grad")),
     "parity_long": ("train_long", 2, "bk-mixghost", ("grad_norm_direct",)),
     "parity_layer": ("train_layer", 2, "bk-mixopt",
-                     ("fused_clip_grad", "emb_ghost_norm",
+                     ("ghost_norm", "clipped_grad", "emb_ghost_norm",
                       "emb_clipped_grad")),
 }
+# a parity phase's case at the arch's smoke_config width (f32, the path's B
+# and T), where fused_plan fuses every mm unit: the driven path of
+# fused_clip_grad, whose launches count as the path's
+PARITY_SMOKE = {"parity_layer": ("fused_clip_grad", "emb_ghost_norm",
+                                 "emb_clipped_grad")}
 
 
 def phase_parity(name):
     """One BK step with and without the kernels, 2 layers, full width, f32,
     under the path's policy (and, for the MoE path, with the experts forced
-    to the direct norm too)."""
+    to the direct norm too; for parity_layer, also at smoke width) -> the
+    kernel launches of the smoke-width case (none without one)."""
     import torch
-    from repro_torch.configs.registry import build
+    from repro_torch.configs.registry import build, smoke_config
     from repro_torch.core.bk import bk_clipped_sum
     from repro_torch.data.synthetic import make_batch
 
@@ -1251,57 +1351,74 @@ def phase_parity(name):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, dp = run_config(path)
-    small = cfg.with_(n_layers=layers, param_dtype="float32")
-    model = build(small)
-    params = model.init(seed=1, device="cuda")
     B, T = RUNS[path]["batch"], RUNS[path]["seq"]
-    batch = make_batch(small, B, T, seed=1, device="cuda")
     policies = [(mode, dp, expect)]
     if path == "train_moe":
         policies.append(("bk-mixopt experts=direct",
                          run_config("train_moe_direct")[1],
                          ("moe_direct_norm", "moe_clipped_grad")))
+    # (model config, policies, whether its kernel launches count as the
+    # path's)
+    cases = [(cfg.with_(n_layers=layers, param_dtype="float32"), policies,
+              False)]
+    if name in PARITY_SMOKE:
+        cases.append((smoke_config(cfg.name).with_(param_dtype="float32"),
+                      [(f"{mode} smoke width", dp, PARITY_SMOKE[name])],
+                      True))
     rtol, atol = TOL["float32"]
     ws = wrappers()
     reset_counts(ws)
-    for label, pol, want_launched in policies:
-        out, launched = {}, {}
-        for use in (True, False):
-            before = {k: w.launches for k, w in ws.items()}
-            p = dataclasses.replace(pol, mode=mode, use_kernels=use)
-            out[use] = bk_clipped_sum(model.apply, params, batch, p)
-            torch.cuda.synchronize()
-            launched[use] = {k: w.launches - before[k] for k, w in ws.items()
-                             if w.launches > before[k]}
-        (sk, ak), (sp, ap) = out[True], out[False]
-        worst, bad = 0.0, []
-        pairs = [(f"sum:{k}", sk[k], sp[k]) for k in sorted(sk)]
-        pairs.append(("per_sample_norms", ak["per_sample_norms"],
-                      ap["per_sample_norms"]))
-        pairs += [(f"group_norms:{k}", ak["group_norms"][k],
-                   ap["group_norms"][k]) for k in ak["group_norms"]]
-        for key, g, w in pairs:
-            diff = (g.double() - w.double()).abs()
-            worst = max(worst, float(diff.max()))
-            if not bool((diff <= atol + rtol * w.double().abs()).all()):
-                bad.append(key)
-        emit(phase=name, policy=label, arch=small.name, layers=layers,
-             d_model=small.d_model, vocab=small.vocab, dtype="float32",
-             batch=B, seq=T, allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-             cudnn_allow_tf32=torch.backends.cudnn.allow_tf32, rtol=rtol,
-             atol=atol, compared=len(pairs), max_abs_err=worst, failed=bad,
-             launched=launched[True])
-        if bad:
-            raise AssertionError(f"{name} [{label}]: kernel path disagrees "
-                                 f"with use_kernels=False on {bad}")
-        if launched[False] or not all(launched[True].get(k)
-                                      for k in want_launched):
-            raise AssertionError(f"{name} [{label}]: launches {launched}, "
-                                 f"want {want_launched} in the kernel run "
-                                 "and none in the plain run")
-        check_routes(name, ws, False)     # f32: the SIMT routes
-        del out, sk, sp
+    counted = {}
+    for small, pols, counts in cases:
+        model = build(small)
+        params = model.init(seed=1, device="cuda")
+        batch = make_batch(small, B, T, seed=1, device="cuda")
+        for label, pol, want_launched in pols:
+            out, launched = {}, {}
+            for use in (True, False):
+                before = {k: w.launches for k, w in ws.items()}
+                p = dataclasses.replace(pol, mode=mode, use_kernels=use)
+                out[use] = bk_clipped_sum(model.apply, params, batch, p)
+                torch.cuda.synchronize()
+                launched[use] = {k: w.launches - before[k]
+                                 for k, w in ws.items()
+                                 if w.launches > before[k]}
+            (sk, ak), (sp, ap) = out[True], out[False]
+            worst, bad = 0.0, []
+            pairs = [(f"sum:{k}", sk[k], sp[k]) for k in sorted(sk)]
+            pairs.append(("per_sample_norms", ak["per_sample_norms"],
+                          ap["per_sample_norms"]))
+            pairs += [(f"group_norms:{k}", ak["group_norms"][k],
+                       ap["group_norms"][k]) for k in ak["group_norms"]]
+            for key, g, w in pairs:
+                diff = (g.double() - w.double()).abs()
+                worst = max(worst, float(diff.max()))
+                if not bool((diff <= atol + rtol * w.double().abs()).all()):
+                    bad.append(key)
+            emit(phase=name, policy=label, arch=small.name,
+                 layers=small.n_layers, d_model=small.d_model,
+                 vocab=small.vocab, dtype="float32", batch=B, seq=T,
+                 allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                 cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                 rtol=rtol, atol=atol, compared=len(pairs),
+                 max_abs_err=worst, failed=bad, launched=launched[True])
+            if bad:
+                raise AssertionError(f"{name} [{label}]: kernel path "
+                                     f"disagrees with use_kernels=False on "
+                                     f"{bad}")
+            if launched[False] or not all(launched[True].get(k)
+                                          for k in want_launched):
+                raise AssertionError(f"{name} [{label}]: launches "
+                                     f"{launched}, want {want_launched} in "
+                                     "the kernel run and none in the plain "
+                                     "run")
+            if counts:
+                counted = launched[True]
+            check_routes(name, ws, False)     # f32: the SIMT routes
+            del out, sk, sp
+        del model, params, batch
         torch.cuda.empty_cache()
+    return counted
 
 
 def main(argv=None) -> int:
@@ -1344,7 +1461,8 @@ def main(argv=None) -> int:
             phase_serve(name)
     for name in PARITIES:
         if name in phases:
-            phase_parity(name)
+            for k, n in phase_parity(name).items():
+                launches[k] = launches.get(k, 0) + n
     for name in SERVE_PARITIES:
         if name in phases:
             phase_serve_parity(name)
@@ -1369,11 +1487,12 @@ def main(argv=None) -> int:
                     "simt_source": CSRC + WGMMA[name][0]}
                    if name in WGMMA else {})})
         emit(kernels=kernels)
-        if all(p in phases for p in TRAINS + PREFILLS):
+        if all(p in phases for p in TRAINS + PREFILLS + tuple(PARITY_SMOKE)):
             idle = [k["name"] for k in kernels if not k["launches"]]
             if idle:
-                raise AssertionError(f"kernels never launched on the train "
-                                     f"and prefill paths: {idle}")
+                raise AssertionError(f"kernels never launched on the train, "
+                                     f"prefill and smoke-width parity paths: "
+                                     f"{idle}")
     emit(phase="done", seconds=time.perf_counter() - t0)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,20 +51,23 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of ``rank`` dimensions (innermost first), byte strides
-// of dimensions 1..rank-1, a box of ``box`` elements (box[0] = 64: one
-// 128-byte swizzled row), 128B swizzle, out-of-bounds elements read as zero.
+// A tensor map of ``rank`` dimensions (innermost first), byte strides of
+// dimensions 1..rank-1, a box of ``box`` elements (box[0]: one 128-byte
+// swizzled row, 64 bf16 or 32 f32; or, unswizzled, up to 256 elements),
+// out-of-bounds elements read as zero (and dropped by a store).
 // -> 0, or a cudaError_t.
 inline int make_map(CUtensorMap* map, const void* base, int rank,
                     const cuuint64_t* dims, const cuuint64_t* strides,
-                    const cuuint32_t* box) {
+                    const cuuint32_t* box,
+                    CUtensorMapDataType type =
+                        CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return (int)cudaErrorNotSupported;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        (cuuint32_t)rank, const_cast<void*>(base), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base),
+                        dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
@@ -169,6 +172,15 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
 }
 
 // ---- TMA loads into shared memory, completing on ``bar``
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
+      "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2) {
@@ -188,6 +200,41 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// ---- TMA stores from shared memory, one bulk group each
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy accesses of them (a wgmma operand, a TMA store's source);
+// every writing thread runs it, then the threads meet at a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];" ::"l"((uint64_t)map),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until at most N bulk groups still read their shared-memory source
+// (the buffer may then be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// Wait until at most N bulk groups are still in flight (writes included).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // ---- wgmma
@@ -280,6 +327,37 @@ __device__ __forceinline__ void mma_ss(float (&d)[96], uint64_t da,
       ", %96, %97, p, 1, 1, %99, %100;\n}"
       : HOPPER_F96
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// Four k16 steps of m64n128k16 (both operands MN-major, from shared
+// memory) in one asm block, so that no other instruction sits between the
+// wgmmas: step k runs where bit k of ``kmask`` is set (the same in every
+// thread of the warpgroup: a guard predicate, not a branch), and the first
+// step that runs overwrites D unless ``live`` is non-zero. All predicates
+// are set before the first wgmma.
+__device__ __forceinline__ void mma_ss4_if(float (&d)[64],
+                                           const uint64_t (&da)[4],
+                                           const uint64_t (&db)[4],
+                                           uint32_t kmask, int live) {
+  asm volatile(
+      "{\n.reg .pred p0, p1, p2, p3, q0, q1, q2, q3;\n.reg .b32 t;\n"
+      "and.b32 t, %72, 1;\nsetp.ne.b32 q0, t, 0;\n"
+      "and.b32 t, %72, 2;\nsetp.ne.b32 q1, t, 0;\n"
+      "and.b32 t, %72, 4;\nsetp.ne.b32 q2, t, 0;\n"
+      "and.b32 t, %72, 8;\nsetp.ne.b32 q3, t, 0;\n"
+      "setp.ne.b32 p0, %73, 0;\nor.pred p1, p0, q0;\n"
+      "or.pred p2, p1, q1;\nor.pred p3, p2, q2;\n"
+      "@q0 wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+      ", %64, %68, p0, 1, 1, 1, 1;\n"
+      "@q1 wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+      ", %65, %69, p1, 1, 1, 1, 1;\n"
+      "@q2 wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+      ", %66, %70, p2, 1, 1, 1, 1;\n"
+      "@q3 wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+      ", %67, %71, p3, 1, 1, 1, 1;\n}"
+      : HOPPER_F64
+      : "l"(da[0]), "l"(da[1]), "l"(da[2]), "l"(da[3]), "l"(db[0]),
+        "l"(db[1]), "l"(db[2]), "l"(db[3]), "r"(kmask), "r"(live));
 }
 
 // D (64 x N) += A (64 x 16, bf16 pairs in registers: rows lane/4 and +8,

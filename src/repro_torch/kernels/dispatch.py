@@ -14,13 +14,14 @@ and the CUDA kernels fix their own tiles. What stays:
               slots.
   fused_plan  how a STREAMED single-tap clip unit (scope='layer') runs
               phases 2+3: one ``fused_clip_grad`` launch, or the composed
-              norm + weighted-grad route. The JAX package fuses only when
-              one sample's whole (L,d,p) gradient fits the TPU's VMEM, which
-              no full-width unit does. The CUDA kernel holds nothing per
-              sample on chip (it streams g_b through a device scratch), so
-              here there is no size gate: every mm unit fuses, except under
-              mode 'bk' (forced ghost norms) or a 'ghost' group override,
-              the JAX package's own two exclusions.
+              norm + weighted-grad route. The JAX package's rule as written:
+              an mm unit fuses only when one sample's working set, its
+              (L,T,d+p) records plus the (L,d,p) gradient and output
+              accumulator, fits ``FUSED_BUDGET`` (the reference's VMEM
+              budget), and never under mode 'bk' (forced ghost norms) or a
+              'ghost' group override. No full-width unit of the train
+              paths fits; a small unit (a LoRA adapter, a smoke model)
+              fuses.
   tape_plan   where a tap's book-kept state resides between phases 2 and 3
               (native, bf16, int8, recompute), by the JAX package's byte
               thresholds; ``fit_tape_budget`` upgrades stores until a byte
@@ -33,6 +34,15 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from repro_torch.core.ghost import prefer_ghost
+
+
+# f32 bytes of one sample's fused working set. The JAX package's
+# VMEM_BUDGET (6 MiB), kept as it is: ``csrc/fused_clip.cu`` streams g_b
+# through a device scratch and holds nothing on chip, so the card has no
+# budget of its own for it yet; one comes with a fused kernel that keeps
+# g_b in shared memory (or a cluster's distributed shared memory). Until
+# then equal budgets give the JAX package's plans for every shape.
+FUSED_BUDGET = 6 * 2 ** 20
 
 
 @dataclass(frozen=True)
@@ -61,7 +71,10 @@ def fused_plan(kind: str, act_shape, ds_shape, mode: str,
     norm and the weighted grad) or 'split' (norm, then weighted grad)."""
     if kind != "mm" or mode == "bk" or method == "ghost":
         return Plan("split")
-    return Plan("fused")
+    L = act_shape[0] if len(act_shape) == 4 else 1
+    T, d, p = act_shape[-2], act_shape[-1], ds_shape[-1]
+    fits = 4 * (L * T * (d + p) + 2 * L * d * p) <= FUSED_BUDGET
+    return Plan("fused" if fits else "split")
 
 
 # -------------------------------------------------------- residency planner

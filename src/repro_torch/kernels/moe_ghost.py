@@ -9,10 +9,16 @@ of ``models.moe``, as CUDA kernels:
 
 with am, dm the records with the slot mask applied to each row. They replace
 the TPU kernels of ``repro/kernels/moe_ghost.py`` of the same names. Sources:
-``csrc/moe_{ghost_norm,direct_norm,clipped_grad}.cu``, each of which says
-what bounds it on the H100. The mask is applied in registers, so no masked
-copy, no (B,E,C,C) Gram and no (B,E,d,p) per-sample grad exists in device
-memory; reductions run in a fixed order (deterministic).
+``csrc/moe_{ghost_norm,direct_norm,clipped_grad}.cu`` (f32 SIMT cores), and
+for the direct norm and the weighted grad also
+``csrc/moe_{direct_norm,clipped_grad}_wgmma.cu`` (tensor cores, TMA-fed:
+the loop of ``csrc/wgmma_grad.cuh``, and a pre-pass that flags each block
+of 64 slots, ``csrc/slot_flags.cuh``), chosen by :func:`route`; each
+source says what bounds it on the H100. The
+mask is applied on the way to the products (in registers, or on the a tile
+in shared memory where the records are not zero at empty slots already),
+so no masked copy, no (B,E,C,C) Gram and no (B,E,d,p) per-sample grad
+exists in device memory; reductions run in a fixed order (deterministic).
 """
 from __future__ import annotations
 
@@ -22,6 +28,39 @@ from repro_torch.core import ghost
 from repro_torch.kernels import build
 
 F32 = torch.float32
+ROUTES = ("wgmma", "simt")
+
+
+def route(dtype: torch.dtype, d: int, p: int, aligned: bool = True) -> str:
+    """The kernel a CUDA call of the direct norm or the weighted grad takes:
+    'wgmma' for bf16 records with d and p multiples of 8 and 16-byte
+    aligned bases (TMA's strides and addresses; wgmma's transposed operands
+    exist for 16-bit types only), else 'simt'."""
+    return ("wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and p % 8 == 0
+            and aligned else "simt")
+
+
+def _slot_flags(a5) -> torch.Tensor:
+    """Scratch of the wgmma kernels' pre-pass: 16 bytes per 64-slot block
+    of each (l, b, e)'s capacity slots."""
+    L, B, E, Cap, _ = a5.shape
+    return torch.empty(L * B * E * -(-Cap // 64) * 4, dtype=torch.int32,
+                       device=a5.device)
+
+
+def _route(name, kernel, a5, d5, d, p):
+    """-> the route a call takes: ``kernel`` if given (raising where the
+    wgmma kernel does not take the records), else :func:`route`'s."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (a5, d5))
+    want = route(a5.dtype, d, p, aligned)
+    kernel = kernel or want
+    if kernel not in ROUTES:
+        raise ValueError(f"{name}: kernel {kernel!r} not in {ROUTES}")
+    if kernel == "wgmma" and want != "wgmma":
+        raise ValueError(f"{name}: the wgmma kernel takes bf16 records with "
+                         f"d, p multiples of 8 and 16-byte aligned bases, "
+                         f"got {a5.dtype}, d={d}, p={p}, aligned={aligned}")
+    return kernel
 
 
 def _operands(name, a, mask, ds, C=None):
@@ -60,21 +99,33 @@ def moe_ghost_norm(a: torch.Tensor, mask: torch.Tensor,
 
 
 # ------------------------------------------------------------ direct norm
-def moe_direct_norm(a: torch.Tensor, mask: torch.Tensor,
-                    ds: torch.Tensor) -> torch.Tensor:
-    """-> (B,) f32."""
+def moe_direct_norm(a: torch.Tensor, mask: torch.Tensor, ds: torch.Tensor,
+                    kernel: str | None = None) -> torch.Tensor:
+    """-> (B,) f32. One launch (and its fixed-order partial sum) of the
+    kernel :func:`route` names; ``kernel`` forces one."""
     if a.device.type == "cpu":
         return ghost.sq_norm_moe_direct(a, mask, ds)
     a5, m5, d5, _, bf16, (L, B, E, Cap, d, p) = _operands(
         "moe_direct_norm", a, mask, ds)
+    kernel = _route("moe_direct_norm", kernel, a5, d5, d, p)
     lib = build.load()
-    partial = torch.empty(B, L * lib.dp_moe_direct_norm_nparts(d, p),
-                          dtype=F32, device=a.device)
     out = torch.empty(B, dtype=F32, device=a.device)
-    build.check(lib.dp_moe_direct_norm(
-        a5.data_ptr(), m5.data_ptr(), d5.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), L, B, E, Cap, d, p, int(bf16), build.stream_ptr(a)),
-        "moe_direct_norm")
+    args = (a5.data_ptr(), m5.data_ptr(), d5.data_ptr())
+    if kernel == "wgmma":
+        partial = torch.empty(
+            B, L * E * lib.dp_moe_direct_norm_wgmma_nparts(d), dtype=F32,
+            device=a.device)
+        flags = _slot_flags(a5)
+        build.check(lib.dp_moe_direct_norm_wgmma(
+            *args, flags.data_ptr(), partial.data_ptr(), out.data_ptr(), L,
+            B, E, Cap, d, p, build.stream_ptr(a)), "moe_direct_norm (wgmma)")
+        moe_direct_norm.wgmma_launches += 1
+    else:
+        partial = torch.empty(B, L * lib.dp_moe_direct_norm_nparts(d, p),
+                              dtype=F32, device=a.device)
+        build.check(lib.dp_moe_direct_norm(
+            *args, partial.data_ptr(), out.data_ptr(), L, B, E, Cap, d, p,
+            int(bf16), build.stream_ptr(a)), "moe_direct_norm")
     moe_direct_norm.launches += 1
     return out
 
@@ -86,21 +137,34 @@ def plain_clipped_grad(a, mask, C, ds):
 
 
 def moe_clipped_grad(a: torch.Tensor, mask: torch.Tensor, C: torch.Tensor,
-                     ds: torch.Tensor) -> torch.Tensor:
-    """C (B,) -> (L,E,d,p) f32, or (E,d,p) for unstacked records."""
+                     ds: torch.Tensor, kernel: str | None = None
+                     ) -> torch.Tensor:
+    """C (B,) -> (L,E,d,p) f32, or (E,d,p) for unstacked records. One launch
+    of the kernel :func:`route` names; ``kernel`` forces one."""
     if a.device.type == "cpu":
         return plain_clipped_grad(a, mask, C, ds)
     a5, m5, d5, C, bf16, (L, B, E, Cap, d, p) = _operands(
         "moe_clipped_grad", a, mask, ds, C)
+    kernel = _route("moe_clipped_grad", kernel, a5, d5, d, p)
     out = torch.empty(L, E, d, p, dtype=F32, device=a.device)
-    build.check(build.load().dp_moe_clipped_grad(
-        a5.data_ptr(), m5.data_ptr(), C.data_ptr(), d5.data_ptr(),
-        out.data_ptr(), L, B, E, Cap, d, p, int(bf16), build.stream_ptr(a)),
-        "moe_clipped_grad")
+    args = (a5.data_ptr(), m5.data_ptr(), C.data_ptr(), d5.data_ptr())
+    dims = (out.data_ptr(), L, B, E, Cap, d, p)
+    lib = build.load()
+    if kernel == "wgmma":
+        flags = _slot_flags(a5)
+        build.check(lib.dp_moe_clipped_grad_wgmma(
+            *args, flags.data_ptr(), *dims, build.stream_ptr(a)),
+            "moe_clipped_grad (wgmma)")
+        moe_clipped_grad.wgmma_launches += 1
+    else:
+        build.check(lib.dp_moe_clipped_grad(
+            *args, *dims, int(bf16), build.stream_ptr(a)), "moe_clipped_grad")
     moe_clipped_grad.launches += 1
     return out if a.dim() == 5 else out[0]
 
 
 moe_ghost_norm.launches = 0
-moe_direct_norm.launches = 0
+moe_direct_norm.launches = 0       # every launch, either kernel
+moe_direct_norm.wgmma_launches = 0   # launches of the wgmma kernel
 moe_clipped_grad.launches = 0
+moe_clipped_grad.wgmma_launches = 0

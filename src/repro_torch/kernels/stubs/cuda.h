@@ -11,6 +11,7 @@ typedef struct CUtensorMap_st {
   alignas(64) cuuint64_t opaque[16];
 } CUtensorMap;
 typedef enum CUtensorMapDataType_enum {
+  CU_TENSOR_MAP_DATA_TYPE_UINT32 = 2,
   CU_TENSOR_MAP_DATA_TYPE_FLOAT32 = 7,
   CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9,
 } CUtensorMapDataType;

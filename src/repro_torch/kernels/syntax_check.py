@@ -5,10 +5,11 @@
 
 Each ``.cu`` under ``csrc/`` is parsed by ``g++ -fsyntax-only`` against the
 stub headers in ``stubs/`` (``cuda.h``, ``cuda_runtime.h``, ``cuda_bf16.h``:
-declarations only, the tensor-map types and driver enums included), with its
-``<<<...>>>`` launch configurations stripped. That catches C++ errors (names,
-types, template arguments, argument counts) before a build on the card; it
-says nothing of PTX, of inline assembly or of what nvcc accepts beyond C++.
+declarations only, the tensor-map types and driver enums included), with the
+``<<<...>>>`` launch configurations of it and of the ``.cuh`` headers beside
+it stripped. That catches C++ errors (names, types, template arguments,
+argument counts) before a build on the card; it says nothing of PTX, of
+inline assembly or of what nvcc accepts beyond C++.
 """
 from __future__ import annotations
 
@@ -34,9 +35,11 @@ def check(cu: Path) -> tuple[bool, str]:
     with tempfile.TemporaryDirectory() as tmp:
         src = Path(tmp) / (cu.stem + ".cpp")
         src.write_text(_LAUNCH.sub("", cu.read_text()))
+        for h in cu.parent.glob("*.cuh"):   # the headers launch kernels too
+            (Path(tmp) / h.name).write_text(_LAUNCH.sub("", h.read_text()))
         proc = subprocess.run(
             [gxx, "-std=c++17", "-fsyntax-only", "-Wno-unknown-pragmas",
-             "-I", str(STUBS), "-I", str(cu.parent), str(src)],
+             "-I", str(STUBS), "-I", tmp, str(src)],
             capture_output=True, text=True)
     return proc.returncode == 0, proc.stdout + proc.stderr
 

@@ -22,6 +22,7 @@ from repro_torch.core.policy import ParamGroup, PrivacyPolicy, resolve_policy
 from repro_torch.kernels import build, syntax_check
 from repro_torch.kernels import clipped_grad as cg_mod
 from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import moe_ghost as moe_mod
 from repro_torch.kernels.clipped_grad import clipped_grad
 from repro_torch.kernels.emb_grad import emb_clipped_grad
 from repro_torch.kernels.emb_norm import emb_ghost_norm
@@ -232,6 +233,12 @@ def _meta(*shape, dtype=torch.float32):
                               _meta(2, 3, 2, 64, dtype=torch.bfloat16),
                               _meta(2, 3, 2, 64, dtype=torch.bfloat16)),
                             causal=False),
+    lambda: moe_direct_norm(_meta(2, 3, 4, 8, dtype=torch.bfloat16),
+                            _meta(2, 3, 4),
+                            _meta(2, 3, 4, 16, dtype=torch.bfloat16)),
+    lambda: moe_clipped_grad(_meta(2, 3, 4, 8, dtype=torch.bfloat16),
+                             _meta(2, 3, 4), _meta(2),
+                             _meta(2, 3, 4, 16, dtype=torch.bfloat16)),
     lambda: wkv6(*(_meta(2, 3, 4, 8),) * 4, _meta(4, 8)),
 ])
 def test_wrappers_take_the_plain_version_only_on_cpu(call):
@@ -400,17 +407,44 @@ def test_flash_attention_route(dtype, h, want):
     assert fa_mod.route(dtype, h) == want
 
 
+@pytest.mark.parametrize("dtype,d,p,want", [
+    # deepseek-moe-16b's expert taps: up (d_model -> 2 moe_d_ff), down
+    (torch.bfloat16, 2048, 2816, "wgmma"),
+    (torch.bfloat16, 1408, 2048, "wgmma"),
+    (torch.bfloat16, 136, 264, "wgmma"),      # multiples of 8, of no tile
+    (torch.bfloat16, 8, 8, "wgmma"),
+    # unaligned widths and f32 records keep the SIMT kernels
+    (torch.bfloat16, 37, 53, "simt"),
+    (torch.bfloat16, 2048, 2812, "simt"),
+    (torch.bfloat16, 1404, 2048, "simt"),
+    (torch.float32, 2048, 2816, "simt"),
+    (torch.float32, 165, 301, "simt"),
+])
+def test_moe_route(dtype, d, p, want):
+    assert moe_mod.route(dtype, d, p) == want
+    assert moe_mod.route(dtype, d, p, aligned=False) == "simt"
+
+
 class _FakeLib:
     """Stands in for the kernel library: records each C entry's name and
-    argument count, returns success."""
+    argument count (and the last call's arguments), returns success (and 1
+    from an ``_nparts`` entry)."""
 
     def __init__(self):
         self.calls = []
+        self.last_args = ()
 
     def __getattr__(self, name):
         if not name.startswith("dp_"):
             raise AttributeError(name)
-        return lambda *args: self.calls.append((name, len(args))) or 0
+        if name.endswith("_nparts"):
+            return lambda *args: 1
+
+        def call(*args):
+            self.calls.append((name, len(args)))
+            self.last_args = args
+            return 0
+        return call
 
 
 @pytest.fixture
@@ -464,6 +498,42 @@ def test_flash_attention_launches_its_route(fake_lib, dtype, h, kernel,
     assert flash_attention.wgmma_launches == w0 + (entry.endswith("wgmma"))
 
 
+@pytest.mark.parametrize("dtype,d,p,kernel,entry", [
+    (torch.bfloat16, 2048, 2816, None, "wgmma"),
+    (torch.bfloat16, 136, 264, None, "wgmma"),
+    (torch.bfloat16, 37, 53, None, ""),
+    (torch.float32, 2048, 2816, None, ""),
+    (torch.bfloat16, 2048, 2816, "simt", ""),
+])
+@pytest.mark.parametrize("name", ["moe_direct_norm", "moe_clipped_grad"])
+def test_moe_launches_its_route(fake_lib, name, dtype, d, p, kernel, entry):
+    """Each MoE wrapper launches the C entry its route names, with the
+    argument count of its signature and the record shape (L, B, E, C, d, p)
+    that its 3-D tensor maps are built from, and counts every launch and
+    the wgmma ones; unstacked records launch as L = 1."""
+    L, B, E, C = 2, 3, 4, 5
+    fn = getattr(moe_mod, name)
+    for stacked in (True, False):
+        lead = (L,) if stacked else ()
+        a, ds = (_meta(*lead, B, E, C, w, dtype=dtype) for w in (d, p))
+        mask = _meta(*lead, B, E, C)
+        n0, w0 = fn.launches, fn.wgmma_launches
+        fake_lib.calls.clear()
+        out = (fn(a, mask, ds, kernel=kernel) if name == "moe_direct_norm"
+               else fn(a, mask, _meta(B), ds, kernel=kernel))
+        want_shape = (B,) if name == "moe_direct_norm" else (*lead, E, d, p)
+        assert tuple(out.shape) == want_shape and out.dtype == torch.float32
+        c_entry = f"dp_{name}_{entry}" if entry else f"dp_{name}"
+        assert fake_lib.calls == [(c_entry,
+                                   len(build.SIGNATURES[c_entry]))]
+        # the pointers (0 on meta tensors), then L, B, E, C, d, p (and the
+        # SIMT kernels' bf16 flag), then the stream
+        dims = fake_lib.last_args[-7 if entry else -8:][:6]
+        assert list(dims) == [L if stacked else 1, B, E, C, d, p]
+        assert fn.launches == n0 + 1
+        assert fn.wgmma_launches == w0 + (entry == "wgmma")
+
+
 @pytest.mark.parametrize("call", [
     # f32 records, unaligned widths, other head sizes: no wgmma kernel
     lambda: clipped_grad(_meta(2, 3, 8), _meta(2), _meta(2, 3, 16),
@@ -476,6 +546,23 @@ def test_flash_attention_launches_its_route(fake_lib, dtype, h, kernel,
     lambda: flash_attention(*(_meta(2, 3, 2, 128),) * 3, kernel="wgmma"),
     lambda: clipped_grad(_meta(2, 3, 8), _meta(2), _meta(2, 3, 16),
                          kernel="tensor"),
+    # the MoE wgmma kernels: f32 records, unaligned widths, other routes
+    lambda: moe_direct_norm(_meta(2, 3, 4, 8), _meta(2, 3, 4),
+                            _meta(2, 3, 4, 16), kernel="wgmma"),
+    lambda: moe_direct_norm(_meta(2, 3, 4, 12, dtype=torch.bfloat16),
+                            _meta(2, 3, 4),
+                            _meta(2, 3, 4, 16, dtype=torch.bfloat16),
+                            kernel="wgmma"),
+    lambda: moe_clipped_grad(_meta(2, 3, 4, 8), _meta(2, 3, 4), _meta(2),
+                             _meta(2, 3, 4, 16), kernel="wgmma"),
+    lambda: moe_clipped_grad(_meta(2, 3, 4, 8, dtype=torch.bfloat16),
+                             _meta(2, 3, 4), _meta(2),
+                             _meta(2, 3, 4, 20, dtype=torch.bfloat16),
+                             kernel="wgmma"),
+    lambda: moe_clipped_grad(_meta(2, 3, 4, 8, dtype=torch.bfloat16),
+                             _meta(2, 3, 4), _meta(2),
+                             _meta(2, 3, 4, 16, dtype=torch.bfloat16),
+                             kernel="tensor"),
 ])
 def test_forced_wgmma_route_raises_on_inputs_it_does_not_take(fake_lib,
                                                               call):

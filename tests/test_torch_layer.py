@@ -4,7 +4,8 @@ version against the Pallas kernel (interpret mode); ``bk_clipped_sum`` under
 a layer-scoped policy in every BK mode; streamed vs two-phase bitwise
 without kernels (the JAX package's own contract,
 tests/test_layer_scope.py:131); and the fused/split routes of
-``dispatch.fused_plan``, at qwen2-1.5b's full shapes too."""
+``dispatch.fused_plan`` against the JAX package's, at qwen2-1.5b's full
+shapes too."""
 import functools
 
 import jax
@@ -23,6 +24,7 @@ from repro.core.policy import ParamGroup as JParamGroup
 from repro.core.policy import PrivacyPolicy as JPrivacyPolicy
 from repro.core.policy import resolve_policy as jresolve_policy
 from repro.core.policy import with_scope as jwith_scope
+from repro.kernels import dispatch as jdispatch
 from repro.kernels.fused_clip import fused_clip_grad as jfused_clip_grad
 from repro.utils.tree import flatten as jflatten
 from repro_torch.configs.registry import build, get_policy, smoke_config
@@ -188,7 +190,8 @@ def _compare(jpol, tpol):
 def test_layer_scope_clipped_sum_matches_jax(mode, clipping):
     """The JAX side on its jnp path (the composed split route); the port's
     default run takes fused_clip_grad (its plain version on the CPU) for
-    every mm unit in bk-mixghost and bk-mixopt, and the split route in bk."""
+    every mm unit in bk-mixghost and bk-mixopt (each fits the fused budget
+    at smoke size), and the split route in bk."""
     kw = dict(mode=mode, clipping=clipping, R=0.3)
     _compare(jwith_scope(JDPConfig(use_kernels=False, **kw), "layer"),
              with_scope(DPConfig(**kw), "layer"))
@@ -243,16 +246,42 @@ FULL = dict(qkv=((28, 8, 512, 1536), (28, 8, 512, 2048)),
     ("bk-mixopt", "direct", "fused"), ("bk", "", "split"),
     ("bk-mixopt", "ghost", "split")])
 def test_fused_plan_routes(mode, method, want):
-    """qwen2-1.5b's five full-width mm units (B=8, T=512): no size gate on
-    the card, so every one fuses unless mode 'bk' or a ghost override; emb
-    and moe units always split."""
+    """The reference's capacity gate: qwen2-1.5b's five full-width mm units
+    (B=8, T=512) hold far more than 6 MiB a sample, so every one splits; a
+    unit small enough to fit fuses unless mode 'bk' or a ghost override
+    (``want``); emb and moe units always split."""
     for a, ds in FULL.values():
-        assert dispatch.fused_plan("mm", a, ds, mode, method).method == want
+        assert dispatch.fused_plan("mm", a, ds, mode, method).method == \
+            "split"
+    assert dispatch.fused_plan("mm", (2, 8, 64, 32), (2, 8, 64, 48), mode,
+                               method).method == want
     assert dispatch.fused_plan("emb", (8, 512), (8, 512, 1536), mode,
                                method).method == "split"
     assert dispatch.fused_plan("moe", (5, 8, 64, 128, 2048),
                                (5, 8, 64, 128, 1408), mode,
                                method).method == "split"
+
+
+# (records, cotangent): one sample's 4 (L T (d+p) + 2 L d p) bytes against
+# the reference's 6 MiB (src/repro/kernels/dispatch.py:37,207)
+GATE_SHAPES = [((2, 16, 32), (2, 16, 48)),               # smoke-sized
+               ((4, 1024, 512), (4, 1024, 512)),         # exactly 6 MiB
+               ((4, 1025, 512), (4, 1025, 512)),         # one row over
+               ((2, 4, 1024, 256), (2, 4, 1024, 256)),   # stacked, 5 MiB
+               ((3, 4, 1024, 256), (3, 4, 1024, 256)),   # stacked, 7.5 MiB
+               *FULL.values()]                           # full width
+
+
+@pytest.mark.parametrize("act,ds", GATE_SHAPES)
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_plan_matches_jax(act, ds, mode):
+    """The port plans every streamed unit as the JAX package does, for
+    every tap kind and group override."""
+    for kind in ("mm", "emb", "moe"):
+        for method in ("", "ghost", "direct"):
+            want = jdispatch.fused_plan(kind, act, ds, mode, method).method
+            got = dispatch.fused_plan(kind, act, ds, mode, method).method
+            assert got == want, (kind, method)
 
 
 def test_plan_report_layer_scope_routes():
