@@ -23,19 +23,25 @@ Phases, each printing JSON lines:
             must agree bitwise; kernel, plain and one-call library times
             with CUDA events, and for fused_clip_grad (at the smoke-width
             parity_layer model's units, the path that launches it) the
-            composed route it replaces. clipped_grad, flash_attention,
-            moe_direct_norm and moe_clipped_grad take their wgmma kernels
-            on bf16 (``route``): there each is also held to its SIMT kernel
-            on the same inputs (the weighted grads at SIMT_GRAD_TOL, the
-            norm at NORM_TOL, flash at the bf16 tolerance) and to itself
-            run twice (bitwise), with the SIMT kernel timed beside it
-            (simt_ms), at every train path's / the prefill's shapes, at one
-            tile, and at ragged bf16 shapes
+            composed route it replaces. ghost_norm, clipped_grad,
+            flash_attention, moe_direct_norm and moe_clipped_grad take their
+            wgmma kernels on bf16 (``route``): there each is also held to
+            its SIMT kernel on the same inputs (the weighted grads at
+            SIMT_GRAD_TOL, the norms at NORM_TOL, flash at the bf16
+            tolerance) and to itself run twice (bitwise), with the SIMT
+            kernel timed beside it (simt_ms), at every train path's / the
+            prefill's shapes, at one tile, and at ragged bf16 shapes;
+            ghost_norm's three versions also against a float64 evaluation
+            (the wgmma kernel within NORM_TOL's rtol of it).
+            emb_clipped_grad also bitwise run to run, at train's ids, the
+            ragged ids and one id at every position, with its device time
+            by torch.profiler beside its CUDA-event time
   wgmma     (not in the default run) the short call after a tensor-core
             kernel edit: those checks at one tile, the ragged bf16 shapes
-            and one row shape of each (the head tap of ``train``, the
-            ``prefill`` attention, ``train_moe``'s up tap with random
-            records under a router-like mask), without building a model
+            and one row shape of each (the head tap of ``train``, whose
+            ghost_norm items take the p split, the ``prefill`` attention,
+            ``train_moe``'s up tap with random records under a router-like
+            mask), without building a model
   train             qwen2-1.5b, full (28 layers, bf16), B=8, T=512
   train_moe         deepseek-moe-16b at full width, 6 of its 28 layers
                     (dense0_0 + 5 MoE blocks), B=8, T=512
@@ -135,7 +141,7 @@ KERNELS = ("ghost_norm", "clipped_grad", "emb_ghost_norm", "emb_clipped_grad",
            "moe_clipped_grad", "fused_clip_grad", "flash_attention", "wkv6")
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
-    "ghost_norm": ("ghost_norm.cu", "ghost_norm.py:62"),
+    "ghost_norm": ("ghost_norm_wgmma.cu", "ghost_norm.py:62"),
     "clipped_grad": ("clipped_grad_wgmma.cu", "clipped_grad.py:39"),
     "emb_ghost_norm": ("emb_norm.cu", "emb_norm.py:50"),
     "emb_clipped_grad": ("emb_grad.cu", "emb_grad.py:50"),
@@ -149,7 +155,8 @@ SOURCES = {
 }
 # the tensor-core kernels: their SIMT kernels (f32 and unaligned inputs),
 # and their names in the SASS
-WGMMA = {"clipped_grad": ("clipped_grad.cu", "clipped_grad_wgmma_kernel"),
+WGMMA = {"ghost_norm": ("ghost_norm.cu", "ghost_norm_wgmma_kernel"),
+         "clipped_grad": ("clipped_grad.cu", "clipped_grad_wgmma_kernel"),
          "flash_attention": ("flash_attention.cu", "flash_wgmma_kernel"),
          "moe_direct_norm": ("moe_direct_norm.cu", "moe_norm_wgmma_kernel"),
          "moe_clipped_grad": ("moe_clipped_grad.cu",
@@ -342,6 +349,28 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 5) -> dict:
+    """Device milliseconds of ``fn`` a call, by kernel name (every kernel
+    it launches, by torch.profiler), summed over ``reps`` calls (after one
+    warm-up) and divided by them."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name[:60]
+            by_name[name] = (by_name.get(name, 0.0)
+                             + e.time_range.elapsed_us() / reps / 1e3)
+    return by_name
+
+
 def compare(got, want, tol) -> dict:
     """Max abs / rel error of got vs want, and the allclose verdict at
     ``tol`` = (rtol, atol)."""
@@ -515,6 +544,7 @@ def phase_kernels(only_wgmma=False):
     import torch
     from repro_torch.core import ghost
     from repro_torch.core.tape import parse_key
+    from repro_torch.kernels import build
     from repro_torch.kernels import clipped_grad as cg
     from repro_torch.kernels import emb_grad as eg
     from repro_torch.configs.registry import get_config
@@ -666,6 +696,25 @@ def phase_kernels(only_wgmma=False):
         del got, again, want
         torch.cuda.empty_cache()
 
+    def ghost_vs_f64(a, ds):
+        """The ghost norm in float64, one (l, b) at a time, as the arbiter
+        of the f32 versions' sums -> each version's max relative error;
+        raises unless the wgmma kernel's is within NORM_TOL's rtol."""
+        exact = torch.zeros(a.shape[1], dtype=torch.float64, device=dev)
+        for l in range(a.shape[0]):
+            for b in range(a.shape[1]):
+                x, g = a[l, b].double(), ds[l, b].double()
+                exact[b] += ((x @ x.T) * (g @ g.T)).sum()
+        err = {k: float(((fn().double() - exact).abs() / exact.abs()).max())
+               for k, fn in (("wgmma", lambda: gn.ghost_norm(a, ds)),
+                             ("simt", lambda: gn.ghost_norm(a, ds,
+                                                            kernel="simt")),
+                             ("plain", lambda: gn.plain(a, ds)))}
+        if err["wgmma"] > NORM_TOL[0]:
+            raise AssertionError(f"ghost_norm: the wgmma kernel is "
+                                 f"{err['wgmma']} from float64")
+        return err
+
     def wgmma_grad_case(path, case, a, C, ds, nbytes, ops, library):
         """clipped_grad on its wgmma route: (b) at SIMT_GRAD_TOL (both sum
         exact bf16 products in f32, in other orders)."""
@@ -756,10 +805,18 @@ def phase_kernels(only_wgmma=False):
         # the one-call library version of either norm: the same function
         library = einsum_forms("lbtd,lbsd,lbtp,lbsp->b", a, a, ds, ds)
         if "ghost_norm" in kernels:
-            norm_case("ghost_norm", kernels["ghost_norm"], case,
-                      gn.ghost_norm, gn.plain, (a, ds), rec_bytes + Bc * 4,
-                      2.0 * (d + p) * L * Bc * Tc * (Tc + 1) / 2, dname,
-                      library)
+            args = ("ghost_norm", kernels["ghost_norm"], case, gn.ghost_norm,
+                    gn.plain, (a, ds))
+            nbytes = rec_bytes + Bc * 4
+            ops = 2.0 * (d + p) * L * Bc * Tc * (Tc + 1) / 2
+            if gn.route(dtype, d, p) == "wgmma":
+                # the p chunks this launch cuts the wider record into
+                split = build.load().dp_ghost_norm_wgmma_split(L, Bc, Tc, d,
+                                                               p)
+                wgmma_case(*args, NORM_TOL, NORM_TOL, nbytes, ops, library,
+                           split=split, f64_rel_err=ghost_vs_f64(a, ds))
+            else:
+                norm_case(*args, nbytes, ops, dname, library)
         if "grad_norm_direct" in kernels:
             norm_case("grad_norm_direct", kernels["grad_norm_direct"], case,
                       gd.grad_norm_direct, gd.plain, (a, ds),
@@ -782,28 +839,61 @@ def phase_kernels(only_wgmma=False):
         torch.cuda.empty_cache()
 
     def emb_case(case, ids, d, V, dtype, kernels):
+        """emb_ghost_norm (where ``kernels`` names it) and emb_clipped_grad
+        on ids (L,B,T) or (B,T); the latter (a) against its plain version
+        at TOL, (c) itself run twice, bitwise; device time by
+        torch.profiler beside the CUDA-event time, for it and for the
+        library call."""
         dname = str(dtype).split(".")[-1]
         L, Bc, Tc = (ids if ids.dim() == 3 else ids[None]).shape
         ds = rnd(*ids.shape, d, dtype=dtype)
         C = torch.rand(Bc, generator=gen, device=dev) + 0.1
         esz = ds.element_size()
-        norm_case("emb_ghost_norm", kernels["emb_ghost_norm"], case,
-                  en.emb_ghost_norm, en.plain, (ids, ds),
-                  ids.numel() * 4 + ds.numel() * esz + Bc * 4,
-                  2.0 * d * _match_pairs(ids), dname)
+        if "emb_ghost_norm" in kernels:
+            norm_case("emb_ghost_norm", kernels["emb_ghost_norm"], case,
+                      en.emb_ghost_norm, en.plain, (ids, ds),
+                      ids.numel() * 4 + ds.numel() * esz + Bc * 4,
+                      2.0 * d * _match_pairs(ids), dname)
         valid = ((ids >= 0) & (ids < V)).reshape(-1)
         flat = (ids.long() + torch.arange(L, device=dev)[:, None, None] * V
                 ).reshape(-1)[valid]
         w = (ds.float() * C[:, None, None]).reshape(-1, d)[valid]
-        grad_case("emb_clipped_grad", kernels["emb_clipped_grad"], case,
-                  lambda *a: eg.emb_clipped_grad(*a, V),
-                  lambda *a: eg.plain(*a, V), (ids, C, ds),
-                  ids.numel() * 4 + Bc * 4 + ds.numel() * esz + L * V * d * 4,
-                  2.0 * int(valid.sum()) * d, dname,
-                  lambda: torch.zeros(L * V, d, device=dev).index_add_(
-                      0, flat, w))
-        del ds, w
+        path, args = kernels["emb_clipped_grad"], (ids, C, ds, V)
+        library = lambda: torch.zeros(L * V, d, device=dev).index_add_(
+            0, flat, w)
+        got, again = eg.emb_clipped_grad(*args), eg.emb_clipped_grad(*args)
+        dev_k = device_ms(lambda: eg.emb_clipped_grad(*args))
+        dev_lib = device_ms(library)
+        extra = {"device_ms": sum(dev_k.values()), "device_by_kernel": dev_k,
+                 "library_device_ms": sum(dev_lib.values())}
+        want = eg.plain(*args)
+        r, wu = reps(path, "emb_clipped_grad")
+        ms_k = cuda_ms(lambda: eg.emb_clipped_grad(*args), r, wu)
+        ms_p = cuda_ms(lambda: eg.plain(*args), 3, 1)
+        ms_lib = cuda_ms(library, r, wu)
+        record("emb_clipped_grad", path, case, got, want, TOL[dname], ms_k,
+               ms_p, ids.numel() * 4 + Bc * 4 + ds.numel() * esz
+               + L * V * d * 4, 2.0 * int(valid.sum()) * d, dname, ms_lib,
+               again, **extra)
+        del ds, w, got, again, want
         torch.cuda.empty_cache()
+
+    def emb_edges(kernels):
+        """The ragged f32 case (odd d and V, stacked; ids -1 and >= V, which
+        both versions drop) and one id at every (b, t) of ``train``'s shapes
+        (all B*T ids in one row's run)."""
+        ids = torch.randint(0, 1001, (3, 3, 509), generator=gen, device=dev,
+                            dtype=torch.int32)
+        ids[:, :, ::97] = -1
+        ids[:, :, 5::101] = 1001 + 7
+        emb_case("ragged L=3 B=3 T=509 d=37 V=1001 f32", ids, 37, 1001,
+                 torch.float32, kernels)
+        run = RUNS["train"]
+        emb_case(f"one id B={run['batch']} T={run['seq']} "
+                 f"d={q_cfg.d_model} V={q_cfg.vocab} bf16",
+                 torch.full((run["batch"], run["seq"]), 7, device=dev,
+                            dtype=torch.int32), q_cfg.d_model, q_cfg.vocab,
+                 torch.bfloat16, {"emb_clipped_grad": "ragged"})
 
     def moe_case(case, a, mask, p, kernels):
         """Records a (L,B,E,C,d) and mask (L,B,E,C): the model's own (path
@@ -936,11 +1026,13 @@ def phase_kernels(only_wgmma=False):
         (MoE: a random 0/1 mask with an all-zero expert and a sample with no
         kept slot); flash with h 64 and 128, G 1 and 6, causal and
         bidirectional."""
-        cg_only = {"clipped_grad": "ragged"}
         mm_case("tile L=1 B=1 T=64 d=128 p=128 bf16", 1, 1, 64, 128, 128,
-                bf16, cg_only)
+                bf16, {"clipped_grad": "ragged"})
+        mm_case("tile L=1 B=1 T=128 d=128 p=128 bf16", 1, 1, 128, 128, 128,
+                bf16, {"ghost_norm": "ragged"})
         mm_case("ragged L=3 B=3 T=509 d=136 p=264 bf16", 3, 3, 509, 136, 264,
-                bf16, cg_only)
+                bf16, dict.fromkeys(("ghost_norm", "clipped_grad"),
+                                    "ragged"))
         moe_case("tile L=1 B=1 E=1 C=64 d=128 p=128 bf16",
                  rnd(1, 1, 1, 64, 128), torch.ones(1, 1, 1, 64, device=dev),
                  128, moe_wgmma)
@@ -960,8 +1052,9 @@ def phase_kernels(only_wgmma=False):
     if only_wgmma:
         wgmma_shapes()
         d, V = q_cfg.d_model, q_cfg.vocab
+        # the head of train: its items take the p split
         mm_case(f"train head L=1 B=8 T=512 d={d} p={V} bf16", 1, 8, 512, d,
-                V, bf16, {"clipped_grad": "train"})
+                V, bf16, {"ghost_norm": "train", "clipped_grad": "train"})
         # train_moe's up tap, random records under a router-like mask
         m_cfg = get_config(RUNS["train_moe"]["arch"])
         L, E, Cap = MOE_LAYERS - 1, m_cfg.n_experts, 60
@@ -1033,13 +1126,8 @@ def phase_kernels(only_wgmma=False):
         mask[0, :, 0] = 0.0             # an expert that no sample reached
         moe_case(f"ragged L=2 B=3 E=5 C=7 d={d} p={p} f32",
                  rnd(2, 3, 5, 7, d, dtype=torch.float32), mask, p, moe_all)
-    ids = torch.randint(0, 1001, (3, 3, 509), generator=gen, device=dev,
-                        dtype=torch.int32)
-    ids[:, :, ::97] = -1
-    ids[:, :, 5::101] = 1001 + 7
-    emb_case("ragged L=3 B=3 T=509 d=37 V=1001 f32", ids, 37, 1001,
-             torch.float32, dict.fromkeys(("emb_ghost_norm",
-                                           "emb_clipped_grad"), "ragged"))
+    emb_edges(dict.fromkeys(("emb_ghost_norm", "emb_clipped_grad"),
+                            "ragged"))
 
     flash_case("prefill", fp["batch"], fp["seq"], fp["seq"], q_cfg.n_heads,
                q_cfg.n_kv_heads, q_cfg.hd, True, torch.bfloat16)
@@ -1072,8 +1160,9 @@ def _profile_summary(prof, window_ms: float) -> dict:
             us = e.time_range.elapsed_us()
             by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
     ours = tuple(f"{k}_kernel" for k in (
-        "ghost_norm", "clipped_grad", "clipped_grad_wgmma", "flash_wgmma",
-        "emb_norm", "emb_grad", "reduce_rows",
+        "ghost_norm", "ghost_norm_wgmma", "clipped_grad",
+        "clipped_grad_wgmma", "flash_wgmma", "emb_norm", "emb_grad",
+        "emb_grad_mark", "reduce_rows",
         "grad_norm_direct", "moe_ghost_norm", "moe_direct_norm",
         "moe_clipped_grad", "moe_norm_wgmma", "moe_grad_wgmma",
         "fused_clip_tile", "fused_clip_apply",

@@ -33,12 +33,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "dp_ghost_norm_nparts": [_I],
     "dp_ghost_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dp_ghost_norm_wgmma_split": [_I] * 5,
+    "dp_ghost_norm_wgmma_nparts": [_I] * 5,
+    "dp_ghost_norm_wgmma": [_P] * 4 + [_I] * 5 + [_P],
     "dp_clipped_grad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dp_clipped_grad_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "dp_emb_norm_nparts": [_I],
     "dp_emb_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "dp_emb_grad_smem_bytes": [_I, _I],
-    "dp_emb_grad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dp_emb_grad_smem_bytes": [_I],
+    "dp_emb_grad_scratch_ints": [_I],
+    "dp_emb_grad": [_P] * 5 + [_I] * 6 + [_P],
     "dp_grad_norm_direct_nparts": [_I, _I],
     "dp_grad_norm_direct": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dp_moe_ghost_norm": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
@@ -139,26 +143,34 @@ def check_inputs(name: str, floats, ints=(), f32=()) -> bool:
     one CUDA device and contiguous; ``floats`` (the records) share one
     dtype, float32 or bfloat16; ``ints`` are int32; ``f32`` (clip factors,
     slot masks) are float32 whatever the records are. -> True when the
-    floats are bfloat16."""
-    dev = floats[0].device
+    floats are bfloat16. (Plain loops over cheap tensor attributes: this
+    runs before every launch, and a sub-millisecond kernel's time on the
+    card includes it.)"""
+    index = floats[0].get_device()
     for t in (*floats, *ints, *f32):
-        if t.device.type != "cuda" or t.device != dev:
+        if not t.is_cuda or t.get_device() != index:
             raise ValueError(f"{name}: operands must share one CUDA device, "
-                             f"got {t.device} and {dev}")
+                             f"got {t.device} and {floats[0].device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
     dt = floats[0].dtype
-    if dt not in (torch.float32, torch.bfloat16) or \
-            any(t.dtype != dt for t in floats):
+    bad = dt is not torch.float32 and dt is not torch.bfloat16
+    for t in floats:
+        bad = bad or t.dtype is not dt
+    if bad:
         raise ValueError(f"{name}: records must be one of float32/bfloat16, "
                          f"got {[t.dtype for t in floats]}")
-    if any(t.dtype != torch.int32 for t in ints):
-        raise ValueError(f"{name}: ids must be int32")
-    if any(t.dtype != torch.float32 for t in f32):
-        raise ValueError(f"{name}: clip factors and masks must be float32")
-    return dt == torch.bfloat16
+    for t in ints:
+        if t.dtype is not torch.int32:
+            raise ValueError(f"{name}: ids must be int32")
+    for t in f32:
+        if t.dtype is not torch.float32:
+            raise ValueError(f"{name}: clip factors and masks must be "
+                             "float32")
+    return dt is torch.bfloat16
 
 
 def stream_ptr(t) -> int:
-    """The current CUDA stream of ``t``'s device, as an int for ctypes."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s device, as an int for ctypes (the
+    raw handle, without building a ``torch.cuda.Stream`` object)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

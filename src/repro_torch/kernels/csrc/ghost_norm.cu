@@ -14,9 +14,12 @@
 //
 // Bound on the H100: at the main path's shapes (T=512, d+p up to 153k) the
 // Grams need ~T^2 (d+p) multiply-adds per (l, b) against T (d+p) input
-// elements, so it is compute-bound on the bf16 tensor-core peak. This first
-// version runs on the f32 SIMT cores (bf16 is widened to f32 on the way into
-// shared memory); tensor cores (wgmma) are later work.
+// elements, on the ridge of the bf16 tensor-core peak (ghost_norm_wgmma.cu
+// says more). This kernel runs on the f32 SIMT cores (bf16 is widened to f32
+// on the way into shared memory), at ~18 TFLOP/s of the 67 f32 ones; it is
+// the route of f32 records (every parity step) and of widths that are not
+// multiples of 8. bf16 records with aligned widths take the tensor-core
+// kernel, ghost_norm_wgmma.cu.
 #include "common.cuh"
 
 namespace {

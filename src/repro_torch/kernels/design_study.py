@@ -1,0 +1,309 @@
+"""Time, on the card, the designs that two kernels' sources name as not
+taken, beside the kernels kept, so that those comparisons can be run again:
+
+    PYTHONPATH=src python -m repro_torch.kernels.design_study
+    PYTHONPATH=src python -m repro_torch.kernels.design_study --only emb
+
+(``--only ghost`` likewise.) Each variant is built alone into a temporary
+directory (one nvcc a variant, all started together): the kept source with
+one line or block replaced (:data:`EMB_PATCHES`, :data:`GHOST_PATCHES`; a
+replacement that no longer matches the source raises), or a source of its
+own under ``designs/``. Inputs are made from a seed at qwen2-1.5b's
+``train`` shapes (B=8, T=512):
+
+- ``emb_clipped_grad``: ids (8, 512), d 1536, V 151936, bf16 cotangents.
+  Variants: the kept kernel (``csrc/emb_grad.cu``), one warp scanning all
+  the ids of a marked row, and the sorted design of
+  ``designs/emb_grad_sorted.cu`` with a CTA a row or long-lived CTAs; beside
+  them a fill of the same output (``zero_``) and ``index_add_``.
+- ``ghost_norm`` (wgmma): the head tap, a (1, 8, 512, 1536), ds
+  (1, 8, 512, 151936). Variants: the kept kernel (a Gram summed in pieces
+  of 8 stages), pieces of 4 and 16 stages, one accumulator for a whole p
+  chunk, and one accumulator a stage folded while the next stage runs.
+
+Prints one JSON line a variant: CUDA-event ms around the C call (median of
+5 runs of 20 calls), device ms by kernel (torch.profiler), whether the
+output is bitwise the kept kernel's, ghost_norm's largest relative error
+against the plain version and against a float64 evaluation, and the
+variant's ptxas lines (registers, spills, C75xx notes). Then the card's
+name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build
+
+DESIGNS = Path(__file__).resolve().parent / "designs"
+SEED = 0
+B, T, D, V = 8, 512, 1536, 151936
+
+# name -> (source, [(text, replacement)]) against csrc/emb_grad.cu
+EMB_PATCHES = {
+    "kept": ("emb_grad.cu", []),
+    # warp 0 takes every id (the others' ranges start past the last)
+    "one_warp_scan": ("emb_grad.cu", [(
+        "const int quarter = (BT + 32 * WARPS - 1) / (32 * WARPS) * 32;",
+        "const int quarter = (BT + 31) / 32 * 32;")]),
+}
+EMB_SORTED = ("sorted_rows", "sorted_long_ctas")
+
+_PIECE = "constexpr int PIECE = 8; "
+_P_LOOP = """    float sum = 0.f;
+    for (int s0 = g0; s0 < g1; s0 += PIECE) {
+      for (int s = s0; s < s0 + PIECE && s < g1; ++s)
+        stage(gg, s > s0, diag);
+      drain();
+#pragma unroll
+      for (int q = 0; q < 64; ++q) sum = fmaf(ga[q], gg[q], sum);
+    }
+"""
+# the p Gram a stage at a time, alternating between gg and gh: a stage's
+# products are folded into the sum while the next stage's run
+_FOLD_A_STAGE = """    float sum = 0.f, gh[64];
+    for (int s = g0; s < g1; s += 2) {
+      stage(gg, false, diag);   // gh's stage (the one before) is done
+      hopper::fence_regs(gh);
+      if (s > g0) {
+#pragma unroll
+        for (int q = 0; q < 64; ++q) sum = fmaf(ga[q], gh[q], sum);
+      }
+      if (s + 1 < g1) {
+        stage(gh, false, diag);   // gg's stage is done
+        hopper::fence_regs(gg);
+      } else {
+        drain();
+      }
+#pragma unroll
+      for (int q = 0; q < 64; ++q) sum = fmaf(ga[q], gg[q], sum);
+    }
+    if ((g1 - g0) % 2 == 0) {   // the last stage went into gh
+      drain();
+      hopper::fence_regs(gh);
+#pragma unroll
+      for (int q = 0; q < 64; ++q) sum = fmaf(ga[q], gh[q], sum);
+    }
+"""
+GHOST_PATCHES = {
+    "kept": ("ghost_norm_wgmma.cu", []),
+    "piece_4": ("ghost_norm_wgmma.cu",
+                [(_PIECE, "constexpr int PIECE = 4; ")]),
+    "piece_16": ("ghost_norm_wgmma.cu",
+                 [(_PIECE, "constexpr int PIECE = 16; ")]),
+    "one_accumulator_a_chunk": ("ghost_norm_wgmma.cu",
+                                [(_PIECE, "constexpr int PIECE = 1 << 20; ")]),
+    "fold_a_stage": ("ghost_norm_wgmma.cu", [(_P_LOOP, _FOLD_A_STAGE)]),
+}
+
+
+def patched(src: Path, patches) -> str:
+    text = src.read_text()
+    for old, new in patches:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{src.name}: the text to replace is not "
+                               f"there once: {old[:60]!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variants(variants: dict, tmp: Path) -> dict:
+    """name -> text of a .cu -> {name: (CDLL, ptxas output)}; every nvcc
+    started together, each into its own library."""
+    tmp.mkdir(parents=True, exist_ok=True)
+    for h in build.CSRC.glob("*.cuh"):
+        shutil.copy(h, tmp)
+    procs = {}
+    for name, text in variants.items():
+        cu, so = tmp / f"{name}.cu", tmp / f"lib{name}.so"
+        cu.write_text(text)
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), "-gencode", build.ARCH, "-std=c++17", "-O3",
+             "-Xptxas=-v", "-Xcompiler", "-fPIC", "-shared", "-I", str(tmp),
+             str(cu), "-o", str(so)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{out}")
+        notes = [ln.strip() for ln in out.splitlines()
+                 if "registers" in ln or "spill" in ln or "C75" in ln]
+        libs[name] = (ctypes.CDLL(str(tmp / f"lib{name}.so")), notes)
+    return libs
+
+
+def events_ms(fn, n: int = 20, runs: int = 5) -> float:
+    """Median over ``runs`` of CUDA-event ms a call, ``n`` calls a run."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / n)
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 5) -> dict:
+    """Device ms a call by kernel name (torch.profiler), over ``reps``."""
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name[:60]] = (by_name.get(e.name[:60], 0.0)
+                                    + e.time_range.elapsed_us() / reps / 1e3)
+    return by_name
+
+
+def _check(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def study_emb(tmp: Path, dev: str) -> None:
+    variants = {n: patched(build.CSRC / s, p)
+                for n, (s, p) in EMB_PATCHES.items()}
+    variants["sorted"] = (DESIGNS / "emb_grad_sorted.cu").read_text()
+    libs = build_variants(variants, tmp)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    ids = torch.randint(0, V, (B, T), generator=g, device=dev,
+                        dtype=torch.int32)
+    ds = torch.randn(B, T, D, generator=g, device=dev).to(torch.bfloat16)
+    C = torch.rand(B, generator=g, device=dev) + 0.1
+    out = torch.empty(V, D, device=dev)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    calls = {}
+    for name in EMB_PATCHES:
+        lib = libs[name][0]
+        lib.dp_emb_grad.argtypes = [P] * 5 + [I] * 6 + [P]
+        lib.dp_emb_grad_scratch_ints.argtypes = [I]
+        scr = torch.empty(lib.dp_emb_grad_scratch_ints(V), dtype=torch.int32,
+                          device=dev)
+        calls[name] = (lambda f=lib.dp_emb_grad, s=scr: _check(f(
+            ids.data_ptr(), C.data_ptr(), ds.data_ptr(), s.data_ptr(),
+            out.data_ptr(), 1, B, T, D, V, 1, 0), "dp_emb_grad"))
+    lib = libs["sorted"][0]
+    lib.dp_emb_grad_sorted.argtypes = [P] * 5 + [I] * 7 + [P]
+    lib.dp_emb_sorted_scratch_ints.argtypes = [I] * 3
+    scr = torch.empty(lib.dp_emb_sorted_scratch_ints(1, B, T),
+                      dtype=torch.int32, device=dev)
+    sorted_fn = lib.dp_emb_grad_sorted
+    for long_lived, name in enumerate(EMB_SORTED):
+        calls[name] = (lambda ll=long_lived: _check(sorted_fn(
+            ids.data_ptr(), C.data_ptr(), ds.data_ptr(), scr.data_ptr(),
+            out.data_ptr(), 1, B, T, D, V, 1, ll, 0), "dp_emb_grad_sorted"))
+    flat = ids.reshape(-1).long()
+    w = (ds.float() * C[:, None, None]).reshape(-1, D)
+    calls["fill"] = lambda: out.zero_()
+    calls["index_add"] = lambda: torch.zeros(V, D, device=dev).index_add_(
+        0, flat, w)
+    calls["kept"]()
+    torch.cuda.synchronize()
+    kept = out.clone()
+    for name, fn in calls.items():
+        row = {"study": "emb_clipped_grad", "variant": name,
+               "ms": events_ms(fn), "device_ms": device_ms(fn)}
+        if name in libs or name in EMB_SORTED:
+            out.fill_(float("nan"))
+            fn()
+            torch.cuda.synchronize()
+            row["bitwise_kept"] = bool(torch.equal(out, kept))
+            row["ptxas"] = libs["sorted" if name in EMB_SORTED else name][1]
+        print(json.dumps(row), flush=True)
+
+
+def study_ghost(tmp: Path, dev: str) -> None:
+    from repro_torch.kernels import ghost_norm as gn
+    variants = {n: patched(build.CSRC / s, p)
+                for n, (s, p) in GHOST_PATCHES.items()}
+    libs = build_variants(variants, tmp)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    a = torch.randn(1, B, T, D, generator=g, device=dev).to(torch.bfloat16)
+    ds = torch.randn(1, B, T, V, generator=g, device=dev).to(torch.bfloat16)
+    plain = gn.plain(a, ds)
+    exact = torch.zeros(B, dtype=torch.float64, device=dev)
+    for b in range(B):
+        x, y = a[0, b].double(), ds[0, b].double()
+        exact[b] = ((x @ x.T) * (y @ y.T)).sum()
+    del x, y
+    torch.cuda.empty_cache()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    out = torch.empty(B, device=dev)
+    kept = None
+    for name, (lib, notes) in libs.items():
+        lib.dp_ghost_norm_wgmma.argtypes = [P] * 4 + [I] * 5 + [P]
+        lib.dp_ghost_norm_wgmma_nparts.argtypes = [I] * 5
+        part = torch.empty(B, lib.dp_ghost_norm_wgmma_nparts(1, B, T, D, V),
+                           device=dev)
+        fn = (lambda f=lib.dp_ghost_norm_wgmma, pt=part: _check(f(
+            a.data_ptr(), ds.data_ptr(), pt.data_ptr(), out.data_ptr(), 1, B,
+            T, D, V, 0), "dp_ghost_norm_wgmma"))
+        fn()
+        torch.cuda.synchronize()
+        got = out.clone()
+        fn()
+        torch.cuda.synchronize()
+        kept = got if kept is None else kept
+        row = {"study": "ghost_norm", "variant": name, "ms": events_ms(fn),
+               "device_ms": device_ms(fn),
+               "rel_err_plain": float(((got - plain).abs()
+                                       / plain.abs()).max()),
+               "rel_err_f64": float(((got.double() - exact).abs()
+                                     / exact.abs()).max()),
+               "bitwise_run_to_run": bool(torch.equal(got, out)),
+               "bitwise_kept": bool(torch.equal(got, kept)),
+               "ptxas": notes}
+        print(json.dumps(row), flush=True)
+    print(json.dumps({"study": "ghost_norm", "variant": "plain_vs_f64",
+                      "rel_err_f64": float(((plain.double() - exact).abs()
+                                            / exact.abs()).max())}),
+          flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("emb", "ghost"), default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("design_study: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        if args.only in (None, "emb"):
+            study_emb(Path(tmp) / "emb", "cuda")
+        if args.only in (None, "ghost"):
+            study_ghost(Path(tmp) / "ghost", "cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(smi.stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

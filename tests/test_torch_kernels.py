@@ -6,6 +6,7 @@ its plain version; the CUDA kernels themselves are held to those plain
 versions on the card by chip_smoke.py."""
 import ctypes
 import re
+import shutil
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -19,9 +20,11 @@ from repro.models.rwkv6 import wkv6_chunked as jwkv6_chunked
 from repro_torch.core import bk as tbk
 from repro_torch.core import ghost
 from repro_torch.core.policy import ParamGroup, PrivacyPolicy, resolve_policy
-from repro_torch.kernels import build, syntax_check
+from repro_torch.kernels import build, design_study, syntax_check
 from repro_torch.kernels import clipped_grad as cg_mod
+from repro_torch.kernels import emb_grad as eg_mod
 from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import ghost_norm as gn_mod
 from repro_torch.kernels import moe_ghost as moe_mod
 from repro_torch.kernels.clipped_grad import clipped_grad
 from repro_torch.kernels.emb_grad import emb_clipped_grad
@@ -222,6 +225,10 @@ def _meta(*shape, dtype=torch.float32):
     lambda: flash_attention(_meta(2, 3, 4, 8), _meta(2, 3, 2, 8),
                             _meta(2, 3, 2, 8)),
     # bf16 inputs that the wgmma routes take
+    lambda: ghost_norm(_meta(2, 3, 8, dtype=torch.bfloat16),
+                       _meta(2, 3, 16, dtype=torch.bfloat16)),
+    lambda: ghost_norm(_meta(2, 2, 3, 64, dtype=torch.bfloat16),
+                       _meta(2, 2, 3, 128, dtype=torch.bfloat16)),
     lambda: clipped_grad(_meta(2, 3, 8, dtype=torch.bfloat16), _meta(2),
                          _meta(2, 3, 16, dtype=torch.bfloat16)),
     lambda: clipped_grad(_meta(2, 2, 3, 64, dtype=torch.bfloat16), _meta(2),
@@ -394,6 +401,36 @@ def test_clipped_grad_route(dtype, d, p, want):
     assert cg_mod.route(dtype, d, p) == want
 
 
+@pytest.mark.parametrize("dtype,d,p,want", [
+    # the ghost-norm taps of the train paths: qwen2-1.5b (qkv, o, gate+up,
+    # down, head) and deepseek-moe-16b (qkv, dense gate+up and down, shared
+    # gate+up and down, head)
+    (torch.bfloat16, 1536, 2048, "wgmma"),
+    (torch.bfloat16, 1536, 1536, "wgmma"),
+    (torch.bfloat16, 1536, 17920, "wgmma"),
+    (torch.bfloat16, 8960, 1536, "wgmma"),
+    (torch.bfloat16, 1536, 151936, "wgmma"),
+    (torch.bfloat16, 2048, 6144, "wgmma"),
+    (torch.bfloat16, 2048, 21888, "wgmma"),
+    (torch.bfloat16, 10944, 2048, "wgmma"),
+    (torch.bfloat16, 2048, 5632, "wgmma"),
+    (torch.bfloat16, 2816, 2048, "wgmma"),
+    (torch.bfloat16, 2048, 102400, "wgmma"),
+    (torch.bfloat16, 136, 264, "wgmma"),      # multiples of 8, of no tile
+    (torch.bfloat16, 8, 8, "wgmma"),
+    # unaligned widths and f32 records (every parity step) keep the SIMT
+    # kernel
+    (torch.bfloat16, 37, 53, "simt"),
+    (torch.bfloat16, 1536, 2044, "simt"),
+    (torch.bfloat16, 1532, 2048, "simt"),
+    (torch.float32, 1536, 2048, "simt"),
+    (torch.float32, 165, 301, "simt"),
+    (torch.float32, 32, 64, "simt"),
+])
+def test_ghost_norm_route(dtype, d, p, want):
+    assert gn_mod.route(dtype, d, p) == want
+
+
 @pytest.mark.parametrize("dtype,h,want", [
     (torch.bfloat16, 128, "wgmma"),    # qwen2-1.5b's prefill
     (torch.bfloat16, 64, "wgmma"),
@@ -426,19 +463,28 @@ def test_moe_route(dtype, d, p, want):
 
 
 class _FakeLib:
-    """Stands in for the kernel library: records each C entry's name and
-    argument count (and the last call's arguments), returns success (and 1
-    from an ``_nparts`` entry)."""
+    """Stands in for the kernel library: records each launching C entry's
+    name and argument count (and the last call's arguments) and returns
+    success; a sizing entry (``_nparts``, ``_bytes``, ``_ints``, ``_split``)
+    returns ``sizes.get(name, 1)`` and is recorded in ``asked`` with its
+    arguments."""
+
+    SIZING = ("_nparts", "_bytes", "_ints", "_split")
 
     def __init__(self):
         self.calls = []
         self.last_args = ()
+        self.sizes = {}
+        self.asked = []
 
     def __getattr__(self, name):
         if not name.startswith("dp_"):
             raise AttributeError(name)
-        if name.endswith("_nparts"):
-            return lambda *args: 1
+        if name.endswith(self.SIZING):
+            def size(*args):
+                self.asked.append((name, args))
+                return self.sizes.get(name, 1)
+            return size
 
         def call(*args):
             self.calls.append((name, len(args)))
@@ -477,6 +523,115 @@ def test_clipped_grad_launches_its_route(fake_lib, dtype, d, p, kernel,
     assert fake_lib.calls == [(entry, len(build.SIGNATURES[entry]))]
     assert clipped_grad.launches == n0 + 1
     assert clipped_grad.wgmma_launches == w0 + (entry.endswith("wgmma"))
+
+
+@pytest.fixture
+def empty_shapes(monkeypatch):
+    """The shapes of the tensors that ``torch.empty`` makes from here on (a
+    wrapper's outputs and scratch)."""
+    shapes, real = [], torch.empty
+
+    def spy(*size, **kw):
+        t = real(*size, **kw)
+        shapes.append((tuple(t.shape), t.dtype))
+        return t
+    monkeypatch.setattr(torch, "empty", spy)
+    return shapes
+
+
+@pytest.mark.parametrize("dtype,d,p,kernel,entry", [
+    (torch.bfloat16, 1536, 151936, None, "dp_ghost_norm_wgmma"),
+    (torch.bfloat16, 136, 264, None, "dp_ghost_norm_wgmma"),
+    (torch.bfloat16, 37, 53, None, "dp_ghost_norm"),
+    (torch.float32, 64, 128, None, "dp_ghost_norm"),
+    (torch.bfloat16, 64, 128, "simt", "dp_ghost_norm"),
+])
+@pytest.mark.parametrize("stacked", [True, False])
+def test_ghost_norm_launches_its_route(fake_lib, empty_shapes, dtype, d, p,
+                                       kernel, entry, stacked):
+    """The wrapper launches the C entry its route names, with the argument
+    count of its signature and the records' (L, B, T, d, p), sizes the
+    partial sums as the C side asks (the wgmma kernel's count holds its
+    split of the wider record: 640 is the head of ``train``, L=1, B=8,
+    T=512, split 8 ways), and counts every launch and the wgmma ones;
+    unstacked records launch as L = 1."""
+    L, B, T = 2, 8, 512
+    lead = (L,) if stacked else ()
+    a, ds = (_meta(*lead, B, T, w, dtype=dtype) for w in (d, p))
+    nparts = f"{entry}_nparts"
+    fake_lib.sizes[nparts] = 640
+    n0, w0 = ghost_norm.launches, ghost_norm.wgmma_launches
+    out = ghost_norm(a, ds, kernel=kernel)
+    L1 = L if stacked else 1
+    assert out.shape == (B,) and out.dtype == torch.float32
+    assert fake_lib.calls == [(entry, len(build.SIGNATURES[entry]))]
+    wgmma = entry.endswith("wgmma")
+    assert fake_lib.asked == [(nparts, (L1, B, T, d, p) if wgmma else (T,))]
+    assert ((B, 640 if wgmma else L1 * 640), torch.float32) in empty_shapes
+    # the pointers (0 on meta tensors), then L, B, T, d, p (and the SIMT
+    # kernel's bf16 flag), then the stream
+    dims = fake_lib.last_args[4:9]
+    assert list(dims) == [L1, B, T, d, p]
+    assert ghost_norm.launches == n0 + 1
+    assert ghost_norm.wgmma_launches == w0 + wgmma
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("stacked", [True, False])
+def test_emb_clipped_grad_passes_the_scratch_the_c_side_asks_for(
+        fake_lib, empty_shapes, monkeypatch, dtype, stacked):
+    """The wrapper asks the C side for the pre-pass's shared memory and the
+    scratch's int32 elements a layer (by vocabulary), holds a scratch of L
+    of those, and makes one call of the C side with (L, B, T, d, V, bf16);
+    unstacked ids launch as L = 1 into a (V, d) output, with no view in
+    between."""
+    monkeypatch.setattr(eg_mod, "_SCRATCH", {})
+    L, B, T, d, V = 3, 8, 512, 1536, 151936
+    lead = (L,) if stacked else ()
+    fake_lib.sizes["dp_emb_grad_scratch_ints"] = 4748
+    fake_lib.sizes["dp_emb_grad_smem_bytes"] = eg_mod.MAX_SMEM_BYTES
+    n0 = emb_clipped_grad.launches
+    out = emb_clipped_grad(_meta(*lead, B, T, dtype=torch.int32), _meta(B),
+                           _meta(*lead, B, T, d, dtype=dtype), V)
+    L1 = L if stacked else 1
+    assert out.shape == (*lead, V, d) and out.dtype == torch.float32
+    assert sorted(n for n, _ in fake_lib.asked) == [
+        "dp_emb_grad_scratch_ints", "dp_emb_grad_smem_bytes"]
+    assert all(args == (V,) for _, args in fake_lib.asked)
+    assert ((L1 * 4748,), torch.int32) in empty_shapes
+    assert fake_lib.calls == [("dp_emb_grad",
+                               len(build.SIGNATURES["dp_emb_grad"]))]
+    assert list(fake_lib.last_args[5:11]) == [L1, B, T, d, V,
+                                              int(dtype == torch.bfloat16)]
+    assert emb_clipped_grad.launches == n0 + 1
+
+
+def test_emb_clipped_grad_keeps_its_scratch(fake_lib, empty_shapes,
+                                            monkeypatch):
+    """One scratch serves the calls on a stream: a second call of the same
+    size allocates only its output, a call with more layers a larger
+    scratch."""
+    monkeypatch.setattr(eg_mod, "_SCRATCH", {})
+    fake_lib.sizes["dp_emb_grad_scratch_ints"] = 10
+
+    args = {L: (_meta(L, 2, 5, dtype=torch.int32), _meta(2),
+                _meta(L, 2, 5, 4, dtype=torch.bfloat16), 300) for L in (2, 3)}
+    empty_shapes.clear()
+    for L in (2, 2, 3):
+        emb_clipped_grad(*args[L])
+    scratch = [s for s, dt in empty_shapes if dt == torch.int32]
+    assert scratch == [(20,), (30,)]
+    assert len(fake_lib.calls) == 3
+
+
+def test_emb_clipped_grad_raises_past_its_shared_memory(fake_lib):
+    """A vocabulary whose bitmap the pre-pass cannot hold in one block is
+    refused before anything is allocated or launched."""
+    fake_lib.sizes["dp_emb_grad_smem_bytes"] = eg_mod.MAX_SMEM_BYTES + 4
+    with pytest.raises(ValueError, match="shared memory"):
+        emb_clipped_grad(_meta(8, 512, dtype=torch.int32), _meta(8),
+                         _meta(8, 512, 64, dtype=torch.bfloat16), 1 << 21)
+    assert fake_lib.calls == []
 
 
 @pytest.mark.parametrize("dtype,h,kernel,entry", [
@@ -546,6 +701,15 @@ def test_moe_launches_its_route(fake_lib, name, dtype, d, p, kernel, entry):
     lambda: flash_attention(*(_meta(2, 3, 2, 128),) * 3, kernel="wgmma"),
     lambda: clipped_grad(_meta(2, 3, 8), _meta(2), _meta(2, 3, 16),
                          kernel="tensor"),
+    # ghost_norm's wgmma kernel: f32 records, unaligned widths, other routes
+    lambda: ghost_norm(_meta(2, 3, 8), _meta(2, 3, 16), kernel="wgmma"),
+    lambda: ghost_norm(_meta(2, 3, 12, dtype=torch.bfloat16),
+                       _meta(2, 3, 16, dtype=torch.bfloat16), kernel="wgmma"),
+    lambda: ghost_norm(_meta(2, 3, 8, dtype=torch.bfloat16),
+                       _meta(2, 3, 20, dtype=torch.bfloat16), kernel="wgmma"),
+    lambda: ghost_norm(_meta(2, 3, 8, dtype=torch.bfloat16),
+                       _meta(2, 3, 16, dtype=torch.bfloat16),
+                       kernel="tensor"),
     # the MoE wgmma kernels: f32 records, unaligned widths, other routes
     lambda: moe_direct_norm(_meta(2, 3, 4, 8), _meta(2, 3, 4),
                             _meta(2, 3, 4, 16), kernel="wgmma"),
@@ -608,4 +772,31 @@ def test_cuda_source_parses_against_the_stub_headers(cu):
     (launch configurations stripped): C++ errors show here, before a build
     on the card."""
     ok, out = syntax_check.check(build.CSRC / cu)
+    assert ok, out
+
+
+def _design_sources():
+    for table in ("EMB_PATCHES", "GHOST_PATCHES"):
+        for name in getattr(design_study, table):
+            yield f"{table}:{name}"
+    for cu in sorted(design_study.DESIGNS.glob("*.cu")):
+        yield f"designs/{cu.name}"
+
+
+@pytest.mark.parametrize("which", list(_design_sources()))
+def test_design_study_source_parses(which, tmp_path):
+    """Every design that design_study.py times beside a kept kernel: its
+    replacements still match the kept source once each, and the result (or
+    the source of its own under designs/) parses against the stub headers,
+    so the comparison can be run again on the card."""
+    if which.startswith("designs/"):
+        cu = design_study.DESIGNS / which.split("/", 1)[1]
+    else:
+        table, name = which.split(":")
+        src, patches = getattr(design_study, table)[name]
+        for h in build.CSRC.glob("*.cuh"):
+            shutil.copy(h, tmp_path)
+        cu = tmp_path / f"{name}.cu"
+        cu.write_text(design_study.patched(build.CSRC / src, patches))
+    ok, out = syntax_check.check(cu)
     assert ok, out
