@@ -9,30 +9,39 @@ Phases, each printing JSON lines:
   card      the card's name and power limit (nvidia-smi), torch and CUDA
   build     compile the kernel library from ``src/repro_torch/kernels/csrc``;
             each tensor-core kernel's registers, shared memory and spills
-            (ptxas; a spill is a failure), and its HGMMA and UTMALDG
-            instructions counted in the library's SASS (cuobjdump; none is
-            a failure)
+            (ptxas; a spill is a failure), and its HGMMA and UTMALDG (wgmma)
+            or HMMA (mma.sync: wkv6's chunked kernels) instructions counted
+            in the library's SASS (cuobjdump; none is a failure)
   kernels   each of the eleven kernels against its plain PyTorch version on
             the card, at the shapes each train path below gives it (bf16;
             each tap routed as ``core.bk.plan_report`` says, MoE records and
             masks from the path's own step-0 forward), at the prefill
             paths' shapes (flash_attention, wkv6; bf16) and at ragged f32
             shapes (wkv6 also under strong constant decay, w = 0.1 and
-            0.01); norms, fused_clip_grad's outputs (under all four clip
-            functions, w with a zero), flash_attention and wkv6 run twice
-            must agree bitwise; kernel, plain and one-call library times
-            with CUDA events, and for fused_clip_grad (at the smoke-width
+            0.01, and a mixed decay: log-uniform in [1e-6, 1] with exact
+            zeros and ones; T not a multiple of its chunk); norms,
+            fused_clip_grad's outputs (under all four clip functions, w
+            with a zero), flash_attention and wkv6 run twice must agree
+            bitwise; kernel, plain and one-call library times with CUDA
+            events, and for fused_clip_grad (at the smoke-width
             parity_layer model's units, the path that launches it) the
             composed route it replaces. ghost_norm, clipped_grad,
-            flash_attention, moe_direct_norm and moe_clipped_grad take their
-            wgmma kernels on bf16 (``route``): there each is also held to
-            its SIMT kernel on the same inputs (the weighted grads at
-            SIMT_GRAD_TOL, the norms at NORM_TOL, flash at the bf16
-            tolerance) and to itself run twice (bitwise), with the SIMT
-            kernel timed beside it (simt_ms), at every train path's / the
-            prefill's shapes, at one tile, and at ragged bf16 shapes;
-            ghost_norm's three versions also against a float64 evaluation
-            (the wgmma kernel within NORM_TOL's rtol of it).
+            grad_norm_direct, flash_attention, moe_direct_norm and
+            moe_clipped_grad take their wgmma kernels on bf16 (``route``):
+            there each is also held to its SIMT kernel on the same inputs
+            (the weighted grads at SIMT_GRAD_TOL, the norms at NORM_TOL,
+            flash at the bf16 tolerance) and to itself run twice (bitwise),
+            with the SIMT kernel timed beside it (simt_ms), at every train
+            path's / the prefill's shapes, at one tile, and at ragged bf16
+            shapes; ghost_norm's and grad_norm_direct's three versions also
+            against a float64 evaluation (the wgmma kernel within
+            NORM_TOL's rtol of it; grad_norm_direct's library forms include
+            the instantiated bf16 einsum). wkv6 takes its chunked kernel
+            (tensor cores, split TF32) on f32 and bf16 with h a multiple of
+            16: held to its scan kernel likewise (simt_ms: the scan's
+            time), and at the prefill's shapes all three versions to a
+            float64 recurrence at one head (the chunked kernel within
+            WKV_LONG_TOL of it).
             emb_clipped_grad also bitwise run to run, at train's ids, the
             ragged ids and one id at every position, with its device time
             by torch.profiler beside its CUDA-event time
@@ -41,7 +50,8 @@ Phases, each printing JSON lines:
             and one row shape of each (the head tap of ``train``, whose
             ghost_norm items take the p split, the ``prefill`` attention,
             ``train_moe``'s up tap with random records under a router-like
-            mask), without building a model
+            mask, ``train_long``'s qkv tap), and every wkv6 case of the
+            kernels phase, without building a model
   train             qwen2-1.5b, full (28 layers, bf16), B=8, T=512
   train_moe         deepseek-moe-16b at full width, 6 of its 28 layers
                     (dense0_0 + 5 MoE blocks), B=8, T=512
@@ -145,13 +155,14 @@ SOURCES = {
     "clipped_grad": ("clipped_grad_wgmma.cu", "clipped_grad.py:39"),
     "emb_ghost_norm": ("emb_norm.cu", "emb_norm.py:50"),
     "emb_clipped_grad": ("emb_grad.cu", "emb_grad.py:50"),
-    "grad_norm_direct": ("grad_norm_direct.cu", "grad_norm_direct.py:42"),
+    "grad_norm_direct": ("grad_norm_direct_wgmma.cu",
+                         "grad_norm_direct.py:42"),
     "moe_ghost_norm": ("moe_ghost_norm.cu", "moe_ghost.py:58"),
     "moe_direct_norm": ("moe_direct_norm_wgmma.cu", "moe_ghost.py:98"),
     "moe_clipped_grad": ("moe_clipped_grad_wgmma.cu", "moe_ghost.py:146"),
     "fused_clip_grad": ("fused_clip.cu", "fused_clip.py:56"),
     "flash_attention": ("flash_attention_wgmma.cu", "flash_attention.py:64"),
-    "wkv6": ("wkv6.cu", "wkv6.py:76"),
+    "wkv6": ("wkv6_chunked.cu", "wkv6.py:76"),
 }
 # the tensor-core kernels: their SIMT kernels (f32 and unaligned inputs),
 # and their names in the SASS
@@ -160,7 +171,12 @@ WGMMA = {"ghost_norm": ("ghost_norm.cu", "ghost_norm_wgmma_kernel"),
          "flash_attention": ("flash_attention.cu", "flash_wgmma_kernel"),
          "moe_direct_norm": ("moe_direct_norm.cu", "moe_norm_wgmma_kernel"),
          "moe_clipped_grad": ("moe_clipped_grad.cu",
-                              "moe_grad_wgmma_kernel")}
+                              "moe_grad_wgmma_kernel"),
+         "grad_norm_direct": ("grad_norm_direct.cu",
+                              "dense_norm_wgmma_kernel")}
+# the kernels of a chunked route (mma.sync on the tensor cores, f32 and bf16
+# inputs alike): their scan kernel, and their kernels' names in the SASS
+CHUNKED = {"wkv6": ("wkv6.cu", ("wkv6_state_kernel", "wkv6_out_kernel"))}
 # no single PyTorch call computes these (say why in the summary)
 NO_LIBRARY = {
     "emb_ghost_norm": "no single call builds the id-equality mask and "
@@ -270,23 +286,27 @@ def wrappers():
 
 
 def reset_counts(ws):
-    """Every launch count to 0, the wgmma routes' counts too."""
+    """Every launch count to 0, the wgmma and chunked routes' counts too."""
     for w in ws.values():
         w.launches = 0
-        if hasattr(w, "wgmma_launches"):
-            w.wgmma_launches = 0
+        for count in ("wgmma_launches", "chunked_launches"):
+            if hasattr(w, count):
+                setattr(w, count, 0)
 
 
 def check_routes(name, ws, want_wgmma: bool):
-    """-> {kernel: wgmma launches}; raises unless every launch of each
-    tensor-core kernel took the wgmma route (``want_wgmma``: bf16 paths) or
-    none did (f32 paths: the SIMT route)."""
+    """-> {kernel: wgmma or chunked launches}; raises unless every launch of
+    each wgmma kernel took the wgmma route (``want_wgmma``: bf16 paths) or
+    none did (f32 paths: the SIMT route), and every launch of a kernel with
+    a chunked route took it (f32 and bf16 alike)."""
     got = {k: ws[k].wgmma_launches for k in WGMMA}
-    for k in WGMMA:
-        want = ws[k].launches if want_wgmma else 0
+    got.update({k: ws[k].chunked_launches for k in CHUNKED})
+    for k in (*WGMMA, *CHUNKED):
+        want = ws[k].launches if want_wgmma or k in CHUNKED else 0
         if got[k] != want:
+            route = "chunked" if k in CHUNKED else "wgmma"
             raise AssertionError(f"{name}: {got[k]} of {ws[k].launches} "
-                                 f"{k} launches took the wgmma route, want "
+                                 f"{k} launches took the {route} route, want "
                                  f"{want}")
     return got
 
@@ -413,9 +433,10 @@ def phase_card():
 
 
 def sass_counts(lib: str) -> dict:
-    """HGMMA and UTMALDG instructions in each tensor-core kernel's SASS
+    """Tensor-core instructions in each tensor-core kernel's SASS
     (``cuobjdump -sass`` of the built library: the toolkit's, else
-    Triton's copy)."""
+    Triton's copy): HGMMA and UTMALDG of each wgmma kernel, HMMA
+    (mma.sync) of each kernel of a chunked route."""
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
@@ -425,15 +446,17 @@ def sass_counts(lib: str) -> dict:
                 / "cuobjdump") if spec else tool
     out = subprocess.run([str(tool), "-sass", lib], capture_output=True,
                          text=True, timeout=300, check=True).stdout
-    counts = {k: {"HGMMA": 0, "UTMALDG": 0} for k in WGMMA}
+    names = {fn: (k, ("HGMMA", "UTMALDG")) for k, (_, fn) in WGMMA.items()}
+    names.update({fn: (f"{k}:{fn}", ("HMMA",)) for k, (_, fns) in
+                  CHUNKED.items() for fn in fns})
+    counts = {key: dict.fromkeys(ops, 0) for key, ops in names.values()}
     current = None
     for ln in out.splitlines():
         if "Function :" in ln:
-            current = next((k for k, (_, fn) in WGMMA.items() if fn in ln),
-                           None)
+            current = next((names[fn] for fn in names if fn in ln), None)
         elif current:
-            for op in ("HGMMA", "UTMALDG"):
-                counts[current][op] += f" {op}." in ln or f" {op} " in ln
+            for op in current[1]:
+                counts[current[0]][op] += f" {op}." in ln or f" {op} " in ln
     return counts
 
 
@@ -458,16 +481,19 @@ def phase_build():
     emit(phase="build", seconds=info["seconds"], cached=info["cached"],
          library=str(Path(info["path"]).relative_to(ROOT)), ptxas=regs)
     sass = sass_counts(info["path"])
+    tc = (*WGMMA, *CHUNKED)
     emit(phase="build", tensor_core_kernels={
         k: {"source": SOURCES[k][0],
-            "ptxas": ptxas_lines(info["ptxas"], SOURCES[k][0]), **sass[k]}
-        for k in WGMMA})
+            "ptxas": ptxas_lines(info["ptxas"], SOURCES[k][0]),
+            **(sass[k] if k in WGMMA else
+               {fn: sass[f"{k}:{fn}"] for fn in CHUNKED[k][1]})}
+        for k in tc})
     empty = [f"{k} {op}" for k, c in sass.items() for op, n in c.items()
              if not n]
     if empty:
         raise AssertionError(f"no tensor-core / TMA instructions in the SASS "
                              f"of: {empty}")
-    spills = sorted({k for k in WGMMA
+    spills = sorted({k for k in tc
                      for ln in ptxas_lines(info["ptxas"], SOURCES[k][0])
                      if any(int(n) for n in re.findall(r"(\d+) bytes spill",
                                                        ln))})
@@ -567,7 +593,7 @@ def phase_kernels(only_wgmma=False):
                        max_abs_err=0.0, t_bytes=0.0, t_ops=0.0)
                for k in KERNELS}
     summary["fused_clip_grad"]["composed_ms"] = 0.0
-    for k in WGMMA:
+    for k in (*WGMMA, *CHUNKED):
         summary[k]["simt_ms"] = 0.0
 
     def rnd(*shape, dtype=torch.bfloat16):
@@ -653,17 +679,18 @@ def phase_kernels(only_wgmma=False):
                ops, dname, ms_lib, **extra)
         del got, want
 
-    def simt_check(name, case, got, simt, tol):
-        """(b): the wgmma kernel against its SIMT kernel on the same inputs
-        at ``tol`` (SIMT_GRAD_TOL: its atol times the SIMT output's RMS)
-        -> the comparison's fields for the kernels line."""
+    def simt_check(name, case, got, simt, tol, route="wgmma"):
+        """(b): the ``route`` kernel against its SIMT (or scan) kernel on the
+        same inputs at ``tol`` (SIMT_GRAD_TOL: its atol times the SIMT
+        output's RMS) -> the comparison's fields for the kernels line."""
         if tol is SIMT_GRAD_TOL:
             rms = float(torch.linalg.vector_norm(simt)) / simt.numel() ** 0.5
             tol = (tol[0], tol[1] * max(1.0, rms))
         cmp = compare(got, simt, tol)
         if not cmp["ok"]:
-            raise AssertionError(f"{name} [{case}]: the wgmma kernel "
-                                 f"disagrees with the SIMT kernel: {cmp}")
+            raise AssertionError(f"{name} [{case}]: the {route} kernel "
+                                 f"disagrees with the SIMT / scan kernel: "
+                                 f"{cmp}")
         return {"vs_simt_max_abs_err": cmp["max_abs_err"],
                 "vs_simt_max_rel_err": cmp["max_rel_err"],
                 "vs_simt_rtol": tol[0], "vs_simt_atol": tol[1]}
@@ -712,6 +739,25 @@ def phase_kernels(only_wgmma=False):
                              ("plain", lambda: gn.plain(a, ds)))}
         if err["wgmma"] > NORM_TOL[0]:
             raise AssertionError(f"ghost_norm: the wgmma kernel is "
+                                 f"{err['wgmma']} from float64")
+        return err
+
+    def direct_vs_f64(a, ds):
+        """The direct norm in float64, one (l, b) at a time, as the arbiter
+        of the f32 versions' sums -> each version's max relative error;
+        raises unless the wgmma kernel's is within NORM_TOL's rtol."""
+        exact = torch.zeros(a.shape[1], dtype=torch.float64, device=dev)
+        for l in range(a.shape[0]):
+            for b in range(a.shape[1]):
+                g = a[l, b].double().T @ ds[l, b].double()
+                exact[b] += (g * g).sum()
+        err = {k: float(((fn().double() - exact).abs() / exact.abs()).max())
+               for k, fn in (("wgmma", lambda: gd.grad_norm_direct(a, ds)),
+                             ("simt", lambda: gd.grad_norm_direct(
+                                 a, ds, kernel="simt")),
+                             ("plain", lambda: gd.plain(a, ds)))}
+        if err["wgmma"] > NORM_TOL[0]:
+            raise AssertionError(f"grad_norm_direct: the wgmma kernel is "
                                  f"{err['wgmma']} from float64")
         return err
 
@@ -818,10 +864,18 @@ def phase_kernels(only_wgmma=False):
             else:
                 norm_case(*args, nbytes, ops, dname, library)
         if "grad_norm_direct" in kernels:
-            norm_case("grad_norm_direct", kernels["grad_norm_direct"], case,
-                      gd.grad_norm_direct, gd.plain, (a, ds),
-                      rec_bytes + Bc * 4, 2.0 * L * Bc * Tc * d * p, dname,
-                      library)
+            args = ("grad_norm_direct", kernels["grad_norm_direct"], case,
+                    gd.grad_norm_direct, gd.plain, (a, ds))
+            nbytes, ops = rec_bytes + Bc * 4, 2.0 * L * Bc * Tc * d * p
+            if gd.route(dtype, d, p) == "wgmma":
+                # beside the ghost einsum: the per-sample grads instantiated
+                # in bf16 by one einsum, then squared and summed
+                forms = dict(library, instantiated_bf16=lambda: torch.einsum(
+                    "lbtd,lbtp->lbdp", a, ds).float().square().sum((0, 2, 3)))
+                wgmma_case(*args, NORM_TOL, NORM_TOL, nbytes, ops, forms,
+                           f64_rel_err=direct_vs_f64(a, ds))
+            else:
+                norm_case(*args, nbytes, ops, dname, library)
         if "clipped_grad" in kernels:
             path = kernels["clipped_grad"]
             lib = lambda: torch.einsum("lbtd,b,lbtp->ldp", a, C.to(dtype),
@@ -949,17 +1003,16 @@ def phase_kernels(only_wgmma=False):
     # ---- the serving kernels: each run twice (bitwise), against its plain
     # version, timed beside it and (flash) beside one SDPA call
     def repeat_case(name, path, case, fn, plain, args, tol, nbytes, ops,
-                    dname, library=None, simt=None):
-        """``simt``: the SIMT kernel of a wgmma route, held to it at ``tol``
-        and timed beside it."""
+                    dname, library=None, simt=None, route="wgmma", **extra):
+        """``simt``: the SIMT (or scan) kernel of a ``route`` kernel, held
+        to it at ``tol`` and timed beside it."""
         got, again = fn(*args), fn(*args)
         want = plain(*args)
         r, w = reps(path, name)
-        extra = {}
         if simt is not None:
-            extra = simt_check(name, case, got, simt(*args), tol)
+            extra.update(simt_check(name, case, got, simt(*args), tol, route))
             extra["simt_ms"] = cuda_ms(lambda: simt(*args), r, w)
-            extra["route"] = "wgmma"
+            extra["route"] = route
         ms_k = cuda_ms(lambda: fn(*args), r, w)
         ms_p = cuda_ms(lambda: plain(*args), 2, 1)
         ms_lib = cuda_ms(library, r, w) if library else None
@@ -989,22 +1042,87 @@ def phase_kernels(only_wgmma=False):
             if fa.route(dtype, h) == "wgmma" else None)
         del q, k, v, qt, kt, vt
 
-    def wkv_case(path, case, B, T, H, h, dtype, tol, decay=None):
-        """r, k, v standard normal, w uniform in [0.5, 0.999] (or the
-        constant ``decay``), u normal * 0.5 (f32, as the wrapper hands it
-        to the kernel)."""
+    def wkv_decay(shape, decay):
+        """w: uniform in [0.5, 0.999] (None), the constant ``decay``, or
+        'mixed': log-uniform in [1e-6, 1] per element, 5% of them exactly 0
+        and 5% exactly 1 (where a difference of prefix sums of log w would
+        lose the recurrence, or give NaN)."""
+        if decay is None:
+            return torch.rand(shape, generator=gen, device=dev) * 0.499 + 0.5
+        if decay == "mixed":
+            w = torch.exp(torch.rand(shape, generator=gen, device=dev)
+                          * math.log(1e-6))
+            m = torch.rand(shape, generator=gen, device=dev)
+            return torch.where(m < 0.05, 0.0, torch.where(m > 0.95, 1.0, w))
+        return torch.full(shape, decay, device=dev)
+
+    def wkv_vs_f64(args, tol):
+        """The recurrence in float64 at (b 0, head 0), as the arbiter of the
+        f32 sums -> each version's max abs error there; raises unless the
+        chunked kernel is within ``tol`` of it."""
+        r_, k_, v_, w, u = (t.double() for t in args)
+        x = [t[0, :, 0] for t in (r_, k_, v_, w)]
+        S = torch.zeros(x[0].shape[-1], x[0].shape[-1], dtype=torch.float64,
+                        device=dev)
+        exact = torch.empty_like(x[0])
+        for t in range(x[0].shape[0]):
+            rt, kt, vt, wt = (y[t] for y in x)
+            exact[t] = rt @ S + (rt * u[0] * kt).sum() * vt
+            S = wt[:, None] * S + kt[:, None] * vt[None, :]
+        got = {k: fn()[0, :, 0] for k, fn in (
+            ("chunked", lambda: wk.wkv6(*args)),
+            ("scan", lambda: wk.wkv6(*args, kernel="scan")),
+            ("plain", lambda: wk.plain(*args)))}
+        cmp = compare(got["chunked"], exact, tol)
+        if not cmp["ok"]:
+            raise AssertionError(f"wkv6: the chunked kernel is off the "
+                                 f"float64 recurrence: {cmp}")
+        return {k: float((g.double() - exact).abs().max())
+                for k, g in got.items()}
+
+    def wkv_case(path, case, B, T, H, h, dtype, tol, decay=None, f64=False):
+        """r, k, v standard normal, w as ``wkv_decay`` draws it, u normal *
+        0.5 (f32, as the wrapper hands it to the kernel); on the chunked
+        route also (b) against the scan kernel at ``tol``; ``f64``: every
+        version against a float64 recurrence at one head."""
         dname = str(dtype).split(".")[-1]
         r_, k_, v_ = (rnd(B, T, H, h, dtype=dtype) for _ in range(3))
-        w = (torch.rand(B, T, H, h, generator=gen, device=dev) * 0.499 + 0.5
-             if decay is None else torch.full((B, T, H, h), decay,
-                                              device=dev)).to(dtype)
+        w = wkv_decay((B, T, H, h), decay).to(dtype)
         u = torch.randn(H, h, generator=gen, device=dev) * 0.5
+        args = (r_, k_, v_, w, u)
         n = B * T * H * h
+        extra = {"f64_max_abs_err": wkv_vs_f64(args, tol)} if f64 else {}
+        chunked = wk.route(dtype, h) == "chunked"
         repeat_case("wkv6", path, f"{path} {case} B={B} T={T} H={H} h={h} "
-                    f"{dname[:4]}", wk.wkv6, wk.plain, (r_, k_, v_, w, u), tol,
+                    f"{dname[:4]}", wk.wkv6, wk.plain, args, tol,
                     4 * n * r_.element_size() + u.numel() * 4 + n * 4,
-                    B * T * H * (5.0 * h * h + 5.0 * h), dname)
-        del r_, k_, v_, w, u
+                    B * T * H * (5.0 * h * h + 5.0 * h), dname,
+                    simt=(lambda *a: wk.wkv6(*a, kernel="scan")) if chunked
+                    else None, route="chunked", **extra)
+        del r_, k_, v_, w, u, args
+
+    def wkv_shapes():
+        """wkv6 at the prefill's shapes (bf16, against float64 at one head
+        too) and at ragged ones: T not a multiple of a chunk, h 16 and 64,
+        the strong constant decays, and the mixed decay of ``wkv_decay``."""
+        rp = SERVING["prefill_rwkv"]
+        r_cfg = get_config(rp["arch"])
+        wkv_case("prefill_rwkv", "w~U[0.5,0.999]", rp["batch"], rp["seq"],
+                 r_cfg.d_model // r_cfg.hd, r_cfg.hd, torch.bfloat16,
+                 WKV_LONG_TOL, f64=True)
+        for h in (16, 64):
+            wkv_case("ragged", "w~U[0.5,0.999]", 3, 509, 3, h, torch.float32,
+                     WKV_TOL)
+        for decay in (0.1, 0.01):           # where the chunked forms fail
+            wkv_case("ragged", f"strong decay w={decay}", 1, 64, 2, 64,
+                     torch.float32, WKV_TOL, decay)
+            wkv_case("ragged", f"strong decay w={decay}", 2, 509, 3, 64,
+                     torch.float32, WKV_TOL, decay)
+        mixed = "mixed decay w~logU[1e-6,1], 5% 0, 5% 1"
+        wkv_case("ragged", mixed, 2, 509, 3, 64, torch.float32, WKV_TOL,
+                 "mixed")
+        wkv_case("ragged", mixed, 2, 1000, 4, 64, torch.bfloat16,
+                 WKV_LONG_TOL, "mixed")
 
     bf16 = torch.bfloat16
     fp = SERVING["prefill"]
@@ -1027,12 +1145,13 @@ def phase_kernels(only_wgmma=False):
         kept slot); flash with h 64 and 128, G 1 and 6, causal and
         bidirectional."""
         mm_case("tile L=1 B=1 T=64 d=128 p=128 bf16", 1, 1, 64, 128, 128,
-                bf16, {"clipped_grad": "ragged"})
+                bf16, dict.fromkeys(("clipped_grad", "grad_norm_direct"),
+                                    "ragged"))
         mm_case("tile L=1 B=1 T=128 d=128 p=128 bf16", 1, 1, 128, 128, 128,
                 bf16, {"ghost_norm": "ragged"})
         mm_case("ragged L=3 B=3 T=509 d=136 p=264 bf16", 3, 3, 509, 136, 264,
-                bf16, dict.fromkeys(("ghost_norm", "clipped_grad"),
-                                    "ragged"))
+                bf16, dict.fromkeys(("ghost_norm", "clipped_grad",
+                                     "grad_norm_direct"), "ragged"))
         moe_case("tile L=1 B=1 E=1 C=64 d=128 p=128 bf16",
                  rnd(1, 1, 1, 64, 128), torch.ones(1, 1, 1, 64, device=dev),
                  128, moe_wgmma)
@@ -1067,6 +1186,12 @@ def phase_kernels(only_wgmma=False):
                   "moe_clipped_grad": "train_moe"})
         flash_case("prefill", fp["batch"], fp["seq"], fp["seq"],
                    q_cfg.n_heads, q_cfg.n_kv_heads, q_cfg.hd, True, bf16)
+        # train_long's qkv tap, random records: grad_norm_direct's row shape
+        p_qkv = q_cfg.hd * (q_cfg.n_heads + 2 * q_cfg.n_kv_heads)
+        mm_case(f"train_long qkv L={q_cfg.n_layers} B=2 T=2048 d={d} "
+                f"p={p_qkv} bf16", q_cfg.n_layers, 2, 2048, d, p_qkv, bf16,
+                {"grad_norm_direct": "train_long"})
+        wkv_shapes()
         return summary
 
     # ---- the train paths' shapes, each tap routed as the engine routes it
@@ -1131,23 +1256,13 @@ def phase_kernels(only_wgmma=False):
 
     flash_case("prefill", fp["batch"], fp["seq"], fp["seq"], q_cfg.n_heads,
                q_cfg.n_kv_heads, q_cfg.hd, True, torch.bfloat16)
-    rp = SERVING["prefill_rwkv"]
-    r_cfg = get_config(rp["arch"])
-    wkv_case("prefill_rwkv", "w~U[0.5,0.999]", rp["batch"], rp["seq"],
-             r_cfg.d_model // r_cfg.hd, r_cfg.hd, torch.bfloat16,
-             WKV_LONG_TOL)
     for h in (16, 64, 128):
         for H in (2, 12):                       # G = 1 and 6 over K = 2
             for causal in (True, False):
                 flash_case("ragged", 2, 509, 509, H, 2, h, causal,
                            torch.float32)
     wgmma_shapes()
-    for h in (16, 64):
-        wkv_case("ragged", "w~U[0.5,0.999]", 3, 509, 3, h, torch.float32,
-                 WKV_TOL)
-    for decay in (0.1, 0.01):               # where the chunked forms fail
-        wkv_case("ragged", f"strong decay w={decay}", 1, 64, 2, 64,
-                 torch.float32, WKV_TOL, decay)
+    wkv_shapes()
     return summary
 
 
@@ -1163,10 +1278,11 @@ def _profile_summary(prof, window_ms: float) -> dict:
         "ghost_norm", "ghost_norm_wgmma", "clipped_grad",
         "clipped_grad_wgmma", "flash_wgmma", "emb_norm", "emb_grad",
         "emb_grad_mark", "reduce_rows",
-        "grad_norm_direct", "moe_ghost_norm", "moe_direct_norm",
+        "grad_norm_direct", "dense_norm_wgmma", "moe_ghost_norm",
+        "moe_direct_norm",
         "moe_clipped_grad", "moe_norm_wgmma", "moe_grad_wgmma",
         "fused_clip_tile", "fused_clip_apply",
-        "flash_attention", "wkv6"))
+        "flash_attention", "wkv6", "wkv6_state", "wkv6_out"))
     kinds = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
     for name, ms in by_name.items():
         low = name.lower()
@@ -1573,8 +1689,8 @@ def main(argv=None) -> int:
                 **({"composed_ms": s["composed_ms"]}
                    if "composed_ms" in s else {}),
                 **({"simt_ms": s["simt_ms"],
-                    "simt_source": CSRC + WGMMA[name][0]}
-                   if name in WGMMA else {})})
+                    "simt_source": CSRC + {**WGMMA, **CHUNKED}[name][0]}
+                   if name in WGMMA or name in CHUNKED else {})})
         emit(kernels=kernels)
         if all(p in phases for p in TRAINS + PREFILLS + tuple(PARITY_SMOKE)):
             idle = [k["name"] for k in kernels if not k["launches"]]

@@ -45,6 +45,8 @@ SIGNATURES = {
     "dp_emb_grad": [_P] * 5 + [_I] * 6 + [_P],
     "dp_grad_norm_direct_nparts": [_I, _I],
     "dp_grad_norm_direct": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dp_grad_norm_direct_wgmma_nparts": [_I],
+    "dp_grad_norm_direct_wgmma": [_P] * 4 + [_I] * 5 + [_P],
     "dp_moe_ghost_norm": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "dp_moe_direct_norm_nparts": [_I, _I],
     "dp_moe_direct_norm": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
@@ -57,6 +59,8 @@ SIGNATURES = {
     "dp_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
     "dp_flash_attention_wgmma": [_P] * 4 + [_I] * 7 + [_P],
     "dp_wkv6": [_P] * 6 + [_I] * 5 + [_P],
+    "dp_wkv6_chunked_nparts": [_I, _I],
+    "dp_wkv6_chunked": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 

@@ -14,11 +14,11 @@
 // compute-bound and only wgmma reaches the bf16 rate; the SIMT kernel ran
 // at ~21 TFLOP/s.
 //
-// The pieces are wgmma_grad.cuh's (its producer, tile walk, slot flags and
-// mask warp); each (l, b, e) is its own problem q = (l B + b) E + e, at
-// depth q of 3-D maps (width, C, L*B*E) whose TMA zero-fill past C reads a
-// sample's 60 slots as 64 rows. A work item is (q, a 128-wide d strip); one
-// CTA per SM walks the items, q slowest (neighbouring strips of one
+// The loop is wgmma_grad.cuh's direct_norm<true> (its producer, tile walk,
+// slot flags and mask warp); each (l, b, e) is its own problem q = (l B +
+// b) E + e, at depth q of 3-D maps (width, C, L*B*E) whose TMA zero-fill
+// past C reads a sample's 60 slots as 64 rows. One CTA per SM walks the
+// items (q, a 128-wide d strip), q slowest (neighbouring strips of one
 // (l, b, e) share its g rows in L2), and streams the item's p tiles of 128
 // columns through the ring, each stage holding the strip's a rows beside
 // the tile's g rows: one ring for any C. (Loading the strip once per item,
@@ -26,18 +26,15 @@
 // the H100: the bytes do not bound this loop.) For each p tile a consumer
 // warpgroup issues the k16 steps of its 64 x 128 product that hold a kept
 // slot (the stage's flags), and squares and sums the last tile's
-// accumulator into one f32 a thread while this tile's products run: two
-// accumulators a consumer, a tile's products in one and the last tile's
-// square-sum from the other. A tile past p (p tiles are issued in pairs)
-// loads nothing and adds nothing. The records of the model are zero at
-// empty slots, so no stage of theirs is flagged for masking; other records
-// wait for the mask warp (exact for 0/1 masks; a general f32 mask adds one
-// bf16 rounding of m a_r, inside the bf16 tolerance).
+// accumulator while this tile's products run. The records of the model
+// are zero at empty slots, so no stage of theirs is flagged for masking;
+// other records wait for the mask warp (exact for 0/1 masks; a general f32
+// mask adds one bf16 rounding of m a_r, inside the bf16 tolerance).
 //
 // Each item writes one partial a warp, and a second pass sums each b's
 // partials in a fixed order (no float atomics): bitwise equal run to run.
-// With E = 1 and no mask this is grad_norm_direct's function: the same
-// kernel serves the dense direct norm.
+// With E = 1 and no mask this is grad_norm_direct's function:
+// grad_norm_direct_wgmma.cu runs the same loop unmasked (direct_norm<false>).
 #include "common.cuh"
 #include "slot_flags.cuh"
 
@@ -45,10 +42,7 @@ namespace {
 
 using namespace wgmma_grad;
 
-constexpr int BN = 128;
-constexpr int NACC = BN / 2;
-constexpr int STAGE_BYTES = Cfg<BN>::STAGE_BYTES;
-constexpr int S = Cfg<BN, true>::S;
+constexpr int BN = 128;   // p columns of a tile (direct_norm's)
 constexpr size_t SMEM = Cfg<BN, true>::SMEM;
 
 // np: p tiles of an item; row_len: partials of one b
@@ -59,93 +53,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                           const float* __restrict__ mask,
                           float* __restrict__ partial, int B, int E, int C,
                           int np, int row_len, Tiles tiles) {
-  extern __shared__ uint8_t smem_raw[];
-  const Smem<S> sm(smem_raw, S * STAGE_BYTES, 0, true);
-  const int wg = hopper::warpgroup(), lane = threadIdx.x % 32;
-  const int nt = (C + BK - 1) / BK;   // row tiles of one (l, b, e)
-  // an item's p tiles run in pairs, one accumulator each: np rounded up
-  const Walk walk{tiles, np + (np & 1), np, B, E, nt, true};
-
-  if (threadIdx.x == 0) sm.init(true);
-  __syncthreads();
-
-  if (wg == 2) {
-    // producer: one thread keeps the ring full; the next warp masks it
-    hopper::regs_dealloc<MOE_PRODUCER_REGS>();
-    if (threadIdx.x == 256) produce<BN, S>(&ma, &mg, &mf, sm, walk);
-    if (threadIdx.x / 32 == 9) mask_stages<BN, S>(sm, walk, mask, C);
-    return;
-  }
-
-  // consumers: warpgroup wg owns d columns d0 + 64 wg .. +63 of each strip
-  hopper::regs_alloc<MOE_CONSUMER_REGS>();
-  const int warp = threadIdx.x / 32;
-  float acc0[NACC], acc1[NACC];
-#pragma unroll
-  for (int j = 0; j < NACC; ++j) acc0[j] = acc1[j] = 0.f;
-  int i = 0, held = -1;     // stage counter; the stage still being read
-  int live0 = 0, live1 = 0;  // an accumulator holds products not yet summed
-  uint32_t rph = 0u;         // the ready phase each slot waits for next
-  float s = 0.f;
-
-  // One p tile: its stages' products into cur and, once they are issued
-  // and the last tile's are done, prev squared and summed into s.
-  auto ptile = [&](float(&cur)[NACC], float(&prev)[NACC], int& live_cur,
-                   int& live_prev, bool real) {
-    live_cur = 0;
-    for (int kt = 0; kt < nt; ++kt, ++i) {
-      const int st = i % S;
-      hopper::mbar_wait(&sm.full[st], (i / S) & 1);
-      const uint32_t kmask = wait_masked(sm, st, real, rph);
-      const uint8_t* stage = sm.ring + st * STAGE_BYTES;
-      hopper::fence_regs(cur);
-      hopper::wgmma_fence();
-      // the first product issued for a tile overwrites cur
-      live_cur = issue_stage<BN, true>(cur, stage + wg * BOX_BYTES,
-                                       stage + (BM / BOX) * BOX_BYTES, kmask,
-                                       live_cur);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<1>();   // every earlier group (prev's) is done
-      hopper::fence_regs(cur);
-      hopper::fence_regs(prev);
-      __syncwarp();
-      if (lane == 0 && held >= 0) hopper::mbar_arrive(&sm.empty[held]);
-      held = st;
-      if (kt == 0 && live_prev) {
-#pragma unroll
-        for (int j = 0; j < NACC; ++j) s = fmaf(prev[j], prev[j], s);
-        live_prev = 0;
-      }
-    }
-  };
-
-  for (int tile = blockIdx.x; tile < tiles.count(); tile += gridDim.x) {
-    int q, d0, p0;
-    tiles.at(tile, q, d0, p0);
-    s = 0.f;
-    for (int pt = 0; pt < walk.nu; pt += 2) {
-      ptile(acc0, acc1, live0, live1, pt < np);
-      ptile(acc1, acc0, live1, live0, pt + 1 < np);
-    }
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(acc1);
-    __syncwarp();
-    if (lane == 0) hopper::mbar_arrive(&sm.empty[held]);
-    held = -1;
-    if (live1) {
-#pragma unroll
-      for (int j = 0; j < NACC; ++j) s = fmaf(acc1[j], acc1[j], s);
-      live1 = 0;
-    }
-    s = warp_sum(s);
-    if (lane == 0) {
-      // partial (b, ((l E + e) nd + d strip) 8 + warp)
-      const int b = (q / E) % B, le = q / (B * E) * E + q % E;
-      partial[(long long)b * row_len +
-              ((long long)le * tiles.nd + d0 / BM) * CONSUMER_WARPS + warp] =
-          s;
-    }
-  }
+  direct_norm<true>(&ma, &mg, &mf, mask, partial, B, E, C, np, row_len,
+                    tiles);
 }
 
 }  // namespace

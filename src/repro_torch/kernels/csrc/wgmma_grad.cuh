@@ -1,6 +1,7 @@
 // The mainloop of the tensor-core kernels that contract records over their
 // rows, shared by clipped_grad_wgmma.cu (dense mm taps),
-// moe_clipped_grad_wgmma.cu (MoE expert taps) and moe_direct_norm_wgmma.cu:
+// moe_clipped_grad_wgmma.cu (MoE expert taps), and by the direct norms
+// moe_direct_norm_wgmma.cu and grad_norm_direct_wgmma.cu (direct_norm):
 //
 //     G_q = sum_b C_b a_qb^T diag(m_qb) g_qb    a (.., rows, d), g (.., rows, p)
 //
@@ -44,6 +45,7 @@
 // mask so adds one bf16 rounding of m a_r, inside the bf16 tolerance.
 #pragma once
 
+#include "common.cuh"
 #include "hopper.cuh"
 
 namespace wgmma_grad {
@@ -506,6 +508,129 @@ __device__ __forceinline__ void weighted_grad(
     if (wtid == 0) hopper::bulk_wait<0>();   // the stores leave smem first
   }
 }
+
+// The direct norm of every work item: the shared kernel body of
+// moe_direct_norm_wgmma.cu (MASKED: MoE expert taps, the slot mask ``mask``
+// (L,B,E,C) f32 and the stages' flags ``mf``) and grad_norm_direct_wgmma.cu
+// (dense mm taps: E = 1, no mask, no flags, no mask warp, a ring of
+// STAGES). Problem q = (l B + b) E + e at depth q of the maps (width, C,
+// L*B*E); a work item is (q, a 128-wide d strip), walked with the strip
+// fastest; the item's p tiles of 128 columns stream through the ring, a
+// stage holding the strip's a rows beside the tile's g rows. A consumer
+// warpgroup issues a tile's 64 x 128 products into one accumulator and
+// squares and sums the last tile's, from the other, while they run. A
+// tile past p (p tiles go in pairs) loads nothing and adds nothing. Each
+// warp writes one partial an item: partial (b, ((l E + e) nd + d strip) 8
+// + warp), row_len a b's partials; np: p tiles of an item.
+template <bool MASKED>
+__device__ __forceinline__ void direct_norm(const CUtensorMap* ma,
+                                            const CUtensorMap* mg,
+                                            const CUtensorMap* mf,
+                                            const float* __restrict__ mask,
+                                            float* __restrict__ partial,
+                                            int B, int E, int C, int np,
+                                            int row_len, Tiles tiles) {
+  constexpr int BN = 128, NACC = BN / 2;
+  constexpr int S = Cfg<BN, MASKED>::S, STAGE_BYTES = Cfg<BN>::STAGE_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const Smem<S> sm(smem_raw, S * STAGE_BYTES, 0, MASKED);
+  const int wg = hopper::warpgroup(), lane = threadIdx.x % 32;
+  const int nt = (C + BK - 1) / BK;   // row tiles of one (l, b, e)
+  // an item's p tiles run in pairs, one accumulator each: np rounded up
+  const Walk walk{tiles, np + (np & 1), np, B, E, nt, true};
+
+  if (threadIdx.x == 0) sm.init(MASKED);
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread keeps the ring full; (masked) the next warp
+    // masks it
+    hopper::regs_dealloc<MASKED ? MOE_PRODUCER_REGS : PRODUCER_REGS>();
+    if (threadIdx.x == 256) produce<BN, S>(ma, mg, mf, sm, walk);
+    if constexpr (MASKED) {
+      if (threadIdx.x / 32 == 9) mask_stages<BN, S>(sm, walk, mask, C);
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns d columns d0 + 64 wg .. +63 of each strip
+  hopper::regs_alloc<MASKED ? MOE_CONSUMER_REGS : CONSUMER_REGS>();
+  const int warp = threadIdx.x / 32;
+  float acc0[NACC], acc1[NACC];
+#pragma unroll
+  for (int j = 0; j < NACC; ++j) acc0[j] = acc1[j] = 0.f;
+  int i = 0, held = -1;     // stage counter; the stage still being read
+  int live0 = 0, live1 = 0;  // an accumulator holds products not yet summed
+  uint32_t rph = 0u;         // (masked) the ready phase each slot waits for
+  float s = 0.f;
+
+  // One p tile: its stages' products into cur and, once they are issued
+  // and the last tile's are done, prev squared and summed into s.
+  auto ptile = [&](float(&cur)[NACC], float(&prev)[NACC], int& live_cur,
+                   int& live_prev, bool real) {
+    live_cur = 0;
+    for (int kt = 0; kt < nt; ++kt, ++i) {
+      const int st = i % S;
+      hopper::mbar_wait(&sm.full[st], (i / S) & 1);
+      const uint8_t* stage = sm.ring + st * STAGE_BYTES;
+      hopper::fence_regs(cur);
+      hopper::wgmma_fence();
+      // the first product issued for a tile overwrites cur; a dummy tile's
+      // stages hold nothing (masked: no k16 step flagged)
+      if constexpr (MASKED) {
+        const uint32_t kmask = wait_masked(sm, st, real, rph);
+        live_cur = issue_stage<BN, true>(cur, stage + wg * BOX_BYTES,
+                                         stage + (BM / BOX) * BOX_BYTES,
+                                         kmask, live_cur);
+      } else if (real) {
+        live_cur = issue_stage<BN, false>(cur, stage + wg * BOX_BYTES,
+                                          stage + (BM / BOX) * BOX_BYTES,
+                                          0xFu, live_cur);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();   // every earlier group (prev's) is done
+      hopper::fence_regs(cur);
+      hopper::fence_regs(prev);
+      __syncwarp();
+      if (lane == 0 && held >= 0) hopper::mbar_arrive(&sm.empty[held]);
+      held = st;
+      if (kt == 0 && live_prev) {
+#pragma unroll
+        for (int j = 0; j < NACC; ++j) s = fmaf(prev[j], prev[j], s);
+        live_prev = 0;
+      }
+    }
+  };
+
+  for (int tile = blockIdx.x; tile < tiles.count(); tile += gridDim.x) {
+    int q, d0, p0;
+    tiles.at(tile, q, d0, p0);
+    s = 0.f;
+    for (int pt = 0; pt < walk.nu; pt += 2) {
+      ptile(acc0, acc1, live0, live1, pt < np);
+      ptile(acc1, acc0, live1, live0, pt + 1 < np);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc1);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&sm.empty[held]);
+    held = -1;
+    if (live1) {
+#pragma unroll
+      for (int j = 0; j < NACC; ++j) s = fmaf(acc1[j], acc1[j], s);
+      live1 = 0;
+    }
+    s = warp_sum(s);
+    if (lane == 0) {
+      // partial (b, ((l E + e) nd + d strip) 8 + warp)
+      const int b = (q / E) % B, le = q / (B * E) * E + q % E;
+      partial[(long long)b * row_len +
+              ((long long)le * tiles.nd + d0 / BM) * CONSUMER_WARPS + warp] =
+          s;
+    }
+  }
+}
+
 
 // The CTAs of a persistent launch: one an SM, at most one a tile.
 inline int persistent_grid(int tiles, int* grid) {

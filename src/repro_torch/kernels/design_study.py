@@ -1,15 +1,16 @@
-"""Time, on the card, the designs that two kernels' sources name as not
+"""Time, on the card, the designs that three kernels' sources name as not
 taken, beside the kernels kept, so that those comparisons can be run again:
 
     PYTHONPATH=src python -m repro_torch.kernels.design_study
     PYTHONPATH=src python -m repro_torch.kernels.design_study --only emb
 
-(``--only ghost`` likewise.) Each variant is built alone into a temporary
-directory (one nvcc a variant, all started together): the kept source with
-one line or block replaced (:data:`EMB_PATCHES`, :data:`GHOST_PATCHES`; a
-replacement that no longer matches the source raises), or a source of its
-own under ``designs/``. Inputs are made from a seed at qwen2-1.5b's
-``train`` shapes (B=8, T=512):
+(``--only ghost`` and ``--only wkv`` likewise.) Each variant is built alone
+into a temporary directory (one nvcc a variant, all started together): the
+kept source with one line or block replaced (:data:`EMB_PATCHES`,
+:data:`GHOST_PATCHES`, :data:`WKV_PATCHES`; a replacement that no longer
+matches the source raises), or a source of its own under ``designs/``.
+Inputs are made from a seed at qwen2-1.5b's ``train`` shapes (B=8, T=512)
+and rwkv6-3b's ``prefill_rwkv`` shapes:
 
 - ``emb_clipped_grad``: ids (8, 512), d 1536, V 151936, bf16 cotangents.
   Variants: the kept kernel (``csrc/emb_grad.cu``), one warp scanning all
@@ -20,13 +21,21 @@ own under ``designs/``. Inputs are made from a seed at qwen2-1.5b's
   (1, 8, 512, 151936). Variants: the kept kernel (a Gram summed in pieces
   of 8 stages), pieces of 4 and 16 stages, one accumulator for a whole p
   chunk, and one accumulator a stage folded while the next stage runs.
+- ``wkv6`` (chunked): r, k, v, w (4, 4096, 40, 64) bf16 (w uniform in
+  [0.5, 0.999]), u (40, 64) f32. Variants: the kept kernel
+  (``csrc/wkv6_chunked.cu``: chunks of 64, pass-1 CTAs of 32 state
+  columns), chunks of 32, pass-1 CTAs of 16 state columns; beside them the
+  scan kernel (``csrc/wkv6.cu``) of the kept library. Then ablations
+  (:data:`WKV_ABLATIONS`): the kept kernel with one phase skipped, whose
+  outputs are wrong by design and whose times say what that phase costs.
 
 Prints one JSON line a variant: CUDA-event ms around the C call (median of
 5 runs of 20 calls), device ms by kernel (torch.profiler), whether the
 output is bitwise the kept kernel's, ghost_norm's largest relative error
 against the plain version and against a float64 evaluation, and the
-variant's ptxas lines (registers, spills, C75xx notes). Then the card's
-name and power limit.
+variant's ptxas lines (registers, spills, C75xx notes); wkv6's largest
+difference from the kept kernel and from a float64 recurrence at head 0.
+Then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -103,6 +112,39 @@ GHOST_PATCHES = {
     "one_accumulator_a_chunk": ("ghost_norm_wgmma.cu",
                                 [(_PIECE, "constexpr int PIECE = 1 << 20; ")]),
     "fold_a_stage": ("ghost_norm_wgmma.cu", [(_P_LOOP, _FOLD_A_STAGE)]),
+}
+
+_CHUNK = "int chunk_of(int h) { return h > 64 ? 32 : 64; }"
+_H64 = "return launch<T, 64, 64>(r, k, v, w, u, state, o, B, Tn, H, h, st);"
+WKV_PATCHES = {
+    "kept": ("wkv6_chunked.cu", []),
+    "chunk_32": ("wkv6_chunked.cu", [
+        (_CHUNK, "int chunk_of(int h) { return 32; }"),
+        (_H64, _H64.replace("<T, 64, 64>", "<T, 64, 32>"))]),
+    "state_cols_16": ("wkv6_chunked.cu", [
+        ("constexpr int JB = 32; ", "constexpr int JB = 16; ")]),
+}
+# the kept wkv6 kernel with one phase skipped (a loop run zero times)
+WKV_ABLATIONS = {
+    "skip_pass2_diagonal_blocks": ("wkv6_chunked.cu", [(
+        "for (int ii = 0; ii < QC; ii += 2) {",
+        "for (int ii = 0; ii < 0; ii += 2) {")]),
+    "skip_pass2_offdiagonal_blocks": ("wkv6_chunked.cu", [(
+        "  if (q > 0) {\n    float acc[NS - 1][4];",
+        "  if (q < 0) {\n    float acc[NS - 1][4];")]),
+    "skip_pass2_A_V": ("wkv6_chunked.cu", [(
+        "for (int kk = 0; kk < qb + SUB; kk += 8) {",
+        "for (int kk = 0; kk < 0; kk += 8) {")]),
+    "skip_pass2_S0_load_and_product": ("wkv6_chunked.cu", [
+        ("  if (c > 0) {\n    for (int e = tid;",
+         "  if (c < 0) {\n    for (int e = tid;"),
+        ("  if (c > 0) {\n    // S0 split", "  if (c < 0) {\n    // S0 split")]),
+    "skip_pass1_walk": ("wkv6_chunked.cu", [(
+        "for (int s0 = s_end - 8; s0 >= th * HALF; s0 -= 8) {",
+        "for (int s0 = s_end - 8; s0 >= s_end; s0 -= 8) {")]),
+    "skip_pass1_product": ("wkv6_chunked.cu", [(
+        "for (int kk = th * HALF; kk < th * HALF + HALF; kk += 8) {",
+        "for (int kk = th * HALF; kk < th * HALF; kk += 8) {")]),
 }
 
 
@@ -284,9 +326,60 @@ def study_ghost(tmp: Path, dev: str) -> None:
           flush=True)
 
 
+def study_wkv(tmp: Path, dev: str) -> None:
+    from repro_torch.kernels import wkv6 as wk
+    variants = {n: patched(build.CSRC / s, p)
+                for n, (s, p) in {**WKV_PATCHES, **WKV_ABLATIONS}.items()}
+    libs = build_variants(variants, tmp)
+    Bw, Tw, Hw, hw = 4, 4096, 40, 64
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    r, k, v = (torch.randn(Bw, Tw, Hw, hw, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    w = (torch.rand(Bw, Tw, Hw, hw, generator=g, device=dev) * 0.499
+         + 0.5).to(torch.bfloat16)
+    u = torch.randn(Hw, hw, generator=g, device=dev) * 0.5
+    # the recurrence in float64 at (b 0, head 0)
+    x = [t[0, :, 0].double() for t in (r, k, v, w)]
+    S = torch.zeros(hw, hw, dtype=torch.float64, device=dev)
+    exact = torch.empty(Tw, hw, dtype=torch.float64, device=dev)
+    for t in range(Tw):
+        rt, kt, vt, wt = (y[t] for y in x)
+        exact[t] = rt @ S + (rt * u[0].double() * kt).sum() * vt
+        S = wt[:, None] * S + kt[:, None] * vt[None, :]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    out = torch.empty(Bw, Tw, Hw, hw, device=dev)
+    ptrs = [t.data_ptr() for t in (r, k, v, w, u)]
+    calls = {}
+    for name, (lib, notes) in libs.items():
+        lib.dp_wkv6_chunked.argtypes = [P] * 7 + [I] * 5 + [P]
+        lib.dp_wkv6_chunked_nparts.argtypes = [I, I]
+        state = torch.empty(Bw, Hw, lib.dp_wkv6_chunked_nparts(Tw, hw), hw,
+                            hw, device=dev)
+        calls[name] = (lambda f=lib.dp_wkv6_chunked, st=state: _check(f(
+            *ptrs, st.data_ptr(), out.data_ptr(), Bw, Tw, Hw, hw, 1, 0),
+            "dp_wkv6_chunked"))
+    calls["scan"] = lambda: wk.wkv6(r, k, v, w, u, kernel="scan")
+    kept = None
+    for name, fn in calls.items():
+        got = fn() if name == "scan" else (fn(), out.clone())[1]
+        torch.cuda.synchronize()
+        kept = got if kept is None else kept
+        row = {"study": "wkv6", "variant": name, "ms": events_ms(fn),
+               "device_ms": device_ms(fn),
+               "max_abs_diff_kept": float((got - kept).abs().max()),
+               "max_abs_err_f64": float((got[0, :, 0].double() - exact)
+                                        .abs().max())}
+        if name in libs:
+            row["ptxas"] = libs[name][1]
+        if name in WKV_ABLATIONS:
+            row["ablation"] = "one phase skipped: the output is wrong"
+        print(json.dumps(row), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("emb", "ghost"), default=None)
+    ap.add_argument("--only", choices=("emb", "ghost", "wkv"), default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("design_study: no CUDA device; this script runs on the card",
@@ -298,6 +391,8 @@ def main(argv=None) -> int:
             study_emb(Path(tmp) / "emb", "cuda")
         if args.only in (None, "ghost"):
             study_ghost(Path(tmp) / "ghost", "cuda")
+        if args.only in (None, "wkv"):
+            study_wkv(Path(tmp) / "wkv", "cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)

@@ -25,7 +25,9 @@ from repro_torch.kernels import clipped_grad as cg_mod
 from repro_torch.kernels import emb_grad as eg_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ghost_norm as gn_mod
+from repro_torch.kernels import grad_norm_direct as gd_mod
 from repro_torch.kernels import moe_ghost as moe_mod
+from repro_torch.kernels import wkv6 as wkv_mod
 from repro_torch.kernels.clipped_grad import clipped_grad
 from repro_torch.kernels.emb_grad import emb_clipped_grad
 from repro_torch.kernels.emb_norm import emb_ghost_norm
@@ -247,6 +249,16 @@ def _meta(*shape, dtype=torch.float32):
                              _meta(2, 3, 4), _meta(2),
                              _meta(2, 3, 4, 16, dtype=torch.bfloat16)),
     lambda: wkv6(*(_meta(2, 3, 4, 8),) * 4, _meta(4, 8)),
+    # the inputs that the chunked and wgmma routes take, and those routes
+    # forced
+    lambda: wkv6(*(_meta(2, 3, 4, 64, dtype=torch.bfloat16),) * 4,
+                 _meta(4, 64)),
+    lambda: wkv6(*(_meta(2, 3, 4, 64),) * 4, _meta(4, 64), kernel="chunked"),
+    lambda: grad_norm_direct(_meta(2, 2, 3, 64, dtype=torch.bfloat16),
+                             _meta(2, 2, 3, 128, dtype=torch.bfloat16)),
+    lambda: grad_norm_direct(_meta(2, 3, 64, dtype=torch.bfloat16),
+                             _meta(2, 3, 128, dtype=torch.bfloat16),
+                             kernel="wgmma"),
 ])
 def test_wrappers_take_the_plain_version_only_on_cpu(call):
     """A tensor that is not on the CPU never reaches the plain version: the
@@ -377,6 +389,36 @@ def test_wkv6_strong_decay_matches_the_recurrence(w):
                                **WKV_TOL)
 
 
+def _decay(shape, w, seed=1):
+    """w: the constant ``w``, or 'mixed': log-uniform in [1e-6, 1] per
+    element, 5% of them exactly 0 and 5% exactly 1 (float64)."""
+    if w != "mixed":
+        return np.full(shape, w)
+    rng = np.random.default_rng(seed)
+    x = np.exp(rng.uniform(np.log(1e-6), 0.0, shape))
+    m = rng.uniform(size=shape)
+    return np.where(m < 0.05, 0.0, np.where(m > 0.95, 1.0, x))
+
+
+@pytest.mark.parametrize("chunk,sub", [(32, 16), (64, 16)])
+@pytest.mark.parametrize("w", [None, 0.1, 0.01, "mixed"])
+@pytest.mark.parametrize("B,T,H,h", WKV_SHAPES + [(2, 130, 2, 16)])
+def test_wkv6_chunked_model_is_the_recurrence(B, T, H, h, w, chunk, sub):
+    """The chunked kernel's decomposition (``kernels.wkv6.chunked_model``),
+    run in float64, against JAX's ``wkv6_ref``: under the JAX kernel test's
+    decay, the strong constant ones, and log-uniform decays with exact
+    zeros and ones, at T below, at and not a multiple of the chunk."""
+    pairs = _wkv_inputs(B, T, H, h, w=None if w == "mixed" else w)
+    j = [p[0] for p in pairs]
+    if w == "mixed":
+        j[3] = jnp.asarray(_decay((B, T, H, h), w).astype(np.float32))
+    x64 = [torch.from_numpy(np.asarray(a, np.float64)) for a in j]
+    got = wkv_mod.chunked_model(*x64, chunk=chunk, sub=sub)
+    assert got.shape == (B, T, H, h) and got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref.wkv6_ref(*j)),
+                               **WKV_TOL)
+
+
 # ------------------------------------------------- the tensor-core routes
 @pytest.mark.parametrize("dtype,d,p,want", [
     # the mm taps of the train paths: qwen2-1.5b (qkv, o, gate+up, down,
@@ -460,6 +502,43 @@ def test_flash_attention_route(dtype, h, want):
 def test_moe_route(dtype, d, p, want):
     assert moe_mod.route(dtype, d, p) == want
     assert moe_mod.route(dtype, d, p, aligned=False) == "simt"
+
+
+@pytest.mark.parametrize("dtype,d,p,want", [
+    # the direct-norm taps of train_long and train_tape: qwen2-1.5b's qkv
+    # and o at T=2048
+    (torch.bfloat16, 1536, 2048, "wgmma"),
+    (torch.bfloat16, 1536, 1536, "wgmma"),
+    (torch.bfloat16, 136, 264, "wgmma"),      # multiples of 8, of no tile
+    (torch.bfloat16, 8, 8, "wgmma"),
+    # unaligned widths and f32 records (parity_long) keep the SIMT kernel
+    (torch.bfloat16, 37, 53, "simt"),
+    (torch.bfloat16, 1536, 2044, "simt"),
+    (torch.bfloat16, 1532, 2048, "simt"),
+    (torch.float32, 1536, 2048, "simt"),
+    (torch.float32, 165, 301, "simt"),
+])
+def test_grad_norm_direct_route(dtype, d, p, want):
+    assert gd_mod.route(dtype, d, p) == want
+    assert gd_mod.route(dtype, d, p, aligned=False) == "simt"
+
+
+@pytest.mark.parametrize("dtype,h,want", [
+    (torch.bfloat16, 64, "chunked"),   # rwkv6-3b's prefill
+    (torch.float32, 64, "chunked"),    # the f32 parity prefill
+    (torch.bfloat16, 16, "chunked"),
+    (torch.float32, 48, "chunked"),
+    (torch.bfloat16, 128, "chunked"),
+    (torch.float32, 128, "chunked"),
+    # other head sizes keep the scan kernel
+    (torch.bfloat16, 8, "scan"),
+    (torch.float32, 40, "scan"),
+    (torch.bfloat16, 72, "scan"),
+    (torch.float32, 127, "scan"),
+])
+def test_wkv6_route(dtype, h, want):
+    assert wkv_mod.route(dtype, h) == want
+    assert wkv_mod.route(dtype, h, aligned=False) == "scan"
 
 
 class _FakeLib:
@@ -689,6 +768,69 @@ def test_moe_launches_its_route(fake_lib, name, dtype, d, p, kernel, entry):
         assert fn.wgmma_launches == w0 + (entry == "wgmma")
 
 
+@pytest.mark.parametrize("dtype,d,p,kernel,entry", [
+    (torch.bfloat16, 1536, 2048, None, "dp_grad_norm_direct_wgmma"),
+    (torch.bfloat16, 136, 264, None, "dp_grad_norm_direct_wgmma"),
+    (torch.bfloat16, 37, 53, None, "dp_grad_norm_direct"),
+    (torch.float32, 1536, 2048, None, "dp_grad_norm_direct"),
+    (torch.bfloat16, 1536, 2048, "simt", "dp_grad_norm_direct"),
+])
+@pytest.mark.parametrize("stacked", [True, False])
+def test_grad_norm_direct_launches_its_route(fake_lib, empty_shapes, dtype,
+                                             d, p, kernel, entry, stacked):
+    """The wrapper launches the C entry its route names, with the argument
+    count of its signature and the records' (L, B, T, d, p), sizes the
+    partial sums as the C side asks, and counts every launch and the wgmma
+    ones; unstacked records launch as L = 1."""
+    L, B, T = 2, 2, 48
+    lead = (L,) if stacked else ()
+    a, ds = (_meta(*lead, B, T, w, dtype=dtype) for w in (d, p))
+    nparts = f"{entry}_nparts"
+    fake_lib.sizes[nparts] = 96
+    n0, w0 = grad_norm_direct.launches, grad_norm_direct.wgmma_launches
+    out = grad_norm_direct(a, ds, kernel=kernel)
+    L1 = L if stacked else 1
+    assert out.shape == (B,) and out.dtype == torch.float32
+    assert fake_lib.calls == [(entry, len(build.SIGNATURES[entry]))]
+    wgmma = entry.endswith("wgmma")
+    assert fake_lib.asked == [(nparts, (d,) if wgmma else (d, p))]
+    assert ((B, L1 * 96), torch.float32) in empty_shapes
+    # the pointers (0 on meta tensors), then L, B, T, d, p
+    assert list(fake_lib.last_args[4:9]) == [L1, B, T, d, p]
+    assert grad_norm_direct.launches == n0 + 1
+    assert grad_norm_direct.wgmma_launches == w0 + wgmma
+
+
+@pytest.mark.parametrize("dtype,h,kernel,entry", [
+    (torch.bfloat16, 64, None, "dp_wkv6_chunked"),
+    (torch.float32, 64, None, "dp_wkv6_chunked"),
+    (torch.float32, 16, None, "dp_wkv6_chunked"),
+    (torch.bfloat16, 8, None, "dp_wkv6"),
+    (torch.bfloat16, 64, "scan", "dp_wkv6"),
+])
+def test_wkv6_launches_its_route(fake_lib, empty_shapes, dtype, h, kernel,
+                                 entry):
+    """The wrapper launches the C entry its route names, with the argument
+    count of its signature and (B, T, H, h), gives the chunked kernel the
+    (B, H, chunks, h, h) f32 state scratch the C side asks for, and counts
+    every launch and the chunked ones."""
+    B, T, H = 2, 100, 3
+    fake_lib.sizes["dp_wkv6_chunked_nparts"] = 2
+    n0, c0 = wkv6.launches, wkv6.chunked_launches
+    out = wkv6(*(_meta(B, T, H, h, dtype=dtype),) * 4, _meta(H, h),
+               kernel=kernel)
+    assert out.shape == (B, T, H, h) and out.dtype == torch.float32
+    assert fake_lib.calls == [(entry, len(build.SIGNATURES[entry]))]
+    chunked = entry == "dp_wkv6_chunked"
+    if chunked:
+        assert fake_lib.asked == [("dp_wkv6_chunked_nparts", (T, h))]
+        assert ((B, H, 2, h, h), torch.float32) in empty_shapes
+    dims = fake_lib.last_args[-6:-2]
+    assert list(dims) == [B, T, H, h]
+    assert wkv6.launches == n0 + 1
+    assert wkv6.chunked_launches == c0 + chunked
+
+
 @pytest.mark.parametrize("call", [
     # f32 records, unaligned widths, other head sizes: no wgmma kernel
     lambda: clipped_grad(_meta(2, 3, 8), _meta(2), _meta(2, 3, 16),
@@ -727,6 +869,19 @@ def test_moe_launches_its_route(fake_lib, name, dtype, d, p, kernel, entry):
                              _meta(2, 3, 4), _meta(2),
                              _meta(2, 3, 4, 16, dtype=torch.bfloat16),
                              kernel="tensor"),
+    # grad_norm_direct's wgmma kernel: f32 records, unaligned widths
+    lambda: grad_norm_direct(_meta(2, 3, 8), _meta(2, 3, 16), kernel="wgmma"),
+    lambda: grad_norm_direct(_meta(2, 3, 12, dtype=torch.bfloat16),
+                             _meta(2, 3, 16, dtype=torch.bfloat16),
+                             kernel="wgmma"),
+    lambda: grad_norm_direct(_meta(2, 3, 8, dtype=torch.bfloat16),
+                             _meta(2, 3, 16, dtype=torch.bfloat16),
+                             kernel="tensor"),
+    # wkv6's chunked kernel: other head sizes, other routes
+    lambda: wkv6(*(_meta(2, 3, 4, 8),) * 4, _meta(4, 8), kernel="chunked"),
+    lambda: wkv6(*(_meta(2, 3, 4, 72, dtype=torch.bfloat16),) * 4,
+                 _meta(4, 72), kernel="chunked"),
+    lambda: wkv6(*(_meta(2, 3, 4, 64),) * 4, _meta(4, 64), kernel="wgmma"),
 ])
 def test_forced_wgmma_route_raises_on_inputs_it_does_not_take(fake_lib,
                                                               call):
@@ -776,7 +931,8 @@ def test_cuda_source_parses_against_the_stub_headers(cu):
 
 
 def _design_sources():
-    for table in ("EMB_PATCHES", "GHOST_PATCHES"):
+    for table in ("EMB_PATCHES", "GHOST_PATCHES", "WKV_PATCHES",
+                  "WKV_ABLATIONS"):
         for name in getattr(design_study, table):
             yield f"{table}:{name}"
     for cu in sorted(design_study.DESIGNS.glob("*.cu")):
