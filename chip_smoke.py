@@ -26,25 +26,28 @@ Phases, each printing JSON lines:
             events, and for fused_clip_grad (at the smoke-width
             parity_layer model's units, the path that launches it) the
             composed route it replaces. ghost_norm, clipped_grad,
-            grad_norm_direct, flash_attention, moe_direct_norm and
-            moe_clipped_grad take their wgmma kernels on bf16 (``route``):
+            grad_norm_direct, flash_attention, moe_ghost_norm,
+            moe_direct_norm and moe_clipped_grad take their wgmma kernels
+            on bf16 (``route``):
             there each is also held to its SIMT kernel on the same inputs
             (the weighted grads at SIMT_GRAD_TOL, the norms at NORM_TOL,
             flash at the bf16 tolerance) and to itself run twice (bitwise),
             with the SIMT kernel timed beside it (simt_ms), at every train
             path's / the prefill's shapes, at one tile, and at ragged bf16
-            shapes; ghost_norm's and grad_norm_direct's three versions also
-            against a float64 evaluation (the wgmma kernel within
-            NORM_TOL's rtol of it; grad_norm_direct's library forms include
-            the instantiated bf16 einsum). wkv6 takes its chunked kernel
-            (tensor cores, split TF32) on f32 and bf16 with h a multiple of
-            16: held to its scan kernel likewise (simt_ms: the scan's
-            time), and at the prefill's shapes all three versions to a
-            float64 recurrence at one head (the chunked kernel within
+            shapes (moe_ghost_norm also at C > 64 under a non-binary mask);
+            ghost_norm's, grad_norm_direct's and moe_ghost_norm's three
+            versions also against a float64 evaluation (the wgmma kernel
+            within NORM_TOL's rtol of it; grad_norm_direct's library forms
+            include the instantiated bf16 einsum). wkv6 takes its chunked
+            kernel (tensor cores, split TF32) on f32 and bf16 with h a
+            multiple of 16: held to its scan kernel likewise (simt_ms: the
+            scan's time), and at the prefill's shapes all three versions to
+            a float64 recurrence at one head (the chunked kernel within
             WKV_LONG_TOL of it).
-            emb_clipped_grad also bitwise run to run, at train's ids, the
-            ragged ids and one id at every position, with its device time
-            by torch.profiler beside its CUDA-event time
+            emb_ghost_norm and emb_clipped_grad at train's ids, the ragged
+            ids, ids of 4 values and one id at every position (bitwise run
+            to run), each with its device time by torch.profiler beside
+            its CUDA-event time
   wgmma     (not in the default run) the short call after a tensor-core
             kernel edit: those checks at one tile, the ragged bf16 shapes
             and one row shape of each (the head tap of ``train``, whose
@@ -157,7 +160,7 @@ SOURCES = {
     "emb_clipped_grad": ("emb_grad.cu", "emb_grad.py:50"),
     "grad_norm_direct": ("grad_norm_direct_wgmma.cu",
                          "grad_norm_direct.py:42"),
-    "moe_ghost_norm": ("moe_ghost_norm.cu", "moe_ghost.py:58"),
+    "moe_ghost_norm": ("moe_ghost_norm_wgmma.cu", "moe_ghost.py:58"),
     "moe_direct_norm": ("moe_direct_norm_wgmma.cu", "moe_ghost.py:98"),
     "moe_clipped_grad": ("moe_clipped_grad_wgmma.cu", "moe_ghost.py:146"),
     "fused_clip_grad": ("fused_clip.cu", "fused_clip.py:56"),
@@ -169,6 +172,7 @@ SOURCES = {
 WGMMA = {"ghost_norm": ("ghost_norm.cu", "ghost_norm_wgmma_kernel"),
          "clipped_grad": ("clipped_grad.cu", "clipped_grad_wgmma_kernel"),
          "flash_attention": ("flash_attention.cu", "flash_wgmma_kernel"),
+         "moe_ghost_norm": ("moe_ghost_norm.cu", "moe_ghost_wgmma_kernel"),
          "moe_direct_norm": ("moe_direct_norm.cu", "moe_norm_wgmma_kernel"),
          "moe_clipped_grad": ("moe_clipped_grad.cu",
                               "moe_grad_wgmma_kernel"),
@@ -553,13 +557,11 @@ def path_taps(paths, dev, smoke=False):
     return cfg, batch, taps, records
 
 
-def _match_pairs(ids):
-    """Id-equal pairs (t' <= t) per (l, b) row, summed: the dots that the
-    embedding norm needs for these ids."""
-    import torch
-    ids = ids.reshape(-1, ids.shape[-1])
-    eq = ids[:, :, None] == ids[:, None, :]
-    return int(torch.tril(eq).sum())
+def _runs(ids):
+    """Runs (distinct ids) per (l, b) row, summed: the squared norms of run
+    sums that the embedding norm needs for these ids."""
+    return sum(int(row.unique().numel())
+               for row in ids.reshape(-1, ids.shape[-1]))
 
 
 def phase_kernels(only_wgmma=False):
@@ -761,6 +763,29 @@ def phase_kernels(only_wgmma=False):
                                  f"{err['wgmma']} from float64")
         return err
 
+    def moe_ghost_vs_f64(a, mask, ds):
+        """The MoE ghost norm in float64, a layer at a time, as the arbiter
+        of the f32 versions' sums -> each version's max relative error;
+        raises unless the wgmma kernel's is within NORM_TOL's rtol."""
+        exact = torch.zeros(a.shape[1], dtype=torch.float64, device=dev)
+        for l in range(a.shape[0]):
+            m = mask[l].double()[..., None]
+            x, g = a[l].double() * m, ds[l].double() * m
+            exact += torch.einsum("becx,becx->b", x @ x.transpose(-1, -2),
+                                  g @ g.transpose(-1, -2))
+            del x, g
+        err = {k: float(((fn().double() - exact).abs()
+                         / exact.abs().clamp_min(1e-30)).max())
+               for k, fn in (("wgmma", lambda: mg.moe_ghost_norm(a, mask, ds)),
+                             ("simt", lambda: mg.moe_ghost_norm(
+                                 a, mask, ds, kernel="simt")),
+                             ("plain", lambda: ghost.sq_norm_moe_ghost(
+                                 a, mask, ds)))}
+        if err["wgmma"] > NORM_TOL[0]:
+            raise AssertionError(f"moe_ghost_norm: the wgmma kernel is "
+                                 f"{err['wgmma']} from float64")
+        return err
+
     def wgmma_grad_case(path, case, a, C, ds, nbytes, ops, library):
         """clipped_grad on its wgmma route: (b) at SIMT_GRAD_TOL (both sum
         exact bf16 products in f32, in other orders)."""
@@ -893,21 +918,25 @@ def phase_kernels(only_wgmma=False):
         torch.cuda.empty_cache()
 
     def emb_case(case, ids, d, V, dtype, kernels):
-        """emb_ghost_norm (where ``kernels`` names it) and emb_clipped_grad
-        on ids (L,B,T) or (B,T); the latter (a) against its plain version
-        at TOL, (c) itself run twice, bitwise; device time by
-        torch.profiler beside the CUDA-event time, for it and for the
-        library call."""
+        """emb_ghost_norm (where ``kernels`` names it: at NORM_TOL) and
+        emb_clipped_grad (at TOL) on ids (L,B,T) or (B,T), each (a) against
+        its plain version, (c) itself run twice, bitwise; device time by
+        torch.profiler beside the CUDA-event time, for both and for the
+        weighted grad's library call."""
         dname = str(dtype).split(".")[-1]
         L, Bc, Tc = (ids if ids.dim() == 3 else ids[None]).shape
         ds = rnd(*ids.shape, d, dtype=dtype)
         C = torch.rand(Bc, generator=gen, device=dev) + 0.1
         esz = ds.element_size()
         if "emb_ghost_norm" in kernels:
+            # the run-sum form's work: every row added once, each run's sum
+            # squared (f32, on the CUDA cores)
+            dev_n = device_ms(lambda: en.emb_ghost_norm(ids, ds))
             norm_case("emb_ghost_norm", kernels["emb_ghost_norm"], case,
                       en.emb_ghost_norm, en.plain, (ids, ds),
                       ids.numel() * 4 + ds.numel() * esz + Bc * 4,
-                      2.0 * d * _match_pairs(ids), dname)
+                      d * (ids.numel() + 2.0 * _runs(ids)), "float32",
+                      device_ms=sum(dev_n.values()), device_by_kernel=dev_n)
         valid = ((ids >= 0) & (ids < V)).reshape(-1)
         flat = (ids.long() + torch.arange(L, device=dev)[:, None, None] * V
                 ).reshape(-1)[valid]
@@ -934,8 +963,10 @@ def phase_kernels(only_wgmma=False):
 
     def emb_edges(kernels):
         """The ragged f32 case (odd d and V, stacked; ids -1 and >= V, which
-        both versions drop) and one id at every (b, t) of ``train``'s shapes
-        (all B*T ids in one row's run)."""
+        the weighted grad drops and the norm matches by value), ids of 4
+        values (heavy duplicates) and one id at every (b, t) of ``train``'s
+        shapes (all B*T ids in one row's run, T in one run of each
+        sample's norm), and T = 9000."""
         ids = torch.randint(0, 1001, (3, 3, 509), generator=gen, device=dev,
                             dtype=torch.int32)
         ids[:, :, ::97] = -1
@@ -943,11 +974,22 @@ def phase_kernels(only_wgmma=False):
         emb_case("ragged L=3 B=3 T=509 d=37 V=1001 f32", ids, 37, 1001,
                  torch.float32, kernels)
         run = RUNS["train"]
+        shape = (run["batch"], run["seq"])
+        emb_case(f"4 ids B={run['batch']} T={run['seq']} "
+                 f"d={q_cfg.d_model} V={q_cfg.vocab} bf16",
+                 torch.randint(0, 4, shape, generator=gen, device=dev,
+                               dtype=torch.int32) * 977, q_cfg.d_model,
+                 q_cfg.vocab, torch.bfloat16, kernels)
         emb_case(f"one id B={run['batch']} T={run['seq']} "
                  f"d={q_cfg.d_model} V={q_cfg.vocab} bf16",
-                 torch.full((run["batch"], run["seq"]), 7, device=dev,
-                            dtype=torch.int32), q_cfg.d_model, q_cfg.vocab,
-                 torch.bfloat16, {"emb_clipped_grad": "ragged"})
+                 torch.full(shape, 7, device=dev, dtype=torch.int32),
+                 q_cfg.d_model, q_cfg.vocab, torch.bfloat16, kernels)
+        # more ids than the norm copies to shared memory: its ballots read
+        # them from device memory
+        emb_case("long B=2 T=9000 d=64 V=5000 bf16",
+                 torch.randint(0, 5000, (2, 9000), generator=gen, device=dev,
+                               dtype=torch.int32), 64, 5000, torch.bfloat16,
+                 kernels)
 
     def moe_case(case, a, mask, p, kernels):
         """Records a (L,B,E,C,d) and mask (L,B,E,C): the model's own (path
@@ -961,7 +1003,8 @@ def phase_kernels(only_wgmma=False):
         am, dm = a * m, ds * m                   # for the library calls
         C = clip_factors(Bc, dtype)
         esz = a.element_size()
-        nv = mask.reshape(-1, Cap).sum(-1).double()   # kept slots / (l,b,e)
+        # kept slots / (l,b,e): those of a non-zero mask value
+        nv = (mask != 0).reshape(-1, Cap).sum(-1).double()
         kept = float(nv.sum())
         # the function reads the kept slots' rows and the mask
         rec_bytes = kept * (d + p) * esz + mask.numel() * 4
@@ -969,11 +1012,17 @@ def phase_kernels(only_wgmma=False):
         library = einsum_forms("lbecd,lbefd,lbecp,lbefp->b", am, am, dm, dm)
         wgmma = mg.route(dtype, d, p) == "wgmma"
         if "moe_ghost_norm" in kernels:
-            norm_case("moe_ghost_norm", kernels["moe_ghost_norm"], case,
-                      mg.moe_ghost_norm, ghost.sq_norm_moe_ghost,
-                      (a, mask, ds), rec_bytes + Bc * 4,
-                      float((d + p) * (nv * (nv + 1)).sum()), dname, library,
-                      fill=fill)
+            args = ("moe_ghost_norm", kernels["moe_ghost_norm"], case,
+                    mg.moe_ghost_norm, ghost.sq_norm_moe_ghost,
+                    (a, mask, ds))
+            nbytes = rec_bytes + Bc * 4
+            ops = float((d + p) * (nv * (nv + 1)).sum())
+            if wgmma:
+                wgmma_case(*args, NORM_TOL, NORM_TOL, nbytes, ops, library,
+                           fill=fill, f64_rel_err=moe_ghost_vs_f64(a, mask,
+                                                                   ds))
+            else:
+                norm_case(*args, nbytes, ops, dname, library, fill=fill)
         if "moe_direct_norm" in kernels:
             args = ("moe_direct_norm", kernels["moe_direct_norm"], case,
                     mg.moe_direct_norm, ghost.sq_norm_moe_direct,
@@ -1128,8 +1177,8 @@ def phase_kernels(only_wgmma=False):
     fp = SERVING["prefill"]
     q_cfg = get_config(fp["arch"])
 
-    moe_wgmma = dict.fromkeys(("moe_direct_norm", "moe_clipped_grad"),
-                              "ragged")
+    moe_wgmma = dict.fromkeys(("moe_ghost_norm", "moe_direct_norm",
+                               "moe_clipped_grad"), "ragged")
 
     def router_mask(L, Bc, E, Cap, fill):
         """A 0/1 slot mask as the router leaves it: each (l, b, e) keeps a
@@ -1161,6 +1210,16 @@ def phase_kernels(only_wgmma=False):
         mask[:, 1] = 0.0                # a sample with no kept slot
         moe_case("ragged L=2 B=3 E=5 C=37 d=136 p=264 bf16",
                  rnd(2, 3, 5, 37, 136), mask, 264, moe_wgmma)
+        # the ghost norm past one tile (3 tiles of 64 slots: off-diagonal
+        # pairs) under a non-binary mask, with empty slots and an all-zero
+        # expert (the other two kernels round a general mask into bf16, so
+        # NORM_TOL does not hold them to it)
+        mask = torch.rand(2, 3, 3, 130, generator=gen, device=dev) * 2.0
+        mask[mask < 0.5] = 0.0
+        mask[:, :, 1] = 0.0
+        moe_case("ragged L=2 B=3 E=3 C=130 d=136 p=264 bf16, mask in "
+                 "{0} + [0.5, 2)", rnd(2, 3, 3, 130, 136), mask, 264,
+                 {"moe_ghost_norm": "ragged"})
         for causal in (True, False):
             flash_case("tile", 1, 128, 128, 1, 1, 128, causal, bf16)
         for h in (64, 128):
@@ -1182,7 +1241,8 @@ def phase_kernels(only_wgmma=False):
                  f"p={2 * m_cfg.moe_d_ff} bf16 (random records)",
                  rnd(L, 8, E, Cap, m_cfg.d_model) * mask[..., None].to(bf16),
                  mask, 2 * m_cfg.moe_d_ff,
-                 {"moe_direct_norm": "train_moe_direct",
+                 {"moe_ghost_norm": "train_moe",
+                  "moe_direct_norm": "train_moe_direct",
                   "moe_clipped_grad": "train_moe"})
         flash_case("prefill", fp["batch"], fp["seq"], fp["seq"],
                    q_cfg.n_heads, q_cfg.n_kv_heads, q_cfg.hd, True, bf16)
@@ -1282,7 +1342,8 @@ def _profile_summary(prof, window_ms: float) -> dict:
         "moe_direct_norm",
         "moe_clipped_grad", "moe_norm_wgmma", "moe_grad_wgmma",
         "fused_clip_tile", "fused_clip_apply",
-        "flash_attention", "wkv6", "wkv6_state", "wkv6_out"))
+        "moe_ghost_wgmma", "flash_attention", "wkv6", "wkv6_state",
+        "wkv6_out"))
     kinds = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
     for name, ms in by_name.items():
         low = name.lower()

@@ -48,6 +48,8 @@ SIGNATURES = {
     "dp_grad_norm_direct_wgmma_nparts": [_I],
     "dp_grad_norm_direct_wgmma": [_P] * 4 + [_I] * 5 + [_P],
     "dp_moe_ghost_norm": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+    "dp_moe_ghost_norm_wgmma_nparts": [_I],
+    "dp_moe_ghost_norm_wgmma": [_P] * 5 + [_I] * 6 + [_P],
     "dp_moe_direct_norm_nparts": [_I, _I],
     "dp_moe_direct_norm": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "dp_moe_direct_norm_wgmma_nparts": [_I],

@@ -306,7 +306,18 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 
 // D (64 x N) (+)= A (64 x 16) B (16 x N), both from shared memory; TA / TB
 // = 1 for an MN-major ("transposed") operand. scale_d = 0 overwrites D.
-// N = 128 or 192, from the accumulator's size.
+// N = 64, 128 or 192, from the accumulator's size.
+template <int TA, int TB>
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da,
+                                       uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", %32, %33, p, 1, 1, %35, %36;\n}"
+      : HOPPER_F32
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 template <int TA, int TB>
 __device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t da,
                                        uint64_t db, int scale_d) {

@@ -1,16 +1,18 @@
-"""Time, on the card, the designs that three kernels' sources name as not
+"""Time, on the card, the designs that five kernels' sources name as not
 taken, beside the kernels kept, so that those comparisons can be run again:
 
     PYTHONPATH=src python -m repro_torch.kernels.design_study
     PYTHONPATH=src python -m repro_torch.kernels.design_study --only emb
 
-(``--only ghost`` and ``--only wkv`` likewise.) Each variant is built alone
-into a temporary directory (one nvcc a variant, all started together): the
-kept source with one line or block replaced (:data:`EMB_PATCHES`,
-:data:`GHOST_PATCHES`, :data:`WKV_PATCHES`; a replacement that no longer
+(``--only ghost``, ``wkv``, ``moe`` and ``emb_norm`` likewise.) Each variant
+is built alone into a temporary directory (one nvcc a variant, all started
+together): the kept source with one line or block replaced
+(:data:`EMB_PATCHES`, :data:`GHOST_PATCHES`, :data:`WKV_PATCHES`,
+:data:`MOE_PATCHES`, :data:`EMB_NORM_PATCHES`; a replacement that no longer
 matches the source raises), or a source of its own under ``designs/``.
-Inputs are made from a seed at qwen2-1.5b's ``train`` shapes (B=8, T=512)
-and rwkv6-3b's ``prefill_rwkv`` shapes:
+Inputs are made from a seed at qwen2-1.5b's ``train`` shapes (B=8, T=512),
+deepseek-moe-16b's ``train_moe`` shapes and rwkv6-3b's ``prefill_rwkv``
+shapes:
 
 - ``emb_clipped_grad``: ids (8, 512), d 1536, V 151936, bf16 cotangents.
   Variants: the kept kernel (``csrc/emb_grad.cu``), one warp scanning all
@@ -28,13 +30,30 @@ and rwkv6-3b's ``prefill_rwkv`` shapes:
   scan kernel (``csrc/wkv6.cu``) of the kept library. Then ablations
   (:data:`WKV_ABLATIONS`): the kept kernel with one phase skipped, whose
   outputs are wrong by design and whose times say what that phase costs.
+- ``moe_ghost_norm`` (wgmma): the up tap of ``train_moe``, a
+  (5, 8, 64, 60, 2048), ds (..., 2816) bf16, random records under a
+  router-like 0/1 mask (each (l, b, e) keeps a random count of its first
+  slots, ~3/4 of them). Variants: the kept kernel
+  (``csrc/moe_ghost_norm_wgmma.cu``: pieces of 8 stages, 208 KB of rings),
+  pieces of 4 and 32 stages, rings of 104 and 64 KB (6 and 4 stages a
+  consumer where the kept rings have 13); beside them the SIMT kernel of
+  the kept library.
+- ``emb_ghost_norm``: ids (8, 512), d 1536, bf16 cotangents, three id
+  draws: uniform in [0, 151936), 4 values (heavy duplicates), one id at
+  every position. Variants: the kept kernel (``csrc/emb_norm.cu``: the
+  ids in shared memory, one row of a run in flight, a second launch for
+  the partials' sum), its partials summed in the same launch by the last
+  CTA of each b, two rows of a run in flight (in passes of fewer
+  columns), and the first version (``designs/emb_norm_pairs.cu``).
 
 Prints one JSON line a variant: CUDA-event ms around the C call (median of
 5 runs of 20 calls), device ms by kernel (torch.profiler), whether the
 output is bitwise the kept kernel's, ghost_norm's largest relative error
 against the plain version and against a float64 evaluation, and the
 variant's ptxas lines (registers, spills, C75xx notes); wkv6's largest
-difference from the kept kernel and from a float64 recurrence at head 0.
+difference from the kept kernel and from a float64 recurrence at head 0;
+moe_ghost_norm's and emb_ghost_norm's largest relative error against a
+float64 evaluation. CUDA-event ms time the C call alone (no wrapper).
 Then the card's name and power limit.
 """
 from __future__ import annotations
@@ -124,6 +143,91 @@ WKV_PATCHES = {
     "state_cols_16": ("wkv6_chunked.cu", [
         ("constexpr int JB = 32; ", "constexpr int JB = 16; ")]),
 }
+_MOE_PIECE = "constexpr int PIECE = 8; "
+_MOE_RING = "constexpr int RING_BYTES = 208 * 1024; "
+MOE_PATCHES = {
+    "kept": ("moe_ghost_norm_wgmma.cu", []),
+    "piece_4": ("moe_ghost_norm_wgmma.cu",
+                [(_MOE_PIECE, "constexpr int PIECE = 4; ")]),
+    "piece_32": ("moe_ghost_norm_wgmma.cu",
+                 [(_MOE_PIECE, "constexpr int PIECE = 32; ")]),
+    "ring_104k": ("moe_ghost_norm_wgmma.cu",
+                  [(_MOE_RING, "constexpr int RING_BYTES = 104 * 1024; ")]),
+    "ring_64k": ("moe_ghost_norm_wgmma.cu",
+                 [(_MOE_RING, "constexpr int RING_BYTES = 64 * 1024; ")]),
+}
+
+# emb_norm.cu with its partials summed in the same launch: each CTA
+# publishes its partial by a device-wide fence and an atomic count a b
+# (module memory, 0 at load), and the last CTA of b sums them in index
+# order and sets the count back to 0
+_EMB_TAIL = """  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int i = 0; i < WARPS; ++i) s += warp_tot[i];
+    partial[((long long)b * L + l) * nch + chunk] = s;
+  }
+}
+"""
+_EMB_ONE_LAUNCH_TAIL = """  __shared__ bool last;
+  const int per_b = L * nch;
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int i = 0; i < WARPS; ++i) s += warp_tot[i];
+    partial[(long long)b * per_b + (long long)l * nch + chunk] = s;
+    __threadfence();
+    last = atomicAdd(emb_counts + b, 1u) == (unsigned)per_b - 1;
+  }
+  __syncthreads();
+  if (last && w == 0) {
+    __threadfence();
+    const float* pb = partial + (long long)b * per_b;
+    float s = 0.f;
+    for (int i = lane; i < per_b; i += 32) s += __ldcg(pb + i);
+    s = warp_sum(s);
+    if (lane == 0) {
+      out[b] = s;
+      emb_counts[b] = 0u;
+    }
+  }
+}
+"""
+_EMB_ONE_LAUNCH = [
+    ("template <typename T, bool VEC>\n__global__",
+     "__device__ unsigned emb_counts[65536];\n\n"
+     "template <typename T, bool VEC>\n__global__"),
+    ("                    int nch) {\n",
+     "                    int nch, float* __restrict__ out) {\n"),
+    (_EMB_TAIL, _EMB_ONE_LAUNCH_TAIL),
+    ("int launch(const int* ids, const void* ds, float* partial, int L, "
+     "int B,\n",
+     "int launch(const int* ids, const void* ds, float* partial, float* out,"
+     " int L, int B,\n"),
+    ("emb_norm_kernel<T, true><<<grid, THREADS, smem, st>>>(\n"
+     "        ids, (const T*)ds, partial, L, B, T_, d, nch);",
+     "emb_norm_kernel<T, true><<<grid, THREADS, smem, st>>>(\n"
+     "        ids, (const T*)ds, partial, L, B, T_, d, nch, out);"),
+    ("emb_norm_kernel<T, false><<<grid, THREADS, smem, st>>>(\n"
+     "        ids, (const T*)ds, partial, L, B, T_, d, nch);",
+     "emb_norm_kernel<T, false><<<grid, THREADS, smem, st>>>(\n"
+     "        ids, (const T*)ds, partial, L, B, T_, d, nch, out);"),
+    ("launch<__nv_bfloat16>(ids, ds, partial, L,",
+     "launch<__nv_bfloat16>(ids, ds, partial, out, L,"),
+    ("launch<float>(ids, ds, partial, L,", "launch<float>(ids, ds, partial, "
+     "out, L,"),
+    ("  if (err) return err;\n  reduce_rows_kernel<<<B, 256, 0, st>>>("
+     "partial, out, L * nch);\n", "  if (err) return err;\n"),
+]
+EMB_NORM_PATCHES = {
+    "kept": ("emb_norm.cu", []),
+    "one_launch": ("emb_norm.cu", _EMB_ONE_LAUNCH),
+    "two_rows_in_flight": ("emb_norm.cu", [
+        ("static constexpr int N = 4, NV = 4;",
+         "static constexpr int N = 4, NV = 2;"),
+        ("static constexpr int N = 8, NV = 3;",
+         "static constexpr int N = 8, NV = 2;"),
+        ("constexpr int UNROLL = 1; ", "constexpr int UNROLL = 2; ")]),
+}
+
 # the kept wkv6 kernel with one phase skipped (a loop run zero times)
 WKV_ABLATIONS = {
     "skip_pass2_diagonal_blocks": ("wkv6_chunked.cu", [(
@@ -377,9 +481,120 @@ def study_wkv(tmp: Path, dev: str) -> None:
         print(json.dumps(row), flush=True)
 
 
+def study_moe(tmp: Path, dev: str) -> None:
+    from repro_torch.kernels import moe_ghost as mg
+    variants = {n: patched(build.CSRC / s, p)
+                for n, (s, p) in MOE_PATCHES.items()}
+    libs = build_variants(variants, tmp)
+    L, E, C, d, p = 5, 64, 60, 2048, 2816
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    # a router-like mask: each (l, b, e) keeps a random count of its first
+    # slots, ~3/4 of them; the records zero at the empty slots
+    n = torch.randint(0, C + 1, (L, B, E, 1), generator=g,
+                      device=dev).float() * 1.5
+    mask = (torch.arange(C, device=dev).float() < n).float()
+    a = (torch.randn(L, B, E, C, d, generator=g, device=dev)
+         * mask[..., None]).to(torch.bfloat16)
+    ds = torch.randn(L, B, E, C, p, generator=g, device=dev).to(
+        torch.bfloat16)
+    exact = torch.zeros(B, dtype=torch.float64, device=dev)
+    for l in range(L):
+        m = mask[l].double()[..., None]
+        x, y = a[l].double() * m, ds[l].double() * m
+        exact += torch.einsum("becx,becx->b", x @ x.transpose(-1, -2),
+                              y @ y.transpose(-1, -2))
+    del x, y
+    torch.cuda.empty_cache()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    out = torch.empty(B, device=dev)
+    calls = {}
+    for name, (lib, notes) in libs.items():
+        lib.dp_moe_ghost_norm_wgmma.argtypes = [P] * 5 + [I] * 6 + [P]
+        lib.dp_moe_ghost_norm_wgmma_nparts.argtypes = [I]
+        part = torch.empty(B, L * E * lib.dp_moe_ghost_norm_wgmma_nparts(C),
+                           device=dev)
+        calls[name] = (lambda f=lib.dp_moe_ghost_norm_wgmma, pt=part: _check(
+            f(a.data_ptr(), mask.data_ptr(), ds.data_ptr(), pt.data_ptr(),
+              out.data_ptr(), L, B, E, C, d, p, 0),
+            "dp_moe_ghost_norm_wgmma"))
+    calls["simt"] = lambda: out.copy_(mg.moe_ghost_norm(a, mask, ds,
+                                                        kernel="simt"))
+    kept = None
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        got = out.clone()
+        fn()
+        torch.cuda.synchronize()
+        kept = got if kept is None else kept
+        row = {"study": "moe_ghost_norm", "variant": name,
+               "ms": events_ms(fn), "device_ms": device_ms(fn),
+               "rel_err_f64": float(((got.double() - exact).abs()
+                                     / exact.abs()).max()),
+               "bitwise_run_to_run": bool(torch.equal(got, out)),
+               "bitwise_kept": bool(torch.equal(got, kept))}
+        if name in libs:
+            row["ptxas"] = libs[name][1]
+        print(json.dumps(row), flush=True)
+
+
+def study_emb_norm(tmp: Path, dev: str) -> None:
+    from repro_torch.kernels import emb_norm as en
+    variants = {n: patched(build.CSRC / s, p)
+                for n, (s, p) in EMB_NORM_PATCHES.items()}
+    variants["first_version"] = (DESIGNS / "emb_norm_pairs.cu").read_text()
+    libs = build_variants(variants, tmp)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    ds = torch.randn(B, T, D, generator=g, device=dev).to(torch.bfloat16)
+    draws = {
+        "ids~U[0,V)": torch.randint(0, V, (B, T), generator=g, device=dev,
+                                    dtype=torch.int32),
+        "4 ids": torch.randint(0, 4, (B, T), generator=g, device=dev,
+                               dtype=torch.int32) * 977,
+        "one id": torch.full((B, T), 7, device=dev, dtype=torch.int32)}
+    P, I = ctypes.c_void_p, ctypes.c_int
+    out = torch.empty(B, device=dev)
+    for case, ids in draws.items():
+        exact = en.run_model(ids, ds)
+        kept = None
+        for name, (lib, notes) in libs.items():
+            if name == "first_version":
+                lib.dp_emb_norm_pairs.argtypes = [P] * 4 + [I] * 5 + [P]
+                lib.dp_emb_norm_pairs_nparts.argtypes = [I]
+                part = torch.empty(B, lib.dp_emb_norm_pairs_nparts(T),
+                                   device=dev)
+                fn = (lambda f=lib.dp_emb_norm_pairs, pt=part: _check(f(
+                    ids.data_ptr(), ds.data_ptr(), pt.data_ptr(),
+                    out.data_ptr(), 1, B, T, D, 1, 0), "dp_emb_norm_pairs"))
+            else:
+                lib.dp_emb_norm.argtypes = [P] * 4 + [I] * 5 + [P]
+                lib.dp_emb_norm_nparts.argtypes = [I]
+                part = torch.empty(B, lib.dp_emb_norm_nparts(T), device=dev)
+                fn = (lambda f=lib.dp_emb_norm, pt=part: _check(f(
+                    ids.data_ptr(), ds.data_ptr(), pt.data_ptr(),
+                    out.data_ptr(), 1, B, T, D, 1, 0), "dp_emb_norm"))
+            fn()
+            torch.cuda.synchronize()
+            got = out.clone()
+            fn()
+            torch.cuda.synchronize()
+            kept = got if kept is None else kept
+            row = {"study": "emb_ghost_norm", "ids": case, "variant": name,
+                   "ms": events_ms(fn), "device_ms": device_ms(fn),
+                   "rel_err_f64": float(((got.double() - exact).abs()
+                                         / exact.abs()).max()),
+                   "bitwise_run_to_run": bool(torch.equal(got, out)),
+                   "bitwise_kept": bool(torch.equal(got, kept)),
+                   "ptxas": notes}
+            print(json.dumps(row), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("emb", "ghost", "wkv"), default=None)
+    ap.add_argument("--only", choices=("emb", "ghost", "wkv", "moe",
+                                       "emb_norm"), default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("design_study: no CUDA device; this script runs on the card",
@@ -393,6 +608,10 @@ def main(argv=None) -> int:
             study_ghost(Path(tmp) / "ghost", "cuda")
         if args.only in (None, "wkv"):
             study_wkv(Path(tmp) / "wkv", "cuda")
+        if args.only in (None, "moe"):
+            study_moe(Path(tmp) / "moe", "cuda")
+        if args.only in (None, "emb_norm"):
+            study_emb_norm(Path(tmp) / "emb_norm", "cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)

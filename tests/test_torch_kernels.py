@@ -23,6 +23,7 @@ from repro_torch.core.policy import ParamGroup, PrivacyPolicy, resolve_policy
 from repro_torch.kernels import build, design_study, syntax_check
 from repro_torch.kernels import clipped_grad as cg_mod
 from repro_torch.kernels import emb_grad as eg_mod
+from repro_torch.kernels import emb_norm as en_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ghost_norm as gn_mod
 from repro_torch.kernels import grad_norm_direct as gd_mod
@@ -173,6 +174,81 @@ def test_emb_ghost_norm_matches_pallas(L, B, T, d, V, dtype):
                                **_tol(dtype))
 
 
+def _moe_mask(kind, L, B, E, C):
+    """A slot mask: 'binary' (0/1, a third off), with an expert no sample
+    reached and a sample with no kept slot (all-empty items); 'general'
+    (non-binary: 0, or in [0.5, 2)) with the same empty items."""
+    rng = np.random.default_rng(5)
+    m = rng.random((L, B, E, C))
+    m = (m > 0.3).astype(np.float32) if kind == "binary" else \
+        np.where(m < 0.25, 0.0, 0.5 + 1.5 * m).astype(np.float32)
+    m[:, :, 0] = 0.0
+    m[:, 1] = 0.0
+    return m
+
+
+@pytest.mark.parametrize("C", [60, 64, 130])
+@pytest.mark.parametrize("kind", ["binary", "general"])
+def test_moe_ghost_model_matches_pallas(C, kind):
+    """The wgmma kernel's form of the MoE ghost norm (64-slot tile pairs,
+    the mask weighting the unmasked Grams' entries by (m_i m_j)^2; float64)
+    against the Pallas kernel, which masks the records first: one tile
+    (C = 60, 64) and three (C = 130: off-diagonal pairs), 0/1 and
+    non-binary masks, all-empty items. f32 inputs; the Pallas sums are f32
+    (rtol 1e-5, atol 1e-6 of the norms' scale)."""
+    L, B, E, d, p = 2, 3, 3, 24, 40
+    mask = _moe_mask(kind, L, B, E, C)
+    a, ds = _np((L, B, E, C, d), "float32", 0), _np((L, B, E, C, p),
+                                                   "float32", 1)
+    want = np.asarray(ops.ghost_norm_moe({"a": jnp.asarray(a),
+                                          "mask": jnp.asarray(mask)},
+                                         jnp.asarray(ds)))
+    got = moe_mod.ghost_model(torch.from_numpy(a), torch.from_numpy(mask),
+                              torch.from_numpy(ds))
+    assert got.dtype == torch.float64 and got.shape == (B,)
+    assert float(got[1]) == 0.0 and want[1] == 0.0   # no kept slot
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-6 * float(np.abs(want).max()))
+    # the port's plain version (masked records, f32) agrees as well
+    plain = ghost.sq_norm_moe_ghost(torch.from_numpy(a),
+                                    torch.from_numpy(mask),
+                                    torch.from_numpy(ds))
+    np.testing.assert_allclose(plain.numpy(), got.numpy(), rtol=1e-5,
+                               atol=1e-6 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("case", ["4 values", "-1 and >= V", "one id"])
+@pytest.mark.parametrize("stacked", [True, False])
+def test_emb_run_model_matches_pallas(case, stacked):
+    """The run-sum form of the embedding norm (each run of equal ids summed
+    in t order, its squared norm added; float64) against the Pallas kernel's
+    id-masked Gram: heavy duplicates (ids of 4 values), ids -1 and >= V
+    (compared by value, not dropped), one id at every position. f32
+    inputs; the Pallas sums are f32 (rtol 1e-5)."""
+    L, B, T, d, V = 2, 3, 50, 24, 37
+    rng = np.random.default_rng(7)
+    if case == "4 values":
+        ids = rng.integers(0, 4, (L, B, T)) * 9
+    elif case == "-1 and >= V":
+        ids = rng.integers(0, V, (L, B, T))
+        ids[..., ::7] = -1
+        ids[..., 3::11] = V + 5
+    else:
+        ids = np.full((L, B, T), 3)
+    ids = ids.astype(np.int32)
+    ds = _np((L, B, T, d), "float32", 1)
+    if not stacked:
+        ids, ds = ids[0], ds[0]
+    want = np.asarray(ops.ghost_norm_emb(jnp.asarray(ids), jnp.asarray(ds),
+                                         block_t=16))
+    got = en_mod.run_model(torch.from_numpy(ids), torch.from_numpy(ds))
+    assert got.dtype == torch.float64 and got.shape == (B,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    np.testing.assert_allclose(
+        emb_ghost_norm(torch.from_numpy(ids), torch.from_numpy(ds)).numpy(),
+        got.numpy(), rtol=1e-5)
+
+
 @pytest.mark.parametrize("L,B,T,d,V", EMB_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_emb_clipped_grad_matches_pallas(L, B, T, d, V, dtype):
@@ -245,6 +321,11 @@ def _meta(*shape, dtype=torch.float32):
     lambda: moe_direct_norm(_meta(2, 3, 4, 8, dtype=torch.bfloat16),
                             _meta(2, 3, 4),
                             _meta(2, 3, 4, 16, dtype=torch.bfloat16)),
+    lambda: moe_ghost_norm(_meta(2, 3, 4, 8, dtype=torch.bfloat16),
+                           _meta(2, 3, 4),
+                           _meta(2, 3, 4, 16, dtype=torch.bfloat16)),
+    lambda: emb_ghost_norm(_meta(2, 3, 4, dtype=torch.int32),
+                           _meta(2, 3, 4, 8, dtype=torch.bfloat16)),
     lambda: moe_clipped_grad(_meta(2, 3, 4, 8, dtype=torch.bfloat16),
                              _meta(2, 3, 4), _meta(2),
                              _meta(2, 3, 4, 16, dtype=torch.bfloat16)),
@@ -769,6 +850,71 @@ def test_moe_launches_its_route(fake_lib, name, dtype, d, p, kernel, entry):
 
 
 @pytest.mark.parametrize("dtype,d,p,kernel,entry", [
+    (torch.bfloat16, 2048, 2816, None, "dp_moe_ghost_norm_wgmma"),
+    (torch.bfloat16, 136, 264, None, "dp_moe_ghost_norm_wgmma"),
+    (torch.bfloat16, 37, 53, None, "dp_moe_ghost_norm"),
+    (torch.bfloat16, 2048, 2812, None, "dp_moe_ghost_norm"),
+    (torch.float32, 2048, 2816, None, "dp_moe_ghost_norm"),
+    (torch.bfloat16, 2048, 2816, "simt", "dp_moe_ghost_norm"),
+])
+@pytest.mark.parametrize("stacked", [True, False])
+def test_moe_ghost_norm_launches_its_route(fake_lib, empty_shapes, dtype, d,
+                                           p, kernel, entry, stacked):
+    """The wrapper launches the C entry its route names (wgmma for bf16
+    with d, p multiples of 8; simt for f32, unaligned widths or when
+    forced), with the argument count of its signature and the records'
+    (L, B, E, C, d, p), sizes the wgmma kernel's partials as the C side
+    asks (by capacity: its tile pairs), and counts every launch and the
+    wgmma ones; unstacked records launch as L = 1."""
+    L, B, E, C = 2, 3, 4, 130
+    lead = (L,) if stacked else ()
+    a, ds = (_meta(*lead, B, E, C, w, dtype=dtype) for w in (d, p))
+    fake_lib.sizes["dp_moe_ghost_norm_wgmma_nparts"] = 24
+    n0, w0 = moe_ghost_norm.launches, moe_ghost_norm.wgmma_launches
+    out = moe_ghost_norm(a, _meta(*lead, B, E, C), ds, kernel=kernel)
+    L1 = L if stacked else 1
+    assert out.shape == (B,) and out.dtype == torch.float32
+    assert fake_lib.calls == [(entry, len(build.SIGNATURES[entry]))]
+    wgmma = entry.endswith("wgmma")
+    assert fake_lib.asked == ([("dp_moe_ghost_norm_wgmma_nparts", (C,))]
+                              if wgmma else [])
+    assert ((B, L1 * E * (24 if wgmma else 1)), torch.float32) in \
+        empty_shapes
+    # the pointers (0 on meta tensors), then L, B, E, C, d, p (and the SIMT
+    # kernel's bf16 flag), then the stream
+    assert list(fake_lib.last_args[5:11]) == [L1, B, E, C, d, p]
+    if not wgmma:
+        assert fake_lib.last_args[11] == int(dtype == torch.bfloat16)
+    assert moe_ghost_norm.launches == n0 + 1
+    assert moe_ghost_norm.wgmma_launches == w0 + wgmma
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("stacked", [True, False])
+def test_emb_ghost_norm_launches_its_kernel(fake_lib, empty_shapes, dtype,
+                                            stacked):
+    """The wrapper asks the C side for the partials of a sample a layer (by
+    T), holds (B, L x those) f32 partials, and makes one call of the C side
+    with (L, B, T, d, bf16); unstacked ids launch as L = 1."""
+    L, B, T, d = 3, 8, 512, 1536
+    lead = (L,) if stacked else ()
+    fake_lib.sizes["dp_emb_norm_nparts"] = 64
+    n0 = emb_ghost_norm.launches
+    out = emb_ghost_norm(_meta(*lead, B, T, dtype=torch.int32),
+                         _meta(*lead, B, T, d, dtype=dtype))
+    L1 = L if stacked else 1
+    assert out.shape == (B,) and out.dtype == torch.float32
+    assert fake_lib.asked == [("dp_emb_norm_nparts", (T,))]
+    assert ((B, L1 * 64), torch.float32) in empty_shapes
+    assert fake_lib.calls == [("dp_emb_norm",
+                               len(build.SIGNATURES["dp_emb_norm"]))]
+    # the pointers (0 on meta tensors), then L, B, T, d, bf16, the stream
+    assert list(fake_lib.last_args[4:9]) == [L1, B, T, d,
+                                             int(dtype == torch.bfloat16)]
+    assert emb_ghost_norm.launches == n0 + 1
+
+
+@pytest.mark.parametrize("dtype,d,p,kernel,entry", [
     (torch.bfloat16, 1536, 2048, None, "dp_grad_norm_direct_wgmma"),
     (torch.bfloat16, 136, 264, None, "dp_grad_norm_direct_wgmma"),
     (torch.bfloat16, 37, 53, None, "dp_grad_norm_direct"),
@@ -869,6 +1015,16 @@ def test_wkv6_launches_its_route(fake_lib, empty_shapes, dtype, h, kernel,
                              _meta(2, 3, 4), _meta(2),
                              _meta(2, 3, 4, 16, dtype=torch.bfloat16),
                              kernel="tensor"),
+    lambda: moe_ghost_norm(_meta(2, 3, 4, 8), _meta(2, 3, 4),
+                           _meta(2, 3, 4, 16), kernel="wgmma"),
+    lambda: moe_ghost_norm(_meta(2, 3, 4, 8, dtype=torch.bfloat16),
+                           _meta(2, 3, 4),
+                           _meta(2, 3, 4, 20, dtype=torch.bfloat16),
+                           kernel="wgmma"),
+    lambda: moe_ghost_norm(_meta(2, 3, 4, 8, dtype=torch.bfloat16),
+                           _meta(2, 3, 4),
+                           _meta(2, 3, 4, 16, dtype=torch.bfloat16),
+                           kernel="tensor"),
     # grad_norm_direct's wgmma kernel: f32 records, unaligned widths
     lambda: grad_norm_direct(_meta(2, 3, 8), _meta(2, 3, 16), kernel="wgmma"),
     lambda: grad_norm_direct(_meta(2, 3, 12, dtype=torch.bfloat16),
@@ -932,7 +1088,7 @@ def test_cuda_source_parses_against_the_stub_headers(cu):
 
 def _design_sources():
     for table in ("EMB_PATCHES", "GHOST_PATCHES", "WKV_PATCHES",
-                  "WKV_ABLATIONS"):
+                  "WKV_ABLATIONS", "MOE_PATCHES", "EMB_NORM_PATCHES"):
         for name in getattr(design_study, table):
             yield f"{table}:{name}"
     for cu in sorted(design_study.DESIGNS.glob("*.cu")):
