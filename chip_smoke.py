@@ -24,17 +24,23 @@ Phases, each printing JSON lines:
             with a zero), flash_attention and wkv6 run twice must agree
             bitwise; kernel, plain and one-call library times with CUDA
             events, and for fused_clip_grad (at the smoke-width
-            parity_layer model's units, the path that launches it) the
-            composed route it replaces. ghost_norm, clipped_grad,
+            parity_layer model's units, the path that launches it, f32, its
+            SIMT route; and at FUSED_EDGES, the largest bf16 units
+            ``dispatch.fused_plan`` fuses, and one tile, its wgmma route)
+            the composed route it replaces, its device time and the kernels
+            one call launches by torch.profiler (one, or the phase fails),
+            and its launch plan. ghost_norm, clipped_grad,
             grad_norm_direct, flash_attention, moe_ghost_norm,
-            moe_direct_norm and moe_clipped_grad take their wgmma kernels
-            on bf16 (``route``):
+            moe_direct_norm, moe_clipped_grad and fused_clip_grad take
+            their wgmma kernels on bf16 (``route``):
             there each is also held to its SIMT kernel on the same inputs
             (the weighted grads at SIMT_GRAD_TOL, the norms at NORM_TOL,
             flash at the bf16 tolerance) and to itself run twice (bitwise),
             with the SIMT kernel timed beside it (simt_ms), at every train
             path's / the prefill's shapes, at one tile, and at ragged bf16
-            shapes (moe_ghost_norm also at C > 64 under a non-binary mask);
+            shapes (moe_ghost_norm also at C > 64 under a non-binary mask;
+            fused_clip_grad at FUSED_EDGES, G at SIMT_GRAD_TOL, sq at
+            NORM_TOL);
             ghost_norm's, grad_norm_direct's and moe_ghost_norm's three
             versions also against a float64 evaluation (the wgmma kernel
             within NORM_TOL's rtol of it; grad_norm_direct's library forms
@@ -53,8 +59,9 @@ Phases, each printing JSON lines:
             and one row shape of each (the head tap of ``train``, whose
             ghost_norm items take the p split, the ``prefill`` attention,
             ``train_moe``'s up tap with random records under a router-like
-            mask, ``train_long``'s qkv tap), and every wkv6 case of the
-            kernels phase, without building a model
+            mask, ``train_long``'s qkv tap), fused_clip_grad at FUSED_EDGES
+            and one tile, and every wkv6 case of the kernels phase, without
+            building a model
   train             qwen2-1.5b, full (28 layers, bf16), B=8, T=512
   train_moe         deepseek-moe-16b at full width, 6 of its 28 layers
                     (dense0_0 + 5 MoE blocks), B=8, T=512
@@ -88,7 +95,7 @@ Phases, each printing JSON lines:
             under bk-mixghost, so that the direct norm runs at 2 layers;
             parity_layer also at qwen2-1.5b's smoke_config width, where
             every mm unit fuses: fused_clip_grad's driven path, whose
-            launches count)
+            launches count; f32, so every launch takes the SIMT routes)
   parity_prefill, parity_prefill_rwkv
             a 2-layer, full-width, f32 model of each family: the prefill on
             the card (kernels) against the same params' prefill on the CPU
@@ -177,7 +184,9 @@ WGMMA = {"ghost_norm": ("ghost_norm.cu", "ghost_norm_wgmma_kernel"),
          "moe_clipped_grad": ("moe_clipped_grad.cu",
                               "moe_grad_wgmma_kernel"),
          "grad_norm_direct": ("grad_norm_direct.cu",
-                              "dense_norm_wgmma_kernel")}
+                              "dense_norm_wgmma_kernel"),
+         # both routes in one source: the SIMT kernels beside the wgmma one
+         "fused_clip_grad": ("fused_clip.cu", "fused_clip_wgmma_kernel")}
 # the kernels of a chunked route (mma.sync on the tensor cores, f32 and bf16
 # inputs alike): their scan kernel, and their kernels' names in the SASS
 CHUNKED = {"wkv6": ("wkv6.cu", ("wkv6_state_kernel", "wkv6_out_kernel"))}
@@ -240,6 +249,13 @@ RUNS = {
                        per_step=_per_step(grad_norm_direct=2, ghost_norm=3,
                                           emb_ghost_norm=1)),
 }
+# fused_clip_grad's gate-edge cases (name, L, d, p; bf16, B=8, T=512): the
+# largest units the reference's rule (kernels.dispatch.fused_plan) sends to
+# it, square, stacked exactly at its budget, and the rank-16 adapter's A and
+# B at qwen2-1.5b's width
+FUSED_EDGES = (("edge_square", 1, 512, 512), ("edge_stacked", 4, 256, 256),
+               ("edge_adapter_A", 1, 1536, 16),
+               ("edge_adapter_B", 1, 16, 1536))
 # the path whose shapes give each kernel's row in the summary line
 ROW_PATH = {"ghost_norm": "train", "clipped_grad": "train",
             "emb_ghost_norm": "train", "emb_clipped_grad": "train",
@@ -373,25 +389,33 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 5) -> dict:
+def device_ms(fn, reps: int = 5, launched: dict | None = None) -> dict:
     """Device milliseconds of ``fn`` a call, by kernel name (every kernel
-    it launches, by torch.profiler), summed over ``reps`` calls (after one
-    warm-up) and divided by them."""
+    it launches, by torch.profiler), summed over ``reps`` calls and divided
+    by them; ``launched``, if given, receives the device events a call by
+    name. The profiler's schedule runs two calls as its warm-up before the
+    ``reps`` it records (its first kernels after start-up can be lost)."""
     import torch
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=2, active=1,
+                                             repeat=1)) as prof:
+        for n in (1, 1, reps):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             name = e.name[:60]
             by_name[name] = (by_name.get(name, 0.0)
                              + e.time_range.elapsed_us() / reps / 1e3)
+            if launched is not None:
+                launched[name] = launched.get(name, 0.0) + 1.0 / reps
     return by_name
 
 
@@ -569,6 +593,8 @@ def phase_kernels(only_wgmma=False):
     path gives it, as the engine routes its taps -> per-kernel summary (from
     each kernel's ROW_PATH). ``only_wgmma``: the tensor-core kernels' checks
     alone, at one tile, the ragged bf16 shapes and one row shape each."""
+    import ctypes
+
     import torch
     from repro_torch.core import ghost
     from repro_torch.core.tape import parse_key
@@ -594,7 +620,7 @@ def phase_kernels(only_wgmma=False):
     summary = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
                        max_abs_err=0.0, t_bytes=0.0, t_ops=0.0)
                for k in KERNELS}
-    summary["fused_clip_grad"]["composed_ms"] = 0.0
+    summary["fused_clip_grad"].update(composed_ms=0.0, device_ms=0.0)
     for k in (*WGMMA, *CHUNKED):
         summary[k]["simt_ms"] = 0.0
 
@@ -630,8 +656,8 @@ def phase_kernels(only_wgmma=False):
             s["max_abs_err"] = max(s["max_abs_err"], cmp["max_abs_err"])
             if ms_lib is not None:
                 s["library_ms"] = (s["library_ms"] or 0.0) + ms_lib
-            for key in ("composed_ms", "simt_ms"):
-                if key in extra:
+            for key in ("composed_ms", "simt_ms", "device_ms"):
+                if key in extra and key in s:
                     s[key] += extra[key]
 
     def reps(path, name):
@@ -797,12 +823,19 @@ def phase_kernels(only_wgmma=False):
                    library)
 
     def fused_case(path, case, a, ds, dname, clips):
-        """fused_clip_grad against its plain version under each clip
-        function of ``clips`` (the first timed, with the composed route it
-        replaces): G at TOL, sq at NORM_TOL, both bitwise run to run; w
-        has a zero (a masked sample)."""
+        """fused_clip_grad under each clip function of ``clips``, w with a
+        zero (a masked sample), on the route ``fc.route`` names (asserted):
+        (a) against its plain version, G at TOL and sq at NORM_TOL; (b) on
+        the wgmma route, against its SIMT route, G at SIMT_GRAD_TOL and sq
+        at NORM_TOL; (c) itself run twice, bitwise. The first clip function
+        timed: CUDA events around the wrapper's call (host work included),
+        the device time and the kernels one call launches by torch.profiler
+        (one, or the case fails), the SIMT route's time, the plain
+        version's, and the composed route it replaces (the norm kernel,
+        then clipped_grad)."""
         L, Bc, Tc, d = a.shape
         p = ds.shape[-1]
+        route = fc.route(a.dtype, d, p)
         w = torch.rand(Bc, generator=gen, device=dev) + 0.5
         w[1] = 0.0
         gamma = 0.01
@@ -826,13 +859,19 @@ def phase_kernels(only_wgmma=False):
         for k, clip in enumerate(clips):
             R = R_flat if clip == "flat" else R_mid
             args = (a, ds, w, clip, R, gamma)
+            w0 = fc.fused_clip_grad.wgmma_launches
             G, sq = fc.fused_clip_grad(*args)
+            took = ("wgmma" if fc.fused_clip_grad.wgmma_launches > w0
+                    else "simt")
+            if took != route:
+                raise AssertionError(f"fused_clip_grad [{case}]: took the "
+                                     f"{took} route, want {route}")
             G2, sq2 = fc.fused_clip_grad(*args)
             bitwise = bool(torch.equal(G, G2) and torch.equal(sq, sq2))
             del G2, sq2
             Gp, sqp = fc.plain(*args)
             cmp_sq = compare(sq, sqp, NORM_TOL)
-            extra = {"clip": clip, "R": R, "sq_max_abs_err":
+            extra = {"clip": clip, "R": R, "route": took, "sq_max_abs_err":
                      cmp_sq["max_abs_err"], "sq_max_rel_err":
                      cmp_sq["max_rel_err"], "bitwise_repeat": bitwise}
             if not cmp_sq["ok"]:
@@ -842,12 +881,42 @@ def phase_kernels(only_wgmma=False):
             if not bitwise:
                 raise AssertionError(f"fused_clip_grad [{case}, {clip}] "
                                      "differs run to run")
+            if route == "wgmma":
+                Gs, sqs = fc.fused_clip_grad(*args, kernel="simt")
+                extra.update(simt_check("fused_clip_grad", f"{case} {clip}",
+                                        G, Gs, SIMT_GRAD_TOL))
+                cmp_s = compare(sq, sqs, NORM_TOL)
+                extra["sq_vs_simt_max_rel_err"] = cmp_s["max_rel_err"]
+                if not cmp_s["ok"]:
+                    raise AssertionError(f"fused_clip_grad [{case}, {clip}]: "
+                                         f"sq disagrees with the SIMT route: "
+                                         f"{cmp_s}")
+                del Gs, sqs
             ms_k = ms_p = 0.0
             if k == 0:
-                r = reps(path, "fused_clip_grad")[0]
-                ms_k = cuda_ms(lambda: fc.fused_clip_grad(*args), min(r, 5),
-                               1)
+                # a call is microseconds, mostly host work: 10 calls on
+                # every path, not reps()'s 3 off the row path
+                r = 10
+                ms_k = cuda_ms(lambda: fc.fused_clip_grad(*args), r, 2)
                 ms_p = cuda_ms(lambda: fc.plain(*args), 3, 1)
+                # a profile that lost device events (fewer than one a call)
+                # is taken again, at most twice; more than one a call fails
+                for attempt in range(3):
+                    launched = {}
+                    dev_k = device_ms(lambda: fc.fused_clip_grad(*args),
+                                      launched=launched)
+                    if sum(launched.values()) > 1.0 - 1e-6:
+                        break
+                extra.update(device_ms=sum(dev_k.values()),
+                             device_by_kernel=dev_k,
+                             kernels_a_call=sum(launched.values()),
+                             profiles=attempt + 1)
+                if abs(extra["kernels_a_call"] - 1.0) > 1e-6:
+                    raise AssertionError(f"fused_clip_grad [{case}]: one call "
+                                         f"launched {launched}, want one "
+                                         "kernel")
+                extra["simt_ms"] = ms_k if route == "simt" else cuda_ms(
+                    lambda: fc.fused_clip_grad(*args, kernel="simt"), r, 2)
                 clip_fn = get_clip_fn(clip, R, **(
                     {"gamma": gamma} if clip == "automatic" else {}))
                 norm = {"ghost": gn.ghost_norm, "direct": gd.grad_norm_direct
@@ -858,7 +927,14 @@ def phase_kernels(only_wgmma=False):
                     C = clip_fn(torch.sqrt(norm(a, ds))) * w
                     return cg.clipped_grad(a, C, ds)
 
-                extra["composed_ms"] = cuda_ms(composed, 3, 1)
+                extra["composed_ms"] = cuda_ms(composed, r, 2)
+                plan = (ctypes.c_int * 7)()
+                build.check(build.load().dp_fused_clip_plan(
+                    L, Bc, Tc, d, p, int(a.dtype == torch.bfloat16),
+                    int(route == "wgmma"), plan), "dp_fused_clip_plan")
+                extra["plan"] = dict(zip(
+                    ("tile", "group", "split", "rows_a_cta", "ctas",
+                     "resident", "smem_bytes"), list(plan)))
             record("fused_clip_grad", path, f"{case} {clip}", G, Gp,
                    TOL[dname], ms_k, ms_p, nbytes, ops, dname,
                    timed=k == 0, **extra)
@@ -1227,8 +1303,32 @@ def phase_kernels(only_wgmma=False):
                 for causal in (True, False):
                     flash_case("ragged", 2, 509, 509, H, 2, h, causal, bf16)
 
+    def fused_edges():
+        """fused_clip_grad at the largest units the reference's rule sends
+        to it (FUSED_EDGES: bf16, B=8, T=512; ``dispatch.fused_plan`` must
+        say 'fused' for each), on its wgmma route, every clip function at
+        edge_square; at one tile; and at B = 20 (three groups of
+        samples)."""
+        B, T = 8, 512
+        for name, L, d, p in FUSED_EDGES:
+            plan = dispatch.fused_plan("mm", (L, B, T, d), (L, B, T, p),
+                                       "bk-mixopt").method
+            if plan != "fused":
+                raise AssertionError(f"fused_clip_grad [{name}]: fused_plan "
+                                     f"says {plan!r}, want 'fused'")
+            mm_case(f"{name} L={L} B={B} T={T} d={d} p={p} bf16", L, B, T, d,
+                    p, bf16, {"fused_clip_grad": "edge"},
+                    fc.CLIPS if name == "edge_square" else ("automatic",))
+        mm_case("tile L=1 B=2 T=64 d=64 p=64 bf16", 1, 2, 64, 64, 64, bf16,
+                {"fused_clip_grad": "edge"})
+        # more samples than a group's 8 slots (three grid barriers), ragged
+        # T, p of no tile
+        mm_case("groups L=2 B=20 T=100 d=64 p=40 bf16", 2, 20, 100, 64, 40,
+                bf16, {"fused_clip_grad": "edge"}, fc.CLIPS)
+
     if only_wgmma:
         wgmma_shapes()
+        fused_edges()
         d, V = q_cfg.d_model, q_cfg.vocab
         # the head of train: its items take the p split
         mm_case(f"train head L=1 B=8 T=512 d={d} p={V} bf16", 1, 8, 512, d,
@@ -1295,6 +1395,7 @@ def phase_kernels(only_wgmma=False):
                     f"T={T} d={d} p={p} f32", L, B, T, d, p, torch.float32,
                     {"fused_clip_grad": "parity_layer"},
                     fc.CLIPS if key.endswith("/o#mm.s") else ("automatic",))
+    fused_edges()
 
     # ---- ragged: T / C not a multiple of any tile, odd d / p / V, stacked,
     # f32; some ids outside [0, V) (dropped by both versions); masked slots.
@@ -1341,7 +1442,7 @@ def _profile_summary(prof, window_ms: float) -> dict:
         "grad_norm_direct", "dense_norm_wgmma", "moe_ghost_norm",
         "moe_direct_norm",
         "moe_clipped_grad", "moe_norm_wgmma", "moe_grad_wgmma",
-        "fused_clip_tile", "fused_clip_apply",
+        "fused_clip_wgmma", "fused_clip_simt",
         "moe_ghost_wgmma", "flash_attention", "wkv6", "wkv6_state",
         "wkv6_out"))
     kinds = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
@@ -1747,8 +1848,8 @@ def main(argv=None) -> int:
                 "library_ms": s["library_ms"],
                 **({"library": "none: " + NO_LIBRARY[name]}
                    if name in NO_LIBRARY else {}),
-                **({"composed_ms": s["composed_ms"]}
-                   if "composed_ms" in s else {}),
+                **({k: s[k] for k in ("composed_ms", "device_ms")
+                    if k in s}),
                 **({"simt_ms": s["simt_ms"],
                     "simt_source": CSRC + {**WGMMA, **CHUNKED}[name][0]}
                    if name in WGMMA or name in CHUNKED else {})})

@@ -56,8 +56,9 @@ SIGNATURES = {
     "dp_moe_direct_norm_wgmma": [_P] * 6 + [_I] * 6 + [_P],
     "dp_moe_clipped_grad": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "dp_moe_clipped_grad_wgmma": [_P] * 6 + [_I] * 6 + [_P],
-    "dp_fused_clip_nparts": [_I, _I],
-    "dp_fused_clip_grad": [_P] * 7 + [_I] * 7 + [_F, _F, _P],
+    "dp_fused_clip_plan": [_I] * 7 + [_P],
+    "dp_fused_clip_nparts": [_I] * 7,
+    "dp_fused_clip_grad": [_P] * 6 + [_I] * 8 + [_F, _F, _P],
     "dp_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
     "dp_flash_attention_wgmma": [_P] * 4 + [_I] * 7 + [_P],
     "dp_wkv6": [_P] * 6 + [_I] * 5 + [_P],

@@ -1,18 +1,19 @@
-"""Time, on the card, the designs that five kernels' sources name as not
+"""Time, on the card, the designs that six kernels' sources name as not
 taken, beside the kernels kept, so that those comparisons can be run again:
 
     PYTHONPATH=src python -m repro_torch.kernels.design_study
     PYTHONPATH=src python -m repro_torch.kernels.design_study --only emb
 
-(``--only ghost``, ``wkv``, ``moe`` and ``emb_norm`` likewise.) Each variant
-is built alone into a temporary directory (one nvcc a variant, all started
-together): the kept source with one line or block replaced
-(:data:`EMB_PATCHES`, :data:`GHOST_PATCHES`, :data:`WKV_PATCHES`,
-:data:`MOE_PATCHES`, :data:`EMB_NORM_PATCHES`; a replacement that no longer
-matches the source raises), or a source of its own under ``designs/``.
-Inputs are made from a seed at qwen2-1.5b's ``train`` shapes (B=8, T=512),
-deepseek-moe-16b's ``train_moe`` shapes and rwkv6-3b's ``prefill_rwkv``
-shapes:
+(``--only ghost``, ``wkv``, ``moe``, ``emb_norm`` and ``fused``
+likewise.) Each variant is built alone into a temporary directory (one
+nvcc a variant, all started together): the kept source with one line or
+block replaced (:data:`EMB_PATCHES`, :data:`GHOST_PATCHES`,
+:data:`WKV_PATCHES`, :data:`MOE_PATCHES`, :data:`EMB_NORM_PATCHES`,
+:data:`FUSED_PATCHES`; a replacement that no longer matches the source
+raises), or a source of its own under ``designs/``. Inputs are made from
+a seed at qwen2-1.5b's ``train`` shapes (B=8, T=512), deepseek-moe-16b's
+``train_moe`` shapes, rwkv6-3b's ``prefill_rwkv`` shapes, and qwen2-1.5b's
+smoke-width and gate-edge units:
 
 - ``emb_clipped_grad``: ids (8, 512), d 1536, V 151936, bf16 cotangents.
   Variants: the kept kernel (``csrc/emb_grad.cu``), one warp scanning all
@@ -46,6 +47,22 @@ shapes:
   CTA of each b, two rows of a run in flight (in passes of fewer
   columns), and the first version (``designs/emb_norm_pairs.cu``).
 
+- ``fused_clip_grad``: parity_layer's five smoke-width units (f32, B=8,
+  T=512: qkv, o, gate+up, down at L=2, the head) and the four gate-edge
+  cases (bf16, B=8, T=512: edge_square L=1 d=p=512, edge_stacked L=4
+  d=p=256, edge_adapter_A d=1536 p=16, edge_adapter_B d=16 p=1536).
+  Variants: the kept kernel (``csrc/fused_clip.cu``: design (A), one
+  grid barrier a group of samples, a cooperative launch; SIMT tiles of
+  16 where they fit, each tile's rows split over a cluster of up to 8
+  CTAs; wgmma 64 x 64 tiles, rows split over up to 4 where the unit has
+  at most a quarter as many tiles as SMs, a ring of 4 stages); design (B)
+  (the same source launched as one cluster of at most 16 CTAs meeting at
+  barrier.cluster; refused where the unit needs more CTAs); SIMT rows
+  split over 1 or at most 4 CTAs; SIMT tiles of 32 at the least; wgmma
+  rows never split, or split whatever the unit's tiles; a wgmma ring of 6
+  stages; and the first version (``designs/fused_clip_two_launch.cu``:
+  2B launches, an L*d*p scratch, G zeroed before each call).
+
 Prints one JSON line a variant: CUDA-event ms around the C call (median of
 5 runs of 20 calls), device ms by kernel (torch.profiler), whether the
 output is bitwise the kept kernel's, ghost_norm's largest relative error
@@ -53,7 +70,10 @@ against the plain version and against a float64 evaluation, and the
 variant's ptxas lines (registers, spills, C75xx notes); wkv6's largest
 difference from the kept kernel and from a float64 recurrence at head 0;
 moe_ghost_norm's and emb_ghost_norm's largest relative error against a
-float64 evaluation. CUDA-event ms time the C call alone (no wrapper).
+float64 evaluation; fused_clip_grad's kernels a call (by the profiler),
+its largest difference from the kept kernel and from the plain version
+(and whether that is within 1e-3 of the output's scale).
+CUDA-event ms time the C call alone (no wrapper).
 Then the card's name and power limit.
 """
 from __future__ import annotations
@@ -228,6 +248,38 @@ EMB_NORM_PATCHES = {
         ("constexpr int UNROLL = 1; ", "constexpr int UNROLL = 2; ")]),
 }
 
+_SPLIT = "constexpr int MAX_SPLIT = 8; "
+FUSED_PATCHES = {
+    "kept": ("fused_clip.cu", []),
+    "one_cluster": ("fused_clip.cu", [(
+        "constexpr bool ONE_CLUSTER = false;",
+        "constexpr bool ONE_CLUSTER = true;")]),
+    "simt_split_1": ("fused_clip.cu", [
+        (_SPLIT, "constexpr int MAX_SPLIT = 1; ")]),
+    "simt_split_4": ("fused_clip.cu", [
+        (_SPLIT, "constexpr int MAX_SPLIT = 4; ")]),
+    "simt_tile_32": ("fused_clip.cu", [(
+        "static const int tiles[3] = {16, 32, 64};",
+        "static const int tiles[3] = {32, 32, 64};")]),
+    "wgmma_split_1": ("fused_clip.cu", [(
+        "constexpr int WG_MAX_SPLIT = 4; ",
+        "constexpr int WG_MAX_SPLIT = 1; ")]),
+    "wgmma_split_always": ("fused_clip.cu", [(
+        "constexpr int SPLIT_FEW = 4;", "constexpr int SPLIT_FEW = 0;")]),
+    "wgmma_ring_6": ("fused_clip.cu", [(
+        "constexpr int STAGES = 4;", "constexpr int STAGES = 6;")]),
+}
+# (case, L, d, p, dtype): L = 0 is the unstacked head
+FUSED_CASES = [("smoke qkv", 2, 32, 64, torch.float32),
+               ("smoke o", 2, 32, 32, torch.float32),
+               ("smoke gate+up", 2, 32, 96, torch.float32),
+               ("smoke down", 2, 48, 32, torch.float32),
+               ("smoke head", 0, 32, 64, torch.float32),
+               ("edge_square", 1, 512, 512, torch.bfloat16),
+               ("edge_stacked", 4, 256, 256, torch.bfloat16),
+               ("edge_adapter_A", 1, 1536, 16, torch.bfloat16),
+               ("edge_adapter_B", 1, 16, 1536, torch.bfloat16)]
+
 # the kept wkv6 kernel with one phase skipped (a loop run zero times)
 WKV_ABLATIONS = {
     "skip_pass2_diagonal_blocks": ("wkv6_chunked.cu", [(
@@ -306,15 +358,21 @@ def events_ms(fn, n: int = 20, runs: int = 5) -> float:
 
 
 def device_ms(fn, reps: int = 5) -> dict:
-    """Device ms a call by kernel name (torch.profiler), over ``reps``."""
+    """Device ms a call by kernel name (torch.profiler), over ``reps``
+    (after two calls of the profiler's warm-up, whose first kernels after
+    start-up can be lost)."""
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=2, active=1,
+                                             repeat=1)) as prof:
+        for n in (1, 1, reps):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -591,10 +649,90 @@ def study_emb_norm(tmp: Path, dev: str) -> None:
             print(json.dumps(row), flush=True)
 
 
+def study_fused(tmp: Path, dev: str) -> None:
+    from repro_torch.kernels import fused_clip as fc
+    variants = {n: patched(build.CSRC / s, p)
+                for n, (s, p) in FUSED_PATCHES.items()}
+    variants["two_launch"] = (DESIGNS / "fused_clip_two_launch.cu"
+                              ).read_text()
+    libs = build_variants(variants, tmp)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name in FUSED_PATCHES:
+        libs[name][0].dp_fused_clip_nparts.argtypes = [I] * 7
+        libs[name][0].dp_fused_clip_grad.argtypes = [P] * 6 + [I] * 8 + [
+            F, F, P]
+    two = libs["two_launch"][0]
+    two.dp_fused_clip_two_launch_nparts.argtypes = [I, I]
+    two.dp_fused_clip_two_launch.argtypes = [P] * 7 + [I] * 7 + [F, F, P]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    for case, L, d, p, dtype in FUSED_CASES:
+        L1 = max(L, 1)
+        a = torch.randn(L1, B, T, d, generator=g, device=dev).to(dtype)
+        ds = torch.randn(L1, B, T, p, generator=g, device=dev).to(dtype)
+        w = torch.rand(B, generator=g, device=dev) + 0.5
+        R = float(torch.sqrt(fc.plain(a, ds, w, "automatic", 1.0, 0.01)[1])
+                  .median())
+        plain = fc.plain(a, ds, w, "automatic", R, 0.01)[0]
+        bf16 = int(dtype == torch.bfloat16)
+        wgmma = int(fc.route(dtype, d, p) == "wgmma")
+        G = torch.empty(L1, d, p, device=dev)
+        sq = torch.empty(B, device=dev)
+        calls = {}
+        for name in FUSED_PATCHES:
+            lib = libs[name][0]
+            n = lib.dp_fused_clip_nparts(L1, B, T, d, p, bf16, wgmma)
+            if n <= 0:
+                print(json.dumps({"study": "fused_clip_grad", "case": case,
+                                  "variant": name, "refused": n}),
+                      flush=True)
+                continue
+            part = torch.empty(B, n, device=dev)
+            calls[name] = (lambda f=lib.dp_fused_clip_grad, pt=part: _check(
+                f(a.data_ptr(), ds.data_ptr(), w.data_ptr(), pt.data_ptr(),
+                  G.data_ptr(), sq.data_ptr(), L1, B, T, d, p, bf16, wgmma,
+                  1, R, 0.01, 0), "dp_fused_clip_grad"))
+        scratch = torch.empty(L1, d, p, device=dev)
+        part2 = torch.empty(L1 * two.dp_fused_clip_two_launch_nparts(d, p),
+                            device=dev)
+
+        def two_launch():
+            G.zero_()
+            _check(two.dp_fused_clip_two_launch(
+                a.data_ptr(), ds.data_ptr(), w.data_ptr(), scratch.data_ptr(),
+                part2.data_ptr(), G.data_ptr(), sq.data_ptr(), L1, B, T, d, p,
+                bf16, 1, R, 0.01, 0), "dp_fused_clip_two_launch")
+        calls["two_launch"] = two_launch
+        kept = None
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            got = G.clone()
+            fn()
+            torch.cuda.synchronize()
+            kept = got if kept is None else kept
+            dev_ms = device_ms(fn)
+            row = {"study": "fused_clip_grad", "case": case, "variant": name,
+                   "L": L, "d": d, "p": p, "dtype": str(dtype),
+                   "ms": events_ms(fn), "device_ms": sum(dev_ms.values()),
+                   "device_by_kernel": dev_ms,
+                   "max_abs_diff_kept": float((got - kept).abs().max()),
+                   "max_abs_err_plain": float((got - plain).abs().max()),
+                   "plain_scale": float(plain.abs().max()),
+                   # TOL's f32 rtol, times the output's scale
+                   "agrees_plain": bool((got - plain).abs().max()
+                                        <= 1e-3 * plain.abs().max()),
+                   "bitwise_run_to_run": bool(torch.equal(got, G)),
+                   "ptxas": libs[name][1]}
+            print(json.dumps(row), flush=True)
+        del a, ds, G, scratch
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("emb", "ghost", "wkv", "moe",
-                                       "emb_norm"), default=None)
+                                       "emb_norm", "fused"), default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("design_study: no CUDA device; this script runs on the card",
@@ -612,6 +750,8 @@ def main(argv=None) -> int:
             study_moe(Path(tmp) / "moe", "cuda")
         if args.only in (None, "emb_norm"):
             study_emb_norm(Path(tmp) / "emb_norm", "cuda")
+        if args.only in (None, "fused"):
+            study_fused(Path(tmp) / "fused", "cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)

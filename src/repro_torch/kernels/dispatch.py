@@ -37,11 +37,11 @@ from repro_torch.core.ghost import prefer_ghost
 
 
 # f32 bytes of one sample's fused working set. The JAX package's
-# VMEM_BUDGET (6 MiB), kept as it is: ``csrc/fused_clip.cu`` streams g_b
-# through a device scratch and holds nothing on chip, so the card has no
-# budget of its own for it yet; one comes with a fused kernel that keeps
-# g_b in shared memory (or a cluster's distributed shared memory). Until
-# then equal budgets give the JAX package's plans for every shape.
+# VMEM_BUDGET (6 MiB), kept as it is, so that every shape gets the JAX
+# package's plan. ``csrc/fused_clip.cu`` holds each CTA's tile of g_b in
+# shared memory for up to 8 samples and needs its grid (one CTA a tile)
+# resident at once; at the budget's edge (L d p = 786,432) that still holds
+# (the wrapper raises, with the unit's shape, where it does not).
 FUSED_BUDGET = 6 * 2 ** 20
 
 

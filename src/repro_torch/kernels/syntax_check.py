@@ -35,7 +35,9 @@ def check(cu: Path) -> tuple[bool, str]:
     with tempfile.TemporaryDirectory() as tmp:
         src = Path(tmp) / (cu.stem + ".cpp")
         src.write_text(_LAUNCH.sub("", cu.read_text()))
-        for h in cu.parent.glob("*.cuh"):   # the headers launch kernels too
+        # the headers launch kernels too; a source outside csrc/ (designs/)
+        # includes csrc's
+        for h in [*CSRC.glob("*.cuh"), *cu.parent.glob("*.cuh")]:
             (Path(tmp) / h.name).write_text(_LAUNCH.sub("", h.read_text()))
         proc = subprocess.run(
             [gxx, "-std=c++17", "-fsyntax-only", "-Wno-unknown-pragmas",

@@ -25,6 +25,7 @@ from repro_torch.kernels import clipped_grad as cg_mod
 from repro_torch.kernels import emb_grad as eg_mod
 from repro_torch.kernels import emb_norm as en_mod
 from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import fused_clip as fc_mod
 from repro_torch.kernels import ghost_norm as gn_mod
 from repro_torch.kernels import grad_norm_direct as gd_mod
 from repro_torch.kernels import moe_ghost as moe_mod
@@ -340,6 +341,15 @@ def _meta(*shape, dtype=torch.float32):
     lambda: grad_norm_direct(_meta(2, 3, 64, dtype=torch.bfloat16),
                              _meta(2, 3, 128, dtype=torch.bfloat16),
                              kernel="wgmma"),
+    lambda: fused_clip_grad(_meta(2, 2, 3, 64, dtype=torch.bfloat16),
+                            _meta(2, 2, 3, 128, dtype=torch.bfloat16),
+                            _meta(2), "abadi", 1.0, 0.01),
+    lambda: fused_clip_grad(_meta(2, 3, 64, dtype=torch.bfloat16),
+                            _meta(2, 3, 128, dtype=torch.bfloat16),
+                            _meta(2), "flat", 1.0, 0.01, kernel="wgmma"),
+    lambda: fused_clip_grad(_meta(2, 3, 64, dtype=torch.bfloat16),
+                            _meta(2, 3, 128, dtype=torch.bfloat16),
+                            _meta(2), "normalize", 1.0, 0.01, kernel="simt"),
 ])
 def test_wrappers_take_the_plain_version_only_on_cpu(call):
     """A tensor that is not on the CPU never reaches the plain version: the
@@ -1038,12 +1048,109 @@ def test_wkv6_launches_its_route(fake_lib, empty_shapes, dtype, h, kernel,
     lambda: wkv6(*(_meta(2, 3, 4, 72, dtype=torch.bfloat16),) * 4,
                  _meta(4, 72), kernel="chunked"),
     lambda: wkv6(*(_meta(2, 3, 4, 64),) * 4, _meta(4, 64), kernel="wgmma"),
+    # fused_clip_grad's wgmma kernel: f32 records, unaligned widths, other
+    # routes
+    lambda: fused_clip_grad(_meta(2, 3, 8), _meta(2, 3, 16), _meta(2),
+                            "automatic", 1.0, 0.01, kernel="wgmma"),
+    lambda: fused_clip_grad(_meta(2, 3, 12, dtype=torch.bfloat16),
+                            _meta(2, 3, 16, dtype=torch.bfloat16), _meta(2),
+                            "automatic", 1.0, 0.01, kernel="wgmma"),
+    lambda: fused_clip_grad(_meta(2, 3, 16, dtype=torch.bfloat16),
+                            _meta(2, 3, 1532, dtype=torch.bfloat16),
+                            _meta(2), "abadi", 1.0, 0.01, kernel="wgmma"),
+    lambda: fused_clip_grad(_meta(2, 3, 8, dtype=torch.bfloat16),
+                            _meta(2, 3, 16, dtype=torch.bfloat16), _meta(2),
+                            "abadi", 1.0, 0.01, kernel="tensor"),
 ])
 def test_forced_wgmma_route_raises_on_inputs_it_does_not_take(fake_lib,
                                                               call):
     with pytest.raises(ValueError, match="kernel"):
         call()
     assert fake_lib.calls == []
+
+
+@pytest.mark.parametrize("dtype,d,p,want", [
+    # parity_layer's smoke-width units (f32): qkv, o, gate+up, down, head
+    (torch.float32, 32, 64, "simt"),
+    (torch.float32, 32, 32, "simt"),
+    (torch.float32, 32, 96, "simt"),
+    (torch.float32, 48, 32, "simt"),
+    # the gate-edge cases (bf16): edge_square, edge_stacked, the rank-16
+    # adapter's A and B at qwen2-1.5b's width, and the smoke widths in bf16
+    (torch.bfloat16, 512, 512, "wgmma"),
+    (torch.bfloat16, 256, 256, "wgmma"),
+    (torch.bfloat16, 1536, 16, "wgmma"),
+    (torch.bfloat16, 16, 1536, "wgmma"),
+    (torch.bfloat16, 32, 96, "wgmma"),
+    (torch.bfloat16, 136, 264, "wgmma"),      # multiples of 8, of no tile
+    # unaligned widths and f32 records take the SIMT route
+    (torch.bfloat16, 37, 53, "simt"),
+    (torch.bfloat16, 512, 508, "simt"),
+    (torch.bfloat16, 20, 16, "simt"),
+    (torch.float32, 512, 512, "simt"),
+    (torch.float32, 165, 301, "simt"),
+])
+def test_fused_clip_route(dtype, d, p, want):
+    assert fc_mod.route(dtype, d, p) == want
+
+
+@pytest.mark.parametrize("dtype,d,p,kernel,want", [
+    (torch.bfloat16, 512, 512, None, "wgmma"),
+    (torch.bfloat16, 16, 1536, None, "wgmma"),
+    (torch.bfloat16, 37, 53, None, "simt"),
+    (torch.float32, 32, 96, None, "simt"),
+    (torch.bfloat16, 512, 512, "simt", "simt"),
+])
+@pytest.mark.parametrize("stacked", [True, False])
+def test_fused_clip_launches_its_route(fake_lib, empty_shapes, dtype, d, p,
+                                       kernel, want, stacked):
+    """One C call a wrapper call (the one launch), with its signature's
+    argument count and the unit's (L, B, T, d, p), bf16 flag, route and
+    clip function; one allocation, of G, sq and the partials sized as the
+    C side asks, (B, CTAs): no L*d*p scratch; every launch and the wgmma
+    ones counted. Unstacked records launch as L = 1."""
+    L, B, T = 2, 8, 512
+    lead = (L,) if stacked else ()
+    a, ds, w = (*(_meta(*lead, B, T, n, dtype=dtype) for n in (d, p)),
+                _meta(B))
+    made = len(empty_shapes)      # the inputs' own
+    fake_lib.sizes["dp_fused_clip_nparts"] = 64
+    n0, w0 = fused_clip_grad.launches, fused_clip_grad.wgmma_launches
+    G, sq = fused_clip_grad(a, ds, w, "normalize", 1.0, 0.01, kernel=kernel)
+    L1, bf16, wgmma = (L if stacked else 1), dtype == torch.bfloat16, \
+        want == "wgmma"
+    assert G.shape == (*lead, d, p) and G.dtype == torch.float32
+    assert sq.shape == (B,) and sq.dtype == torch.float32
+    entry = "dp_fused_clip_grad"
+    assert fake_lib.calls == [(entry, len(build.SIGNATURES[entry]))]
+    assert fake_lib.asked == [("dp_fused_clip_nparts",
+                               (L1, B, T, d, p, int(bf16), int(wgmma)))]
+    assert empty_shapes[made:] == [((L1 * d * p + B + B * 64,),
+                                    torch.float32)]
+    # the six pointers, then L, B, T, d, p, bf16, wgmma, clip, R, gamma
+    assert list(fake_lib.last_args[6:14]) == [
+        L1, B, T, d, p, int(bf16), int(wgmma),
+        fc_mod.CLIPS.index("normalize")]
+    assert fused_clip_grad.launches == n0 + 1
+    assert fused_clip_grad.wgmma_launches == w0 + wgmma
+
+
+@pytest.mark.parametrize("nparts,error,match", [
+    (0, ValueError, r"\(186, 8, 1, 65\).*cannot be resident"),
+    (-2, RuntimeError, "CUDA error 2 while planning"),
+])
+def test_fused_clip_raises_where_its_grid_cannot_be_resident(
+        fake_lib, empty_shapes, nparts, error, match):
+    """A unit whose grid (one CTA a tile) the card cannot hold at once, as
+    the C side's occupancy query says, is refused with its shape before
+    anything is allocated or launched, never split or sent to the plain
+    version; so is a failed query."""
+    fake_lib.sizes["dp_fused_clip_nparts"] = nparts
+    a, ds, w = _meta(186, 8, 1, 65), _meta(186, 8, 1, 65), _meta(8)
+    made = len(empty_shapes)
+    with pytest.raises(error, match=match):
+        fused_clip_grad(a, ds, w, "automatic", 1.0, 0.01)
+    assert fake_lib.calls == [] and empty_shapes[made:] == []
 
 
 def _kind(decl: str) -> str:
@@ -1088,7 +1195,8 @@ def test_cuda_source_parses_against_the_stub_headers(cu):
 
 def _design_sources():
     for table in ("EMB_PATCHES", "GHOST_PATCHES", "WKV_PATCHES",
-                  "WKV_ABLATIONS", "MOE_PATCHES", "EMB_NORM_PATCHES"):
+                  "WKV_ABLATIONS", "MOE_PATCHES", "EMB_NORM_PATCHES",
+                  "FUSED_PATCHES"):
         for name in getattr(design_study, table):
             yield f"{table}:{name}"
     for cu in sorted(design_study.DESIGNS.glob("*.cu")):

@@ -33,6 +33,7 @@ from repro_torch.core.bk import DPConfig, bk_clipped_sum, plan_report
 from repro_torch.core.policy import (ParamGroup, PrivacyPolicy,
                                      resolve_policy, with_scope)
 from repro_torch.kernels import dispatch
+from repro_torch.kernels import fused_clip as fc_mod
 from repro_torch.kernels.fused_clip import CLIPS, fused_clip_grad
 from repro_torch.utils.tree import flatten
 
@@ -165,6 +166,76 @@ def test_fused_clip_rejects_unknown_clipping():
     with pytest.raises(ValueError, match="clipping must be one of"):
         fused_clip_grad(torch.zeros(2, 3, 4), torch.zeros(2, 3, 5),
                         torch.ones(2), "softclip", 1.0, 0.01)
+
+
+# the units of parity_layer's smoke-width case (qwen2-1.5b's smoke_config,
+# B = 8, T = 512: qkv 32 -> 64, o 32 -> 32, gate+up 32 -> 96, down 48 -> 32
+# at L = 2, the head 32 -> 64), and the gate's edge (edge_square, d = p =
+# 512, at B = 8) cut to T = 16
+FUSED_SMOKE = [(2, 8, 512, 32, 64), (2, 8, 512, 32, 32), (2, 8, 512, 32, 96),
+               (2, 8, 512, 48, 32), (0, 8, 512, 32, 64)]
+FUSED_EDGE_CUT = (1, 8, 16, 512, 512)
+# (route, tile, sample slots a group, CTAs a tile's rows are split over)
+# of the kernel's decomposition: each SIMT tile, wgmma's, groups of 3
+# (several barriers a launch), rows split over 8 and 3 CTAs
+MODEL_PLANS = [("simt", 16, 8, 8), ("simt", 32, 3, 3), ("simt", 64, 8, 1),
+               ("wgmma", 64, 3, 2)]
+
+
+@pytest.mark.parametrize("L,B,Tn,d,p",
+                         FUSED_SMOKE + FUSED_SHAPES + [FUSED_EDGE_CUT])
+@pytest.mark.parametrize("clipping", CLIPS)
+def test_fused_model_matches_pallas(L, B, Tn, d, p, clipping):
+    """The kernel's decomposition (``kernels.fused_clip.fused_model``: its
+    tiles, its T pieces, each CTA's partial of sq_b summed in CTA order, C_b
+    after each group of samples, G folded in b order; float64) against the
+    Pallas kernel in interpret mode, under each clip function with a masked
+    sample (w = 0), R at the median norm (flat: midway in the widest gap).
+    f32 inputs; the Pallas sums are f32 (rtol 1e-5, atol 1e-6 of G's
+    scale)."""
+    lead = (L,) if L else ()
+    a = _np((*lead, B, Tn, d), "float32", 0)
+    ds = _np((*lead, B, Tn, p), "float32", 1)
+    w = np.abs(np.random.default_rng(2).standard_normal(B)).astype(
+        np.float32) + 0.5
+    w[1] = 0.0
+    ta, tds, tw = _torch(a), _torch(ds), torch.from_numpy(w)
+    gamma = 0.05
+    sq0 = fused_clip_grad(ta, tds, tw, "automatic", 1.0, gamma)[1]
+    R = _flat_R(sq0) if clipping == "flat" else \
+        float(np.median(np.sqrt(sq0.numpy())))
+    jG, jsq = jfused_clip_grad(jnp.asarray(a), jnp.asarray(ds),
+                               jnp.asarray(w), clipping, R, gamma,
+                               interpret=True)
+    jG, jsq = np.asarray(jG), np.asarray(jsq)
+    # at the edge a 16-wide tile is 1024 CTAs: the model runs the 64 tiles
+    plans = MODEL_PLANS if d < 512 else [("simt", 64, 3, 1),
+                                         ("wgmma", 64, 8, 1)]
+    for kernel, tile, group, split in plans:
+        G, sq = fc_mod.fused_model(ta, tds, tw, clipping, R, gamma, kernel,
+                                   tile, group, split)
+        assert G.dtype == sq.dtype == torch.float64
+        assert G.shape == jG.shape and sq.shape == (B,)
+        np.testing.assert_allclose(sq.numpy(), jsq, rtol=1e-5,
+                                   err_msg=f"{kernel} {tile}")
+        np.testing.assert_allclose(G.numpy(), jG, rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(jG).max()),
+                                   err_msg=f"{kernel} {tile}")
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 8])
+def test_fused_model_t_pieces_cover_every_row_once(split):
+    """The T pieces of each route and tile split a sample's rows: every row
+    in exactly one piece (``split`` CTAs of whole stages, 64 rows (wgmma)
+    or 1024 / tile; in each SIMT CTA T-group q taking the rows q mod NTG,
+    NTG = 16, 4, 1 for tiles 16, 32, 64)."""
+    for kernel, tile, ntg in (("simt", 16, 16), ("simt", 32, 4),
+                              ("simt", 64, 1), ("wgmma", 64, 1)):
+        for T in (1, 7, 509, 512):
+            pieces = fc_mod.t_pieces(T, kernel, tile, split)
+            assert len(pieces) == split * ntg
+            rows = torch.cat(pieces).sort().values
+            assert torch.equal(rows, torch.arange(T)), (kernel, tile, T)
 
 
 # ----------------------------------------------------------- bk_clipped_sum
