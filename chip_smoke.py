@@ -26,7 +26,9 @@ Phases, each printing JSON lines:
             events, and for fused_clip_grad (at the smoke-width
             parity_layer model's units, the path that launches it, f32, its
             SIMT route; and at FUSED_EDGES, the largest bf16 units
-            ``dispatch.fused_plan`` fuses, and one tile, its wgmma route)
+            ``dispatch.fused_plan`` fuses, FUSED_WALKS, the fused units
+            with more tiles than the card holds CTAs, which the kernel's
+            CTAs walk, bf16 and f32, and one tile)
             the composed route it replaces, its device time and the kernels
             one call launches by torch.profiler (one, or the phase fails),
             and its launch plan. ghost_norm, clipped_grad,
@@ -63,6 +65,15 @@ Phases, each printing JSON lines:
             and one tile, and every wkv6 case of the kernels phase, without
             building a model
   train             qwen2-1.5b, full (28 layers, bf16), B=8, T=512
+  train_nonprivate  the same, mode 'nonprivate' (standard training: the
+                    mean loss's gradient, no port kernel)
+  train_ghostclip   the same, mode 'ghostclip' (the norm kernels of mode
+                    'bk''s plan, asserted against ``plan_report``: 5
+                    ghost_norm + 1 emb_ghost_norm a step; then a second
+                    backward per clip unit, no weighted-grad kernel); after
+                    the train paths a ``paper_ratios`` line: bk-mixopt over
+                    nonprivate and ghostclip over bk-mixopt, in step
+                    seconds, profiled device time and peak memory
   train_moe         deepseek-moe-16b at full width, 6 of its 28 layers
                     (dense0_0 + 5 MoE blocks), B=8, T=512
   train_moe_direct  the same with the experts group forced to the direct
@@ -76,9 +87,10 @@ Phases, each printing JSON lines:
   train_tape        qwen2-1.5b, full, B=2, T=2048, tape 'recompute': no
                     weighted-grad kernel, a reweighted backward per unit
                     (2 steps)
-            each: the arch's registered policy, bk-mixopt, sigma=1.0, AdamW,
-            through ``repro_torch.launch.train.train``; launch counts per
-            step; the last step runs under torch.profiler
+            each: the arch's registered policy, bk-mixopt (unless named),
+            sigma=1.0, AdamW, through ``repro_torch.launch.train.train``;
+            launch counts per step; the last step runs under
+            torch.profiler
   prefill       qwen2-1.5b, full (28 layers, bf16), B=4, T=4096, through
                 ``model.prefill``: flash_attention once a layer
   prefill_rwkv  rwkv6-3b, full (32 layers, bf16), B=4, T=4096: wkv6 once a
@@ -96,6 +108,14 @@ Phases, each printing JSON lines:
             parity_layer also at qwen2-1.5b's smoke_config width, where
             every mm unit fuses: fused_clip_grad's driven path, whose
             launches count; f32, so every launch takes the SIMT routes)
+  parity_modes
+            every mode of ``core.engine.make_grad_fn`` on the card (f32,
+            one seed) against opacus: qwen2-1.5b at full width and 2 layers
+            (B=8, T=512, registered policy) and the paper's Figure 2 MLP
+            (128 -> 1024 x 6 -> 10, B=64); norms at NORM_TOL, grads at f32
+            TOL, at sigma 0 and then 0.7 (the same noise in every mode);
+            each mode's seconds, launches and peak memory (opacus: all
+            per-sample grads at once)
   parity_prefill, parity_prefill_rwkv
             a 2-layer, full-width, f32 model of each family: the prefill on
             the card (kernels) against the same params' prefill on the CPU
@@ -122,11 +142,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-TRAINS = ("train", "train_moe", "train_moe_direct", "train_long",
-          "train_layer", "train_tape")
+TRAINS = ("train", "train_nonprivate", "train_ghostclip", "train_moe",
+          "train_moe_direct", "train_long", "train_layer", "train_tape")
 PREFILLS = ("prefill", "prefill_rwkv")
 SERVES = ("serve", "serve_rwkv")
-PARITIES = ("parity", "parity_moe", "parity_long", "parity_layer")
+PARITIES = ("parity", "parity_moe", "parity_long", "parity_layer",
+            "parity_modes")
 SERVE_PARITIES = ("parity_prefill", "parity_prefill_rwkv")
 PHASES = (("card", "build", "kernels") + TRAINS + PREFILLS + SERVES
           + PARITIES + SERVE_PARITIES)
@@ -220,6 +241,16 @@ RUNS = {
                   direct=False, per_step=_per_step(
                       ghost_norm=5, clipped_grad=5, emb_ghost_norm=1,
                       emb_clipped_grad=1)),
+    # the paper's two yardsticks for train: standard training (no port
+    # kernel), and GhostClip (the norm kernels of mode 'bk''s plan, then a
+    # second backward per clip unit: no weighted-grad kernel)
+    "train_nonprivate": dict(arch="qwen2-1.5b", layers=0, batch=8, seq=512,
+                             steps=3, direct=False, mode="nonprivate",
+                             per_step=_per_step()),
+    "train_ghostclip": dict(arch="qwen2-1.5b", layers=0, batch=8, seq=512,
+                            steps=3, direct=False, mode="ghostclip",
+                            per_step=_per_step(ghost_norm=5,
+                                               emb_ghost_norm=1)),
     "train_moe": dict(arch="deepseek-moe-16b", layers=MOE_LAYERS, batch=8,
                       seq=512, steps=3, direct=False, per_step=_per_step(
                           ghost_norm=9, clipped_grad=9, emb_ghost_norm=1,
@@ -256,6 +287,14 @@ RUNS = {
 FUSED_EDGES = (("edge_square", 1, 512, 512), ("edge_stacked", 4, 256, 256),
                ("edge_adapter_A", 1, 1536, 16),
                ("edge_adapter_B", 1, 16, 1536))
+# units the gate fuses with more tiles than the card holds CTAs at once, so
+# fused_clip_grad's CTAs walk them (name, L, T, d, p, dtype name; B=8): the
+# rank-16 adapter's A stacked over qwen2-1.5b's 28 layers at T=2 (672 wgmma
+# tiles; its f32 twin, 2688 SIMT tiles of 16), and 8192 layers of d = p = 8
+# at T=1 (8192 tiles)
+FUSED_WALKS = (("edge_adapter_stacked", 28, 2, 1536, 16, "bfloat16"),
+               ("edge_adapter_stacked_f32", 28, 2, 1536, 16, "float32"),
+               ("many_tiles", 8192, 1, 8, 8, "bfloat16"))
 # the path whose shapes give each kernel's row in the summary line
 ROW_PATH = {"ghost_norm": "train", "clipped_grad": "train",
             "emb_ghost_norm": "train", "emb_clipped_grad": "train",
@@ -362,8 +401,8 @@ def run_config(name, flags=True):
     cfg = get_config(run["arch"])
     if run["layers"]:
         cfg = cfg.with_(n_layers=run["layers"])
-    dp = resolve_dp(cfg.name, "auto", "bk-mixopt", "automatic", 1.0,
-                    log=lambda m: None)
+    dp = resolve_dp(cfg.name, "auto", run.get("mode", "bk-mixopt"),
+                    "automatic", 1.0, log=lambda m: None)
     if run["direct"]:
         dp = dataclasses.replace(dp, groups=tuple(
             dataclasses.replace(g, method="direct") if g.name == "experts"
@@ -928,13 +967,13 @@ def phase_kernels(only_wgmma=False):
                     return cg.clipped_grad(a, C, ds)
 
                 extra["composed_ms"] = cuda_ms(composed, r, 2)
-                plan = (ctypes.c_int * 7)()
+                plan = (ctypes.c_int * 8)()
                 build.check(build.load().dp_fused_clip_plan(
                     L, Bc, Tc, d, p, int(a.dtype == torch.bfloat16),
                     int(route == "wgmma"), plan), "dp_fused_clip_plan")
                 extra["plan"] = dict(zip(
                     ("tile", "group", "split", "rows_a_cta", "ctas",
-                     "resident", "smem_bytes"), list(plan)))
+                     "resident", "smem_bytes", "walk"), list(plan)))
             record("fused_clip_grad", path, f"{case} {clip}", G, Gp,
                    TOL[dname], ms_k, ms_p, nbytes, ops, dname,
                    timed=k == 0, **extra)
@@ -1307,18 +1346,35 @@ def phase_kernels(only_wgmma=False):
         """fused_clip_grad at the largest units the reference's rule sends
         to it (FUSED_EDGES: bf16, B=8, T=512; ``dispatch.fused_plan`` must
         say 'fused' for each), on its wgmma route, every clip function at
-        edge_square; at one tile; and at B = 20 (three groups of
-        samples)."""
+        edge_square; at the units whose tiles outnumber the card's
+        resident CTAs (FUSED_WALKS: the walk, asserted by the plan; every
+        clip function at the bf16 adapter); at one tile; and at B = 20
+        (three groups of samples)."""
         B, T = 8, 512
-        for name, L, d, p in FUSED_EDGES:
-            plan = dispatch.fused_plan("mm", (L, B, T, d), (L, B, T, p),
+        cases = [(name, L, T, d, p, "bfloat16", name == "edge_square")
+                 for name, L, d, p in FUSED_EDGES]
+        cases += [(*walk, walk[0] == "edge_adapter_stacked")
+                  for walk in FUSED_WALKS]
+        for name, L, Tc, d, p, dname, every_clip in cases:
+            plan = dispatch.fused_plan("mm", (L, B, Tc, d), (L, B, Tc, p),
                                        "bk-mixopt").method
             if plan != "fused":
                 raise AssertionError(f"fused_clip_grad [{name}]: fused_plan "
                                      f"says {plan!r}, want 'fused'")
-            mm_case(f"{name} L={L} B={B} T={T} d={d} p={p} bf16", L, B, T, d,
-                    p, bf16, {"fused_clip_grad": "edge"},
-                    fc.CLIPS if name == "edge_square" else ("automatic",))
+            dtype = getattr(torch, dname)
+            if any(name == walk[0] for walk in FUSED_WALKS):
+                walks = (ctypes.c_int * 8)()
+                build.check(build.load().dp_fused_clip_plan(
+                    L, B, Tc, d, p, int(dtype == bf16),
+                    int(fc.route(dtype, d, p) == "wgmma"), walks),
+                    "dp_fused_clip_plan")
+                if not walks[7] or walks[4] <= 0:
+                    raise AssertionError(f"fused_clip_grad [{name}]: plan "
+                                         f"{list(walks)}, want the walk")
+            mm_case(f"{name} L={L} B={B} T={Tc} d={d} p={p} "
+                    f"{'bf16' if dtype == bf16 else 'f32'}", L, B, Tc, d, p,
+                    dtype, {"fused_clip_grad": "edge"},
+                    fc.CLIPS if every_clip else ("automatic",))
         mm_case("tile L=1 B=2 T=64 d=64 p=64 bf16", 1, 2, 64, 64, 64, bf16,
                 {"fused_clip_grad": "edge"})
         # more samples than a group's 8 slots (three grid barriers), ragged
@@ -1461,14 +1517,45 @@ def _profile_summary(prof, window_ms: float) -> dict:
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
 
 
-def phase_train(name):
+def bk_norm_counts(name) -> dict:
+    """The norm kernels a step of a train path launches under mode 'bk''s
+    plan (``core.bk.plan_report``: one a tap, ghost or direct by its
+    ParamGroup override): what the ghostclip baseline launches."""
+    import torch
+    from repro_torch.configs.registry import build
+    from repro_torch.core.bk import plan_report
+    from repro_torch.core.tape import parse_key
+    from repro_torch.data.synthetic import make_batch
+    cfg, dp = run_config(name)
+    run = RUNS[name]
+    model = build(cfg)
+    params = model.init(0, "cuda")
+    batch = make_batch(cfg, run["batch"], run["seq"], 0, 0, "cuda")
+    report = plan_report(model.apply, params, batch,
+                         dataclasses.replace(dp, mode="bk"))
+    del params, batch
+    torch.cuda.empty_cache()
+    counts = _per_step()
+    for key, plans in report.items():
+        counts[NORM_KERNEL[parse_key(key)[1], plans["norm"].method]] += 1
+    return counts
+
+
+def phase_train(name, stats: dict):
     """One train path through the train entry point -> launch totals.
-    The last step runs under torch.profiler."""
+    The last step runs under torch.profiler. ``stats[name]`` receives its
+    step seconds (unprofiled: the step before the profiled one), profiled
+    seconds, peak and profiled device time, for the paper's ratios."""
     import torch
     from repro_torch.launch.train import train, train_policy
 
     run = RUNS[name]
     cfg, dp = run_config(name, flags=False)
+    if run.get("mode") == "ghostclip":
+        planned = bk_norm_counts(name)
+        if planned != run["per_step"]:
+            raise AssertionError(f"{name}: mode 'bk''s plan launches "
+                                 f"{planned}, want {run['per_step']}")
     ws = wrappers()
     tc = train_config(name)
     per_step, prof = [], {}
@@ -1512,8 +1599,12 @@ def phase_train(name):
          steps=tc.steps, sigma=dp.sigma, losses=losses,
          max_memory_allocated=peak, allocated_at_start=floor,
          launches=totals, wgmma_launches=wgmma)
-    emit(phase=f"{name}_profile", step=tc.steps - 1,
-         **_profile_summary(prof["p"], prof["ms"]))
+    profile = _profile_summary(prof["p"], prof["ms"])
+    emit(phase=f"{name}_profile", step=tc.steps - 1, **profile)
+    stats[name] = {"step_seconds": per_step[-2]["seconds"],
+                         "profiled_seconds": per_step[-1]["seconds"],
+                         "peak_bytes": peak,
+                         "device_busy_ms": profile["device_busy_ms"]}
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{name}: non-finite loss: {losses}")
     if abs(losses[0] - math.log(cfg.vocab)) > 0.5:
@@ -1525,6 +1616,22 @@ def phase_train(name):
                 raise AssertionError(f"{name} step {s['step']}: {k} launched "
                                      f"{n} times, want {run['per_step'][k]}")
     return totals
+
+
+def paper_ratios(stats: dict) -> dict:
+    """The paper's two comparisons at qwen2-1.5b's full width and depth:
+    bk-mixopt (``train``) over standard training (``train_nonprivate``),
+    and GhostClip (``train_ghostclip``) over bk-mixopt: step seconds (the
+    unprofiled step), profiled device busy time and peak memory."""
+    bk, base, gc = (stats[k] for k in ("train", "train_nonprivate",
+                                       "train_ghostclip"))
+    out = {"phase": "paper_ratios"}
+    for key in ("step_seconds", "device_busy_ms", "peak_bytes"):
+        out[f"bk_over_nonprivate_{key}"] = bk[key] / base[key]
+        out[f"ghostclip_over_bk_{key}"] = gc[key] / bk[key]
+    out["stats"] = {k: stats[k] for k in ("train", "train_nonprivate",
+                                          "train_ghostclip")}
+    return out
 
 
 def _serving_model(name, layers=0, dtype=""):
@@ -1788,6 +1895,127 @@ def phase_parity(name):
     return counted
 
 
+# parity_modes: every mode of core.engine against opacus, f32 (name, B, T):
+# qwen2-1.5b at full width and 2 layers under its registered policy, as
+# parity runs it, and the MLP of the paper's Figure 2 ("wide" in
+# benchmarks/fig2_mlp.py: 128 -> 1024 x 6 -> 10, B = 64) under one flat
+# automatic-clipping group
+MODES_MODELS = (("qwen2-1.5b", 8, 512), ("mlp_fig2_wide", 64, 0))
+# the kernels a mode launches on them (use_kernels: the baselines other
+# than ghostclip launch none)
+MODES_KERNELS = {"ghostclip": {"qwen2-1.5b": ("ghost_norm",
+                                              "emb_ghost_norm"),
+                               "mlp_fig2_wide": ("ghost_norm",)}}
+
+
+def phase_parity_modes(name):
+    """All eight modes of ``core.engine.make_grad_fn`` on the card, f32,
+    one seed, against ``opacus`` (vmap(grad): every per-sample grad
+    instantiated): at sigma 0 the per-sample norms at NORM_TOL and the
+    grads at f32 TOL (nonprivate, which clips nothing: finite, and against
+    opacus's loss); then at sigma 0.7 every DP mode's noised grads against
+    opacus's at the same TOL (the same noise in every mode). Reports each
+    mode's seconds and peak memory (opacus's: every per-sample grad at
+    once). -> {} (the launches of these steps do not count as a path's)."""
+    import torch
+    from repro_torch.configs.registry import build, get_config
+    from repro_torch.core.bk import DPConfig
+    from repro_torch.core.engine import ALL_MODES, make_grad_fn
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.train import resolve_dp
+    from repro_torch.models.mlp import MLP, MLPConfig
+    from repro_torch.utils.tree import flatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ws = wrappers()
+    rtol, atol = TOL["float32"]
+    for model_name, B, T in MODES_MODELS:
+        if model_name == "mlp_fig2_wide":
+            mcfg = MLPConfig(d_in=128, width=1024, depth=6, n_classes=10)
+            model = MLP(mcfg)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(1)
+            batch = {"x": torch.randn(B, mcfg.d_in, generator=gen,
+                                      device="cuda"),
+                     "y": torch.randint(0, mcfg.n_classes, (B,),
+                                        generator=gen, device="cuda")}
+            policy = DPConfig(clipping="automatic", R=1.0)
+            shape = dict(d_in=mcfg.d_in, width=mcfg.width, depth=mcfg.depth)
+        else:
+            cfg = get_config(model_name).with_(n_layers=2,
+                                               param_dtype="float32")
+            model = build(cfg)
+            batch = make_batch(cfg, B, T, seed=1, device="cuda")
+            policy = resolve_dp(model_name, "auto", "bk", "automatic", 0.0,
+                                log=lambda m: None)
+            shape = dict(layers=cfg.n_layers, d_model=cfg.d_model,
+                         vocab=cfg.vocab)
+        params = model.init(seed=1, device="cuda")
+
+        def run(mode, sigma):
+            pol = dataclasses.replace(policy, mode=mode, sigma=sigma)
+            reset_counts(ws)
+            floor = fresh_peak()
+            t0 = time.perf_counter()
+            grads, aux = make_grad_fn(model.apply, pol)(params, batch, 7)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launched = {k: w.launches for k, w in ws.items() if w.launches}
+            check_routes(f"{name} {mode}", ws, False)    # f32: SIMT routes
+            return flatten(grads), aux, {
+                "seconds": seconds, "launched": launched,
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "allocated_at_start": floor}
+
+        for sigma in (0.0, 0.7):
+            ref, ref_aux, ref_stats = run("opacus", sigma)
+            emit(phase=name, model=model_name, batch=B, seq=T, sigma=sigma,
+                 mode="opacus", **shape, **ref_stats)
+            for mode in ALL_MODES:
+                if mode == "opacus" or (sigma and mode == "nonprivate"):
+                    continue
+                got, aux, stats = run(mode, sigma)
+                want = MODES_KERNELS.get(mode, {}).get(model_name, ())
+                if sorted(stats["launched"]) != sorted(want) and \
+                        not mode.startswith("bk"):
+                    raise AssertionError(f"{name} [{model_name} {mode}]: "
+                                         f"launched {stats['launched']}, "
+                                         f"want {want}")
+                if mode == "nonprivate":
+                    if not all(bool(torch.isfinite(g).all())
+                               for g in got.values()):
+                        raise AssertionError(f"{name} [{model_name}]: "
+                                             "nonprivate grads not finite")
+                    cmp = compare(aux["loss"], ref_aux["loss"], NORM_TOL)
+                    emit(phase=name, model=model_name, sigma=sigma,
+                         mode=mode, loss_vs_opacus=cmp, **stats)
+                    if not cmp["ok"]:
+                        raise AssertionError(f"{name} [{model_name}]: "
+                                             f"nonprivate loss {cmp}")
+                    continue
+                worst, bad = 0.0, []
+                for k in sorted(ref):
+                    cmp = compare(got[k], ref[k], (rtol, atol))
+                    worst = max(worst, cmp["max_abs_err"])
+                    if not cmp["ok"]:
+                        bad.append(k)
+                norms = compare(aux["per_sample_norms"],
+                                ref_aux["per_sample_norms"], NORM_TOL)
+                emit(phase=name, model=model_name, sigma=sigma, mode=mode,
+                     grads_max_abs_err=worst, rtol=rtol, atol=atol,
+                     norms=norms, failed=bad, **stats)
+                if bad or not norms["ok"]:
+                    raise AssertionError(f"{name} [{model_name} {mode}, "
+                                         f"sigma {sigma}]: disagrees with "
+                                         f"opacus on {bad}, norms {norms}")
+                del got, aux
+            del ref, ref_aux
+        del model, params, batch
+        torch.cuda.empty_cache()
+    return {}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1817,18 +2045,24 @@ def main(argv=None) -> int:
     if "wgmma" in phases:
         phase_kernels(only_wgmma=True)
     summary = phase_kernels() if "kernels" in phases else None
-    launches = {}
+    launches, train_stats = {}, {}
     for name in TRAINS + PREFILLS:
         if name in phases:
-            run = phase_train if name in TRAINS else phase_prefill
-            for k, n in run(name).items():
+            totals = (phase_train(name, train_stats) if name in TRAINS
+                      else phase_prefill(name))
+            for k, n in totals.items():
                 launches[k] = launches.get(k, 0) + n
+    if all(p in train_stats for p in ("train", "train_nonprivate",
+                                      "train_ghostclip")):
+        emit(**paper_ratios(train_stats))
     for name in SERVES:
         if name in phases:
             phase_serve(name)
     for name in PARITIES:
         if name in phases:
-            for k, n in phase_parity(name).items():
+            run = phase_parity_modes if name == "parity_modes" else \
+                phase_parity
+            for k, n in run(name).items():
                 launches[k] = launches.get(k, 0) + n
     for name in SERVE_PARITIES:
         if name in phases:

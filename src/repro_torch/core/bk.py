@@ -322,7 +322,6 @@ def bk_clipped_sum(apply_fn, params, batch, cfg, seed: int = 0):
     if policy.mode not in BK_MODES:
         raise ValueError(f"mode must be one of {BK_MODES}, got "
                          f"{policy.mode!r}")
-    B = batch_size_of(batch)
     # detached: no weight may require grad, or autograd would bring back
     # the parameter-gradient matmuls the ghost trick removes
     flat_params = {k: v.detach() for k, v in flatten(params).items()}
@@ -339,33 +338,40 @@ def bk_clipped_sum(apply_fn, params, batch, cfg, seed: int = 0):
 
     int8 = "int8" in (policy.tape_policy, *(g.tape for g in policy.groups))
     device = next(iter(batch.values())).device
+    losses, tape, grads = tapped_backward(
+        apply_fn, flat_params, batch, res, psp_active, act_store,
+        _gen(device, seed, "acts") if int8 else None)
+    with torch.no_grad():
+        return _book_kept_sums(apply_fn, batch, policy, res, flat_params,
+                               psp_active, tape, losses, grads, seed)
 
-    # ---- phase 1: one forward with the vector params broadcast per sample
-    # (leaves that require grad, the psp route), then ONE autograd.grad for
-    # the tap cotangents and the per-sample vector-param grads. Records
-    # take their residency form as they are recorded.
+
+def tapped_backward(apply_fn, flat_params, batch, res, psp_active,
+                    store=None, gen=None):
+    """Phase 1: one forward with the vector params ``psp_active`` broadcast
+    per sample (leaves that require grad, the psp route) and a tap on every
+    active op, then ONE autograd.grad for the tap cotangents and the
+    per-sample vector-param grads. Records take their residency form
+    (``store``, ``gen``: :class:`Tape`) as they are recorded. -> (losses
+    (B,), detached; the tape; the grads: the stacked taps' per-layer pieces
+    in sorted-key order, then the psp grads)."""
+    B = batch_size_of(batch)
     with torch.enable_grad():
         psp0 = {p: flat_params[p].expand(B, *flat_params[p].shape)
                 .clone().requires_grad_() for p in psp_active}
         merged = dict(flat_params)
         merged.update(psp0)
         tape = Tape(active=lambda key: tap_w(key) not in res.frozen,
-                    per_sample=psp0, store=act_store,
-                    gen=_gen(device, seed, "acts") if int8 else None)
+                    per_sample=psp0, store=store, gen=gen)
         losses = apply_fn(unflatten(merged), batch, tape)
-        active_taps = sorted(tape.outs)
         targets = []
-        for key in active_taps:
+        for key in sorted(tape.outs):
             out = tape.outs[key]
             targets.extend(out if isinstance(out, list) else [out])
         grads = list(torch.autograd.grad(
             losses.sum(), targets + [psp0[p] for p in psp_active],
             allow_unused=True, materialize_grads=True))
-    del merged, psp0, targets
-    with torch.no_grad():
-        return _book_kept_sums(apply_fn, batch, policy, res, flat_params,
-                               psp_active, tape, losses.detach(), grads,
-                               seed)
+    return losses.detach(), tape, grads
 
 
 def _book_kept_sums(apply_fn, batch, policy, res, flat_params, psp_active,

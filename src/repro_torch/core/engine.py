@@ -1,0 +1,79 @@
+"""PrivacyEngine: one entry point for all eight DP implementations.
+
+Choose a mode and get back a gradient function with the signature of
+non-private training (counterpart of ``repro/core/engine.py``):
+
+    engine = PrivacyEngine(model.apply, DPConfig(mode="bk-mixopt", sigma=...))
+    grads, aux = engine.grad(params, batch, seed)
+
+or hand it a :class:`repro_torch.core.policy.PrivacyPolicy` for
+per-parameter-group DP (group-wise clipping, frozen groups). Every mode
+draws the same phase-4 noise for the same (seed, step, path)
+(``core.policy.finalize_noise`` / ``noise_leaf_fn``).
+
+Modes: 'nonprivate' | 'tfprivacy' | 'opacus' | 'fastgradclip' | 'ghostclip'
+     | 'bk' | 'bk-mixghost' | 'bk-mixopt'
+
+Not ported: the accountant behind ``target_epsilon`` (ROADMAP B3) and the
+mesh arguments (ROADMAP B7).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+from repro_torch.core import baselines
+from repro_torch.core.bk import BK_MODES, bk_private_grad, plan_report
+from repro_torch.core.policy import as_policy
+
+_BASELINES = {
+    "nonprivate": baselines.nonprivate_grad,
+    "tfprivacy": baselines.tfprivacy_grad,
+    "opacus": baselines.opacus_grad,
+    "fastgradclip": baselines.fastgradclip_grad,
+    "ghostclip": baselines.ghostclip_grad,
+}
+
+ALL_MODES = tuple(_BASELINES) + BK_MODES
+
+
+def make_grad_fn(apply_fn: Callable, cfg) -> Callable:
+    """-> fn(params, batch, seed, step=0, draw=None) -> (grads, aux).
+    ``cfg`` is a DPConfig or a PrivacyPolicy; ``draw(path, shape)``, when
+    given, supplies the noise's standard normals (tests feed every mode the
+    same draws)."""
+    policy = as_policy(cfg)
+    if policy.mode in BK_MODES:
+        fn = bk_private_grad
+    elif policy.mode in _BASELINES:
+        fn = _BASELINES[policy.mode]
+    else:
+        raise ValueError(f"unknown mode {policy.mode!r}; options: "
+                         f"{ALL_MODES}")
+
+    def grad(params, batch, seed, step: int = 0, draw=None):
+        return fn(apply_fn, params, batch, seed, policy, step, draw)
+
+    return grad
+
+
+class PrivacyEngine:
+    """A gradient function and its kernel plans for one model and policy."""
+
+    def __init__(self, apply_fn: Callable, cfg, batch_size: int = 0,
+                 dataset_size: int = 0, epochs: float = 0.0,
+                 target_epsilon: float = 0.0, delta: float = 1e-5):
+        if target_epsilon > 0.0:
+            raise NotImplementedError(
+                "PrivacyEngine(target_epsilon=...) calibrates sigma with "
+                "accounting.budget_for, which is not ported yet (ROADMAP "
+                "B3: the accountant); pass sigma in the DPConfig / policy")
+        self.cfg = cfg
+        self.policy = as_policy(cfg)
+        self.apply_fn = apply_fn
+        self.grad = make_grad_fn(apply_fn, cfg)
+
+    def kernel_report(self, params, batch) -> dict:
+        """Per-tap plans (norm, fused, grad, tape) for this model and batch
+        shape: ``core.bk.plan_report``, one forward on the meta device, no
+        compute. Frozen-group taps are absent."""
+        return plan_report(self.apply_fn, params, batch, self.cfg)

@@ -248,6 +248,17 @@ def norm_aux(res: ResolvedPolicy, losses, sq, unit_norms, unit_C) -> dict:
     return aux
 
 
+def finalize_noise(policy: PrivacyPolicy, res: ResolvedPolicy,
+                   flat_sums: dict, seed: int, denom: float, step: int = 0,
+                   draw=None) -> dict:
+    """Phase 4 over a whole flat dict of clipped sums, for the modes that
+    hold every leaf at once (the baselines): :func:`noise_leaf_fn` leaf for
+    leaf, so every mode draws the same noise for the same (seed, step,
+    path). Frozen leaves pass through."""
+    leaf = noise_leaf_fn(policy, res, seed, denom, step, draw)
+    return {p: leaf(p, g) for p, g in flat_sums.items()}
+
+
 def noise_leaf_fn(policy: PrivacyPolicy, res: ResolvedPolicy, seed: int,
                   denom: float, step: int = 0, draw=None):
     """Per-leaf phase 4: -> fn(path, g_sum) -> private grad leaf.

@@ -48,9 +48,12 @@ smoke-width and gate-edge units:
   columns), and the first version (``designs/emb_norm_pairs.cu``).
 
 - ``fused_clip_grad``: parity_layer's five smoke-width units (f32, B=8,
-  T=512: qkv, o, gate+up, down at L=2, the head) and the four gate-edge
+  T=512: qkv, o, gate+up, down at L=2, the head), the four gate-edge
   cases (bf16, B=8, T=512: edge_square L=1 d=p=512, edge_stacked L=4
-  d=p=256, edge_adapter_A d=1536 p=16, edge_adapter_B d=16 p=1536).
+  d=p=256, edge_adapter_A d=1536 p=16, edge_adapter_B d=16 p=1536) and
+  three units whose tiles outnumber the card's resident CTAs (B=8: the
+  adapter's A stacked over 28 layers at T=2, bf16 and f32, and 8192
+  layers of d=p=8 at T=1).
   Variants: the kept kernel (``csrc/fused_clip.cu``: design (A), one
   grid barrier a group of samples, a cooperative launch; SIMT tiles of
   16 where they fit, each tile's rows split over a cluster of up to 8
@@ -60,8 +63,14 @@ smoke-width and gate-edge units:
   barrier.cluster; refused where the unit needs more CTAs); SIMT rows
   split over 1 or at most 4 CTAs; SIMT tiles of 32 at the least; wgmma
   rows never split, or split whatever the unit's tiles; a wgmma ring of 6
-  stages; and the first version (``designs/fused_clip_two_launch.cu``:
-  2B launches, an L*d*p scratch, G zeroed before each call).
+  stages; the walk's second sweep on each route the other way: the wgmma
+  route reading the first sweep's tiles back from a device scratch of
+  nb*L*d*p f32 instead of contracting again (``walk_spill_wgmma``), the
+  SIMT route contracting again instead of reading them back
+  (``walk_recompute_simt``); the walk for every unit, resident or not
+  (``walk_always``); and the first version
+  (``designs/fused_clip_two_launch.cu``: 2B launches, an L*d*p scratch, G
+  zeroed before each call).
 
 Prints one JSON line a variant: CUDA-event ms around the C call (median of
 5 runs of 20 calls), device ms by kernel (torch.profiler), whether the
@@ -268,17 +277,30 @@ FUSED_PATCHES = {
         "constexpr int SPLIT_FEW = 4;", "constexpr int SPLIT_FEW = 0;")]),
     "wgmma_ring_6": ("fused_clip.cu", [(
         "constexpr int STAGES = 4;", "constexpr int STAGES = 6;")]),
+    "walk_spill_wgmma": ("fused_clip.cu", [(
+        "constexpr bool SPILL_WGMMA = false;",
+        "constexpr bool SPILL_WGMMA = true;")]),
+    "walk_recompute_simt": ("fused_clip.cu", [(
+        "constexpr bool SPILL_SIMT = true;",
+        "constexpr bool SPILL_SIMT = false;")]),
+    "walk_always": ("fused_clip.cu", [(
+        "constexpr bool WALK_ALWAYS = false;",
+        "constexpr bool WALK_ALWAYS = true;")]),
 }
-# (case, L, d, p, dtype): L = 0 is the unstacked head
-FUSED_CASES = [("smoke qkv", 2, 32, 64, torch.float32),
-               ("smoke o", 2, 32, 32, torch.float32),
-               ("smoke gate+up", 2, 32, 96, torch.float32),
-               ("smoke down", 2, 48, 32, torch.float32),
-               ("smoke head", 0, 32, 64, torch.float32),
-               ("edge_square", 1, 512, 512, torch.bfloat16),
-               ("edge_stacked", 4, 256, 256, torch.bfloat16),
-               ("edge_adapter_A", 1, 1536, 16, torch.bfloat16),
-               ("edge_adapter_B", 1, 16, 1536, torch.bfloat16)]
+# (case, L, T, d, p, dtype): L = 0 is the unstacked head; the last three
+# have more tiles than the card holds CTAs (the walk)
+FUSED_CASES = [("smoke qkv", 2, T, 32, 64, torch.float32),
+               ("smoke o", 2, T, 32, 32, torch.float32),
+               ("smoke gate+up", 2, T, 32, 96, torch.float32),
+               ("smoke down", 2, T, 48, 32, torch.float32),
+               ("smoke head", 0, T, 32, 64, torch.float32),
+               ("edge_square", 1, T, 512, 512, torch.bfloat16),
+               ("edge_stacked", 4, T, 256, 256, torch.bfloat16),
+               ("edge_adapter_A", 1, T, 1536, 16, torch.bfloat16),
+               ("edge_adapter_B", 1, T, 16, 1536, torch.bfloat16),
+               ("edge_adapter_stacked", 28, 2, 1536, 16, torch.bfloat16),
+               ("edge_adapter_stacked_f32", 28, 2, 1536, 16, torch.float32),
+               ("many_tiles", 8192, 1, 8, 8, torch.bfloat16)]
 
 # the kept wkv6 kernel with one phase skipped (a loop run zero times)
 WKV_ABLATIONS = {
@@ -659,17 +681,18 @@ def study_fused(tmp: Path, dev: str) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name in FUSED_PATCHES:
         libs[name][0].dp_fused_clip_nparts.argtypes = [I] * 7
-        libs[name][0].dp_fused_clip_grad.argtypes = [P] * 6 + [I] * 8 + [
+        libs[name][0].dp_fused_clip_scratch_bytes.argtypes = [I] * 7
+        libs[name][0].dp_fused_clip_grad.argtypes = [P] * 7 + [I] * 8 + [
             F, F, P]
     two = libs["two_launch"][0]
     two.dp_fused_clip_two_launch_nparts.argtypes = [I, I]
     two.dp_fused_clip_two_launch.argtypes = [P] * 7 + [I] * 7 + [F, F, P]
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
-    for case, L, d, p, dtype in FUSED_CASES:
+    for case, L, Tc, d, p, dtype in FUSED_CASES:
         L1 = max(L, 1)
-        a = torch.randn(L1, B, T, d, generator=g, device=dev).to(dtype)
-        ds = torch.randn(L1, B, T, p, generator=g, device=dev).to(dtype)
+        a = torch.randn(L1, B, Tc, d, generator=g, device=dev).to(dtype)
+        ds = torch.randn(L1, B, Tc, p, generator=g, device=dev).to(dtype)
         w = torch.rand(B, generator=g, device=dev) + 0.5
         R = float(torch.sqrt(fc.plain(a, ds, w, "automatic", 1.0, 0.01)[1])
                   .median())
@@ -681,17 +704,22 @@ def study_fused(tmp: Path, dev: str) -> None:
         calls = {}
         for name in FUSED_PATCHES:
             lib = libs[name][0]
-            n = lib.dp_fused_clip_nparts(L1, B, T, d, p, bf16, wgmma)
+            n = lib.dp_fused_clip_nparts(L1, B, Tc, d, p, bf16, wgmma)
             if n <= 0:
                 print(json.dumps({"study": "fused_clip_grad", "case": case,
                                   "variant": name, "refused": n}),
                       flush=True)
                 continue
             part = torch.empty(B, n, device=dev)
-            calls[name] = (lambda f=lib.dp_fused_clip_grad, pt=part: _check(
+            nbytes = lib.dp_fused_clip_scratch_bytes(L1, B, Tc, d, p, bf16,
+                                                     wgmma)
+            scr = torch.empty(max(nbytes, 4) // 4, device=dev)
+            calls[name] = (lambda f=lib.dp_fused_clip_grad, pt=part, sc=scr,
+                           has=nbytes > 0: _check(
                 f(a.data_ptr(), ds.data_ptr(), w.data_ptr(), pt.data_ptr(),
-                  G.data_ptr(), sq.data_ptr(), L1, B, T, d, p, bf16, wgmma,
-                  1, R, 0.01, 0), "dp_fused_clip_grad"))
+                  sc.data_ptr() if has else None, G.data_ptr(),
+                  sq.data_ptr(), L1, B, Tc, d, p, bf16, wgmma, 1, R, 0.01,
+                  0), "dp_fused_clip_grad"))
         scratch = torch.empty(L1, d, p, device=dev)
         part2 = torch.empty(L1 * two.dp_fused_clip_two_launch_nparts(d, p),
                             device=dev)
@@ -700,7 +728,7 @@ def study_fused(tmp: Path, dev: str) -> None:
             G.zero_()
             _check(two.dp_fused_clip_two_launch(
                 a.data_ptr(), ds.data_ptr(), w.data_ptr(), scratch.data_ptr(),
-                part2.data_ptr(), G.data_ptr(), sq.data_ptr(), L1, B, T, d, p,
+                part2.data_ptr(), G.data_ptr(), sq.data_ptr(), L1, B, Tc, d, p,
                 bf16, 1, R, 0.01, 0), "dp_fused_clip_two_launch")
         calls["two_launch"] = two_launch
         kept = None
@@ -713,7 +741,7 @@ def study_fused(tmp: Path, dev: str) -> None:
             kept = got if kept is None else kept
             dev_ms = device_ms(fn)
             row = {"study": "fused_clip_grad", "case": case, "variant": name,
-                   "L": L, "d": d, "p": p, "dtype": str(dtype),
+                   "L": L, "T": Tc, "d": d, "p": p, "dtype": str(dtype),
                    "ms": events_ms(fn), "device_ms": sum(dev_ms.values()),
                    "device_by_kernel": dev_ms,
                    "max_abs_diff_kept": float((got - kept).abs().max()),

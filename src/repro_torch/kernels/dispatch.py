@@ -39,9 +39,9 @@ from repro_torch.core.ghost import prefer_ghost
 # f32 bytes of one sample's fused working set. The JAX package's
 # VMEM_BUDGET (6 MiB), kept as it is, so that every shape gets the JAX
 # package's plan. ``csrc/fused_clip.cu`` holds each CTA's tile of g_b in
-# shared memory for up to 8 samples and needs its grid (one CTA a tile)
-# resident at once; at the budget's edge (L d p = 786,432) that still holds
-# (the wrapper raises, with the unit's shape, where it does not).
+# shared memory for up to 8 samples, one CTA a tile where the card holds
+# them all at once; the budget bounds a sample's bytes, not the tiles, and a
+# unit with more tiles (narrow and stacked deep) takes the kernel's walk.
 FUSED_BUDGET = 6 * 2 ** 20
 
 

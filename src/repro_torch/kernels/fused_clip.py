@@ -16,9 +16,14 @@ wgmma (TMA-fed 64 x 64 tiles on the tensor cores); f32 records and
 unaligned widths take the SIMT route (tiles of 16, 32 or 64, a CTA's rows
 split over its warps). On either route a small unit's tiles each take a
 cluster of up to 8 CTAs, which split the rows and sum their partial tiles
-in distributed shared memory. C stays f32, as in the Pallas kernel. Device memory holds
-the inputs, G, sq and one partial of sq_b a (sample, CTA), in one
-allocation: no L*d*p scratch.
+in distributed shared memory. A unit with more tiles than the card holds
+CTAs at once (a narrow unit stacked over many layers) takes the walk: the
+resident CTAs walk the tiles in two sweeps around each barrier, the second
+getting each tile of g_b back by contracting again (wgmma) or from a
+scratch of (8, L, d, p) f32 at most that the first sweep wrote (SIMT).
+C stays f32, as in the Pallas kernel. Device memory holds the inputs, and
+in one allocation G, sq, one partial of sq_b a (sample, CTA) and that
+scratch where the plan needs it (only the SIMT walk does).
 :func:`fused_model` is the kernel's decomposition in float64, for the tests.
 """
 from __future__ import annotations
@@ -89,7 +94,8 @@ def t_pieces(T: int, kernel: str, tile: int, split: int = 1) -> list:
 
 def fused_model(a: torch.Tensor, ds: torch.Tensor, w: torch.Tensor,
                 clipping: str, R: float, gamma: float, kernel: str = "simt",
-                tile: int = 16, group: int = MAX_GROUP, split: int = 1):
+                tile: int = 16, group: int = MAX_GROUP, split: int = 1,
+                walk: int = 0):
     """The kernel's decomposition in plain torch, in float64 (nothing but
     the tests runs it): one tile of ``tile`` (wgmma: 64) a (l, d tile, p
     tile), zero past d and p, its rows split over ``split`` CTAs (simt);
@@ -98,7 +104,11 @@ def fused_model(a: torch.Tensor, ds: torch.Tensor, w: torch.Tensor,
     its slice of the tile: slice r of ``split`` equal slices); samples in
     groups of ``group``, after each group sq_b as the sum of its partials
     in CTA order, C_b from it, and each tile of G += C_b g_b in b order.
-    -> (G, sq) as :func:`plain` gives them, float64."""
+    ``walk`` > 0: the walk of that many CTAs (rows unsplit), CTA c taking
+    the tiles c, c + walk, ..; its partial of sq_b the squares of its
+    tiles added in that order; the second sweep's tile of g_b the first's
+    (contracted again, or read back: the same values). -> (G, sq) as
+    :func:`plain` gives them, float64."""
     if kernel == "wgmma":
         tile = WGMMA_TILE
     clip = _clip(clipping, R, gamma)
@@ -110,13 +120,16 @@ def fused_model(a: torch.Tensor, ds: torch.Tensor, w: torch.Tensor,
     d4 = torch.nn.functional.pad(d4, (0, np_ * tile - p))
     tiles = [(l, i * tile, j * tile) for l in range(L) for i in range(nd)
              for j in range(np_)]
+    if walk and split != 1:
+        raise ValueError("fused_model: the walk splits no tile's rows")
     pieces = t_pieces(T, kernel, tile, split)
     per = -(-tile * tile // split)        # entries of a CTA's slice
     G = torch.zeros(L, nd * tile, np_ * tile, dtype=torch.float64)
     sq = torch.empty(B, dtype=torch.float64)
     for g0 in range(0, B, group):
         slots = {}
-        partial = torch.zeros(B, len(tiles) * split, dtype=torch.float64)
+        partial = torch.zeros(B, walk or len(tiles) * split,
+                              dtype=torch.float64)
         for k, (l, d0, p0) in enumerate(tiles):
             for b in range(g0, min(B, g0 + group)):
                 x = a4[l, b, :, d0:d0 + tile]
@@ -128,7 +141,8 @@ def fused_model(a: torch.Tensor, ds: torch.Tensor, w: torch.Tensor,
                 flat = g.reshape(-1)
                 for r in range(split):
                     sl = flat[r * per:(r + 1) * per]
-                    partial[b, k * split + r] = (sl * sl).sum()
+                    partial[b, k % walk if walk else k * split + r] += \
+                        (sl * sl).sum()
         for b in range(g0, min(B, g0 + group)):
             sq[b] = partial[b].sum()
             c = clip(torch.sqrt(sq[b])) * float(w[b])
@@ -144,8 +158,9 @@ def fused_clip_grad(a: torch.Tensor, ds: torch.Tensor, w: torch.Tensor,
     """a (L,B,T,d) or (B,T,d), ds likewise (last dim p), w (B,) per-sample
     weight -> (G (L,d,p) or (d,p) f32, sq (B,) f32). One launch of the
     kernel :func:`route` names (``kernel`` forces one; the wgmma kernel
-    raises on records it does not take). Raises, with the unit's shape,
-    where the card cannot hold the launch's grid at once."""
+    raises on records it does not take). Any number of tiles runs: where
+    the card cannot hold a CTA a tile at once, the resident CTAs walk
+    them."""
     if clipping not in CLIPS:
         raise ValueError(f"fused_clip_grad: clipping must be one of {CLIPS}, "
                          f"got {clipping!r}")
@@ -180,18 +195,24 @@ def fused_clip_grad(a: torch.Tensor, ds: torch.Tensor, w: torch.Tensor,
         raise RuntimeError(f"fused_clip_grad: CUDA error {-nparts} while "
                            "planning the launch")
     if nparts == 0:
-        raise ValueError(f"fused_clip_grad: the {kernel} kernel's grid for a "
-                         f"{tuple(a.shape)}, ds {tuple(ds.shape)} unit cannot "
-                         "be resident on this card at once (one CTA a tile)")
-    # one allocation holds G, sq and the (B, nparts) partials, in that
-    # order (a small unit's call is mostly host work); the kernel writes
-    # every entry
-    n = L * d * p
-    buf = torch.empty(n + B + B * nparts, dtype=F32, device=a.device)
+        raise RuntimeError(f"fused_clip_grad: the {kernel} kernel's plan for "
+                           f"a {tuple(a.shape)}, ds {tuple(ds.shape)} unit "
+                           "has no CTAs: not one is resident on this card")
+    scratch = lib.dp_fused_clip_scratch_bytes(L, B, T, d, p, int(bf16),
+                                              int(wgmma))
+    if scratch < 0:
+        raise RuntimeError(f"fused_clip_grad: CUDA error {-scratch} while "
+                           "planning the launch")
+    # one allocation holds G, sq, the (B, nparts) partials and the walk's
+    # scratch, in that order (a small unit's call is mostly host work); the
+    # kernel writes every entry it reads
+    n, m = L * d * p, B + B * nparts
+    buf = torch.empty(n + m + scratch // 4, dtype=F32, device=a.device)
     G, sq, base = buf[:n].view(L, d, p), buf[n:n + B], buf.data_ptr()
     build.check(lib.dp_fused_clip_grad(
         a4.data_ptr(), d4.data_ptr(), w.data_ptr(), base + 4 * (n + B),
-        base, base + 4 * n, L, B, T, d, p, int(bf16), int(wgmma),
+        base + 4 * (n + m) if scratch else 0, base, base + 4 * n, L, B, T,
+        d, p, int(bf16), int(wgmma),
         CLIPS.index(clipping), float(R), float(gamma), build.stream_ptr(a)),
         "fused_clip_grad (wgmma)" if wgmma else "fused_clip_grad")
     if wgmma:

@@ -7,6 +7,8 @@ optimizer, one step at a time, printing the loss of every step.
         --arch deepseek-moe-16b --smoke --device cpu --steps 2
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --steps 2 --clipping-scope layer --tape recompute
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --steps 2 --mode ghostclip      # or nonprivate, opacus, ...
 
 Runs on the CUDA card by default; ``--device cpu`` runs the same engine with
 the kernels' plain PyTorch versions (tests, small configs). Without a card
@@ -25,6 +27,7 @@ from repro_torch.configs.registry import (build, get_config, get_policy,
                                           has_policy, list_archs,
                                           list_policies, smoke_config)
 from repro_torch.core.bk import DPConfig
+from repro_torch.core.engine import ALL_MODES
 from repro_torch.core.policy import with_scope
 from repro_torch.core.tape import TAPE_POLICIES
 from repro_torch.data.synthetic import make_batch
@@ -117,8 +120,9 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
-    ap.add_argument("--mode", default="bk-mixopt",
-                    choices=["bk", "bk-mixghost", "bk-mixopt"])
+    ap.add_argument("--mode", default="bk-mixopt", choices=ALL_MODES,
+                    help="a BK mode, or a baseline the paper compares "
+                         "against (core.engine)")
     ap.add_argument("--clipping", default="automatic")
     ap.add_argument("--sigma", type=float, default=0.0)
     ap.add_argument("--policy", default="auto",

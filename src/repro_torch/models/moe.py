@@ -63,7 +63,10 @@ def moe_apply(p, tape, x, cfg: ModelConfig):
     topv, topi = torch.topk(probs, k, dim=-1)                    # (B,T,k)
     if cfg.renorm_topk:
         topv = topv / torch.sum(topv, dim=-1, keepdim=True)
-    sel = F.one_hot(topi, E).to(F32).sum(2)                      # (B,T,E)
+    # the one-hot by comparison and the scatters out of place, so that
+    # torch.func.vmap (the opacus baseline) runs the dispatch too
+    sel = (topi[..., None] == torch.arange(E, device=x.device)
+           ).to(F32).sum(2)                                      # (B,T,E)
 
     # --- per-(b,e) slot assignment: token t takes slot pos of expert e;
     # past capacity it is dropped (scattered into a spare slot cut off below)
@@ -72,9 +75,9 @@ def moe_apply(p, tape, x, cfg: ModelConfig):
     slot_pos = torch.where(keep, pos, cap).transpose(1, 2)       # (B,E,T)
     t_ix = torch.arange(T, device=x.device).expand(B, E, T)
     slot_t = torch.zeros(B, E, cap + 1, dtype=torch.int64, device=x.device
-                         ).scatter_(2, slot_pos, t_ix)[..., :cap]
+                         ).scatter(2, slot_pos, t_ix)[..., :cap]
     valid = torch.zeros(B, E, cap + 1, dtype=F32, device=x.device
-                        ).scatter_(2, slot_pos, 1.0)[..., :cap]
+                        ).scatter(2, slot_pos, 1.0)[..., :cap]
 
     b_ix = torch.arange(B, device=x.device)[:, None, None]
     xg = x[b_ix, slot_t] * valid[..., None].to(x.dtype)          # (B,E,C,d)

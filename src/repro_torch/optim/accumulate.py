@@ -1,15 +1,86 @@
 """Gradient accumulation with DP semantics (paper footnote 2): the LOGICAL
 batch determines accuracy and privacy accounting; the PHYSICAL (micro) batch
 only determines memory. Per-sample clipping happens inside each microbatch,
-the clipped sums accumulate across microbatches, and the caller adds noise
-ONCE per logical batch (``core.policy.noise_leaf_fn`` fused into
-``Optimizer.update_leaves``)."""
+the clipped sums accumulate across microbatches, and noise is added ONCE
+per logical batch: by the caller for BK's sums (``core.policy.noise_leaf_fn``
+fused into ``Optimizer.update_leaves``), or here for the baseline modes
+(``accumulated_private_grad``)."""
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
-from repro_torch.core.bk import BK_MODES, batch_size_of, bk_clipped_sum
-from repro_torch.core.policy import as_policy
+from repro_torch.core.bk import (BK_MODES, batch_size_of, bk_clipped_sum,
+                                 bk_private_grad)
+from repro_torch.core.noise import path_seed
+from repro_torch.core.policy import (as_policy, finalize_noise,
+                                     resolve_policy)
+from repro_torch.utils.tree import flatten, unflatten
+
+
+def _microbatches(batch, microbatch: int):
+    B = batch_size_of(batch)
+    if B % microbatch:
+        raise ValueError(f"microbatch {microbatch} must divide batch {B}")
+    for lo in range(0, B, microbatch):
+        yield lo, {k: v[lo:lo + microbatch] for k, v in batch.items()}
+
+
+def accumulated_baseline_grad(apply_fn, params, batch, seed, cfg,
+                              microbatch: int, step: int = 0, draw=None):
+    """Microbatched accumulation for the non-BK modes (nonprivate,
+    ghostclip, opacus, ...): each microbatch's grad, taken at sigma = 0, is
+    scaled back to its sum and accumulated in the params' dtypes; then
+    noise once (``finalize_noise``, denominator B), or for nonprivate the
+    mean. -> (grads tree, {'loss'})."""
+    from repro_torch.core.engine import make_grad_fn   # engine imports bk
+    policy = as_policy(cfg)
+    B = batch_size_of(batch)
+    if microbatch <= 0 or microbatch >= B:
+        return make_grad_fn(apply_fn, policy)(params, batch, seed, step,
+                                              draw)
+    nonprivate = policy.mode == "nonprivate"
+    grad_fn = make_grad_fn(apply_fn, policy if nonprivate else
+                           dataclasses.replace(policy, sigma=0.0))
+    sums, losses = None, []
+    for _, mb in _microbatches(batch, microbatch):
+        g, aux = grad_fn(params, mb, seed, step)
+        g = flatten(g)
+        if sums is None:
+            sums = {k: torch.zeros_like(v) for k, v in g.items()}
+        for k, v in g.items():
+            sums[k] = sums[k] + v.to(sums[k].dtype) * float(microbatch)
+        losses.append(aux["loss"])
+        del g
+    if nonprivate:
+        grads = {k: s / float(B) for k, s in sums.items()}
+    else:
+        res = resolve_policy(policy, flatten(params))
+        grads = finalize_noise(policy, res, sums, seed, float(B), step, draw)
+    return unflatten(grads), {"loss": torch.stack(losses).mean()}
+
+
+def accumulated_private_grad(apply_fn, params, batch, seed, cfg,
+                             microbatch: int, step: int = 0, draw=None):
+    """The private gradient of the logical batch in any mode, microbatched:
+    -> (grads tree, aux), in distribution the full-batch call's. BK modes
+    accumulate clipped sums (:func:`accumulated_clipped_sum`) and noise
+    once; the others go through :func:`accumulated_baseline_grad`."""
+    policy = as_policy(cfg)
+    if policy.mode not in BK_MODES:
+        return accumulated_baseline_grad(apply_fn, params, batch, seed,
+                                         policy, microbatch, step, draw)
+    B = batch_size_of(batch)
+    if microbatch <= 0 or microbatch >= B:
+        return bk_private_grad(apply_fn, params, batch, seed, policy, step,
+                               draw)
+    sums, aux, _ = accumulated_clipped_sum(apply_fn, params, batch, policy,
+                                           microbatch,
+                                           path_seed(seed, step, "tape"))
+    res = resolve_policy(policy, flatten(params))
+    return unflatten(finalize_noise(policy, res, sums, seed, float(B), step,
+                                    draw)), aux
 
 
 def accumulated_clipped_sum(apply_fn, params, batch, cfg, microbatch: int,
@@ -25,11 +96,8 @@ def accumulated_clipped_sum(apply_fn, params, batch, cfg, microbatch: int,
     if microbatch <= 0 or microbatch >= B:
         sums, aux = bk_clipped_sum(apply_fn, params, batch, policy, seed)
         return sums, aux, B
-    if B % microbatch:
-        raise ValueError(f"microbatch {microbatch} must divide batch {B}")
     sums, losses, norms = None, [], []
-    for lo in range(0, B, microbatch):
-        mb = {k: v[lo:lo + microbatch] for k, v in batch.items()}
+    for lo, mb in _microbatches(batch, microbatch):
         s, aux = bk_clipped_sum(apply_fn, params, mb, policy, seed + lo)
         if sums is None:
             sums = s

@@ -3,11 +3,14 @@
     opt = make_optimizer("adamw", lr_fn, weight_decay=...)
     state = opt.init(params)
     params, state = opt.update_leaves(grad_for, state, params, step)
+    params, state = opt.update(grads, state, params, step)
 
 ``update_leaves`` takes ``grad_for(path, param) -> grad leaf`` and walks the
 leaves ONCE, producing each gradient (e.g. clipped sum + noise,
 ``core.policy.noise_leaf_fn``) immediately before its update, so a second
-full-size gradient tree is never live next to the optimizer state. State is
+full-size gradient tree is never live next to the optimizer state.
+``update`` takes a materialized gradient tree (the baseline modes'), and
+delegates to ``update_leaves``, so the two cannot diverge. State is
 float32. Unlike the JAX package's functional updates, the port updates the
 state and the params IN PLACE (the returned dicts are the ones passed in),
 which keeps the peak at one leaf's f32 temporaries.
@@ -29,6 +32,17 @@ class Optimizer:
     init: Callable
     # (grad_for, state, params, step) -> (params, state)
     update_leaves: Callable
+    # (grads, state, params, step) -> (params, state)
+    update: Callable
+
+
+def _materialized(update_leaves) -> Callable:
+    """The materialized-tree contract over the one body, update_leaves."""
+    def update(grads, state, params, step):
+        fg = flatten(grads)
+        return update_leaves(lambda path, p: fg[path], state, params, step)
+
+    return update
 
 
 def _zeros_f32(params):
@@ -59,7 +73,7 @@ def sgd(lr_fn, momentum: float = 0.9, weight_decay: float = 0.0) -> Optimizer:
             _apply(p, m.clone(), lr, weight_decay)
         return params, state
 
-    return Optimizer(init, update_leaves)
+    return Optimizer(init, update_leaves, _materialized(update_leaves))
 
 
 # --------------------------------------------------------------------- adam
@@ -83,7 +97,7 @@ def adamw(lr_fn, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             _apply(p, upd, lr, weight_decay)
         return params, state
 
-    return Optimizer(init, update_leaves)
+    return Optimizer(init, update_leaves, _materialized(update_leaves))
 
 
 # ----------------------------------------------------------------- registry

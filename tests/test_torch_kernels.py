@@ -1115,6 +1115,7 @@ def test_fused_clip_launches_its_route(fake_lib, empty_shapes, dtype, d, p,
                 _meta(B))
     made = len(empty_shapes)      # the inputs' own
     fake_lib.sizes["dp_fused_clip_nparts"] = 64
+    fake_lib.sizes["dp_fused_clip_scratch_bytes"] = 0
     n0, w0 = fused_clip_grad.launches, fused_clip_grad.wgmma_launches
     G, sq = fused_clip_grad(a, ds, w, "normalize", 1.0, 0.01, kernel=kernel)
     L1, bf16, wgmma = (L if stacked else 1), dtype == torch.bfloat16, \
@@ -1123,35 +1124,141 @@ def test_fused_clip_launches_its_route(fake_lib, empty_shapes, dtype, d, p,
     assert sq.shape == (B,) and sq.dtype == torch.float32
     entry = "dp_fused_clip_grad"
     assert fake_lib.calls == [(entry, len(build.SIGNATURES[entry]))]
-    assert fake_lib.asked == [("dp_fused_clip_nparts",
-                               (L1, B, T, d, p, int(bf16), int(wgmma)))]
+    unit = (L1, B, T, d, p, int(bf16), int(wgmma))
+    assert fake_lib.asked == [("dp_fused_clip_nparts", unit),
+                              ("dp_fused_clip_scratch_bytes", unit)]
     assert empty_shapes[made:] == [((L1 * d * p + B + B * 64,),
                                     torch.float32)]
-    # the six pointers, then L, B, T, d, p, bf16, wgmma, clip, R, gamma
-    assert list(fake_lib.last_args[6:14]) == [
+    # the seven pointers (no scratch: null), then L, B, T, d, p, bf16,
+    # wgmma, clip, R, gamma
+    assert not fake_lib.last_args[4]
+    assert list(fake_lib.last_args[7:15]) == [
         L1, B, T, d, p, int(bf16), int(wgmma),
         fc_mod.CLIPS.index("normalize")]
     assert fused_clip_grad.launches == n0 + 1
     assert fused_clip_grad.wgmma_launches == w0 + wgmma
 
 
-@pytest.mark.parametrize("nparts,error,match", [
-    (0, ValueError, r"\(186, 8, 1, 65\).*cannot be resident"),
-    (-2, RuntimeError, "CUDA error 2 while planning"),
+@pytest.mark.parametrize("nparts,scratch,error,match", [
+    (0, 0, RuntimeError, r"\(186, 8, 1, 65\).*has no CTAs"),
+    (-2, 0, RuntimeError, "CUDA error 2 while planning"),
+    (64, -2, RuntimeError, "CUDA error 2 while planning"),
 ])
 def test_fused_clip_raises_where_its_grid_cannot_be_resident(
-        fake_lib, empty_shapes, nparts, error, match):
-    """A unit whose grid (one CTA a tile) the card cannot hold at once, as
-    the C side's occupancy query says, is refused with its shape before
-    anything is allocated or launched, never split or sent to the plain
-    version; so is a failed query."""
+        fake_lib, empty_shapes, nparts, scratch, error, match):
+    """A plan of no CTAs (the C side walks any number of tiles with the
+    CTAs the card holds at once, so only a card that holds not one makes
+    it) raises with the unit's shape before anything is allocated or
+    launched, never sent to the plain version; so does a failed query."""
     fake_lib.sizes["dp_fused_clip_nparts"] = nparts
+    fake_lib.sizes["dp_fused_clip_scratch_bytes"] = scratch
     a, ds, w = _meta(186, 8, 1, 65), _meta(186, 8, 1, 65), _meta(8)
     made = len(empty_shapes)
     with pytest.raises(error, match=match):
         fused_clip_grad(a, ds, w, "automatic", 1.0, 0.01)
     assert fake_lib.calls == [] and empty_shapes[made:] == []
 
+
+
+# units the gate fuses whose tiles outnumber the card's resident CTAs (the
+# walk; chip_smoke's FUSED_WALKS): (L, B, T, d, p)
+WALK_EDGES = {"edge_adapter_stacked": (28, 8, 2, 1536, 16),
+              "many_tiles": (8192, 8, 1, 8, 8)}
+
+
+@pytest.mark.parametrize("name", sorted(WALK_EDGES))
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma"),
+                                        (torch.float32, "simt")])
+def test_fused_walk_edges_are_fused_and_launch_once(fake_lib, empty_shapes,
+                                                    name, dtype, want):
+    """The two walking edge units: the reference's gate fuses them (and the
+    port's plan agrees), bf16 takes the wgmma route and f32 the SIMT one,
+    and the wrapper makes one C call with the unit's shape whatever the
+    CTAs the C side plans (here 132, far fewer than the tiles), its one
+    allocation holding the scratch the C side asks for (the SIMT walk's
+    first sweep's tiles) and passing it, or null where none is asked."""
+    from repro.kernels import dispatch as jdispatch
+    from repro_torch.kernels import dispatch
+    L, B, T, d, p = WALK_EDGES[name]
+    a_shape, ds_shape = (L, B, T, d), (L, B, T, p)
+    for mode in ("bk-mixopt", "bk-mixghost"):
+        assert dispatch.fused_plan("mm", a_shape, ds_shape, mode).method == \
+            jdispatch.fused_plan("mm", a_shape, ds_shape, mode).method == \
+            "fused"
+    assert fc_mod.route(dtype, d, p) == want
+    # the SIMT walk spills its first sweep's tiles, 8 samples' at most
+    spill = 8 * L * d * p * 4 if want == "simt" else 0
+    fake_lib.sizes["dp_fused_clip_nparts"] = 132
+    fake_lib.sizes["dp_fused_clip_scratch_bytes"] = spill
+    a, ds, w = (_meta(*a_shape, dtype=dtype), _meta(*ds_shape, dtype=dtype),
+                _meta(B))
+    made = len(empty_shapes)      # the inputs' own
+    G, sq = fused_clip_grad(a, ds, w, "automatic", 1.0, 0.01)
+    assert G.shape == (L, d, p) and sq.shape == (B,)
+    assert fake_lib.calls == [("dp_fused_clip_grad",
+                               len(build.SIGNATURES["dp_fused_clip_grad"]))]
+    assert list(fake_lib.last_args[7:14]) == [L, B, T, d, p,
+                                              int(dtype == torch.bfloat16),
+                                              int(want == "wgmma")]
+    assert bool(fake_lib.last_args[4]) == bool(spill)
+    assert empty_shapes[made:] == [((L * d * p + B + B * 132 + spill // 4,),
+                                    torch.float32)]
+
+
+# (route, tile, sample slots a group, walking CTAs) of the walk's
+# decomposition, at a unit cut small: 6 layers of d = 40, p = 24 are 36
+# SIMT tiles of 16 and 6 wgmma tiles of 64; walks that do not divide the
+# tiles, and groups of fewer samples than B (several barriers)
+WALK_PLANS = [("simt", 16, 8, 5), ("simt", 16, 2, 7), ("simt", 32, 3, 4),
+              ("wgmma", 64, 2, 4)]
+
+
+@pytest.mark.parametrize("clipping", fc_mod.CLIPS)
+def test_fused_model_walk_matches_pallas(clipping):
+    """The walk's decomposition (``fused_model(..., walk=n)``: n CTAs, CTA
+    c taking the tiles c, c + n, ..; its partial of sq_b the squares of its
+    tiles in that order; C_b after each group; the second sweep's tiles of
+    g_b contracted again) against the Pallas kernel in interpret mode, at a
+    tile-walking unit cut small (L = 6, B = 5, T = 3, d = 40, p = 24), with
+    a masked sample, R at the median norm (flat: midway in the widest gap);
+    and against the one-pass decomposition of the same tiles (float64: the
+    sums' orders differ, rtol 1e-12)."""
+    from repro.kernels.fused_clip import fused_clip_grad as jfused_clip_grad
+    L, B, T, d, p = 6, 5, 3, 40, 24
+    a, ds = _np((L, B, T, d), "float32", 0), _np((L, B, T, p), "float32", 1)
+    w = np.abs(np.random.default_rng(2).standard_normal(B)).astype(
+        np.float32) + 0.5
+    w[1] = 0.0
+    ta, tds, tw = (torch.from_numpy(x) for x in (a, ds, w))
+    gamma = 0.05
+    n = np.sort(np.sqrt(fc_mod.plain(ta, tds, tw, "automatic", 1.0,
+                                     gamma)[1].double().numpy()))
+    i = int(np.argmax(np.diff(n)))
+    R = float((n[i] + n[i + 1]) / 2) if clipping == "flat" else \
+        float(np.median(n))
+    jG, jsq = (np.asarray(x) for x in jfused_clip_grad(
+        jnp.asarray(a), jnp.asarray(ds), jnp.asarray(w), clipping, R, gamma,
+        interpret=True))
+    for kernel, tile, group, walk in WALK_PLANS:
+        G, sq = fc_mod.fused_model(ta, tds, tw, clipping, R, gamma, kernel,
+                                   tile, group, 1, walk)
+        np.testing.assert_allclose(sq.numpy(), jsq, rtol=1e-5,
+                                   err_msg=f"{kernel} {tile} {walk}")
+        np.testing.assert_allclose(G.numpy(), jG, rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(jG).max()),
+                                   err_msg=f"{kernel} {tile} {walk}")
+        G1, sq1 = fc_mod.fused_model(ta, tds, tw, clipping, R, gamma, kernel,
+                                     tile, group, 1)
+        torch.testing.assert_close(sq, sq1, rtol=1e-12, atol=0)
+        torch.testing.assert_close(G, G1, rtol=1e-12,
+                                   atol=1e-12 * float(G1.abs().max()))
+
+
+def test_fused_model_walk_splits_no_rows():
+    x = torch.zeros(2, 2, 3, 8)
+    with pytest.raises(ValueError, match="walk splits no tile"):
+        fc_mod.fused_model(x, x, torch.ones(2), "automatic", 1.0, 0.01,
+                           "simt", 16, 8, 2, 3)
 
 def _kind(decl: str) -> str:
     decl = decl.strip()
