@@ -11,8 +11,10 @@ Phases, each printing JSON lines:
             each tensor-core kernel's registers, shared memory and spills
             (ptxas; a spill is a failure), and its HGMMA and UTMALDG (wgmma)
             or HMMA (mma.sync: wkv6's chunked kernels) instructions counted
-            in the library's SASS (cuobjdump; none is a failure)
-  kernels   each of the eleven kernels against its plain PyTorch version on
+            in the library's SASS (cuobjdump; none is a failure); the
+            instructions of one threefry2x32 block by opcode and pipe
+            (``threefry_sass``: counter_noise's bound)
+  kernels   each of the twelve kernels against its plain PyTorch version on
             the card, at the shapes each train path below gives it (bf16;
             each tap routed as ``core.bk.plan_report`` says, MoE records and
             masks from the path's own step-0 forward), at the prefill
@@ -55,7 +57,27 @@ Phases, each printing JSON lines:
             emb_ghost_norm and emb_clipped_grad at train's ids, the ragged
             ids, ids of 4 values and one id at every position (bitwise run
             to run), each with its device time by torch.profiler beside
-            its CUDA-event time
+            its CUDA-event time.
+            counter_noise (phase-4 noise: threefry2x32 + ndtri + the add,
+            no TPU counterpart; ``counter_noise_checks``): (a) the
+            threefry2x32 known answers and the bits of the golden file
+            (``src/repro_torch/core/noise_golden.json``, the JAX package's
+            keys, bits and normals at chosen indices, indices past 2^32 of
+            a (8, 2^31) tensor too) through ``dp_threefry_bits``, then 2^26
+            random counters against the plain threefry2x32, bitwise; (b)
+            ``dp_ndtri_f32`` over all 2^24 uniforms against the plain
+            ndtri (within NOISE_ULP) and float64 (within NDTRI_F64_REL),
+            all finite; (c) the kernel against its plain version at every
+            leaf of ``train`` (bf16), its three largest leaves in f32,
+            ragged f32 and bf16 leaves and a depth-10 tree with
+            completion: one-key draws within NOISE_ULP, outputs equal
+            wherever the draws are, bitwise run to run; its bound from the
+            build phase's SASS count of one threefry2x32 block; (d) the
+            golden normals within GOLDEN_ULP; (e) each train leaf's time
+            by events beside the plain version's and the randn + multiply
+            + add + divide chain it replaces (composed_ms); its device time
+            from ``train``'s profiled step
+  noise     (not in the default run) counter_noise's checks alone
   wgmma     (not in the default run) the short call after a tensor-core
             kernel edit: those checks at one tile, the ragged bf16 shapes
             and one row shape of each (the head tap of ``train``, whose
@@ -89,8 +111,8 @@ Phases, each printing JSON lines:
                     (2 steps)
             each: the arch's registered policy, bk-mixopt (unless named),
             sigma=1.0, AdamW, through ``repro_torch.launch.train.train``;
-            launch counts per step; the last step runs under
-            torch.profiler
+            launch counts per step (counter_noise: one a noised leaf, none
+            under 'nonprivate'); the last step runs under torch.profiler
   prefill       qwen2-1.5b, full (28 layers, bf16), B=4, T=4096, through
                 ``model.prefill``: flash_attention once a layer
   prefill_rwkv  rwkv6-3b, full (32 layers, bf16), B=4, T=4096: wkv6 once a
@@ -113,7 +135,9 @@ Phases, each printing JSON lines:
             one seed) against opacus: qwen2-1.5b at full width and 2 layers
             (B=8, T=512, registered policy) and the paper's Figure 2 MLP
             (128 -> 1024 x 6 -> 10, B=64); norms at NORM_TOL, grads at f32
-            TOL, at sigma 0 and then 0.7 (the same noise in every mode);
+            TOL, at sigma 0 and then 0.7 (the same noise in every mode:
+            each draws the JAX package's counter-based noise under the
+            common key ``prng_key(7)``, one counter_noise launch a leaf);
             each mode's seconds, launches and peak memory (opacus: all
             per-sample grads at once)
   parity_prefill, parity_prefill_rwkv
@@ -151,11 +175,23 @@ PARITIES = ("parity", "parity_moe", "parity_long", "parity_layer",
 SERVE_PARITIES = ("parity_prefill", "parity_prefill_rwkv")
 PHASES = (("card", "build", "kernels") + TRAINS + PREFILLS + SERVES
           + PARITIES + SERVE_PARITIES)
-EXTRA_PHASES = ("wgmma",)
+EXTRA_PHASES = ("wgmma", "noise")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s by type
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s by
+# type; int32: 132 SMs x 64 integer results a clock on one pipe x the 1.98
+# GHz boost clock (the integer work of counter_noise's threefry rounds)
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int32": 132 * 64 * 1.98e9}
+# SASS opcodes the ALU pipe issues (64 integer results an SM a clock on
+# Hopper, as the FMA pipe's IMAD: the CUDA C++ Programming Guide's
+# arithmetic throughput table), and one SASS line's opcode
+SASS_ALU = ("IADD3", "LOP3", "SHF", "PRMT", "LEA", "ISETP", "SEL", "IABS",
+            "IMNMX", "VIMNMX", "FLO", "POPC", "BMSK", "SGXT", "PLOP3")
+SASS_OP = re.compile(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9]*(?:\.[A-Z0-9_]+)*)")
+# one threefry2x32 block's instructions in the built library's SASS
+# (``threefry_sass``; set by the build phase)
+THREEFRY = {}
 # kernel-vs-plain tolerances (rtol, atol). Weighted grads: f32 as
 # tests/test_kernel_parity.py:15, bf16 as its :18 (the plain clipped grads
 # round C to bf16 like the JAX reference). Norms: both versions read the
@@ -176,10 +212,34 @@ FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (5e-2, 2e-2)}
 WKV_TOL = (2e-4, 2e-4)
 WKV_LONG_TOL = (1e-3, 1e-3)
 MOE_LAYERS = 6      # dense0_0 + 5 MoE blocks: the depth one 80 GB card holds
+# host seconds of idle margin at each end of device_ms's recorded calls:
+# the profiler keeps only device events whose timestamps, converted to the
+# host clock, fall inside its window, and on the card's machine that
+# conversion jitters by tens of ms and drifts over a process's life
+# (scripts/profiler_window.py: short unpadded sessions lost every kernel
+# after ~90 s of a process). The train and prefill profiles, a whole step
+# long, are left as they were.
+PROFILE_PAD_S = 0.25
+# counter_noise: its normals against the plain version's (the bound the
+# tests hold the plain ndtri to against JAX's; on the card they measured
+# 0), the golden (JAX) normals, and the exhaustive ndtri against float64
+# (scipy), relative: the measured 5.498e-7 rounded up (NVIDIA H100 80GB
+# HBM3, 700.00 W)
+NOISE_ULP = 8
+GOLDEN_ULP = 16
+NDTRI_F64_REL = 6e-7
+NOISE_GOLDEN = ROOT / "src" / "repro_torch" / "core" / "noise_golden.json"
+# threefry2x32 known answers: (key, counter) -> block (Random123, JAX)
+THREEFRY_KATS = (((0, 0), (0, 0), (0x6b200159, 0x99ba4efe)),
+                 ((0xFFFFFFFF,) * 2, (0xFFFFFFFF,) * 2,
+                  (0x1cb996fc, 0xbb002be7)),
+                 ((0x13198a2e, 0x03707344), (0x243f6a88, 0x85a308d3),
+                  (0xc4923a9c, 0x483df7a0)))
 
 KERNELS = ("ghost_norm", "clipped_grad", "emb_ghost_norm", "emb_clipped_grad",
            "grad_norm_direct", "moe_ghost_norm", "moe_direct_norm",
-           "moe_clipped_grad", "fused_clip_grad", "flash_attention", "wkv6")
+           "moe_clipped_grad", "fused_clip_grad", "flash_attention", "wkv6",
+           "counter_noise")
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "ghost_norm": ("ghost_norm_wgmma.cu", "ghost_norm.py:62"),
@@ -194,7 +254,10 @@ SOURCES = {
     "fused_clip_grad": ("fused_clip.cu", "fused_clip.py:56"),
     "flash_attention": ("flash_attention_wgmma.cu", "flash_attention.py:64"),
     "wkv6": ("wkv6_chunked.cu", "wkv6.py:76"),
+    "counter_noise": ("counter_noise.cu", None),
 }
+# kernels with no TPU counterpart: the JAX code each replaces
+NO_TPU_KERNEL = {"counter_noise": "src/repro/core/noise.py:103"}
 # the tensor-core kernels: their SIMT kernels (f32 and unaligned inputs),
 # and their names in the SASS
 WGMMA = {"ghost_norm": ("ghost_norm.cu", "ghost_norm_wgmma_kernel"),
@@ -218,6 +281,9 @@ NO_LIBRARY = {
     "fused_clip_grad": "no single call clips per sample (composed_ms: the "
                        "norm + weighted-grad kernels it replaces)",
     "wkv6": "no single call runs the recurrence",
+    "counter_noise": "no single call draws threefry normals (composed_ms: "
+                     "the randn + multiply + add + divide chain it "
+                     "replaces)",
 }
 # the norm kernel of each route of a tap (core.bk.plan_report's 'norm'
 # plan); its 'grad' entry names the weighted-grad kernel, fused_clip_grad,
@@ -301,7 +367,8 @@ ROW_PATH = {"ghost_norm": "train", "clipped_grad": "train",
             "grad_norm_direct": "train_long", "moe_ghost_norm": "train_moe",
             "moe_direct_norm": "train_moe_direct",
             "moe_clipped_grad": "train_moe", "fused_clip_grad": "parity_layer",
-            "flash_attention": "prefill", "wkv6": "prefill_rwkv"}
+            "flash_attention": "prefill", "wkv6": "prefill_rwkv",
+            "counter_noise": "train"}
 # the serving paths: arch, shapes, and the kernel each prefill launches once
 # a layer
 SERVING = {"prefill": dict(arch="qwen2-1.5b", batch=4, seq=4096,
@@ -325,6 +392,7 @@ def emit(**obj):
 
 def wrappers():
     from repro_torch.kernels import clipped_grad as cg
+    from repro_torch.kernels import counter_noise as cn
     from repro_torch.kernels import emb_grad as eg
     from repro_torch.kernels import emb_norm as en
     from repro_torch.kernels import flash_attention as fa
@@ -341,7 +409,8 @@ def wrappers():
             "moe_direct_norm": mg.moe_direct_norm,
             "moe_clipped_grad": mg.moe_clipped_grad,
             "fused_clip_grad": fc.fused_clip_grad,
-            "flash_attention": fa.flash_attention, "wkv6": wk.wkv6}
+            "flash_attention": fa.flash_attention, "wkv6": wk.wkv6,
+            "counter_noise": cn.counter_noise}
 
 
 def reset_counts(ws):
@@ -433,7 +502,8 @@ def device_ms(fn, reps: int = 5, launched: dict | None = None) -> dict:
     it launches, by torch.profiler), summed over ``reps`` calls and divided
     by them; ``launched``, if given, receives the device events a call by
     name. The profiler's schedule runs two calls as its warm-up before the
-    ``reps`` it records (its first kernels after start-up can be lost)."""
+    ``reps`` it records (its first kernels after start-up can be lost); the
+    recorded calls sit PROFILE_PAD_S from either end of their window."""
     import torch
     from torch.autograd import DeviceType
     fn()
@@ -442,10 +512,13 @@ def device_ms(fn, reps: int = 5, launched: dict | None = None) -> dict:
             activities=[torch.profiler.ProfilerActivity.CUDA],
             schedule=torch.profiler.schedule(wait=0, warmup=2, active=1,
                                              repeat=1)) as prof:
-        for n in (1, 1, reps):
+        for i, n in enumerate((1, 1, reps)):
+            if i == 2:
+                time.sleep(PROFILE_PAD_S)
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
             prof.step()
     by_name = {}
     for e in prof.events():
@@ -499,11 +572,9 @@ def phase_card():
     return line
 
 
-def sass_counts(lib: str) -> dict:
-    """Tensor-core instructions in each tensor-core kernel's SASS
-    (``cuobjdump -sass`` of the built library: the toolkit's, else
-    Triton's copy): HGMMA and UTMALDG of each wgmma kernel, HMMA
-    (mma.sync) of each kernel of a chunked route."""
+def sass_text(lib: str) -> str:
+    """``cuobjdump -sass`` of the built library (the toolkit's cuobjdump,
+    else Triton's copy)."""
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
@@ -511,8 +582,14 @@ def sass_counts(lib: str) -> dict:
         spec = importlib.util.find_spec("triton")
         tool = (Path(spec.origin).parent / "backends" / "nvidia" / "bin"
                 / "cuobjdump") if spec else tool
-    out = subprocess.run([str(tool), "-sass", lib], capture_output=True,
-                         text=True, timeout=300, check=True).stdout
+    return subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
+def sass_counts(out: str) -> dict:
+    """Tensor-core instructions in each tensor-core kernel's SASS: HGMMA
+    and UTMALDG of each wgmma kernel, HMMA (mma.sync) of each kernel of a
+    chunked route."""
     names = {fn: (k, ("HGMMA", "UTMALDG")) for k, (_, fn) in WGMMA.items()}
     names.update({fn: (f"{k}:{fn}", ("HMMA",)) for k, (_, fns) in
                   CHUNKED.items() for fn in fns})
@@ -525,6 +602,41 @@ def sass_counts(lib: str) -> dict:
             for op in current[1]:
                 counts[current[0]][op] += f" {op}." in ln or f" {op} " in ln
     return counts
+
+
+def threefry_sass(out: str) -> dict:
+    """The instructions of one threefry2x32 block, counted in the SASS of
+    ``threefry_bits_kernel`` (``dp_threefry_bits``: one block a thread,
+    straight-line code): those after its last load and before its first
+    store but the stores' address arithmetic (LEA), by opcode and by the
+    pipe that issues them (SASS_ALU, IMAD on the FMA pipe, the rest).
+    ``draw_ops``, the bound's integer operations a draw: the busier of the
+    two integer pipes, or half the instructions where issue (two a clock
+    for one integer result a lane) binds."""
+    ops, inside = [], False
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            inside = "threefry_bits_kernel" in ln
+        elif inside:
+            m = SASS_OP.match(ln)
+            if m:
+                ops.append(m.group(1))
+    loads = [i for i, op in enumerate(ops) if op.startswith("LDG")]
+    stores = [i for i, op in enumerate(ops) if op.startswith("STG")]
+    if not loads or not stores or stores[0] < loads[-1]:
+        raise AssertionError(f"threefry_bits_kernel's SASS has no load-"
+                             f"compute-store shape: {ops}")
+    region = [op.split(".")[0] for op in ops[loads[-1] + 1:stores[0]]
+              if not op.startswith("LEA")]
+    by_op = {op: region.count(op) for op in sorted(set(region))}
+    alu = sum(n for op, n in by_op.items() if op in SASS_ALU)
+    fma = by_op.get("IMAD", 0)
+    if not by_op.get("SHF", 0) and not by_op.get("PRMT", 0):
+        raise AssertionError(f"no rotation in threefry_bits_kernel's "
+                             f"SASS: {by_op}")
+    return {"by_opcode": by_op, "alu": alu, "fma_imad": fma,
+            "other": len(region) - alu - fma, "instructions": len(region),
+            "draw_ops": max(alu, fma, len(region) / 2)}
 
 
 def ptxas_lines(report: str, source: str) -> list:
@@ -547,7 +659,10 @@ def phase_build():
             if "registers" in ln or "spill" in ln or ln.startswith("==")]
     emit(phase="build", seconds=info["seconds"], cached=info["cached"],
          library=str(Path(info["path"]).relative_to(ROOT)), ptxas=regs)
-    sass = sass_counts(info["path"])
+    text = sass_text(info["path"])
+    sass = sass_counts(text)
+    THREEFRY.update(threefry_sass(text))
+    emit(phase="build", threefry_sass=THREEFRY)
     tc = (*WGMMA, *CHUNKED)
     emit(phase="build", tensor_core_kernels={
         k: {"source": SOURCES[k][0],
@@ -627,11 +742,12 @@ def _runs(ids):
                for row in ids.reshape(-1, ids.shape[-1]))
 
 
-def phase_kernels(only_wgmma=False):
+def phase_kernels(only_wgmma=False, only_noise=False):
     """Each kernel vs its plain version on the card at the shapes each train
     path gives it, as the engine routes its taps -> per-kernel summary (from
     each kernel's ROW_PATH). ``only_wgmma``: the tensor-core kernels' checks
-    alone, at one tile, the ragged bf16 shapes and one row shape each."""
+    alone, at one tile, the ragged bf16 shapes and one row shape each;
+    ``only_noise``: counter_noise's checks alone."""
     import ctypes
 
     import torch
@@ -660,6 +776,7 @@ def phase_kernels(only_wgmma=False):
                        max_abs_err=0.0, t_bytes=0.0, t_ops=0.0)
                for k in KERNELS}
     summary["fused_clip_grad"].update(composed_ms=0.0, device_ms=0.0)
+    summary["counter_noise"].update(composed_ms=0.0)
     for k in (*WGMMA, *CHUNKED):
         summary[k]["simt_ms"] = 0.0
 
@@ -1382,6 +1499,9 @@ def phase_kernels(only_wgmma=False):
         mm_case("groups L=2 B=20 T=100 d=64 p=40 bf16", 2, 20, 100, 64, 40,
                 bf16, {"fused_clip_grad": "edge"}, fc.CLIPS)
 
+    if only_noise:
+        counter_noise_checks(record, rnd)
+        return summary
     if only_wgmma:
         wgmma_shapes()
         fused_edges()
@@ -1480,7 +1600,232 @@ def phase_kernels(only_wgmma=False):
                            torch.float32)
     wgmma_shapes()
     wkv_shapes()
+    counter_noise_checks(record, rnd)
     return summary
+
+
+def ulp_gap(a, b):
+    """|a - b| in f32 ulps, elementwise (the distance of the ordered bit
+    patterns of a and b as f32)."""
+    import torch
+
+    def ordered(x):
+        i = x.float().contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def counter_noise_checks(record, rnd):
+    """counter_noise on the card (``phase_kernels``' rows of it):
+    (a) the threefry2x32 known answers and the golden file's keys and bits
+        through ``dp_threefry_bits``, then 2^26 random counters against the
+        plain threefry2x32 on the card, bitwise;
+    (b) ``dp_ndtri_f32`` over all 2^24 uniforms against the plain ndtri
+        on the card (within NOISE_ULP) and against float64 (scipy; within
+        NDTRI_F64_REL relative); every value finite;
+    (c) the kernel against its plain version at every leaf of ``train``
+        (its shapes, bf16, under train's step-0 keys and scale), at train's
+        three largest leaves in f32, at a ragged f32 and a ragged bf16
+        leaf, and at two steps of a depth-10 tree with completion (one its
+        completed epoch end); its one-key draws within NOISE_ULP of the
+        plain version's, its outputs equal to the plain version's wherever
+        the draws are (and within TOL elsewhere), bitwise run to run; the
+        tree's ``add_leaf`` on the card bitwise the direct launch; the
+        bound's integer operations are the build phase's SASS count of a
+        threefry2x32 block (``threefry_sass``) a key;
+    (d) the golden (JAX) normals, one-element windows and the 8-element
+        window past 2^32, within GOLDEN_ULP;
+    (e) each train leaf's kernel time by CUDA events, the plain version's
+        time and the chain it replaces (randn, then multiply, add and
+        divide); the kernel's device time is ``train``'s profiled step's
+        (the summary's ``train_step_device_ms``)."""
+    import numpy as np
+    import scipy.special
+    import torch
+    from repro_torch.configs.registry import build, get_config
+    from repro_torch.core import noise
+    from repro_torch.core.policy import resolve_policy
+    from repro_torch.kernels import counter_noise as cn
+    from repro_torch.utils.tree import flatten
+
+    dev = torch.device("cuda")
+    name = "counter_noise"
+    i64 = torch.int64
+    golden = json.loads(NOISE_GOLDEN.read_text())["triples"]
+
+    # ---- (a) bits
+    rows = torch.tensor([[*k, *c] for k, c, _ in THREEFRY_KATS], dtype=i64,
+                        device=dev)
+    kats = [tuple(r) for r in cn.threefry_bits(rows).tolist()] == \
+        [w for _, _, w in THREEFRY_KATS]
+    keys_ok, rows, want_bits = True, [], []
+    for t in golden:
+        base = noise.prng_key(t["seed"] + 1)
+        skey = noise.fold_in(base, t["step"])
+        key = noise._path_rng(skey, t["path"])
+        keys_ok = keys_ok and [list(base), list(skey), list(key)] == \
+            [t["base_key"], t["step_key"], t["key"]]
+        for v in t["values"]:
+            _, trail, _ = noise.counter_split(v["full_shape"])
+            rows.append([*key, v["index"] % trail, v["index"] // trail])
+            want_bits.append(v["bits"])
+    bits = cn.threefry_bits(torch.tensor(rows, dtype=i64, device=dev))
+    golden_bits = bits[:, 0].tolist() == want_bits
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    words = torch.randint(0, 1 << 32, (1 << 26, 4), generator=gen,
+                          device=dev, dtype=i64)
+    got = cn.threefry_bits(words)
+    want = torch.stack(noise.threefry2x32(*words.unbind(1)), 1)
+    bad = int((got != want).any(1).sum())
+    emit(phase="kernels", kernel=name, case="threefry2x32 bits",
+         known_answers=kats, golden_keys=keys_ok, golden_bits=golden_bits,
+         golden_values=len(want_bits), random_counters=words.shape[0],
+         mismatches=bad,
+         kernel_ms=cuda_ms(lambda: cn.threefry_bits(words), reps=5))
+    if not (kats and keys_ok and golden_bits and bad == 0):
+        raise AssertionError(f"{name}: threefry2x32 bits disagree (known "
+                             f"answers {kats}, golden keys {keys_ok}, "
+                             f"golden bits {golden_bits}, {bad} random)")
+    del words, got, want
+
+    # ---- (b) ndtri over every uniform the counter gives
+    u = noise.uniform(torch.arange(1 << 24, dtype=i64, device=dev) << 8)
+    plain_z = noise.ndtri(u)
+    f64 = torch.from_numpy(scipy.special.ndtri(
+        u.double().cpu().numpy())).to(dev)
+
+    def rel64(z):      # u = 0.5 is a value (m = 2^23 rounds to it): 0 / 0
+        diff = (z.double() - f64).abs()
+        return float(torch.where(diff == 0, 0.0, diff / f64.abs()).max())
+
+    z = cn.ndtri_f32(u)
+    gap = ulp_gap(z, plain_z)
+    mine = {"finite": bool(torch.isfinite(z).all()),
+            "max_ulp_vs_plain": int(gap.max()),
+            "ulp_hist_vs_plain": torch.bincount(gap.clamp_max(16)).tolist(),
+            "f64_max_rel": rel64(z)}
+    emit(phase="kernels", kernel=name, case="ndtri all 2^24 uniforms",
+         **mine, plain_f64_max_rel=rel64(plain_z),
+         plain_finite=bool(torch.isfinite(plain_z).all()),
+         ulp_bound=NOISE_ULP, f64_bound=NDTRI_F64_REL)
+    if not (mine["finite"] and mine["max_ulp_vs_plain"] <= NOISE_ULP
+            and mine["f64_max_rel"] <= NDTRI_F64_REL):
+        raise AssertionError(f"{name}: ndtri out of bounds: {mine}")
+    del u, plain_z, f64, z, gap
+
+    # ---- (c), (e) the kernel against its plain version, and its times
+    def case(label, path, shape, dtype, hi, lo, alpha, denom, timed):
+        g = rnd(*shape, dtype=dtype)
+        call = (lambda: cn.counter_noise(g, hi, lo, alpha, denom))
+        out, again = call(), call()
+        want = cn.plain(g, hi, lo, alpha, denom)
+        zero = torch.zeros(shape, dtype=torch.float32, device=dev)
+        xi_k = cn.counter_noise(zero, hi, lo, 1.0, 1.0)
+        xi_p = cn.plain(zero, hi, lo, 1.0, 1.0)
+        gap = int(ulp_gap(xi_k, xi_p).max())
+        xi_err = float((xi_k - xi_p).abs().max())
+        # where the draws agree bitwise, both versions round the same f32
+        # or bf16 operations: the outputs must be equal there
+        same = xi_k == xi_p
+        unequal = int(((out != want) & same).sum())
+        extra = {"keys": len(hi) + len(lo), "dtype": str(dtype)[6:],
+                 "draws_max_ulp" if len(hi) + len(lo) == 1 else
+                 "xi_max_ulp": gap, "xi_max_abs_err": xi_err,
+                 "draws_unequal": int(same.numel() - same.sum()),
+                 "out_unequal_where_draws_equal": unequal}
+        del zero, xi_k, xi_p, same
+        if len(hi) + len(lo) == 1 and gap > NOISE_ULP:
+            raise AssertionError(f"{name} [{label}]: draws {gap} ulp from "
+                                 "the plain version's")
+        if unequal:
+            raise AssertionError(f"{name} [{label}]: {unequal} outputs "
+                                 "differ from the plain version's where "
+                                 "their draws are equal")
+        ms_k = ms_p = None
+        if timed:
+            ms_k = cuda_ms(call, reps=5)
+            ms_p = cuda_ms(lambda: cn.plain(g, hi, lo, alpha, denom),
+                           reps=1, warmup=1)
+            extra["composed_ms"] = cuda_ms(lambda: (g + alpha * torch.randn(
+                shape, generator=gen, device=dev).to(dtype)) / denom,
+                reps=5)
+        n = g.numel()
+        record(name, path, f"{label} {tuple(shape)} {str(dtype)[6:]}", out,
+               want, TOL[str(dtype)[6:]], ms_k, ms_p,
+               2 * n * g.element_size(),
+               THREEFRY["draw_ops"] * n * (len(hi) + len(lo)), "int32",
+               again=again, timed=timed, **extra)
+        del g, out, again, want
+        torch.cuda.empty_cache()
+
+    cfg, policy = run_config("train")
+    params = flatten(build(cfg).init(0, dev))
+    shapes = {k: (tuple(v.shape), v.dtype) for k, v in params.items()}
+    del params
+    res = resolve_policy(policy, list(shapes))
+    rng = noise.fold_in(noise.prng_key(1), 0)      # train's step 0
+    alpha = policy.sigma * res.sensitivity
+    denom = float(RUNS["train"]["batch"])
+    fresh_peak()
+    for path, (shape, dtype) in sorted(shapes.items()):
+        if path not in res.frozen:
+            case(f"train {path}", "train", shape, dtype,
+                 [noise._path_rng(rng, path)], [], alpha, denom, True)
+    largest = sorted(shapes, key=lambda k: -math.prod(shapes[k][0]))[:3]
+    for path in largest:
+        case(f"train {path}", "f32", shapes[path][0], torch.float32,
+             [noise._path_rng(rng, path)], [], alpha, denom, False)
+    case("ragged", "ragged", (3, 1001), torch.float32, [(7, 11)], [], 0.7,
+         3.0, False)
+    case("ragged", "ragged", (28, 3, 1537), torch.bfloat16, [(7, 12)], [],
+         0.7, 3.0, False)
+    tree = noise.TreeAggregationMechanism(seed=3, depth=10,
+                                          restart_every=100, completion=True)
+    for step in (54, 99):        # t = 55; t = 100 = E: completed to 128
+        epoch, t, t_hi = tree._local_prefix(1.0, step)
+        hi = tree.node_keys("blocks/mlp/up/w", t_hi, epoch)
+        lo = tree.node_keys("blocks/mlp/up/w", t - 1, epoch)
+        case(f"tree depth 10 completion step {step} t_hi {t_hi}", "tree",
+             (4096, 1536), torch.float32, hi, lo, 1.3, 8.0, False)
+        g = rnd(4096, 1536, dtype=torch.float32)
+        if not torch.equal(
+                tree.add_leaf("blocks/mlp/up/w", g, None, 1.0, 1.3, 8.0,
+                              step=step),
+                cn.counter_noise(g, hi, lo, 1.3, 8.0)):
+            raise AssertionError(f"{name}: the tree's add_leaf is not its "
+                                 "keys' launch")
+        del g
+
+    # ---- (d) the golden normals, one launch a value, and the window
+    worst, n = 0, 0
+    for t in golden:
+        key = tuple(t["key"])
+        for v in t["values"]:
+            full = tuple(v["full_shape"])
+            off = np.unravel_index(v["index"], full)
+            z = cn.counter_noise(torch.zeros((1,) * len(full), device=dev),
+                                 [key], [], 1.0, 1.0, offsets=off,
+                                 full_shape=full)
+            want = cn._as_int32(torch.tensor([v["normal_bits"]])).view(
+                torch.float32).to(dev)
+            worst = max(worst, int(ulp_gap(z.reshape(-1), want).max()))
+            n += 1
+        window = [v for v in t["values"] if v["index"] >= 1 << 32]
+        if window:
+            full = tuple(window[0]["full_shape"])
+            off = np.unravel_index(window[0]["index"], full)
+            z = cn.counter_noise(torch.zeros(1, len(window), device=dev),
+                                 [key], [], 1.0, 1.0, offsets=off,
+                                 full_shape=full)
+            want = cn._as_int32(torch.tensor(
+                [v["normal_bits"] for v in window])).view(
+                torch.float32).to(dev)
+            worst = max(worst, int(ulp_gap(z.reshape(-1), want).max()))
+    emit(phase="kernels", kernel=name, case="golden normals", values=n,
+         max_ulp=worst, bound=GOLDEN_ULP)
+    if worst > GOLDEN_ULP:
+        raise AssertionError(f"{name}: golden normals {worst} ulp off")
 
 
 def _profile_summary(prof, window_ms: float) -> dict:
@@ -1498,10 +1843,11 @@ def _profile_summary(prof, window_ms: float) -> dict:
         "grad_norm_direct", "dense_norm_wgmma", "moe_ghost_norm",
         "moe_direct_norm",
         "moe_clipped_grad", "moe_norm_wgmma", "moe_grad_wgmma",
-        "fused_clip_wgmma", "fused_clip_simt",
+        "fused_clip_wgmma", "fused_clip_simt", "counter_noise",
         "moe_ghost_wgmma", "flash_attention", "wkv6", "wkv6_state",
         "wkv6_out"))
     kinds = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
+    noise_ms = 0.0
     for name, ms in by_name.items():
         low = name.lower()
         kind = ("port_kernels" if any(k in name for k in ours) else
@@ -1509,11 +1855,13 @@ def _profile_summary(prof, window_ms: float) -> dict:
                                                  "sm90_", "cublas"))
                 else "other")
         kinds[kind] += ms
+        if "counter_noise_kernel" in name:
+            noise_ms += ms
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"window_ms": window_ms, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / window_ms),
-            "by_kind_ms": kinds,
+            "by_kind_ms": kinds, "counter_noise_ms": noise_ms,
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
 
 
@@ -1547,7 +1895,9 @@ def phase_train(name, stats: dict):
     step seconds (unprofiled: the step before the profiled one), profiled
     seconds, peak and profiled device time, for the paper's ratios."""
     import torch
+    from repro_torch.core.policy import resolve_policy
     from repro_torch.launch.train import train, train_policy
+    from repro_torch.utils.tree import flatten
 
     run = RUNS[name]
     cfg, dp = run_config(name, flags=False)
@@ -1579,8 +1929,8 @@ def phase_train(name, stats: dict):
 
     floor = fresh_peak()
     reset_counts(ws)                  # counts from here on are the path's
-    _, losses = train(cfg, tc, dp, device="cuda", log=lambda m: None,
-                      on_step=on_step)
+    params, losses = train(cfg, tc, dp, device="cuda", log=lambda m: None,
+                           on_step=on_step)
     torch.cuda.synchronize()
     totals = {k: w.launches for k, w in ws.items()}
     wgmma = check_routes(name, ws, True)
@@ -1589,6 +1939,11 @@ def phase_train(name, stats: dict):
         emit(phase=name, step=s["step"], loss=s["loss"],
              step_seconds=s["seconds"], launches=s["launches"])
     ran = train_policy(dp, tc)
+    # phase 4: one counter_noise launch a noised leaf a step (none without
+    # noise)
+    want = dict(run["per_step"], counter_noise=0 if dp.mode == "nonprivate"
+                else len(resolve_policy(ran, flatten(params)).unit_of))
+    del params
     emit(phase=name, arch=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.param_dtype,
          mode=dp.mode, policy=cfg.name,
@@ -1602,9 +1957,10 @@ def phase_train(name, stats: dict):
     profile = _profile_summary(prof["p"], prof["ms"])
     emit(phase=f"{name}_profile", step=tc.steps - 1, **profile)
     stats[name] = {"step_seconds": per_step[-2]["seconds"],
-                         "profiled_seconds": per_step[-1]["seconds"],
-                         "peak_bytes": peak,
-                         "device_busy_ms": profile["device_busy_ms"]}
+                   "profiled_seconds": per_step[-1]["seconds"],
+                   "peak_bytes": peak,
+                   "device_busy_ms": profile["device_busy_ms"],
+                   "counter_noise_ms": profile["counter_noise_ms"]}
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{name}: non-finite loss: {losses}")
     if abs(losses[0] - math.log(cfg.vocab)) > 0.5:
@@ -1612,9 +1968,9 @@ def phase_train(name, stats: dict):
                              f"ln(vocab) = {math.log(cfg.vocab)}")
     for s in per_step:
         for k, n in s["launches"].items():
-            if n != run["per_step"][k]:
+            if n != want[k]:
                 raise AssertionError(f"{name} step {s['step']}: {k} launched "
-                                     f"{n} times, want {run['per_step'][k]}")
+                                     f"{n} times, want {want[k]}")
     return totals
 
 
@@ -1921,6 +2277,7 @@ def phase_parity_modes(name):
     from repro_torch.configs.registry import build, get_config
     from repro_torch.core.bk import DPConfig
     from repro_torch.core.engine import ALL_MODES, make_grad_fn
+    from repro_torch.core.noise import prng_key
     from repro_torch.data.synthetic import make_batch
     from repro_torch.launch.train import resolve_dp
     from repro_torch.models.mlp import MLP, MLPConfig
@@ -1958,7 +2315,8 @@ def phase_parity_modes(name):
             reset_counts(ws)
             floor = fresh_peak()
             t0 = time.perf_counter()
-            grads, aux = make_grad_fn(model.apply, pol)(params, batch, 7)
+            grads, aux = make_grad_fn(model.apply, pol)(params, batch,
+                                                        prng_key(7))
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launched = {k: w.launches for k, w in ws.items() if w.launches}
@@ -1976,7 +2334,8 @@ def phase_parity_modes(name):
                 if mode == "opacus" or (sigma and mode == "nonprivate"):
                     continue
                 got, aux, stats = run(mode, sigma)
-                want = MODES_KERNELS.get(mode, {}).get(model_name, ())
+                want = MODES_KERNELS.get(mode, {}).get(model_name, ()) + (
+                    ("counter_noise",) if sigma else ())
                 if sorted(stats["launched"]) != sorted(want) and \
                         not mode.startswith("bk"):
                     raise AssertionError(f"{name} [{model_name} {mode}]: "
@@ -2040,10 +2399,12 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     phase_card()
-    if {"build", "kernels", "wgmma"} & set(phases):
+    if {"build", "kernels", "wgmma", "noise"} & set(phases):
         phase_build()
     if "wgmma" in phases:
         phase_kernels(only_wgmma=True)
+    if "noise" in phases:
+        phase_kernels(only_noise=True)
     summary = phase_kernels() if "kernels" in phases else None
     launches, train_stats = {}, {}
     for name in TRAINS + PREFILLS:
@@ -2073,7 +2434,8 @@ def main(argv=None) -> int:
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": CSRC + SOURCES[name][0],
-                "replaces": "src/repro/kernels/" + SOURCES[name][1],
+                "replaces": NO_TPU_KERNEL.get(
+                    name, "src/repro/kernels/" + str(SOURCES[name][1])),
                 "launches": launches.get(name) if launches else None,
                 "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -2084,6 +2446,12 @@ def main(argv=None) -> int:
                    if name in NO_LIBRARY else {}),
                 **({k: s[k] for k in ("composed_ms", "device_ms")
                     if k in s}),
+                # its device time by torch.profiler: the main path's own
+                # step (the kernels phase's short sessions lose events)
+                **({"train_step_device_ms":
+                    train_stats["train"]["counter_noise_ms"]}
+                   if name == "counter_noise" and "train" in train_stats
+                   else {}),
                 **({"simt_ms": s["simt_ms"],
                     "simt_source": CSRC + {**WGMMA, **CHUNKED}[name][0]}
                    if name in WGMMA or name in CHUNKED else {})})

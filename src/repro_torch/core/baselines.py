@@ -20,8 +20,8 @@ sum_i C_i L_i) becomes one backward of the per-sample loss VECTOR per unit
 with cotangent C^(u), over one forward whose graph is kept until the last
 unit: still no per-sample weight gradient.
 
-Every function is ``fn(apply_fn, params, batch, seed, cfg, step=0,
-draw=None) -> (grads tree, aux)``; phase 4 is
+Every function is ``fn(apply_fn, params, batch, rng, cfg, step=None) ->
+(grads tree, aux)``, ``rng`` the step's key (``core.noise``); phase 4 is
 ``core.policy.finalize_noise``, the noise ``bk_private_grad`` draws.
 """
 from __future__ import annotations
@@ -89,8 +89,8 @@ def _sample_grads(apply_fn, flat_params, names, sample):
     return loss.detach(), dict(zip(names, gs))
 
 
-def _clip_sum_noise(per_sample, losses, seed, policy, res, flat_params, B,
-                    step, draw):
+def _clip_sum_noise(per_sample, losses, rng, policy, res, flat_params, B,
+                    step):
     """The shared tail: per-unit norms -> C^(u) -> weighted sum -> noise.
     ``per_sample`` has a leading B on every trainable leaf."""
     sq = _unit_sq_norms(per_sample, res, B, True, losses.device)
@@ -102,7 +102,7 @@ def _clip_sum_noise(per_sample, losses, seed, policy, res, flat_params, B,
         else:
             summed[p] = torch.einsum("b...,b->...", per_sample.pop(p).to(F32),
                                      unit_C[res.unit_of[p]]).to(v.dtype)
-    summed = finalize_noise(policy, res, summed, seed, float(B), step, draw)
+    summed = finalize_noise(policy, res, summed, rng, float(B), step)
     return unflatten(summed), norm_aux(res, losses, sq, unit_norms, unit_C)
 
 
@@ -129,7 +129,7 @@ def _unit_weighted_grads(apply_fn, flat_params, batch, res, unit_C):
 
 
 # ----------------------------------------------------------------- baselines
-def nonprivate_grad(apply_fn, params, batch, seed, cfg, step=0, draw=None):
+def nonprivate_grad(apply_fn, params, batch, rng, cfg, step=None):
     """The gradient of the mean loss: no clipping, no noise. Frozen groups
     still take no grad (they come back zero)."""
     policy = as_policy(cfg)
@@ -147,7 +147,7 @@ def nonprivate_grad(apply_fn, params, batch, seed, cfg, step=0, draw=None):
     return unflatten(grads), {"loss": loss.detach()}
 
 
-def opacus_grad(apply_fn, params, batch, seed, cfg, step=0, draw=None):
+def opacus_grad(apply_fn, params, batch, rng, cfg, step=None):
     """vmap(grad): all B per-sample gradients instantiated at once."""
     policy = as_policy(cfg)
     B = batch_size_of(batch)
@@ -163,11 +163,10 @@ def opacus_grad(apply_fn, params, batch, seed, cfg, step=0, draw=None):
         train, batch)
     with torch.no_grad():
         losses = _loss_all(apply_fn, unflatten(flat), batch)
-    return _clip_sum_noise(per_g, losses, seed, policy, res, flat, B, step,
-                           draw)
+    return _clip_sum_noise(per_g, losses, rng, policy, res, flat, B, step)
 
 
-def tfprivacy_grad(apply_fn, params, batch, seed, cfg, step=0, draw=None):
+def tfprivacy_grad(apply_fn, params, batch, rng, cfg, step=None):
     """B sequential single-sample backward passes (memory-light, slow)."""
     policy = as_policy(cfg)
     B = batch_size_of(batch)
@@ -183,12 +182,11 @@ def tfprivacy_grad(apply_fn, params, batch, seed, cfg, step=0, draw=None):
             per[p].append(g[p])
     per_g = {p: torch.stack(v) for p, v in per.items()}
     del per
-    return _clip_sum_noise(per_g, torch.stack(losses), seed, policy, res,
-                           flat, B, step, draw)
+    return _clip_sum_noise(per_g, torch.stack(losses), rng, policy, res,
+                           flat, B, step)
 
 
-def fastgradclip_grad(apply_fn, params, batch, seed, cfg, step=0,
-                      draw=None):
+def fastgradclip_grad(apply_fn, params, batch, rng, cfg, step=None):
     """Lee & Kifer 2020: per-sample norms (the grads discarded), then a
     second backward of the reweighted loss, one per clip unit."""
     policy = as_policy(cfg)
@@ -207,11 +205,11 @@ def fastgradclip_grad(apply_fn, params, batch, seed, cfg, step=0,
     sq = [sq_rows[:, u] for u in range(len(res.units))]
     unit_norms, unit_C = unit_clip_factors(res, sq)
     losses, summed = _unit_weighted_grads(apply_fn, flat, batch, res, unit_C)
-    summed = finalize_noise(policy, res, summed, seed, float(B), step, draw)
+    summed = finalize_noise(policy, res, summed, rng, float(B), step)
     return unflatten(summed), norm_aux(res, losses, sq, unit_norms, unit_C)
 
 
-def ghostclip_grad(apply_fn, params, batch, seed, cfg, step=0, draw=None):
+def ghostclip_grad(apply_fn, params, batch, rng, cfg, step=None):
     """Li et al. 2021 / Bu et al. 2022a: ghost norms from a tapped first
     backward (no per-sample weight grads; mode 'bk''s rule, so a ParamGroup
     'direct' override is the only direct norm), then a second backward per
@@ -249,5 +247,5 @@ def ghostclip_grad(apply_fn, params, batch, seed, cfg, step=0, draw=None):
     del grads, tape
     unit_norms, unit_C = unit_clip_factors(res, sq)
     losses, summed = _unit_weighted_grads(apply_fn, flat, batch, res, unit_C)
-    summed = finalize_noise(policy, res, summed, seed, float(B), step, draw)
+    summed = finalize_noise(policy, res, summed, rng, float(B), step)
     return unflatten(summed), norm_aux(res, losses, sq, unit_norms, unit_C)

@@ -48,7 +48,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core import ghost
-from repro_torch.core.noise import path_seed
+from repro_torch.core.noise import path_seed, tape_seed
 from repro_torch.core.policy import (as_policy, norm_aux, resolve_policy,
                                      unit_clip_factors)
 from repro_torch.core.tape import (Tape, load_record, parse_key,
@@ -520,15 +520,16 @@ def _reweighted_grads(apply_fn, batch, flat_params, res, wpaths, unit_C,
     return out
 
 
-def bk_private_grad(apply_fn, params, batch, seed: int, cfg, step: int = 0,
-                    draw=None):
+def bk_private_grad(apply_fn, params, batch, rng, cfg, step=None):
     """Private gradient via Book-Keeping: clipped sum + noise + 1/B scale.
-    Returns (grads matching the params tree, aux)."""
+    ``rng`` is the step's key ((k0, k1), ``core.noise``); ``step`` feeds
+    stateful noise mechanisms (the tree raises without it). Returns (grads
+    matching the params tree, aux)."""
     from repro_torch.core.policy import noise_leaf_fn
     policy = as_policy(cfg)
     B = batch_size_of(batch)
     flat_sums, aux = bk_clipped_sum(apply_fn, params, batch, policy,
-                                    seed=path_seed(seed, step, "tape"))
+                                    seed=tape_seed(rng))
     res = resolve_policy(policy, flatten(params))
-    leaf = noise_leaf_fn(policy, res, seed, float(B), step, draw)
+    leaf = noise_leaf_fn(policy, res, rng, float(B), step, inplace=True)
     return unflatten({p: leaf(p, g) for p, g in flat_sums.items()}), aux

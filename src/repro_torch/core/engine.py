@@ -4,12 +4,14 @@ Choose a mode and get back a gradient function with the signature of
 non-private training (counterpart of ``repro/core/engine.py``):
 
     engine = PrivacyEngine(model.apply, DPConfig(mode="bk-mixopt", sigma=...))
-    grads, aux = engine.grad(params, batch, seed)
+    grads, aux = engine.grad(params, batch, rng)
 
 or hand it a :class:`repro_torch.core.policy.PrivacyPolicy` for
-per-parameter-group DP (group-wise clipping, frozen groups). Every mode
-draws the same phase-4 noise for the same (seed, step, path)
-(``core.policy.finalize_noise`` / ``noise_leaf_fn``).
+per-parameter-group DP (group-wise clipping, frozen groups, per-group
+noise scales, the tree mechanism). ``rng`` is the step's key, a (k0, k1)
+pair of uint32 ints (``core.noise.prng_key`` / ``fold_in``): every mode
+draws the same phase-4 noise for the same (rng, step, path), the JAX
+package's noise (``core.policy.finalize_noise`` / ``noise_leaf_fn``).
 
 Modes: 'nonprivate' | 'tfprivacy' | 'opacus' | 'fastgradclip' | 'ghostclip'
      | 'bk' | 'bk-mixghost' | 'bk-mixopt'
@@ -37,10 +39,9 @@ ALL_MODES = tuple(_BASELINES) + BK_MODES
 
 
 def make_grad_fn(apply_fn: Callable, cfg) -> Callable:
-    """-> fn(params, batch, seed, step=0, draw=None) -> (grads, aux).
-    ``cfg`` is a DPConfig or a PrivacyPolicy; ``draw(path, shape)``, when
-    given, supplies the noise's standard normals (tests feed every mode the
-    same draws)."""
+    """-> fn(params, batch, rng, step=None) -> (grads, aux). ``cfg`` is a
+    DPConfig or a PrivacyPolicy; ``step`` feeds stateful noise mechanisms
+    (the tree raises without it)."""
     policy = as_policy(cfg)
     if policy.mode in BK_MODES:
         fn = bk_private_grad
@@ -50,8 +51,8 @@ def make_grad_fn(apply_fn: Callable, cfg) -> Callable:
         raise ValueError(f"unknown mode {policy.mode!r}; options: "
                          f"{ALL_MODES}")
 
-    def grad(params, batch, seed, step: int = 0, draw=None):
-        return fn(apply_fn, params, batch, seed, policy, step, draw)
+    def grad(params, batch, rng, step=None):
+        return fn(apply_fn, params, batch, rng, policy, step)
 
     return grad
 

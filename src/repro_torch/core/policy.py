@@ -3,11 +3,11 @@
 A policy is an ordered list of :class:`ParamGroup` rules matched against the
 flattened param paths (first match wins). Each group carries its own
 clipping fn + threshold R, a norm *scope*, an optional ghost-vs-direct
-override for ``kernels.dispatch``, and a trainable flag:
+override for ``kernels.dispatch``, a noise scale, and a trainable flag:
 
   scope='flat'   the group joins the shared flat pool: ONE per-sample norm
                  over every flat-scope param, one clip factor (all flat
-                 groups must agree on clipping/R/gamma).
+                 groups must agree on clipping/R/gamma/sigma_scale).
   scope='group'  the group is its own clipping unit: its own per-sample norm
                  and its own C_i^(g) = clip(||g_i^(g)||; R_g).
   scope='layer'  EVERY trainable param path the group matches becomes its
@@ -19,15 +19,18 @@ override for ``kernels.dispatch``, and a trainable flag:
                  (``blocks/attn/qkv/w``) is one unit over all its layers.
   tape           per-group residency override for the group's tap records
                  ('' = the policy's ``tape_policy``; ``core.tape``).
+  sigma_scale    heterogeneous per-group noise: the noise std on the
+                 group's coordinates is sigma * sigma_scale * S, S the
+                 composed sensitivity below (1.0: the flat scheme).
   trainable=False
                  the group's params are constants: no taps, no norm, no
                  weighted grad, no noise; grads come back as zeros.
 
 The L2 sensitivity of one sample's clipped contribution composes as
 sqrt(sum_u R_u^2) over the non-empty trainable units
-(``accounting.compose_sensitivity``); the Gaussian noise on every trainable
-leaf has std sigma times that. (The JAX package's per-group ``sigma_scale``
-and tree-aggregation noise are not ported.)
+(``accounting.compose_sensitivity``); the noise mechanism
+(``PrivacyPolicy.noise``: 'gaussian' or 'tree', ``core.noise``) scales each
+group's leaves by sigma * sigma_scale_g times that.
 
 A bare :class:`repro_torch.core.bk.DPConfig` lowers to a single-group flat
 policy via :func:`as_policy`.
@@ -61,6 +64,7 @@ class ParamGroup:
     gamma: float = 0.01              # automatic-clipping stability constant
     trainable: bool = True           # False = frozen (no taps / grads / noise)
     method: str = ""                 # '' | 'ghost' | 'direct' dispatch override
+    sigma_scale: float = 1.0         # noise std multiplier vs the flat scheme
     tape: str = ""                   # tape residency override ('' = the
                                      # policy default; core.tape)
 
@@ -74,6 +78,10 @@ class ParamGroup:
         if self.tape not in TAPES:
             raise ValueError(f"group {self.name!r}: tape must be one of "
                              f"{TAPES}, got {self.tape!r}")
+        if self.sigma_scale <= 0.0:
+            raise ValueError(f"group {self.name!r}: sigma_scale must be > 0 "
+                             f"(got {self.sigma_scale}); use trainable=False "
+                             "to exempt params from noise")
 
     def matches(self, path: str) -> bool:
         if path == self.match or path.startswith(self.match + "/"):
@@ -90,6 +98,11 @@ class PrivacyPolicy:
     groups: tuple                    # tuple[ParamGroup, ...], first match wins
     mode: str = "bk"                 # 'bk' | 'bk-mixghost' | 'bk-mixopt'
     sigma: float = 0.0               # noise multiplier (0 = clipping only)
+    noise: str = "gaussian"          # noise mechanism name (core.noise)
+    noise_seed: int = 0              # node-noise seed of the tree mechanism
+    noise_depth: int = 0             # tree depth (0 = the mechanism default)
+    noise_restart_every: int = 0     # tree epoch restarts, in steps (0 = off)
+    noise_completion: bool = False   # honest-restart (Honaker) completion
     use_kernels: bool = True         # CUDA kernels (plain torch if False)
     tape_policy: str = "native"      # default tape residency of every tap
                                      # (core.tape.TAPE_POLICIES; 'auto' lets
@@ -109,6 +122,24 @@ class PrivacyPolicy:
         names = [g.name for g in self.groups]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate group names: {names}")
+        if (self.noise_restart_every or self.noise_completion) \
+                and self.noise != "tree":
+            # per-step independent noise has no tree to restart or complete
+            raise ValueError(
+                "noise_restart_every/noise_completion require noise='tree' "
+                f"(got noise={self.noise!r})")
+        if self.noise_completion and self.noise_restart_every <= 0:
+            raise ValueError(
+                "noise_completion corrects the noise at epoch boundaries — "
+                "set noise_restart_every > 0 (the optimizer's restart "
+                "period) alongside it")
+
+    def mechanism(self):
+        from repro_torch.core.noise import get_mechanism
+        return get_mechanism(self.noise, seed=self.noise_seed,
+                             depth=self.noise_depth,
+                             restart_every=self.noise_restart_every,
+                             completion=self.noise_completion)
 
 
 def as_policy(cfg) -> PrivacyPolicy:
@@ -125,7 +156,7 @@ def as_policy(cfg) -> PrivacyPolicy:
 def with_scope(cfg, scope: str) -> PrivacyPolicy:
     """Re-scope a DPConfig / PrivacyPolicy: every TRAINABLE group's norm
     scope becomes ``scope`` (frozen groups have no norm and are untouched);
-    each group keeps its clipping, R and gamma. '' returns the policy as
+    each group keeps its clipping, R, gamma and sigma_scale. '' returns the policy as
     it is. The ``--clipping-scope`` CLI flag routes here."""
     policy = as_policy(cfg)
     if not scope:
@@ -147,6 +178,7 @@ class ClipUnit:
     R: float
     gamma: float
     paths: tuple                     # member param paths (sorted)
+    sigma_scale: float = 1.0         # noise std multiplier vs the flat scheme
 
     def clip_fn(self) -> Callable:
         kw = {"gamma": self.gamma} if self.clipping == "automatic" else {}
@@ -165,6 +197,23 @@ class ResolvedPolicy:
 
     def method_for(self, path: str) -> str:
         return self.group_of[path].method
+
+    @property
+    def heterogeneous(self) -> bool:
+        return any(u.sigma_scale != 1.0 for u in self.units)
+
+    def noise_scales(self) -> dict:
+        """Per-trainable-path noise std multiplier on sigma: sigma_scale_u
+        times the composed sensitivity (all 1.0: sigma * S everywhere)."""
+        return {p: self.units[u].sigma_scale * self.sensitivity
+                for p, u in self.unit_of.items()}
+
+    def noise_multipliers(self) -> list:
+        """Per-unit Gaussian noise multipliers relative to each unit's own
+        sensitivity R_u: what privacy accounting composes."""
+        sigma = self.policy.sigma
+        return [sigma * u.sigma_scale * self.sensitivity / u.R
+                for u in self.units]
 
 
 def resolve_policy(policy: PrivacyPolicy, param_paths) -> ResolvedPolicy:
@@ -189,10 +238,12 @@ def resolve_policy(policy: PrivacyPolicy, param_paths) -> ResolvedPolicy:
                    if g.trainable and g.scope == "flat" and members[g.name]]
     for g in flat_groups[1:]:
         ref = flat_groups[0]
-        if (g.clipping, g.R, g.gamma) != (ref.clipping, ref.R, ref.gamma):
+        if (g.clipping, g.R, g.gamma, g.sigma_scale) != \
+                (ref.clipping, ref.R, ref.gamma, ref.sigma_scale):
             raise ValueError(
                 "flat-scope groups share ONE norm pool and so must agree on "
-                f"(clipping, R, gamma): {ref.name!r} vs {g.name!r}")
+                f"(clipping, R, gamma, sigma_scale): {ref.name!r} vs "
+                f"{g.name!r}")
 
     units, unit_of = [], {}
     if flat_groups:
@@ -200,7 +251,7 @@ def resolve_policy(policy: PrivacyPolicy, param_paths) -> ResolvedPolicy:
         paths = sorted(p for g in flat_groups for p in members[g.name])
         name = ref.name if len(flat_groups) == 1 else "flat"
         units.append(ClipUnit(name, ref.clipping, ref.R, ref.gamma,
-                              tuple(paths)))
+                              tuple(paths), ref.sigma_scale))
         for p in paths:
             unit_of[p] = 0
     for g in policy.groups:
@@ -208,7 +259,7 @@ def resolve_policy(policy: PrivacyPolicy, param_paths) -> ResolvedPolicy:
             continue
         if g.scope == "group":
             units.append(ClipUnit(g.name, g.clipping, g.R, g.gamma,
-                                  tuple(members[g.name])))
+                                  tuple(members[g.name]), g.sigma_scale))
             for p in members[g.name]:
                 unit_of[p] = len(units) - 1
         elif g.scope == "layer":
@@ -216,7 +267,7 @@ def resolve_policy(policy: PrivacyPolicy, param_paths) -> ResolvedPolicy:
             # group_norms stay addressable per layer
             for p in members[g.name]:
                 units.append(ClipUnit(f"{g.name}:{p}", g.clipping, g.R,
-                                      g.gamma, (p,)))
+                                      g.gamma, (p,), g.sigma_scale))
                 unit_of[p] = len(units) - 1
 
     frozen = frozenset(p for p in param_paths if not group_of[p].trainable)
@@ -249,31 +300,36 @@ def norm_aux(res: ResolvedPolicy, losses, sq, unit_norms, unit_C) -> dict:
 
 
 def finalize_noise(policy: PrivacyPolicy, res: ResolvedPolicy,
-                   flat_sums: dict, seed: int, denom: float, step: int = 0,
-                   draw=None) -> dict:
+                   flat_sums: dict, rng, denom: float, step=None) -> dict:
     """Phase 4 over a whole flat dict of clipped sums, for the modes that
     hold every leaf at once (the baselines): :func:`noise_leaf_fn` leaf for
-    leaf, so every mode draws the same noise for the same (seed, step,
+    leaf, so every mode draws the same noise for the same (rng, step,
     path). Frozen leaves pass through."""
-    leaf = noise_leaf_fn(policy, res, seed, denom, step, draw)
+    leaf = noise_leaf_fn(policy, res, rng, denom, step)
     return {p: leaf(p, g) for p, g in flat_sums.items()}
 
 
-def noise_leaf_fn(policy: PrivacyPolicy, res: ResolvedPolicy, seed: int,
-                  denom: float, step: int = 0, draw=None):
+def noise_leaf_fn(policy: PrivacyPolicy, res: ResolvedPolicy, rng,
+                  denom: float, step=None, inplace: bool = False):
     """Per-leaf phase 4: -> fn(path, g_sum) -> private grad leaf.
 
-    The fused noise + optimizer update (``Optimizer.update_leaves``) takes
-    leaves one at a time, so only one leaf's noise is live at a time.
-    Frozen leaves pass through. ``draw(path, shape)``, when given, supplies
-    the standard normals (tests feed both packages the same noise)."""
-    from repro_torch.core.noise import GaussianMechanism
-    mech = GaussianMechanism(draw)
+    The policy's noise mechanism (``core.noise``) under the key ``rng``
+    (a (k0, k1) pair) at ``step``, each leaf scaled by its unit's
+    sigma_scale * composed sensitivity (a homogeneous policy passes the bare
+    composed sensitivity). On a CUDA leaf the draw and the add are one
+    ``counter_noise`` launch; ``inplace`` lets it write over the sum (the
+    caller drops it). The fused noise + optimizer update
+    (``Optimizer.update_leaves``) takes leaves one at a time, so only one
+    leaf's result is live at a time. Frozen leaves pass through."""
+    from repro_torch.core.noise import _scale_for
+    mech = policy.mechanism()
+    scales = res.noise_scales() if res.heterogeneous else res.sensitivity
 
     def leaf(path: str, g):
         if path in res.frozen:
             return g
-        return mech.add_leaf(path, g, seed, policy.sigma, res.sensitivity,
-                             denom, step=step)
+        return mech.add_leaf(path, g.contiguous(), rng, policy.sigma,
+                             _scale_for(scales, path), denom, step=step,
+                             inplace=inplace)
 
     return leaf

@@ -29,6 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_I64, _U64 = ctypes.c_longlong, ctypes.c_ulonglong
 # C entry -> argument types; every entry returns an int (a cudaError_t)
 SIGNATURES = {
     "dp_ghost_norm_nparts": [_I],
@@ -65,6 +66,10 @@ SIGNATURES = {
     "dp_wkv6": [_P] * 6 + [_I] * 5 + [_P],
     "dp_wkv6_chunked_nparts": [_I, _I],
     "dp_wkv6_chunked": [_P] * 7 + [_I] * 5 + [_P],
+    "dp_counter_noise": [_P] * 3 + [_I] * 2 + [_U64] * 2 + [_I64, _F, _F,
+                                                            _I, _P],
+    "dp_threefry_bits": [_P, _P, _I64, _P],
+    "dp_ndtri_f32": [_P, _P, _I64, _P],
 }
 
 

@@ -1,16 +1,17 @@
-"""Time, on the card, the designs that six kernels' sources name as not
+"""Time, on the card, the designs that seven kernels' sources name as not
 taken, beside the kernels kept, so that those comparisons can be run again:
 
     PYTHONPATH=src python -m repro_torch.kernels.design_study
     PYTHONPATH=src python -m repro_torch.kernels.design_study --only emb
 
-(``--only ghost``, ``wkv``, ``moe``, ``emb_norm`` and ``fused``
-likewise.) Each variant is built alone into a temporary directory (one
+(``--only ghost``, ``wkv``, ``moe``, ``emb_norm``, ``fused`` and
+``noise`` likewise.) Each variant is built alone into a temporary directory (one
 nvcc a variant, all started together): the kept source with one line or
 block replaced (:data:`EMB_PATCHES`, :data:`GHOST_PATCHES`,
 :data:`WKV_PATCHES`, :data:`MOE_PATCHES`, :data:`EMB_NORM_PATCHES`,
-:data:`FUSED_PATCHES`; a replacement that no longer matches the source
-raises), or a source of its own under ``designs/``. Inputs are made from
+:data:`FUSED_PATCHES`, :data:`NOISE_PATCHES`; a replacement that no
+longer matches the source raises), or a source of its own under
+``designs/``. Inputs are made from
 a seed at qwen2-1.5b's ``train`` shapes (B=8, T=512), deepseek-moe-16b's
 ``train_moe`` shapes, rwkv6-3b's ``prefill_rwkv`` shapes, and qwen2-1.5b's
 smoke-width and gate-edge units:
@@ -71,6 +72,16 @@ smoke-width and gate-edge units:
   (``walk_always``); and the first version
   (``designs/fused_clip_two_launch.cu``: 2B launches, an L*d*p scratch, G
   zeroed before each call).
+- ``counter_noise``: ``train``'s largest leaf, blocks/mlp/up/w
+  (28, 1536, 17920) bf16, under train's step-0 key, and 2^24 draws alone
+  (an f32 zero leaf, alpha = denom = 1). Variants: the kept kernel (ndtri's
+  products and sums each rounded), ndtri contracted to FMA; then ablations
+  (:data:`NOISE_ABLATIONS`, wrong by design): every lane on ndtri's
+  central branch, no ndtri (the uniform is the draw), no threefry (one
+  multiply for its rounds); beside them the chain the kernel replaced
+  (``randn``, multiply, add, divide). Each row says whether the output is
+  bitwise the kept kernel's and how many ulp its draws are from the kept
+  kernel's.
 
 Prints one JSON line a variant: CUDA-event ms around the C call (median of
 5 runs of 20 calls), device ms by kernel (torch.profiler), whether the
@@ -323,6 +334,29 @@ WKV_ABLATIONS = {
     "skip_pass1_product": ("wkv6_chunked.cu", [(
         "for (int kk = th * HALF; kk < th * HALF + HALF; kk += 8) {",
         "for (int kk = th * HALF; kk < th * HALF; kk += 8) {")]),
+}
+
+# counter_noise: patches of csrc/counter_normal.cuh, which each variant's
+# source (csrc/counter_noise.cu) takes in place of its #include. ndtri's
+# products and sums contracted to FMA (the way not taken); then ablations
+# of the kept kernel, whose outputs are wrong by design and whose times say
+# what each part of a draw costs
+_NORMAL = "return ndtri_f32(uniform(threefry2x32(k0, k1, lo, hi).x));"
+NOISE_PATCHES = {
+    "kept": [],
+    "ndtri_contracted": [("return __fmul_rn(a, b);", "return a * b;"),
+                         ("return __fadd_rn(a, b);", "return a + b;")],
+}
+NOISE_ABLATIONS = {
+    # every lane takes ndtri's central branch (the tail's cost, divergence
+    # included, is the difference)
+    "central_branch_only": [("if (mcp > CN_F(EXP_M2)) {", "if (true) {")],
+    # the uniform itself is the draw: threefry and the add alone
+    "skip_ndtri": [(_NORMAL, "return uniform(threefry2x32(k0, k1, lo, "
+                             "hi).x);")],
+    # one multiply for threefry's 20 rounds: ndtri and the add alone
+    "skip_threefry": [(_NORMAL, "return ndtri_f32(uniform((lo ^ k0) * "
+                                "0x9E3779B9u));")],
 }
 
 
@@ -757,10 +791,83 @@ def study_fused(tmp: Path, dev: str) -> None:
         torch.cuda.empty_cache()
 
 
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in f32 ulps (the distance of the ordered bit patterns)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def noise_source(patches) -> str:
+    """csrc/counter_noise.cu with csrc/counter_normal.cuh, patched, in place
+    of its #include."""
+    cu = (build.CSRC / "counter_noise.cu").read_text()
+    inc = '#include "counter_normal.cuh"'
+    if cu.count(inc) != 1:
+        raise RuntimeError(f"counter_noise.cu: {inc} is not there once")
+    return cu.replace(inc, patched(build.CSRC / "counter_normal.cuh",
+                                   patches).replace("#pragma once\n", ""))
+
+
+def study_noise(tmp: Path, dev: str) -> None:
+    from repro_torch.core import noise
+    variants = {n: noise_source(p)
+                for n, p in {**NOISE_PATCHES, **NOISE_ABLATIONS}.items()}
+    libs = build_variants(variants, tmp)
+    for lib, _ in libs.values():
+        lib.dp_counter_noise.argtypes = build.SIGNATURES["dp_counter_noise"]
+    path, shape = "blocks/mlp/up/w", (28, 1536, 17920)   # train's largest
+    key = noise._path_rng(noise.fold_in(noise.prng_key(1), 0), path)
+    keys = (ctypes.c_uint32 * 2)(*key)
+    alpha, denom = 0.7, 8.0
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    leaf = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    out = torch.empty_like(leaf)
+    zero = torch.zeros(1 << 24, device=dev)         # the draws themselves
+    xi = torch.empty_like(zero)
+
+    def launch(lib, src, dst, bf16, a, d):
+        _check(lib.dp_counter_noise(
+            src.data_ptr(), dst.data_ptr(), ctypes.addressof(keys), 1, 0, 0,
+            noise.counter_split(src.shape)[1], src.numel(), a, d, bf16, 0),
+            "dp_counter_noise")
+
+    kept_out = kept_xi = None
+    for name, (lib, notes) in libs.items():
+        fn = (lambda lib=lib: launch(lib, leaf, out, 1, alpha, denom))
+        launch(lib, zero, xi, 0, 1.0, 1.0)
+        fn()
+        torch.cuda.synchronize()
+        if kept_out is None:
+            kept_out, kept_xi = out.clone(), xi.clone()
+        gap = _ulps(xi, kept_xi)
+        row = {"study": "counter_noise", "variant": name,
+               "ablation": name in NOISE_ABLATIONS, "leaf": path,
+               "shape": shape, "dtype": "bfloat16",
+               "ms": events_ms(fn, n=10), "device_ms": device_ms(fn, reps=3),
+               "bitwise_kept": bool(torch.equal(out, kept_out)),
+               "draws_max_ulp_kept": int(gap.max()),
+               "draws_unequal_kept": int((gap > 0).sum()),
+               "draws": zero.numel(), "ptxas": notes}
+        print(json.dumps(row), flush=True)
+    del kept_out, zero, xi
+
+    def chain():
+        return (leaf + alpha * torch.randn(shape, generator=g, device=dev)
+                .to(torch.bfloat16)) / denom
+    print(json.dumps({"study": "counter_noise", "variant": "randn_chain",
+                      "leaf": path, "shape": shape, "dtype": "bfloat16",
+                      "ms": events_ms(chain, n=10),
+                      "device_ms": device_ms(chain, reps=3)}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("emb", "ghost", "wkv", "moe",
-                                       "emb_norm", "fused"), default=None)
+                                       "emb_norm", "fused", "noise"),
+                    default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("design_study: no CUDA device; this script runs on the card",
@@ -780,6 +887,8 @@ def main(argv=None) -> int:
             study_emb_norm(Path(tmp) / "emb_norm", "cuda")
         if args.only in (None, "fused"):
             study_fused(Path(tmp) / "fused", "cuda")
+        if args.only in (None, "noise"):
+            study_noise(Path(tmp) / "noise", "cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)

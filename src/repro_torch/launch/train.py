@@ -28,6 +28,7 @@ from repro_torch.configs.registry import (build, get_config, get_policy,
                                           list_policies, smoke_config)
 from repro_torch.core.bk import DPConfig
 from repro_torch.core.engine import ALL_MODES
+from repro_torch.core.noise import prng_key
 from repro_torch.core.policy import with_scope
 from repro_torch.core.tape import TAPE_POLICIES
 from repro_torch.data.synthetic import make_batch
@@ -92,7 +93,7 @@ def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
                                        tc.steps),
                          weight_decay=tc.weight_decay)
     params = model.init(tc.seed, dev)
-    state = TrainState(params, opt.init(params), 0, tc.seed + 1)
+    state = TrainState(params, opt.init(params), 0, prng_key(tc.seed + 1))
     step_fn = make_train_step(model.apply, params, opt, dp, tc.microbatch)
     losses = []
     for step in range(tc.steps):

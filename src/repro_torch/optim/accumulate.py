@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.core.bk import (BK_MODES, batch_size_of, bk_clipped_sum,
                                  bk_private_grad)
-from repro_torch.core.noise import path_seed
+from repro_torch.core.noise import tape_seed
 from repro_torch.core.policy import (as_policy, finalize_noise,
                                      resolve_policy)
 from repro_torch.utils.tree import flatten, unflatten
@@ -27,8 +27,8 @@ def _microbatches(batch, microbatch: int):
         yield lo, {k: v[lo:lo + microbatch] for k, v in batch.items()}
 
 
-def accumulated_baseline_grad(apply_fn, params, batch, seed, cfg,
-                              microbatch: int, step: int = 0, draw=None):
+def accumulated_baseline_grad(apply_fn, params, batch, rng, cfg,
+                              microbatch: int, step=None):
     """Microbatched accumulation for the non-BK modes (nonprivate,
     ghostclip, opacus, ...): each microbatch's grad, taken at sigma = 0, is
     scaled back to its sum and accumulated in the params' dtypes; then
@@ -38,14 +38,13 @@ def accumulated_baseline_grad(apply_fn, params, batch, seed, cfg,
     policy = as_policy(cfg)
     B = batch_size_of(batch)
     if microbatch <= 0 or microbatch >= B:
-        return make_grad_fn(apply_fn, policy)(params, batch, seed, step,
-                                              draw)
+        return make_grad_fn(apply_fn, policy)(params, batch, rng, step)
     nonprivate = policy.mode == "nonprivate"
     grad_fn = make_grad_fn(apply_fn, policy if nonprivate else
                            dataclasses.replace(policy, sigma=0.0))
     sums, losses = None, []
     for _, mb in _microbatches(batch, microbatch):
-        g, aux = grad_fn(params, mb, seed, step)
+        g, aux = grad_fn(params, mb, rng, step)
         g = flatten(g)
         if sums is None:
             sums = {k: torch.zeros_like(v) for k, v in g.items()}
@@ -57,30 +56,30 @@ def accumulated_baseline_grad(apply_fn, params, batch, seed, cfg,
         grads = {k: s / float(B) for k, s in sums.items()}
     else:
         res = resolve_policy(policy, flatten(params))
-        grads = finalize_noise(policy, res, sums, seed, float(B), step, draw)
+        grads = finalize_noise(policy, res, sums, rng, float(B), step)
     return unflatten(grads), {"loss": torch.stack(losses).mean()}
 
 
-def accumulated_private_grad(apply_fn, params, batch, seed, cfg,
-                             microbatch: int, step: int = 0, draw=None):
+def accumulated_private_grad(apply_fn, params, batch, rng, cfg,
+                             microbatch: int, step=None):
     """The private gradient of the logical batch in any mode, microbatched:
-    -> (grads tree, aux), in distribution the full-batch call's. BK modes
-    accumulate clipped sums (:func:`accumulated_clipped_sum`) and noise
-    once; the others go through :func:`accumulated_baseline_grad`."""
+    -> (grads tree, aux), in distribution the full-batch call's. ``rng`` is
+    the step's key (``core.noise``). BK modes accumulate clipped sums
+    (:func:`accumulated_clipped_sum`) and noise once; the others go through
+    :func:`accumulated_baseline_grad`."""
     policy = as_policy(cfg)
     if policy.mode not in BK_MODES:
-        return accumulated_baseline_grad(apply_fn, params, batch, seed,
-                                         policy, microbatch, step, draw)
+        return accumulated_baseline_grad(apply_fn, params, batch, rng,
+                                         policy, microbatch, step)
     B = batch_size_of(batch)
     if microbatch <= 0 or microbatch >= B:
-        return bk_private_grad(apply_fn, params, batch, seed, policy, step,
-                               draw)
+        return bk_private_grad(apply_fn, params, batch, rng, policy, step)
     sums, aux, _ = accumulated_clipped_sum(apply_fn, params, batch, policy,
                                            microbatch,
-                                           path_seed(seed, step, "tape"))
+                                           tape_seed(rng))
     res = resolve_policy(policy, flatten(params))
-    return unflatten(finalize_noise(policy, res, sums, seed, float(B), step,
-                                    draw)), aux
+    return unflatten(finalize_noise(policy, res, sums, rng, float(B),
+                                    step)), aux
 
 
 def accumulated_clipped_sum(apply_fn, params, batch, cfg, microbatch: int,

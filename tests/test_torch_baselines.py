@@ -15,7 +15,6 @@ import torch
 
 from repro.core.bk import DPConfig as JDPConfig
 from repro.core.engine import make_grad_fn as jmake_grad_fn
-from repro.core.noise import _path_rng, counter_normal
 from repro.core.tape import Tape as JTape
 from repro.models.mlp import MLP as JMLP
 from repro.models.mlp import MLPConfig as JMLPConfig
@@ -23,6 +22,7 @@ from repro.utils.tree import flatten as jflatten
 from repro_torch.convert import params_from_jax
 from repro_torch.core.bk import DPConfig
 from repro_torch.core.engine import ALL_MODES, make_grad_fn
+from repro_torch.core.noise import prng_key
 from repro_torch.core.tape import Tape
 from repro_torch.models.mlp import MLP, MLPConfig
 from repro_torch.utils.tree import flatten
@@ -64,17 +64,11 @@ def _jax(mode, clipping="automatic", sigma=0.0, bias=True):
              if k in ("per_sample_norms", "clip_factors", "loss")})
 
 
-def _draw():
-    """The JAX draws of phase 4 at rng RNG, as the port's ``draw``."""
-    rng = jax.random.PRNGKey(RNG)
-    return lambda path, shape: torch.from_numpy(np.array(counter_normal(
-        _path_rng(rng, path), shape)))
-
-
-def _port(mode, clipping="automatic", sigma=0.0, bias=True, draw=None):
+def _port(mode, clipping="automatic", sigma=0.0, bias=True, rng=RNG):
+    """The port's mode under the key ``prng_key(rng)``."""
     *_, tm, tp, tb = _setup(bias)
     cfg = DPConfig(mode=mode, clipping=clipping, R=1.0, sigma=sigma)
-    g, aux = make_grad_fn(tm.apply, cfg)(tp, tb, 0, draw=draw)
+    g, aux = make_grad_fn(tm.apply, cfg)(tp, tb, prng_key(rng))
     return flatten(g), aux
 
 
@@ -97,18 +91,17 @@ def test_all_modes_agree_with_jax_opacus(mode, clipping):
 
 @pytest.mark.parametrize("mode", DP_MODES)
 def test_noise_identical_across_modes(mode):
-    """The same seed gives every mode the same noise: the JAX draws fed to
-    the port's phase 4, against JAX opacus at sigma 0.7."""
+    """The same key gives every mode the same noise, the reference's: each
+    port mode at sigma 0.7 against JAX opacus under that key."""
     want, _ = _jax("opacus", sigma=SIGMA)
-    got, _ = _port(mode, sigma=SIGMA, draw=_draw())
+    got, _ = _port(mode, sigma=SIGMA)
     _assert_grads(got, want, NOISE_TOL)
 
 
 @pytest.mark.parametrize("mode", DP_MODES)
 def test_port_noise_is_the_same_in_every_mode(mode):
-    """Without injected draws: the port's own noise for a seed is the same
-    in every mode (``finalize_noise`` is ``noise_leaf_fn`` leaf for
-    leaf)."""
+    """The port's own noise for a key is the same in every mode
+    (``finalize_noise`` is ``noise_leaf_fn`` leaf for leaf)."""
     want, _ = _port("opacus", sigma=SIGMA)
     got, _ = _port(mode, sigma=SIGMA)
     for k in want:
@@ -119,7 +112,8 @@ def test_port_noise_is_the_same_in_every_mode(mode):
 def test_grads_tree_matches_params_tree():
     *_, tm, tp, tb = _setup()
     for mode in ALL_MODES:
-        grads, _ = make_grad_fn(tm.apply, DPConfig(mode=mode))(tp, tb, 0)
+        grads, _ = make_grad_fn(tm.apply, DPConfig(mode=mode))(
+            tp, tb, prng_key(0))
         assert grads.keys() == tp.keys(), mode
         for p, g in flatten(grads).items():
             assert g.shape == flatten(tp)[p].shape, (mode, p)

@@ -5,9 +5,10 @@ with a frozen group and a method override; ``accumulated_private_grad``
 with microbatches; one ``make_train_step`` step of each baseline mode
 against the reference's ``accumulated_private_grad`` + ``Optimizer.update``
 composed by hand (no mesh); ``PrivacyEngine``; and the train CLI's
-``--mode``. Inputs from numpy, params through ``repro_torch.convert``, the
-JAX draws of phase 4 injected where sigma > 0. The JAX side runs
-``use_kernels=False``."""
+``--mode``. Inputs from numpy, params through ``repro_torch.convert``; where
+sigma > 0 each package draws its own phase-4 noise under the same key (the
+port's draws are the reference's, tests/test_torch_noise.py). The JAX side
+runs ``use_kernels=False``."""
 import functools
 import math
 
@@ -22,7 +23,6 @@ from repro.configs.registry import get_policy as jget_policy
 from repro.configs.registry import smoke_config as jsmoke
 from repro.core.engine import ALL_MODES as JALL_MODES
 from repro.core.engine import make_grad_fn as jmake_grad_fn
-from repro.core.noise import _path_rng, counter_normal
 from repro.core.policy import ParamGroup as JParamGroup
 from repro.core.policy import PrivacyPolicy as JPrivacyPolicy
 from repro.optim.accumulate import \
@@ -34,6 +34,7 @@ from repro_torch.configs.registry import build, get_policy, smoke_config
 from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.core.bk import plan_report
 from repro_torch.core.engine import ALL_MODES, PrivacyEngine, make_grad_fn
+from repro_torch.core.noise import prng_key
 from repro_torch.core.policy import ParamGroup, PrivacyPolicy
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.steps import TrainState, make_train_step
@@ -87,11 +88,6 @@ def _port_params():
                            "cpu")
 
 
-def _draw(rng):
-    return lambda path, shape: torch.from_numpy(np.array(counter_normal(
-        _path_rng(rng, path), shape)))
-
-
 def _close(got: dict, want, tol):
     want = {k: np.asarray(v) for k, v in jflatten(want).items()}
     assert sorted(got) == sorted(want)
@@ -116,7 +112,7 @@ def test_mode_matches_jax_same_mode(policy, mode):
     want, waux = jax.jit(jmake_grad_fn(jm.apply, jpol))(
         jp, {"tokens": jnp.asarray(toks)}, jax.random.PRNGKey(RNG))
     got, aux = make_grad_fn(tm.apply, tpol)(
-        _port_params(), {"tokens": torch.from_numpy(toks)}, SEED)
+        _port_params(), {"tokens": torch.from_numpy(toks)}, prng_key(RNG))
     _close({k: v.numpy() for k, v in flatten(got).items()}, want, GRAD_TOL)
     np.testing.assert_allclose(float(aux["loss"]), float(waux["loss"]),
                                rtol=1e-6)
@@ -136,7 +132,8 @@ def test_mode_matches_jax_same_mode(policy, mode):
 @pytest.mark.parametrize("mode", ["nonprivate", "ghostclip", "opacus"])
 def test_accumulated_private_grad_microbatches_match_jax(mode):
     """Microbatches of 2 over B = 4: each at sigma 0, scaled back to sums,
-    noised once (sigma 0.5, the JAX draws) or, for nonprivate, the mean;
+    noised once (sigma 0.5, the port's own draws) or, for nonprivate, the
+    mean;
     against the reference's ``accumulated_private_grad`` (no mesh)."""
     jm, jp, toks, tm = _setup()
     jpol, tpol = _policies("registered", mode, sigma=0.5)
@@ -144,8 +141,8 @@ def test_accumulated_private_grad_microbatches_match_jax(mode):
     want, waux = jax.jit(lambda p, b: jaccumulated_private_grad(
         jm.apply, p, b, rng, jpol, 2, 0))(jp, {"tokens": jnp.asarray(toks)})
     got, aux = accumulated_private_grad(
-        tm.apply, _port_params(), {"tokens": torch.from_numpy(toks)}, SEED,
-        tpol, 2, 0, draw=_draw(rng))
+        tm.apply, _port_params(), {"tokens": torch.from_numpy(toks)},
+        prng_key(RNG), tpol, 2, 0)
     _close({k: v.numpy() for k, v in flatten(got).items()}, want, NOISE_TOL)
     np.testing.assert_allclose(float(aux["loss"]), float(waux["loss"]),
                                rtol=1e-6)
@@ -153,7 +150,8 @@ def test_accumulated_private_grad_microbatches_match_jax(mode):
 
 @pytest.mark.parametrize("mode", BASELINES)
 def test_train_step_matches_jax_update(mode):
-    """One AdamW step of each baseline mode (sigma 0.5, the JAX draws)
+    """One AdamW step of each baseline mode (sigma 0.5, each package's own
+    draws under the same key)
     against the reference composed by hand: ``fold_in(rng, step)`` ->
     ``accumulated_private_grad`` -> ``Optimizer.update``."""
     jm, jp, toks, tm = _setup()
@@ -170,9 +168,9 @@ def test_train_step_matches_jax_update(mode):
     want_p, _, jloss = jstep(jp, jopt.init(jp), {"tokens": jnp.asarray(toks)})
     tp = _port_params()
     opt = make_optimizer("adamw", make_schedule("cosine", LR, 0, 1))
-    step_fn = make_train_step(tm.apply, tp, opt, tpol,
-                              noise_draw=lambda s: _draw(rng))
-    state, loss = step_fn(TrainState(tp, opt.init(tp), 0, SEED + 1),
+    step_fn = make_train_step(tm.apply, tp, opt, tpol)
+    state, loss = step_fn(TrainState(tp, opt.init(tp), 0,
+                                     prng_key(SEED + 1)),
                           {"tokens": torch.from_numpy(toks)})
     assert state.step == 1
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-6)
@@ -201,8 +199,8 @@ def test_privacy_engine_grad_and_kernel_report():
     pol = get_policy("qwen2-1.5b", mode="bk")
     engine = PrivacyEngine(tm.apply, pol)
     tp, batch = _port_params(), {"tokens": torch.from_numpy(toks)}
-    got, _ = engine.grad(tp, batch, SEED)
-    want, _ = make_grad_fn(tm.apply, pol)(tp, batch, SEED)
+    got, _ = engine.grad(tp, batch, prng_key(SEED))
+    want, _ = make_grad_fn(tm.apply, pol)(tp, batch, prng_key(SEED))
     for k, v in flatten(want).items():
         assert torch.equal(flatten(got)[k], v), k
     report = engine.kernel_report(tp, batch)
@@ -243,7 +241,7 @@ def test_opacus_runs_the_moe_family():
                          "cpu")
     got, aux = make_grad_fn(tm.apply, get_policy("deepseek-moe-16b",
                                                  mode="opacus"))(
-        tp, {"tokens": torch.from_numpy(toks)}, SEED)
+        tp, {"tokens": torch.from_numpy(toks)}, prng_key(RNG))
     _close({k: v.numpy() for k, v in flatten(got).items()}, want, GRAD_TOL)
     np.testing.assert_allclose(aux["per_sample_norms"].numpy(),
                                np.asarray(waux["per_sample_norms"]),

@@ -1262,12 +1262,16 @@ def test_fused_model_walk_splits_no_rows():
 
 def _kind(decl: str) -> str:
     decl = decl.strip()
-    return "P" if "*" in decl else {"int": "I", "float": "F"}[decl.split()[0]]
+    if "*" in decl:
+        return "P"
+    if "long long" in decl:
+        return "L"
+    return {"int": "I", "float": "F"}[decl.split()[0]]
 
 
 def _c_entries() -> dict:
     """Every ``extern "C" int dp_...(`` under csrc/ -> its argument kinds
-    (P pointer, I int, F float)."""
+    (P pointer, I int, F float, L 64-bit int)."""
     entries = {}
     for cu in sorted(build.CSRC.glob("*.cu")):
         for m in re.finditer(r'extern "C" int (dp_\w+)\((.*?)\)',
@@ -1277,7 +1281,8 @@ def _c_entries() -> dict:
     return entries
 
 
-_CTYPES = {ctypes.c_void_p: "P", ctypes.c_int: "I", ctypes.c_float: "F"}
+_CTYPES = {ctypes.c_void_p: "P", ctypes.c_int: "I", ctypes.c_float: "F",
+           ctypes.c_longlong: "L", ctypes.c_ulonglong: "L"}
 
 
 def test_every_c_entry_has_a_signature():
@@ -1303,7 +1308,7 @@ def test_cuda_source_parses_against_the_stub_headers(cu):
 def _design_sources():
     for table in ("EMB_PATCHES", "GHOST_PATCHES", "WKV_PATCHES",
                   "WKV_ABLATIONS", "MOE_PATCHES", "EMB_NORM_PATCHES",
-                  "FUSED_PATCHES"):
+                  "FUSED_PATCHES", "NOISE_PATCHES", "NOISE_ABLATIONS"):
         for name in getattr(design_study, table):
             yield f"{table}:{name}"
     for cu in sorted(design_study.DESIGNS.glob("*.cu")):
@@ -1320,10 +1325,14 @@ def test_design_study_source_parses(which, tmp_path):
         cu = design_study.DESIGNS / which.split("/", 1)[1]
     else:
         table, name = which.split(":")
-        src, patches = getattr(design_study, table)[name]
         for h in build.CSRC.glob("*.cuh"):
             shutil.copy(h, tmp_path)
         cu = tmp_path / f"{name}.cu"
-        cu.write_text(design_study.patched(build.CSRC / src, patches))
+        if table.startswith("NOISE"):    # counter_normal.cuh's patches
+            cu.write_text(design_study.noise_source(
+                getattr(design_study, table)[name]))
+        else:
+            src, patches = getattr(design_study, table)[name]
+            cu.write_text(design_study.patched(build.CSRC / src, patches))
     ok, out = syntax_check.check(cu)
     assert ok, out

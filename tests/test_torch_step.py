@@ -1,8 +1,9 @@
 """The port's train step against the JAX package's pieces composed by hand
 (``fold_in(rng, step)`` -> ``bk_clipped_sum`` -> ``noise_leaf_fn`` ->
-``update_leaves``): 3 AdamW steps at sigma=0.5 with the same noise fed to
-both (the JAX draws, injected into the port's mechanism). Also the train
-CLI on the CPU, and its refusal to run without a card unless asked."""
+``update_leaves``): 3 AdamW steps at sigma=0.5, each package drawing its
+own noise under the same keys (the port's counter-based draws are the
+reference's, tests/test_torch_noise.py). Also the train CLI on the CPU,
+and its refusal to run without a card unless asked."""
 import math
 
 import jax
@@ -15,7 +16,6 @@ from repro.configs.registry import build as jbuild
 from repro.configs.registry import get_policy as jget_policy
 from repro.configs.registry import smoke_config as jsmoke
 from repro.core.bk import bk_clipped_sum as jbk_clipped_sum
-from repro.core.noise import _path_rng, counter_normal
 from repro.core.policy import noise_leaf_fn as jnoise_leaf_fn
 from repro.core.policy import resolve_policy as jresolve_policy
 from repro.optim.optimizers import make_optimizer as jmake_optimizer
@@ -58,25 +58,20 @@ def test_three_noised_steps_match_jax_pieces(optimizer):
         return jopt.update_leaves(lambda path, x: leaf(path, sums[path]), st,
                                   p, step)
 
-    draws = jax.jit(lambda rng, sums: {
-        p: counter_normal(_path_rng(rng, p), g.shape) for p, g in sums.items()})
-    xi, jlosses = [], []
+    jlosses = []
     for step in range(STEPS):
         rng = jax.random.fold_in(base, step)
         sums, aux = sums_fn(jp, {"tokens": jnp.asarray(batches[step])})
         jlosses.append(float(aux["loss"]))
-        xi.append({p: np.array(x) for p, x in draws(rng, sums).items()})
         jp, jstate = noise_update(jp, jstate, sums, rng, jnp.int32(step))
 
-    # ---- the port's step, with the JAX draws injected
+    # ---- the port's step, drawing its own noise from the same base key
     tm = build(smoke_config("qwen2-1.5b").with_(param_dtype="float32"))
     opt = make_optimizer(optimizer, make_schedule("cosine", LR, 0, STEPS))
     step_fn = make_train_step(
         tm.apply, tp, opt, get_policy("qwen2-1.5b", mode="bk-mixopt",
-                                      sigma=SIGMA),
-        noise_draw=lambda s: (lambda path, shape: torch.from_numpy(
-            xi[s][path])))
-    state = TrainState(tp, opt.init(tp), 0, SEED + 1)
+                                      sigma=SIGMA))
+    state = TrainState(tp, opt.init(tp), 0, noise.prng_key(SEED + 1))
     losses = []
     for step in range(STEPS):
         state, loss = step_fn(state, {"tokens": torch.from_numpy(
@@ -90,7 +85,8 @@ def test_three_noised_steps_match_jax_pieces(optimizer):
 
 
 def test_private_grad_matches_jax():
-    """bk_private_grad: clipped sum + the same noise + 1/B, vs the JAX one."""
+    """bk_private_grad: clipped sum + noise + 1/B under the same key, vs
+    the JAX one."""
     from repro.core.bk import bk_private_grad as jbk_private_grad
     from repro_torch.core.bk import bk_private_grad
     from repro_torch.utils.tree import flatten
@@ -104,39 +100,42 @@ def test_private_grad_matches_jax():
                                                     jpol))(
         jp, {"tokens": jnp.asarray(toks)})
     flat = jflatten(jp)
-    xi = {k: np.array(counter_normal(_path_rng(rng, k), v.shape))
-          for k, v in flat.items()}
     tm = build(smoke_config("qwen2-1.5b").with_(param_dtype="float32"))
     tp = params_from_jax({k: np.asarray(v) for k, v in flat.items()}, "cpu")
     got, _ = bk_private_grad(
-        tm.apply, tp, {"tokens": torch.from_numpy(toks)}, 0,
-        get_policy("qwen2-1.5b", sigma=SIGMA),
-        draw=lambda path, shape: torch.from_numpy(xi[path]))
+        tm.apply, tp, {"tokens": torch.from_numpy(toks)}, noise.prng_key(9),
+        get_policy("qwen2-1.5b", sigma=SIGMA))
     got = flatten(got)
     for k, v in jflatten(want).items():
         np.testing.assert_allclose(got[k].numpy(), np.asarray(v), err_msg=k,
                                    **TOL)
 
 
+def _draw(seed, step, path, shape):
+    key = noise._path_rng(noise.fold_in(noise.prng_key(seed), step), path)
+    return noise.counter_normal(key, shape)
+
+
 def test_noise_is_a_pure_function_of_seed_step_and_path():
-    a = noise.gaussian("blocks/mlp/up/w", (3, 4), 7, 2, "cpu")
-    b = noise.gaussian("blocks/mlp/up/w", (3, 4), 7, 2, "cpu")
+    a = _draw(7, 2, "blocks/mlp/up/w", (3, 4))
+    b = _draw(7, 2, "blocks/mlp/up/w", (3, 4))
     torch.testing.assert_close(a, b, rtol=0, atol=0)
-    for other in [noise.gaussian("blocks/mlp/up/w", (3, 4), 7, 3, "cpu"),
-                  noise.gaussian("blocks/mlp/down/w", (3, 4), 7, 2, "cpu"),
-                  noise.gaussian("blocks/mlp/up/w", (3, 4), 8, 2, "cpu")]:
+    for other in [_draw(7, 3, "blocks/mlp/up/w", (3, 4)),
+                  _draw(7, 2, "blocks/mlp/down/w", (3, 4)),
+                  _draw(8, 2, "blocks/mlp/up/w", (3, 4))]:
         assert not torch.equal(a, other)
-    x = noise.gaussian("head/w", (200000,), 0, 0, "cpu")
+    x = _draw(0, 0, "head/w", (200000,))
     assert abs(float(x.mean())) < 0.01 and abs(float(x.std()) - 1) < 0.01
 
 
 def test_gaussian_mechanism_adds_scaled_noise_and_divides():
     g = torch.ones(5)
-    mech = noise.GaussianMechanism(draw=lambda path, shape: torch.full(shape,
-                                                                       2.0))
-    out = mech.add_leaf("w", g, seed=0, sigma=0.5, scale=3.0, denom=4.0)
-    torch.testing.assert_close(out, torch.full((5,), (1 + 0.5 * 3 * 2) / 4))
-    assert torch.equal(mech.add_leaf("w", g, 0, 0.0, 3.0, 4.0), g / 4)
+    rng = noise.fold_in(noise.prng_key(0), 0)
+    mech = noise.GaussianMechanism()
+    out = mech.add_leaf("w", g, rng, sigma=0.5, scale=3.0, denom=4.0)
+    xi = noise.counter_normal(noise._path_rng(rng, "w"), (5,))
+    torch.testing.assert_close(out, (1 + 0.5 * 3 * xi) / 4)
+    assert torch.equal(mech.add_leaf("w", g, rng, 0.0, 3.0, 4.0), g / 4)
 
 
 def test_microbatched_sum_equals_full_batch():
