@@ -13,8 +13,10 @@ Phases, each printing JSON lines:
             or HMMA (mma.sync: wkv6's chunked kernels) instructions counted
             in the library's SASS (cuobjdump; none is a failure); the
             instructions of one threefry2x32 block by opcode and pipe
-            (``threefry_sass``: counter_noise's bound)
-  kernels   each of the twelve kernels against its plain PyTorch version on
+            (``threefry_sass``: the draw's bound); the warp votes of the
+            compacted draw in every instantiation of counter_noise's and
+            noise_update's kernels (``warp_sass``: none is a failure)
+  kernels   each of the thirteen kernels against its plain PyTorch version on
             the card, at the shapes each train path below gives it (bf16;
             each tap routed as ``core.bk.plan_report`` says, MoE records and
             masks from the path's own step-0 forward), at the prefill
@@ -76,8 +78,22 @@ Phases, each printing JSON lines:
             golden normals within GOLDEN_ULP; (e) each train leaf's time
             by events beside the plain version's and the randn + multiply
             + add + divide chain it replaces (composed_ms); its device time
-            from ``train``'s profiled step
-  noise     (not in the default run) counter_noise's checks alone
+            from ``train_ghostclip``'s profiled step (the BK paths draw
+            inside noise_update); every case bitwise the plain version, an
+            odd-offset leaf alone and in place too.
+            noise_update (phase 4 + the AdamW / SGD step in one pass a
+            leaf, no TPU counterpart; ``noise_update_checks``): every leaf
+            of ``train`` (bf16), its three largest leaves in f32, ragged,
+            odd-offset and mixed-alignment leaves, SGD and AdamW with and
+            without weight decay, a depth-10 tree with completion and no
+            noise; m and v within f32 TOL of the plain version (counter_
+            noise's plain version, then the torch chain), p within its
+            dtype's TOL; the draws bitwise counter_noise's (m from m = v =
+            0 under b1 = 0); bitwise run to run; each train leaf's time
+            beside the plain version's and ``torch._fused_adamw_``'s
+            (library_ms); its device time from ``train``'s profiled step
+  noise     (not in the default run) counter_noise's and noise_update's
+            checks alone
   wgmma     (not in the default run) the short call after a tensor-core
             kernel edit: those checks at one tile, the ragged bf16 shapes
             and one row shape of each (the head tap of ``train``, whose
@@ -111,8 +127,11 @@ Phases, each printing JSON lines:
                     (2 steps)
             each: the arch's registered policy, bk-mixopt (unless named),
             sigma=1.0, AdamW, through ``repro_torch.launch.train.train``;
-            launch counts per step (counter_noise: one a noised leaf, none
-            under 'nonprivate'); the last step runs under torch.profiler
+            launch counts per step (noise_update: one a leaf on every path;
+            counter_noise: one a noised leaf on train_ghostclip, none on
+            the BK paths and under 'nonprivate'); the last step runs under
+            torch.profiler, whose summary gives the device time of the
+            ``bk_phases_1_3`` and ``phase4_update`` ranges
   prefill       qwen2-1.5b, full (28 layers, bf16), B=4, T=4096, through
                 ``model.prefill``: flash_attention once a layer
   prefill_rwkv  rwkv6-3b, full (32 layers, bf16), B=4, T=4096: wkv6 once a
@@ -129,7 +148,10 @@ Phases, each printing JSON lines:
             under bk-mixghost, so that the direct norm runs at 2 layers;
             parity_layer also at qwen2-1.5b's smoke_config width, where
             every mm unit fuses: fused_clip_grad's driven path, whose
-            launches count; f32, so every launch takes the SIMT routes)
+            launches count; f32, so every launch takes the SIMT routes);
+            then one noised AdamW step over the kernel run's sums, the
+            train step's route (one noise_update a leaf) against the plain
+            version leaf by leaf, params and moments at f32 TOL
   parity_modes
             every mode of ``core.engine.make_grad_fn`` on the card (f32,
             one seed) against opacus: qwen2-1.5b at full width and 2 layers
@@ -239,7 +261,7 @@ THREEFRY_KATS = (((0, 0), (0, 0), (0x6b200159, 0x99ba4efe)),
 KERNELS = ("ghost_norm", "clipped_grad", "emb_ghost_norm", "emb_clipped_grad",
            "grad_norm_direct", "moe_ghost_norm", "moe_direct_norm",
            "moe_clipped_grad", "fused_clip_grad", "flash_attention", "wkv6",
-           "counter_noise")
+           "counter_noise", "noise_update")
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "ghost_norm": ("ghost_norm_wgmma.cu", "ghost_norm.py:62"),
@@ -255,9 +277,15 @@ SOURCES = {
     "flash_attention": ("flash_attention_wgmma.cu", "flash_attention.py:64"),
     "wkv6": ("wkv6_chunked.cu", "wkv6.py:76"),
     "counter_noise": ("counter_noise.cu", None),
+    "noise_update": ("noise_update.cu", None),
 }
 # kernels with no TPU counterpart: the JAX code each replaces
-NO_TPU_KERNEL = {"counter_noise": "src/repro/core/noise.py:103"}
+NO_TPU_KERNEL = {"counter_noise": "src/repro/core/noise.py:103",
+                 "noise_update": "src/repro/optim/optimizers.py:76"}
+# the kernels that draw by the warp-compacted draw (counter_normal.cuh's
+# warp_xi): their names in the SASS, each instantiation of which must vote
+WARP_DRAW = {"counter_noise": "counter_noise_kernel",
+             "noise_update": "noise_update_kernel"}
 # the tensor-core kernels: their SIMT kernels (f32 and unaligned inputs),
 # and their names in the SASS
 WGMMA = {"ghost_norm": ("ghost_norm.cu", "ghost_norm_wgmma_kernel"),
@@ -368,7 +396,10 @@ ROW_PATH = {"ghost_norm": "train", "clipped_grad": "train",
             "moe_direct_norm": "train_moe_direct",
             "moe_clipped_grad": "train_moe", "fused_clip_grad": "parity_layer",
             "flash_attention": "prefill", "wkv6": "prefill_rwkv",
-            "counter_noise": "train"}
+            "counter_noise": "train", "noise_update": "train"}
+# the train path whose profiled step gives a kernel's device time a step in
+# the summary line (the path that launches it on train's leaves)
+STEP_DEVICE = {"counter_noise": "train_ghostclip", "noise_update": "train"}
 # the serving paths: arch, shapes, and the kernel each prefill launches once
 # a layer
 SERVING = {"prefill": dict(arch="qwen2-1.5b", batch=4, seq=4096,
@@ -400,6 +431,7 @@ def wrappers():
     from repro_torch.kernels import ghost_norm as gn
     from repro_torch.kernels import grad_norm_direct as gd
     from repro_torch.kernels import moe_ghost as mg
+    from repro_torch.kernels import noise_update as nu
     from repro_torch.kernels import wkv6 as wk
     return {"ghost_norm": gn.ghost_norm, "clipped_grad": cg.clipped_grad,
             "emb_ghost_norm": en.emb_ghost_norm,
@@ -410,7 +442,8 @@ def wrappers():
             "moe_clipped_grad": mg.moe_clipped_grad,
             "fused_clip_grad": fc.fused_clip_grad,
             "flash_attention": fa.flash_attention, "wkv6": wk.wkv6,
-            "counter_noise": cn.counter_noise}
+            "counter_noise": cn.counter_noise,
+            "noise_update": nu.noise_update}
 
 
 def reset_counts(ws):
@@ -639,6 +672,28 @@ def threefry_sass(out: str) -> dict:
             "draw_ops": max(alu, fma, len(region) / 2)}
 
 
+def warp_sass(out: str) -> dict:
+    """The warp-level instructions of each instantiation of the kernels
+    that draw by the warp-compacted draw (WARP_DRAW): VOTE (the tail
+    queue's ballots), POPC (their prefix offsets), SHFL and WARPSYNC, by
+    kernel and instantiation."""
+    ops = ("VOTE", "POPC", "SHFL", "WARPSYNC")
+    counts, current = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            current = next((k for k, sym in WARP_DRAW.items() if sym in fn),
+                           None)
+            if current:
+                current = (current, fn)
+                counts.setdefault(current[0], {})[fn] = dict.fromkeys(ops, 0)
+        elif current:
+            m = SASS_OP.match(ln)
+            if m and m.group(1).split(".")[0] in ops:
+                counts[current[0]][current[1]][m.group(1).split(".")[0]] += 1
+    return counts
+
+
 def ptxas_lines(report: str, source: str) -> list:
     """The ptxas lines of one source: registers, shared memory, spills, and
     any wgmma warning."""
@@ -663,6 +718,16 @@ def phase_build():
     sass = sass_counts(text)
     THREEFRY.update(threefry_sass(text))
     emit(phase="build", threefry_sass=THREEFRY)
+    warp = warp_sass(text)
+    emit(phase="build", warp_draw_sass=warp,
+         ptxas={k: ptxas_lines(info["ptxas"], SOURCES[k][0])
+                for k in WARP_DRAW})
+    silent = [f"{k} {fn}" for k in WARP_DRAW
+              for fn, c in warp.get(k, {"(none)": {"VOTE": 0}}).items()
+              if not c["VOTE"]]
+    if silent:
+        raise AssertionError(f"no warp vote (the compacted tail's ballots) "
+                             f"in the SASS of: {silent}")
     tc = (*WGMMA, *CHUNKED)
     emit(phase="build", tensor_core_kernels={
         k: {"source": SOURCES[k][0],
@@ -1501,6 +1566,7 @@ def phase_kernels(only_wgmma=False, only_noise=False):
 
     if only_noise:
         counter_noise_checks(record, rnd)
+        noise_update_checks(record, rnd)
         return summary
     if only_wgmma:
         wgmma_shapes()
@@ -1601,7 +1667,46 @@ def phase_kernels(only_wgmma=False, only_noise=False):
     wgmma_shapes()
     wkv_shapes()
     counter_noise_checks(record, rnd)
+    noise_update_checks(record, rnd)
     return summary
+
+
+def shifted(t, offset: int):
+    """A copy of ``t`` as a contiguous view ``offset`` elements into a
+    buffer of its dtype (``t`` itself when offset is 0)."""
+    import torch
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def bf16_ulp_gap(a, b):
+    """|a - b| in bf16 ulps, elementwise (two bf16 tensors)."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def p_rounding_excess(p, want32, tol) -> float:
+    """How far a bf16 ``p`` lies beyond what rounding ``want32`` (f32, the
+    exact-step reference) allows: the largest of |p - want32| - (half of
+    p's bf16 ulp + atol + rtol * |want32|); <= 0 when every element is one
+    of the two bf16 values around a value within f32 TOL of want32. The
+    ulp is the spacing above |p|, which covers a value rounded up to a
+    power of two."""
+    import torch
+    rtol, atol = tol
+    mag = p.abs().contiguous()
+    up = (mag.view(torch.int16) + 1).view(torch.bfloat16).float() \
+        - mag.float()
+    err = (p.float() - want32).abs_().sub_(up.mul_(0.5))
+    return float(err.sub_(want32.abs().mul_(rtol).add_(atol)).max())
 
 
 def ulp_gap(a, b):
@@ -1715,9 +1820,17 @@ def counter_noise_checks(record, rnd):
     del u, plain_z, f64, z, gap
 
     # ---- (c), (e) the kernel against its plain version, and its times
-    def case(label, path, shape, dtype, hi, lo, alpha, denom, timed):
-        g = rnd(*shape, dtype=dtype)
-        call = (lambda: cn.counter_noise(g, hi, lo, alpha, denom))
+    def case(label, path, shape, dtype, hi, lo, alpha, denom, timed,
+             offset=0, inplace=False):
+        # offset: g a view that many elements into its buffer (a leaf whose
+        # address breaks the runs' alignment); inplace: written over a fresh
+        # such view each call, so that g and out share that address
+        g = shifted(rnd(*shape, dtype=dtype), offset)
+        if inplace:
+            call = (lambda: cn.counter_noise(shifted(g, offset), hi, lo,
+                                             alpha, denom, inplace=True))
+        else:
+            call = (lambda: cn.counter_noise(g, hi, lo, alpha, denom))
         out, again = call(), call()
         want = cn.plain(g, hi, lo, alpha, denom)
         zero = torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -1733,7 +1846,9 @@ def counter_noise_checks(record, rnd):
                  "draws_max_ulp" if len(hi) + len(lo) == 1 else
                  "xi_max_ulp": gap, "xi_max_abs_err": xi_err,
                  "draws_unequal": int(same.numel() - same.sum()),
-                 "out_unequal_where_draws_equal": unequal}
+                 "out_unequal_where_draws_equal": unequal,
+                 "bitwise_plain": bool(torch.equal(out, want)),
+                 "offset": offset, "inplace": inplace}
         del zero, xi_k, xi_p, same
         if len(hi) + len(lo) == 1 and gap > NOISE_ULP:
             raise AssertionError(f"{name} [{label}]: draws {gap} ulp from "
@@ -1742,6 +1857,13 @@ def counter_noise_checks(record, rnd):
             raise AssertionError(f"{name} [{label}]: {unequal} outputs "
                                  "differ from the plain version's where "
                                  "their draws are equal")
+        # the draw is the plain version's device functions on the card
+        # (bitwise already when it was drawn one thread an element,
+        # designs/counter_noise_per_element.cu): the warp-compacted draw
+        # must keep that
+        if not extra["bitwise_plain"]:
+            raise AssertionError(f"{name} [{label}]: output not bitwise the "
+                                 "plain version's")
         ms_k = ms_p = None
         if timed:
             ms_k = cuda_ms(call, reps=5)
@@ -1780,6 +1902,14 @@ def counter_noise_checks(record, rnd):
          3.0, False)
     case("ragged", "ragged", (28, 3, 1537), torch.bfloat16, [(7, 12)], [],
          0.7, 3.0, False)
+    # an odd offset: g alone (no index where g and out are both aligned: one
+    # element a thread), and in place (both: a head of 7, then runs)
+    case("unaligned", "ragged", (3, 4099), torch.bfloat16, [(7, 13)], [],
+         0.7, 3.0, False, offset=1)
+    case("unaligned in place", "ragged", (3, 4099), torch.bfloat16,
+         [(7, 13)], [], 0.7, 3.0, False, offset=1, inplace=True)
+    case("unaligned in place", "ragged", (5, 999), torch.float32, [(7, 14)],
+         [], 0.7, 3.0, False, offset=3, inplace=True)
     tree = noise.TreeAggregationMechanism(seed=3, depth=10,
                                           restart_every=100, completion=True)
     for step in (54, 99):        # t = 55; t = 100 = E: completed to 128
@@ -1828,11 +1958,250 @@ def counter_noise_checks(record, rnd):
         raise AssertionError(f"{name}: golden normals {worst} ulp off")
 
 
-def _profile_summary(prof, window_ms: float) -> dict:
-    """Device time of one profiled step, by kernel and by kind."""
+# the profiler ranges of a train step (core/bk.py, launch/steps.py): the
+# device time of the kernels launched inside each
+RANGES = ("bk_phases_1_3", "phase4_update")
+
+
+# noise_update's library yardstick, as the noise checks found it
+LIBRARY_NOTE = {}
+
+
+def noise_update_checks(record, rnd):
+    """noise_update on the card (``phase_kernels``' rows of it), each case
+    from one state (m, v, p from a seed) run by the kernel twice and by
+    its plain version (``counter_noise.plain``, then the torch chain):
+    (a) every leaf of ``train`` (bf16, AdamW, train's step-0 keys and
+        scale), train's three largest leaves with f32 g and p (AdamW,
+        weight decay 0.1), ragged f32 and bf16 leaves (SGD and AdamW,
+        weight decay 0 and > 0), a leaf a view at an odd offset (every
+        operand: a head of 7 elements, then runs) and one whose operands
+        disagree on alignment (one element a thread), two steps of a
+        depth-10 tree with completion, and no noise (a tensor taken as
+        given, AdamW and SGD);
+    (b) m and v within f32 TOL of the plain version's (the largest ulp gap
+        reported), p within its dtype's TOL (bf16: the elements one ulp and
+        more off counted); m, v and p bitwise run to run;
+    (c) the draws bitwise: from m = v = 0 with b1 = 0 the m it writes is
+        ``counter_noise``'s output on the same record, widened to f32;
+    (d) at train's leaves: the kernel's time by CUDA events beside the
+        plain version's and ``torch._fused_adamw_``'s on the same noised
+        gradients (the one PyTorch call for the step; on f32 copies where
+        it refuses bf16 params with f32 moments), and the bound (22 bytes
+        an element at bf16; the draw's integer operations from the build
+        phase's SASS count)."""
+    import torch
+    from repro_torch.configs.registry import build
+    from repro_torch.core import noise
+    from repro_torch.core.policy import resolve_policy
+    from repro_torch.kernels import counter_noise as cn
+    from repro_torch.kernels import noise_update as nu
+    from repro_torch.kernels.design_study import fused_adamw_takes_mixed
+    from repro_torch.utils.tree import flatten
+
+    dev = torch.device("cuda")
+    name = "noise_update"
+    f32, bf16 = torch.float32, torch.bfloat16
+    mixed = fused_adamw_takes_mixed()
+    LIBRARY_NOTE[name] = (
+        "torch._fused_adamw_ over the noised leaves" + (
+            "" if mixed else " on f32 copies of p and the noised gradient "
+            "(it refuses bf16 params with f32 moments)"))
+    emit(phase="kernels", kernel=name, case="library yardstick",
+         fused_adamw_takes_bf16_params_f32_moments=mixed)
+
+    def adamw(wd, step=0, b1=0.9):
+        t = step + 1
+        return nu.AdamW(3e-4, b1, 0.999, 1e-8, 1.0 - b1 ** t,
+                        1.0 - 0.999 ** t, wd)
+
+    def case(label, path, shape, g_dt, p_dt, hi, lo, alpha, denom, hp,
+             timed=False, noisy=True, offsets=(0, 0, 0)):
+        # offsets: of g, p and (m, v) in their buffers
+        g = shifted(rnd(*shape, dtype=g_dt), offsets[0])
+        start, trail = cn.window(g.shape)
+        rec = noise.NoisedLeaf(g, tuple(hi), tuple(lo), alpha, denom,
+                               start, trail) if noisy else g
+        m0 = rnd(*shape, dtype=f32).mul_(1e-2)
+        v0 = rnd(*shape, dtype=f32).square_().mul_(1e-4)
+        p0 = rnd(*shape, dtype=f32).mul_(0.02).to(p_dt)
+        adam = isinstance(hp, nu.AdamW)
+
+        def fresh():
+            return (shifted(p0.clone(), offsets[1]),
+                    shifted(m0.clone(), offsets[2]),
+                    shifted(v0.clone(), offsets[2]) if adam else None)
+
+        runs = []
+        for _ in range(2):
+            pk, mk, vk = fresh()
+            nu.noise_update(rec, pk, mk, vk, hp)
+            runs.append((pk, mk, vk))
+        torch.cuda.synchronize()
+        (pk, mk, vk), (p2, m2, v2) = runs
+        repeat = torch.equal(pk, p2) and torch.equal(mk, m2) and (
+            not adam or torch.equal(vk, v2))
+        del runs, p2, m2, v2
+        pp, mp, vp = fresh()
+        # p in f32: the plain version's update before p's own rounding (a
+        # bf16 p is exact in f32, and the chain widens it first)
+        pp32 = pp.float()
+        nu.plain(rec, pp32, mp, vp, hp)
+        pp = pp32.to(p_dt)
+        extra = {"dtype": f"g {str(g_dt)[6:]} p {str(p_dt)[6:]}",
+                 "optimizer": type(hp).__name__,
+                 "weight_decay": hp.weight_decay, "noise": noisy,
+                 "keys": len(hi) + len(lo) if noisy else 0,
+                 "offsets": list(offsets), "state_bitwise_repeat": repeat}
+        bad = []
+        for key, got, want in (("m", mk, mp), ("v", vk, vp)):
+            if got is None:
+                continue
+            cmp = compare(got, want, TOL["float32"])
+            extra[f"{key}_max_abs_err"] = cmp["max_abs_err"]
+            extra[f"{key}_max_ulp"] = int(ulp_gap(got, want).max())
+            if not cmp["ok"]:
+                bad.append(key)
+        del mp, vp
+        if p_dt == bf16:
+            gap = bf16_ulp_gap(pk, pp)
+            extra["p_bf16_one_ulp_off"] = int((gap == 1).sum())
+            extra["p_bf16_over_one_ulp_off"] = int((gap > 1).sum())
+            del gap
+            # the step itself (lr * update, ~2e-4 against p ~ 0.02, a few
+            # bf16 ulps) held as the rounding allows: p within half a bf16
+            # ulp of the plain version's f32 p, plus f32 TOL for the
+            # step's own arithmetic; a kernel that drops p's store, lr or
+            # the update's sign is off by the step itself
+            over = p_rounding_excess(pk, pp32, TOL["float32"])
+            extra["p_bf16_rounding_excess"] = over
+            if over > 0:
+                bad.append("p")
+        else:
+            extra["p_max_ulp"] = int(ulp_gap(pk, pp).max())
+        del pp32
+        if noisy:
+            # the draws: m = v = 0, b1 = 0 -> m is the noised gradient
+            zk = torch.zeros(shape, dtype=f32, device=dev)
+            nu.noise_update(rec, p0.clone(), zk, torch.zeros_like(zk),
+                            nu.AdamW(0.0, 0.0, 0.999, 1e-8, 1.0, 1.0, 0.0))
+            want_g = cn.counter_noise(g, hi, lo, alpha, denom)
+            extra["draws_bitwise_counter_noise"] = bool(
+                torch.equal(zk, want_g.to(f32)))
+            del zk, want_g
+        ms_k = ms_p = ms_lib = None
+        n = g.numel()
+        if timed:           # on fresh copies: pk, mk, vk are compared below
+            q = fresh()
+            ms_k = cuda_ms(lambda: nu.noise_update(rec, *q, hp), reps=5)
+            q = fresh()
+            ms_p = cuda_ms(lambda: nu.plain(rec, *q, hp), reps=1, warmup=1)
+            del q
+            gn = nu.gradient(rec) if noisy else g
+            lib = [pk.clone(), gn.clone(), mk.clone(), vk.clone()]
+            if not mixed:
+                lib[0], lib[1] = lib[0].float(), lib[1].float()
+            step_t = torch.ones((), device=dev)
+            ms_lib = cuda_ms(lambda: torch._fused_adamw_(
+                [lib[0]], [lib[1]], [lib[2]], [lib[3]], [], [step_t],
+                lr=hp.lr, beta1=hp.b1, beta2=hp.b2,
+                weight_decay=hp.weight_decay, eps=hp.eps, amsgrad=False,
+                maximize=False), reps=5)
+            del gn, lib
+        es_g, es_p = g.element_size(), pk.element_size()
+        nbytes = n * (es_g + 2 * es_p + (16 if adam else 8))
+        ops = THREEFRY["draw_ops"] * n * (len(hi) + len(lo)) if noisy else 0
+        record(name, path, f"{label} {tuple(shape)}", pk, pp,
+               TOL[str(p_dt)[6:]], ms_k, ms_p, nbytes, ops, "int32",
+               ms_lib=ms_lib, again=None, timed=timed, **extra)
+        if bad or not repeat or not extra.get(
+                "draws_bitwise_counter_noise", True):
+            raise AssertionError(f"{name} [{label}]: {extra}, out of "
+                                 f"TOL: {bad}")
+        del g, rec, pk, mk, vk, pp, m0, v0, p0
+        torch.cuda.empty_cache()
+
+    cfg, policy = run_config("train")
+    params = flatten(build(cfg).init(0, dev))
+    shapes = {k: (tuple(v.shape), v.dtype) for k, v in params.items()}
+    del params
+    res = resolve_policy(policy, list(shapes))
+    rng = noise.fold_in(noise.prng_key(1), 0)      # train's step 0
+    alpha = policy.sigma * res.sensitivity
+    denom = float(RUNS["train"]["batch"])
+    fresh_peak()
+    for path, (shape, dtype) in sorted(shapes.items()):
+        case(f"train {path}", "train", shape, dtype, dtype,
+             [noise._path_rng(rng, path)], [], alpha, denom, adamw(0.0),
+             timed=True, noisy=path not in res.frozen)
+    largest = sorted(shapes, key=lambda k: -math.prod(shapes[k][0]))[:3]
+    for path in largest:
+        case(f"train {path}", "f32", shapes[path][0], f32, f32,
+             [noise._path_rng(rng, path)], [], alpha, denom, adamw(0.1))
+    sgd = nu.SGD(3e-4, 0.9, 0.0)
+    case("ragged sgd", "ragged", (3, 1001), f32, f32, [(7, 11)], [], 0.7,
+         3.0, sgd)
+    case("ragged sgd wd", "ragged", (28, 3, 1537), bf16, bf16, [(7, 12)],
+         [], 0.7, 3.0, nu.SGD(3e-4, 0.9, 0.01))
+    case("ragged adamw", "ragged", (28, 3, 1537), bf16, bf16, [(7, 12)],
+         [], 0.7, 3.0, adamw(0.0, step=5))
+    case("unaligned adamw wd", "ragged", (3, 4099), bf16, bf16, [(7, 13)],
+         [], 0.7, 3.0, adamw(0.1), offsets=(1, 1, 1))
+    case("unaligned mixed sgd", "ragged", (3, 4099), bf16, bf16, [(7, 13)],
+         [], 0.7, 3.0, sgd, offsets=(1, 0, 0))
+    case("g bf16 p f32", "ragged", (3, 4099), bf16, f32, [(7, 15)], [],
+         0.7, 3.0, adamw(0.1))
+    tree = noise.TreeAggregationMechanism(seed=3, depth=10,
+                                          restart_every=100, completion=True)
+    for step in (54, 99):        # t = 55; t = 100 = E: completed to 128
+        epoch, t, t_hi = tree._local_prefix(1.0, step)
+        case(f"tree depth 10 completion step {step} t_hi {t_hi}", "tree",
+             (4096, 1536), f32, f32,
+             tree.node_keys("blocks/mlp/up/w", t_hi, epoch),
+             tree.node_keys("blocks/mlp/up/w", t - 1, epoch), 1.3, 8.0,
+             adamw(0.1, step=step))
+    case("no noise adamw", "no_noise", (28, 1536, 256), bf16, bf16, [], [],
+         0.0, 1.0, adamw(0.1), noisy=False)
+    case("no noise sgd", "no_noise", (28, 1536, 256), bf16, bf16, [], [],
+         0.0, 1.0, nu.SGD(3e-4, 0.9, 0.1), noisy=False)
+
+
+def _range_device_ms(prof) -> dict:
+    """Device ms of the kernels launched inside each host range of RANGES:
+    each launch call on the host (the CUDA runtime's or driver's, by torch
+    or by a ctypes kernel wrapper alike) that starts inside a range, and
+    the kernel with its correlation id. (The profiler's own attribution,
+    ``device_time_total``, follows torch ops only: it misses the port's
+    ctypes launches.)"""
     from torch.autograd import DeviceType
-    by_name = {}
+    events = prof.profiler.kineto_results.events()
+    spans = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in events
+             if e.device_type() == DeviceType.CPU and e.name() in RANGES]
+    launched = {}
+    for e in events:
+        if e.device_type() == DeviceType.CPU and "Launch" in e.name():
+            name = next((n for n, a, b in spans if a <= e.start_ns() <= b),
+                        None)
+            if name:
+                launched[e.correlation_id()] = name
+    out = dict.fromkeys(RANGES, 0.0)
+    for e in events:
+        if (e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+                and e.correlation_id() in launched):
+            out[launched[e.correlation_id()]] += e.duration_ns() / 1e6
+    return out
+
+
+def _profile_summary(prof, window_ms: float) -> dict:
+    """Device time of one profiled step, by kernel, by kind and by range
+    (``_range_device_ms``; the ranges' own annotations on the device
+    timeline are not kernels and are left out of the sums)."""
+    from torch.autograd import DeviceType
+    by_name, ranges = {}, _range_device_ms(prof)
     for e in prof.events():
+        if e.name in ranges:
+            continue
         if e.device_type == DeviceType.CUDA:
             us = e.time_range.elapsed_us()
             by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
@@ -1844,10 +2213,11 @@ def _profile_summary(prof, window_ms: float) -> dict:
         "moe_direct_norm",
         "moe_clipped_grad", "moe_norm_wgmma", "moe_grad_wgmma",
         "fused_clip_wgmma", "fused_clip_simt", "counter_noise",
+        "noise_update",
         "moe_ghost_wgmma", "flash_attention", "wkv6", "wkv6_state",
         "wkv6_out"))
     kinds = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
-    noise_ms = 0.0
+    noise_ms = update_ms = 0.0
     for name, ms in by_name.items():
         low = name.lower()
         kind = ("port_kernels" if any(k in name for k in ours) else
@@ -1857,11 +2227,14 @@ def _profile_summary(prof, window_ms: float) -> dict:
         kinds[kind] += ms
         if "counter_noise_kernel" in name:
             noise_ms += ms
+        if "noise_update_kernel" in name:
+            update_ms += ms
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"window_ms": window_ms, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / window_ms),
-            "by_kind_ms": kinds, "counter_noise_ms": noise_ms,
+            "by_kind_ms": kinds, "by_range_ms": ranges,
+            "counter_noise_ms": noise_ms, "noise_update_ms": update_ms,
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
 
 
@@ -1895,6 +2268,7 @@ def phase_train(name, stats: dict):
     step seconds (unprofiled: the step before the profiled one), profiled
     seconds, peak and profiled device time, for the paper's ratios."""
     import torch
+    from repro_torch.core.bk import BK_MODES
     from repro_torch.core.policy import resolve_policy
     from repro_torch.launch.train import train, train_policy
     from repro_torch.utils.tree import flatten
@@ -1939,11 +2313,15 @@ def phase_train(name, stats: dict):
         emit(phase=name, step=s["step"], loss=s["loss"],
              step_seconds=s["seconds"], launches=s["launches"])
     ran = train_policy(dp, tc)
-    # phase 4: one counter_noise launch a noised leaf a step (none without
+    # phase 4: one noise_update launch a leaf a step on every path (the BK
+    # step draws the noise inside it); counter_noise only where a baseline
+    # materializes the noised tree: one launch a noised leaf (none without
     # noise)
-    want = dict(run["per_step"], counter_noise=0 if dp.mode == "nonprivate"
-                else len(resolve_policy(ran, flatten(params)).unit_of))
-    del params
+    flat = flatten(params)
+    want = dict(run["per_step"], noise_update=len(flat),
+                counter_noise=0 if dp.mode in BK_MODES + ("nonprivate",)
+                else len(resolve_policy(ran, flat).unit_of))
+    del params, flat
     emit(phase=name, arch=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.param_dtype,
          mode=dp.mode, policy=cfg.name,
@@ -1960,7 +2338,9 @@ def phase_train(name, stats: dict):
                    "profiled_seconds": per_step[-1]["seconds"],
                    "peak_bytes": peak,
                    "device_busy_ms": profile["device_busy_ms"],
-                   "counter_noise_ms": profile["counter_noise_ms"]}
+                   "counter_noise_ms": profile["counter_noise_ms"],
+                   "noise_update_ms": profile["noise_update_ms"],
+                   "phase4_ms": profile["by_range_ms"]["phase4_update"]}
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{name}: non-finite loss: {losses}")
     if abs(losses[0] - math.log(cfg.vocab)) > 0.5:
@@ -2245,10 +2625,62 @@ def phase_parity(name):
             if counts:
                 counted = launched[True]
             check_routes(name, ws, False)     # f32: the SIMT routes
+            if not counts and label == mode:
+                update_parity(name, params, sk, pol, B)
             del out, sk, sp
         del model, params, batch
         torch.cuda.empty_cache()
     return counted
+
+
+def update_parity(name, params, sums, policy, B):
+    """One noised AdamW step (sigma of the path's policy, weight decay 0.1)
+    over the clipped sums ``sums`` of a parity model (f32): the train
+    step's route (``noise_leaf_fn(..., out="deferred")`` into
+    ``update_leaves``: one noise_update launch a leaf) against the plain
+    version leaf by leaf (``noise_update.plain``), params and both moments
+    at f32 TOL."""
+    import torch
+    from repro_torch.core.noise import fold_in, prng_key
+    from repro_torch.core.policy import noise_leaf_fn, resolve_policy
+    from repro_torch.kernels import noise_update as nu
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.utils.tree import flatten, unflatten
+
+    flat = flatten(params)
+    res = resolve_policy(policy, flat)
+    leaf = noise_leaf_fn(policy, res, fold_in(prng_key(1), 0), float(B), 0,
+                         out="deferred")
+    opt = adamw(lambda s: 3e-4, weight_decay=0.1)
+    got = unflatten({k: v.clone() for k, v in flat.items()})
+    state = opt.init(got)
+    n0 = nu.noise_update.launches
+    opt.update_leaves(lambda path, p: leaf(path, sums[path]), state, got, 0)
+    launches = nu.noise_update.launches - n0
+    hp = nu.AdamW(3e-4, 0.9, 0.999, 1e-8, 1.0 - 0.9, 1.0 - 0.999, 0.1)
+    worst, bad = 0.0, []
+    fg, fm, fv = flatten(got), flatten(state["m"]), flatten(state["v"])
+    for path, p in flat.items():
+        pp, mp = p.clone(), torch.zeros_like(p)
+        vp = torch.zeros_like(p)
+        nu.plain(leaf(path, sums[path]), pp, mp, vp, hp)
+        for key, g, w in (("p", fg[path], pp), ("m", fm[path], mp),
+                          ("v", fv[path], vp)):
+            cmp = compare(g, w, TOL["float32"])
+            worst = max(worst, cmp["max_abs_err"])
+            if not cmp["ok"]:
+                bad.append(f"{key}:{path}")
+        del pp, mp, vp
+    emit(phase=name, case="noised update step", sigma=policy.sigma,
+         leaves=len(flat), noise_update_launches=launches,
+         rtol=TOL["float32"][0], atol=TOL["float32"][1], max_abs_err=worst,
+         failed=bad)
+    if bad or launches != len(flat):
+        raise AssertionError(f"{name}: the noised update step disagrees "
+                             f"with its plain version on {bad} ({launches} "
+                             f"launches for {len(flat)} leaves)")
+    del got, state, fg, fm, fv
+    torch.cuda.empty_cache()
 
 
 # parity_modes: every mode of core.engine against opacus, f32 (name, B, T):
@@ -2443,15 +2875,16 @@ def main(argv=None) -> int:
                              else "operations"),
                 "library_ms": s["library_ms"],
                 **({"library": "none: " + NO_LIBRARY[name]}
-                   if name in NO_LIBRARY else {}),
+                   if name in NO_LIBRARY else
+                   {"library": LIBRARY_NOTE[name]}
+                   if name in LIBRARY_NOTE else {}),
                 **({k: s[k] for k in ("composed_ms", "device_ms")
                     if k in s}),
                 # its device time by torch.profiler: the main path's own
                 # step (the kernels phase's short sessions lose events)
                 **({"train_step_device_ms":
-                    train_stats["train"]["counter_noise_ms"]}
-                   if name == "counter_noise" and "train" in train_stats
-                   else {}),
+                    train_stats[STEP_DEVICE[name]][f"{name}_ms"]}
+                   if STEP_DEVICE.get(name) in train_stats else {}),
                 **({"simt_ms": s["simt_ms"],
                     "simt_source": CSRC + {**WGMMA, **CHUNKED}[name][0]}
                    if name in WGMMA or name in CHUNKED else {})})

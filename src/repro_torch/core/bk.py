@@ -338,12 +338,15 @@ def bk_clipped_sum(apply_fn, params, batch, cfg, seed: int = 0):
 
     int8 = "int8" in (policy.tape_policy, *(g.tape for g in policy.groups))
     device = next(iter(batch.values())).device
-    losses, tape, grads = tapped_backward(
-        apply_fn, flat_params, batch, res, psp_active, act_store,
-        _gen(device, seed, "acts") if int8 else None)
-    with torch.no_grad():
-        return _book_kept_sums(apply_fn, batch, policy, res, flat_params,
-                               psp_active, tape, losses, grads, seed)
+    # a profiler range (chip_smoke's profiles read its device time)
+    with torch.profiler.record_function("bk_phases_1_3"):
+        losses, tape, grads = tapped_backward(
+            apply_fn, flat_params, batch, res, psp_active, act_store,
+            _gen(device, seed, "acts") if int8 else None)
+        with torch.no_grad():
+            return _book_kept_sums(apply_fn, batch, policy, res,
+                                   flat_params, psp_active, tape, losses,
+                                   grads, seed)
 
 
 def tapped_backward(apply_fn, flat_params, batch, res, psp_active,
@@ -531,5 +534,5 @@ def bk_private_grad(apply_fn, params, batch, rng, cfg, step=None):
     flat_sums, aux = bk_clipped_sum(apply_fn, params, batch, policy,
                                     seed=tape_seed(rng))
     res = resolve_policy(policy, flatten(params))
-    leaf = noise_leaf_fn(policy, res, rng, float(B), step, inplace=True)
+    leaf = noise_leaf_fn(policy, res, rng, float(B), step, out="inplace")
     return unflatten({p: leaf(p, g) for p, g in flat_sums.items()}), aux

@@ -29,12 +29,14 @@ AdamW's moments inf and the parameter NaN. Here that bucket's uniform is the lar
 
 On a CUDA leaf the draw and the add run in one kernel,
 ``kernels.counter_noise`` (``csrc/counter_noise.cu``); on a CPU leaf its
-plain version, these functions. Two mechanisms are registered, as in the
-reference: 'gaussian' (independent noise each step, keyed by the step's
-key) and 'tree' (binary-tree aggregation for DP-FTRL: node noise keyed by a
-fixed seed, each step adding the increment N(t) - N(t-1), with epoch
-restarts and completion). Meshes (``sharded_normal`` with a mesh) are
-ROADMAP B7.
+plain version, these functions. The BK train step defers each leaf's noise
+(:class:`NoisedLeaf`) into the optimizer's one pass over it,
+``kernels.noise_update``, which draws the same values. Two mechanisms are
+registered, as in the reference: 'gaussian' (independent noise each step,
+keyed by the step's key) and 'tree' (binary-tree aggregation for DP-FTRL:
+node noise keyed by a fixed seed, each step adding the increment N(t) -
+N(t-1), with epoch restarts and completion). Meshes (``sharded_normal``
+with a mesh) are ROADMAP B7.
 
 ``path_seed`` keys the int8 tape store's rounding draws and the synthetic
 batches (``core.bk``, ``data.synthetic``): ``torch.Generator`` draws, which
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import math
 import zlib
+from dataclasses import dataclass
 from typing import Mapping
 
 import torch
@@ -299,9 +302,38 @@ def partial_sigma(sigma: float, n_shards: int) -> float:
     return sigma / (n_shards ** 0.5)
 
 
-def _noise(g, hi_keys, lo_keys, alpha, denom, inplace=False):
-    from repro_torch.kernels.counter_noise import counter_noise
-    return counter_noise(g, hi_keys, lo_keys, alpha, denom, inplace=inplace)
+@dataclass(frozen=True)
+class NoisedLeaf:
+    """A leaf's phase 4, not yet drawn: (g + alpha * (sum of the hi keys'
+    draws - sum of the lo keys')) / denom over g's linear indices start ..
+    start + g.numel() - 1 of a tensor whose counter word 0 spans ``trail``.
+    What a mechanism's ``add_leaf(..., out="deferred")`` returns for
+    ``Optimizer.update_leaves``, whose ``kernels.noise_update`` draws it
+    inside the optimizer's pass over the leaf."""
+    g: torch.Tensor
+    hi_keys: tuple
+    lo_keys: tuple
+    alpha: float
+    denom: float
+    start: int
+    trail: int
+
+
+# where a noised leaf goes (add_leaf's ``out``): a new tensor, over the sum
+# (a CUDA leaf's kernel writes over ``g``; the caller drops it), or not
+# drawn yet (a NoisedLeaf for the optimizer's pass to draw)
+OUTS = ("new", "inplace", "deferred")
+
+
+def _noise(g, hi_keys, lo_keys, alpha, denom, out="new"):
+    from repro_torch.kernels.counter_noise import counter_noise, window
+    if out not in OUTS:
+        raise ValueError(f"out must be one of {OUTS}, got {out!r}")
+    if out == "deferred":
+        return NoisedLeaf(g, tuple(hi_keys), tuple(lo_keys), alpha, denom,
+                          *window(g.shape))
+    return counter_noise(g, hi_keys, lo_keys, alpha, denom,
+                         inplace=out == "inplace")
 
 
 def add_noise(flat_grads: dict, rng, sigma: float, R, denom: float,
@@ -343,13 +375,13 @@ class GaussianMechanism:
                 "switch the noise mechanism mid-release")
 
     def add_leaf(self, path: str, g, rng, sigma: float, scale,
-                 denom: float, step=None, inplace: bool = False):
-        """One leaf of ``add``; ``inplace`` lets a CUDA leaf's kernel write
-        over ``g`` (the caller drops it)."""
+                 denom: float, step=None, out: str = "new"):
+        """One leaf of ``add``; ``out`` (``OUTS``) says where a noised leaf
+        goes: a new tensor, over ``g``, or a :class:`NoisedLeaf`."""
         del step  # per-step independence: the per-call rng is the state
         if sigma > 0.0:
             return _noise(g, [_path_rng(rng, path)], [], sigma * scale,
-                          denom, inplace)
+                          denom, out)
         return g / denom
 
     def add(self, flat_grads: dict, rng, sigma: float, sensitivity,
@@ -458,13 +490,13 @@ class TreeAggregationMechanism:
         return epoch, t, t_hi
 
     def add_leaf(self, path: str, g, rng, sigma: float, scale,
-                 denom: float, step=None, inplace: bool = False):
+                 denom: float, step=None, out: str = "new"):
         del rng  # node noise keys off the fixed seed only
         epoch, t, t_hi = self._local_prefix(sigma, step)
         if sigma > 0.0:
             return _noise(g, self.node_keys(path, t_hi, epoch),
                           self.node_keys(path, t - 1, epoch), sigma * scale,
-                          denom, inplace)
+                          denom, out)
         return g / denom
 
     def add(self, flat_grads: dict, rng, sigma: float, sensitivity,

@@ -310,17 +310,19 @@ def finalize_noise(policy: PrivacyPolicy, res: ResolvedPolicy,
 
 
 def noise_leaf_fn(policy: PrivacyPolicy, res: ResolvedPolicy, rng,
-                  denom: float, step=None, inplace: bool = False):
+                  denom: float, step=None, out: str = "new"):
     """Per-leaf phase 4: -> fn(path, g_sum) -> private grad leaf.
 
     The policy's noise mechanism (``core.noise``) under the key ``rng``
     (a (k0, k1) pair) at ``step``, each leaf scaled by its unit's
     sigma_scale * composed sensitivity (a homogeneous policy passes the bare
     composed sensitivity). On a CUDA leaf the draw and the add are one
-    ``counter_noise`` launch; ``inplace`` lets it write over the sum (the
-    caller drops it). The fused noise + optimizer update
-    (``Optimizer.update_leaves``) takes leaves one at a time, so only one
-    leaf's result is live at a time. Frozen leaves pass through."""
+    ``counter_noise`` launch; ``out="inplace"`` lets it write over the sum
+    (the caller drops it). ``out="deferred"`` returns a noised leaf as a
+    ``core.noise.NoisedLeaf`` instead: ``Optimizer.update_leaves`` draws it
+    inside its one pass over the leaf (``kernels.noise_update``), so only
+    one leaf's update is live at a time and no noised copy is written.
+    Frozen leaves pass through."""
     from repro_torch.core.noise import _scale_for
     mech = policy.mechanism()
     scales = res.noise_scales() if res.heterogeneous else res.sensitivity
@@ -330,6 +332,6 @@ def noise_leaf_fn(policy: PrivacyPolicy, res: ResolvedPolicy, rng,
             return g
         return mech.add_leaf(path, g.contiguous(), rng, policy.sigma,
                              _scale_for(scales, path), denom, step=step,
-                             inplace=inplace)
+                             out=out)
 
     return leaf

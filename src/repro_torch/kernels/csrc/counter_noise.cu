@@ -8,12 +8,11 @@
 // with z the counter-based normal of counter_normal.cuh. One key (n_hi = 1,
 // n_lo = 0) is the Gaussian mechanism; the tree mechanism's increment
 // N(t_hi) - N(t - 1) is two key lists, each the nodes whose index bit is set,
-// summed in ascending level order (repro/core/noise.py::prefix_noise adds 0 z
-// for the others, and every z here is finite, so skipping them is exact).
-// The rounding points are the reference's: in f32 for f32 leaves; for bf16
-// leaves xi is rounded to bf16, then the product, the sum and the quotient
-// each (alpha and denom arrive rounded to bf16 by the wrapper), as
-// g + (sigma * scale) * xi.astype(g.dtype) then / denom does.
+// summed in ascending level order. The rounding points are the reference's
+// (cn::noised). It is the kernel of the paths that materialize a noised tree
+// (the baseline modes, core.policy.finalize_noise, and the mechanisms' direct
+// calls); the BK train step draws the same noise inside its optimizer pass
+// (noise_update.cu).
 //
 // Replaces no TPU kernel: the JAX package draws this noise with jnp
 // (repro/core/noise.py::counter_normal, then add_noise's arithmetic), and the
@@ -24,17 +23,23 @@
 //
 // Bound on the H100: per element 4 bytes at bf16, 8 at f32 (g read, out
 // written), and one threefry2x32 block per key: 68 instructions in the
-// SASS, 51 on the integer ALU pipe (20 funnel shifts, 21 LOP3, 10 IADD3;
-// 17 adds go to the FMA pipe as IMAD.IADD), which issues 64 results an SM
-// a clock. Over qwen2-1.5b's 1.78 G noised bf16 elements that is ~5.4 ms at
-// 1.98 GHz, above the bytes (~2.1 ms at 3.35 TB/s). The kernel takes ~4x
-// that: on the largest leaf (design_study --only noise, H100 80GB HBM3 at
-// 700 W) ndtri's tail branch, which 27% of lanes take and nearly every warp
-// runs, is 43% of its time. The design: one thread an element, 256 threads
-// a block, grid-stride; the keys are kernel parameters (__grid_constant__,
-// read from the constant bank by every thread, no local copy); no shared
-// memory and no sums across threads, so the result is bitwise the same run
-// to run.
+// SASS, 51 on the integer ALU pipe, which issues 64 results an SM a clock.
+// Over qwen2-1.5b's 1.78 G noised bf16 elements that is ~5.4 ms at 1.98 GHz,
+// above the bytes (~2.1 ms at 3.35 TB/s). The first version, one thread an
+// element (designs/counter_noise_per_element.cu), took ~4x that: ndtri's
+// tail branch, which 27% of lanes take, ran in nearly every warp. The
+// design: the warp draw of counter_normal.cuh (cn::warp_xi: runs of 8
+// elements a lane, counters stepped, the tail compacted per warp and
+// evaluated 32 values a round); a run's g loaded as one 16-byte vector
+// (bf16) or two float4 (f32) and its result stored likewise; the elements
+// before the first 16-byte-aligned index and after the last whole run, one
+// a thread (cn::xi_at, the same values); 256 threads a block, 3 blocks an SM
+// (80 registers), as many blocks as are resident, striding over the leaf;
+// no sums across threads, so the result is bitwise the same run to run, and
+// bitwise the first version's. On train's largest leaf it takes ~7.1 ms
+// against the first version's ~9.2 (design_study --only noise, H100 80GB
+// HBM3 at 700 W): threefry and the pass ~3.9, the central branch ~1.0, the
+// compacted tail ~2.2, where uncompacted it costs ~6.2.
 #include <cuda_bf16.h>
 
 #include "counter_normal.cuh"
@@ -42,60 +47,50 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_BLOCKS = 132 * 32;
-constexpr int MAX_KEYS = 64;
-
-struct Keys {
-  uint32_t k[2 * MAX_KEYS];
-};
-
-__device__ __forceinline__ float load(const float* p, long long i) {
-  return p[i];
-}
-__device__ __forceinline__ float load(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ void store(float* p, long long i, float g,
-                                      float xi, float alpha, float denom) {
-  p[i] = __fdiv_rn(__fadd_rn(g, __fmul_rn(alpha, xi)), denom);
-}
-__device__ __forceinline__ void store(__nv_bfloat16* p, long long i, float g,
-                                      float xi, float alpha, float denom) {
-  const float t = bf16_round(__fmul_rn(alpha, bf16_round(xi)));
-  const float s = bf16_round(__fadd_rn(g, t));
-  p[i] = __float2bfloat16_rn(__fdiv_rn(s, denom));
-}
+constexpr int WARPS = THREADS / 32;
+// blocks an SM holds at once, by the registers a thread may take
+// (design_study --only noise times 2, 3 and 4: 3 was 8% faster than 2)
+constexpr int MIN_BLOCKS = 3;
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    counter_noise_kernel(const T* g, T* out, const __grid_constant__ Keys keys,
-                         int n_hi, int n_lo, unsigned long long start,
-                         unsigned long long trail, long long n, float alpha,
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    counter_noise_kernel(const T* g, T* out,
+                         const __grid_constant__ cn::Keys keys, int n_hi,
+                         int n_lo, unsigned long long start, uint32_t trail,
+                         long long n, long long head, float alpha,
                          float denom) {
-  const long long stride = (long long)gridDim.x * THREADS;
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
-       i += stride) {
-    const unsigned long long c = start + (unsigned long long)i;
-    uint32_t lo, hi;
-    if (c < trail) {
-      lo = (uint32_t)c;
-      hi = 0u;
-    } else {
-      const unsigned long long q = c / trail;
-      hi = (uint32_t)q;
-      lo = (uint32_t)(c - q * trail);
+  constexpr bool BF16 = sizeof(T) == 2;
+  __shared__ float queues[WARPS][cn::WARP_RUN];
+  float* queue = queues[threadIdx.x / 32];
+  const long long runs = (n - head) / cn::RUN;
+  const long long warp = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+  const long long warps = (long long)gridDim.x * WARPS;
+  // warp-uniform trip count: every lane draws (warp_xi's ballots); lanes
+  // past the last run load and store nothing
+  for (long long r0 = warp * 32; r0 < runs; r0 += warps * 32) {
+    const long long r = r0 + (threadIdx.x & 31);
+    const long long i = head + r * cn::RUN;
+    const bool live = r < runs;
+    float v[cn::RUN], xi[cn::RUN];
+    if (live) cn::load_run(g + i, v);
+    cn::warp_xi(keys, n_hi, n_lo, start + (unsigned long long)i, trail,
+                queue, xi);
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < cn::RUN; ++j)
+        v[j] = cn::noised<BF16>(v[j], xi[j], alpha, denom);
+      cn::store_run(out + i, v);
     }
-    float a = 0.f, b = 0.f;
-    for (int j = 0; j < n_hi; ++j)
-      a = __fadd_rn(a, cn::normal(keys.k[2 * j], keys.k[2 * j + 1], lo, hi));
-    for (int j = n_hi; j < n_hi + n_lo; ++j)
-      b = __fadd_rn(b, cn::normal(keys.k[2 * j], keys.k[2 * j + 1], lo, hi));
-    store(out, i, load(g, i), __fsub_rn(a, b), alpha, denom);
+  }
+  // the elements outside the runs: [0, head) and the last (n - head) % RUN
+  const long long rest = head + (n - head - runs * cn::RUN);
+  for (long long k = (long long)blockIdx.x * THREADS + threadIdx.x; k < rest;
+       k += (long long)gridDim.x * THREADS) {
+    const long long i = k < head ? k : head + runs * cn::RUN + (k - head);
+    const float xi =
+        cn::xi_at(keys, n_hi, n_lo, start + (unsigned long long)i, trail);
+    cn::store_one(out, i, cn::noised<BF16>(cn::load_one(g, i), xi, alpha,
+                                           denom));
   }
 }
 
@@ -123,6 +118,22 @@ int blocks_for(long long n, long long cap) {
   return (int)(b < cap ? b : cap);
 }
 
+template <typename T>
+int launch(const void* g, void* out, const cn::Keys& k, int n_hi, int n_lo,
+           unsigned long long start, uint32_t trail, long long n, float alpha,
+           float denom, cudaStream_t st) {
+  const void* ptrs[2] = {g, out};
+  const int sizes[2] = {(int)sizeof(T), (int)sizeof(T)};
+  const long long head = cn::aligned_head(ptrs, sizes, 2, n);
+  const int blocks =
+      cn::pass_blocks(counter_noise_kernel<T>, THREADS, n, head);
+  if (blocks <= 0) return (int)cudaErrorInvalidValue;
+  counter_noise_kernel<T><<<blocks, THREADS, 0, st>>>(
+      (const T*)g, (T*)out, k, n_hi, n_lo, start, trail, n, head, alpha,
+      denom);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // g, out: n contiguous elements (f32, or bf16 when bf16 != 0; out may be g);
@@ -135,21 +146,16 @@ extern "C" int dp_counter_noise(const void* g, void* out,
                                 unsigned long long trail, long long n,
                                 float alpha, float denom, int bf16,
                                 void* stream) {
-  if (n <= 0 || n_hi < 0 || n_lo < 0 || n_hi + n_lo > MAX_KEYS || trail == 0)
+  if (n <= 0 || n_hi < 0 || n_lo < 0 || n_hi + n_lo > cn::MAX_KEYS ||
+      trail == 0 || trail >= (1ULL << 32))
     return (int)cudaErrorInvalidValue;
-  Keys k = {};
+  cn::Keys k = {};
   for (int j = 0; j < 2 * (n_hi + n_lo); ++j) k.k[j] = keys[j];
   cudaStream_t st = (cudaStream_t)stream;
-  const int blocks = blocks_for(n, MAX_BLOCKS);
-  if (bf16)
-    counter_noise_kernel<__nv_bfloat16><<<blocks, THREADS, 0, st>>>(
-        (const __nv_bfloat16*)g, (__nv_bfloat16*)out, k, n_hi, n_lo, start,
-        trail, n, alpha, denom);
-  else
-    counter_noise_kernel<float><<<blocks, THREADS, 0, st>>>(
-        (const float*)g, (float*)out, k, n_hi, n_lo, start, trail, n, alpha,
-        denom);
-  return (int)cudaGetLastError();
+  return bf16 ? launch<__nv_bfloat16>(g, out, k, n_hi, n_lo, start,
+                                      (uint32_t)trail, n, alpha, denom, st)
+              : launch<float>(g, out, k, n_hi, n_lo, start, (uint32_t)trail,
+                              n, alpha, denom, st);
 }
 
 // in (n, 4) uint32 rows (k0, k1, x0, x1) -> out (n, 2): threefry2x32 blocks.

@@ -26,8 +26,27 @@
 // twice) the card's ndtri was up to 5 ulp from the plain version over all
 // 2^24 uniforms, and 0 this way (PERF.md; design_study --only noise builds
 // and times the contracted way).
+//
+// Two ways to draw. ``normal`` gives one value a thread (the check entries,
+// and the few elements of a leaf outside its runs). ``warp_xi`` draws a run
+// of RUN consecutive elements a lane, 32 runs a warp together, for the
+// passes over a leaf (counter_noise.cu, noise_update.cu): each lane steps its
+// counter words from the run's first (one 64-bit division a run, and only
+// where the index is past trail), runs threefry2x32 and the uniform on its
+// RUN counters, and evaluates ndtri's central branch inline. ndtri's tail
+// branch (two logf, a square root, four divisions, two 9-term Horner sums),
+// which 27% of uniforms take, is compacted: each lane puts its tail values
+// in the warp's queue in shared memory (offsets by __ballot_sync and
+// __popc), the warp evaluates the queue 32 values a round with every lane
+// busy (~69 values, 3 rounds, for a warp's 256), and each lane reads its
+// results back from the offsets it wrote them to. One thread an element ran
+// the tail in nearly every warp (a warp has no tail lane with probability
+// 0.73^32), so every lane paid for both branches. Every value is computed
+// by the same device functions as ``normal``'s, so the draws are bitwise
+// ``normal``'s: only the lane that computes a tail value changes.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -160,28 +179,37 @@ constexpr double EXPM1_M2 = 0.8646647167633873;
 constexpr double EXP_M2 = 0.1353352832366127;
 constexpr double SQRT_2PI = 2.5066282746310002;
 
+// ndtri's two branches on mcp = min(p, 1 - p) as the reference forms it,
+// before the sign: the central one (mcp > exp(-2)) and the tail
+__device__ __forceinline__ float ndtri_central(float mcp) {
+  const float w = __fsub_rn(mcp, 0.5f);
+  const float ww = mul(w, w);
+  const float r = __fdiv_rn(p0(ww), q0(ww));
+  const float x = add(w, mul(mul(w, ww), r));
+  return mul(x, -CN_F(SQRT_2PI));
+}
+
+__device__ __forceinline__ float ndtri_tail(float mcp) {
+  const float z = __fsqrt_rn(mul(-2.f, logf(mcp)));
+  const float first = __fsub_rn(z, __fdiv_rn(logf(z), z));
+  const float rz = __fdiv_rn(1.f, z);
+  const float second = z >= 8.f ? __fdiv_rn(__fdiv_rn(p2(rz), q2(rz)), z)
+                                : __fdiv_rn(__fdiv_rn(p1(rz), q1(rz)), z);
+  return __fsub_rn(first, second);
+}
+
+__device__ __forceinline__ bool upper(float p) { return p > CN_F(EXPM1_M2); }
+__device__ __forceinline__ bool central(float mcp) {
+  return mcp > CN_F(EXP_M2);
+}
+
 __device__ __forceinline__ float ndtri_f32(float p) {
   if (p == 0.f) return -INFINITY;
   if (p == 1.f) return INFINITY;
-  float mcp = p > CN_F(EXPM1_M2) ? __fsub_rn(1.f, p) : p;
+  float mcp = upper(p) ? __fsub_rn(1.f, p) : p;
   if (mcp == 0.f) mcp = 0.5f;
-  float x;
-  if (mcp > CN_F(EXP_M2)) {
-    const float w = __fsub_rn(mcp, 0.5f);
-    const float ww = mul(w, w);
-    const float r = __fdiv_rn(p0(ww), q0(ww));
-    x = add(w, mul(mul(w, ww), r));
-    x = mul(x, -CN_F(SQRT_2PI));
-  } else {
-    const float z = __fsqrt_rn(mul(-2.f, logf(mcp)));
-    const float first = __fsub_rn(z, __fdiv_rn(logf(z), z));
-    const float rz = __fdiv_rn(1.f, z);
-    const float second =
-        z >= 8.f ? __fdiv_rn(__fdiv_rn(p2(rz), q2(rz)), z)
-                 : __fdiv_rn(__fdiv_rn(p1(rz), q1(rz)), z);
-    x = __fsub_rn(first, second);
-  }
-  return p > CN_F(EXPM1_M2) ? x : -x;
+  const float x = central(mcp) ? ndtri_central(mcp) : ndtri_tail(mcp);
+  return upper(p) ? x : -x;
 }
 
 #undef CN_F
@@ -190,6 +218,219 @@ __device__ __forceinline__ float ndtri_f32(float p) {
 __device__ __forceinline__ float normal(uint32_t k0, uint32_t k1,
                                         uint32_t lo, uint32_t hi) {
   return ndtri_f32(uniform(threefry2x32(k0, k1, lo, hi).x));
+}
+
+// ---------------------------------------------------------- a leaf's draws
+constexpr int MAX_KEYS = 64;        // keys a launch takes
+constexpr int RUN = 8;              // consecutive elements a lane draws
+constexpr int WARP_RUN = 32 * RUN;  // elements a warp draws at once
+
+// The keys, as kernel parameters (__grid_constant__: read from the
+// constant bank by every thread, no local copy): key j at k[2j], k[2j+1],
+// the n_hi added first, then the n_lo subtracted.
+struct Keys {
+  uint32_t k[2 * MAX_KEYS];
+};
+
+// The counter words of linear index c: c mod trail, c div trail (trail <
+// 2^32, repro_torch.core.noise.counter_split); no division below trail.
+__device__ __forceinline__ void split(unsigned long long c, uint32_t trail,
+                                      uint32_t& lo, uint32_t& hi) {
+  if (c < trail) {
+    lo = (uint32_t)c;
+    hi = 0u;
+  } else {
+    const unsigned long long q = c / trail;
+    hi = (uint32_t)q;
+    lo = (uint32_t)(c - q * trail);
+  }
+}
+
+// xi at one linear index: the hi keys' normals summed in order from 0 in
+// f32, minus the lo keys' likewise (repro/core/noise.py::prefix_noise adds
+// 0 z for the tree's unset levels, and every z here is finite, so skipping
+// them is exact).
+__device__ __forceinline__ float xi_at(const Keys& keys, int n_hi, int n_lo,
+                                       unsigned long long c, uint32_t trail) {
+  uint32_t lo, hi;
+  split(c, trail, lo, hi);
+  float a = 0.f, b = 0.f;
+  for (int j = 0; j < n_hi; ++j)
+    a = __fadd_rn(a, normal(keys.k[2 * j], keys.k[2 * j + 1], lo, hi));
+  for (int j = n_hi; j < n_hi + n_lo; ++j)
+    b = __fadd_rn(b, normal(keys.k[2 * j], keys.k[2 * j + 1], lo, hi));
+  return __fsub_rn(a, b);
+}
+
+// One key's normals at a lane's RUN counters from (lo, hi), into z. All 32
+// lanes of the warp call it together; queue: the warp's WARP_RUN floats of
+// shared memory. The uniform lies in [2^-25, 1 - 2^-24], so ndtri's p = 0,
+// p = 1 and mcp = 0 cases never arise. (Drawing the RUN threefry blocks
+// first, then the RUN central branches, as independent chains was 12%
+// slower on the card: PERF.md.)
+__device__ __forceinline__ void warp_normals(uint32_t k0, uint32_t k1,
+                                             uint32_t lo, uint32_t hi,
+                                             uint32_t trail, float* queue,
+                                             float (&z)[RUN]) {
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  bool up[RUN];
+  int slot[RUN];
+  int count = 0;
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) {
+    const float p = uniform(threefry2x32(k0, k1, lo, hi).x);
+    if (++lo == trail) {
+      lo = 0u;
+      ++hi;
+    }
+    up[j] = upper(p);
+    const float mcp = up[j] ? __fsub_rn(1.f, p) : p;
+    const bool tail = !central(mcp);
+    z[j] = ndtri_central(mcp);            // a tail value's is replaced below
+    const unsigned vote = __ballot_sync(0xFFFFFFFFu, tail);
+    slot[j] = tail ? count + __popc(vote & below) : -1;
+    if (tail) queue[slot[j]] = mcp;
+    count += __popc(vote);
+  }
+  __syncwarp();
+  for (int q = threadIdx.x & 31; q < count; q += 32)
+    queue[q] = ndtri_tail(queue[q]);
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) {
+    const float x = slot[j] >= 0 ? queue[slot[j]] : z[j];
+    z[j] = up[j] ? x : -x;
+  }
+  __syncwarp();                           // the queue is free again
+}
+
+// xi at a lane's RUN consecutive linear indices from c (the warp's 32
+// lanes together): xi_at's sums, each key drawn by warp_normals.
+__device__ __forceinline__ void warp_xi(const Keys& keys, int n_hi, int n_lo,
+                                        unsigned long long c, uint32_t trail,
+                                        float* queue, float (&xi)[RUN]) {
+  uint32_t lo, hi;
+  split(c, trail, lo, hi);
+  float a[RUN], b[RUN], z[RUN];
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) a[j] = b[j] = 0.f;
+  for (int k = 0; k < n_hi; ++k) {
+    warp_normals(keys.k[2 * k], keys.k[2 * k + 1], lo, hi, trail, queue, z);
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) a[j] = __fadd_rn(a[j], z[j]);
+  }
+  for (int k = n_hi; k < n_hi + n_lo; ++k) {
+    warp_normals(keys.k[2 * k], keys.k[2 * k + 1], lo, hi, trail, queue, z);
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) b[j] = __fadd_rn(b[j], z[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) xi[j] = __fsub_rn(a[j], b[j]);
+}
+
+// ------------------------------------------------- the noised gradient
+// (g + alpha * xi) / denom at the reference's rounding points: in f32 for
+// an f32 leaf; for a bf16 leaf xi is rounded to bf16, then the product, the
+// sum and the quotient each (alpha and denom arrive rounded to bf16), as
+// g + (sigma * scale) * xi.astype(g.dtype) then / denom does. The result is
+// the leaf dtype's value, held in a float.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <bool BF16>
+__device__ __forceinline__ float noised(float g, float xi, float alpha,
+                                        float denom) {
+  if (!BF16) return __fdiv_rn(__fadd_rn(g, __fmul_rn(alpha, xi)), denom);
+  const float t = bf16_round(__fmul_rn(alpha, bf16_round(xi)));
+  const float s = bf16_round(__fadd_rn(g, t));
+  return bf16_round(__fdiv_rn(s, denom));
+}
+
+// --------------------------------------------- a run's loads and stores
+// RUN consecutive elements of an f32 or bf16 array, as floats: two float4
+// or one 16-byte vector (the caller's address is 16-byte aligned).
+__device__ __forceinline__ void load_run(const float* p, float (&v)[RUN]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load_run(const __nv_bfloat16* p,
+                                         float (&v)[RUN]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {           // a bf16 is an f32's top half
+    v[2 * j] = __uint_as_float(w[j] << 16);
+    v[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
+  }
+}
+__device__ __forceinline__ void store_run(float* p, const float (&v)[RUN]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+__device__ __forceinline__ void store_run(__nv_bfloat16* p,
+                                          const float (&v)[RUN]) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]),
+                 bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
+}
+
+__device__ __forceinline__ float load_one(const float* p, long long i) {
+  return p[i];
+}
+__device__ __forceinline__ float load_one(const __nv_bfloat16* p,
+                                          long long i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void store_one(float* p, long long i, float v) {
+  p[i] = v;
+}
+__device__ __forceinline__ void store_one(__nv_bfloat16* p, long long i,
+                                          float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
+// The first index from which every operand (addresses a[], element sizes
+// size[]) is 16-byte aligned, so that runs of RUN elements from there load
+// and store as vectors; n where no index below RUN is (the whole leaf then
+// goes one element a thread).
+__host__ inline long long aligned_head(const void* const* a, const int* size,
+                                       int count, long long n) {
+  for (int h = 0; h < RUN && h < n; ++h) {
+    bool ok = true;
+    for (int k = 0; k < count; ++k)
+      ok = ok && ((uintptr_t)a[k] + (uintptr_t)h * size[k]) % 16 == 0;
+    if (ok) return h;
+  }
+  return n;
+}
+
+// Blocks of a pass over n elements from head (threads a block): enough
+// for its runs (a warp 32 of them) and for the elements outside them, at
+// most the blocks the card holds resident; 0 where a query fails.
+template <typename K>
+__host__ int pass_blocks(K kernel, int threads, long long n, long long head) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    0) != cudaSuccess)
+    return 0;
+  const long long runs = (n - head) / RUN;
+  const long long rest = n - runs * RUN;
+  const long long lanes_a_block = threads;       // a run a lane
+  long long want = (runs + lanes_a_block - 1) / lanes_a_block;
+  const long long for_rest = (rest + threads - 1) / threads;
+  if (for_rest > want) want = for_rest;
+  const long long cap = (long long)sms * per_sm;
+  return (int)(want < cap ? want : cap);
 }
 
 }  // namespace cn

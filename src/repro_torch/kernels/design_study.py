@@ -1,4 +1,4 @@
-"""Time, on the card, the designs that seven kernels' sources name as not
+"""Time, on the card, the designs that eight kernels' sources name as not
 taken, beside the kernels kept, so that those comparisons can be run again:
 
     PYTHONPATH=src python -m repro_torch.kernels.design_study
@@ -72,16 +72,26 @@ smoke-width and gate-edge units:
   (``walk_always``); and the first version
   (``designs/fused_clip_two_launch.cu``: 2B launches, an L*d*p scratch, G
   zeroed before each call).
-- ``counter_noise``: ``train``'s largest leaf, blocks/mlp/up/w
-  (28, 1536, 17920) bf16, under train's step-0 key, and 2^24 draws alone
-  (an f32 zero leaf, alpha = denom = 1). Variants: the kept kernel (ndtri's
-  products and sums each rounded), ndtri contracted to FMA; then ablations
+- ``counter_noise`` and ``noise_update``: ``train``'s largest leaf,
+  blocks/mlp/up/w (28, 1536, 17920) bf16, under train's step-0 key, and
+  2^24 draws alone (an f32 zero leaf, alpha = denom = 1). counter_noise's
+  variants: the kept kernel (``csrc/counter_normal.cuh``'s warp draw:
+  ndtri's tail compacted per warp, products and sums each rounded), ndtri
+  contracted to FMA, the tail not compacted (each lane its own, divergent),
+  the other blocks an SM must hold (:data:`NOISE_BLOCKS`: the registers a
+  thread may take), and the first version, one thread an element
+  (``designs/counter_noise_per_element.cu``); then ablations
   (:data:`NOISE_ABLATIONS`, wrong by design): every lane on ndtri's
   central branch, no ndtri (the uniform is the draw), no threefry (one
-  multiply for its rounds); beside them the chain the kernel replaced
+  multiply for its rounds); beside them the chain the first phase 4 ran
   (``randn``, multiply, add, divide). Each row says whether the output is
   bitwise the kept kernel's and how many ulp its draws are from the kept
-  kernel's.
+  kernel's. noise_update (AdamW, bf16 p, f32 moments): the kept kernel
+  with its draw and without (its bytes and the step alone), the draw not
+  compacted, each run loaded before its draw (:data:`NOISE_UPDATE_PATCHES`;
+  the kept kernel loads after it), the other blocks an SM; beside them
+  ``torch._fused_adamw_`` over the noised leaf (on f32 copies of p and the
+  gradient where it refuses bf16 params with f32 moments).
 
 Prints one JSON line a variant: CUDA-event ms around the C call (median of
 5 runs of 20 calls), device ms by kernel (torch.profiler), whether the
@@ -101,6 +111,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -336,28 +347,65 @@ WKV_ABLATIONS = {
         "for (int kk = th * HALF; kk < th * HALF; kk += 8) {")]),
 }
 
-# counter_noise: patches of csrc/counter_normal.cuh, which each variant's
-# source (csrc/counter_noise.cu) takes in place of its #include. ndtri's
-# products and sums contracted to FMA (the way not taken); then ablations
-# of the kept kernel, whose outputs are wrong by design and whose times say
-# what each part of a draw costs
-_NORMAL = "return ndtri_f32(uniform(threefry2x32(k0, k1, lo, hi).x));"
+# counter_noise and noise_update: patches of csrc/counter_normal.cuh, which
+# each variant's source (csrc/counter_noise.cu or csrc/noise_update.cu)
+# takes in place of its #include. ndtri's products and sums contracted to
+# FMA, and the draw without its tail compacted (each lane evaluates its own
+# tail values, divergent: the ways not taken); then ablations of the kept
+# draw, whose outputs are wrong by design and whose times say what each
+# part of a draw costs
+_TAIL = "const bool tail = !central(mcp);"
+_CENTRAL = "z[j] = ndtri_central(mcp);"
 NOISE_PATCHES = {
     "kept": [],
     "ndtri_contracted": [("return __fmul_rn(a, b);", "return a * b;"),
                          ("return __fadd_rn(a, b);", "return a + b;")],
+    "no_compaction": [(_TAIL, "const bool tail = false;"),
+                      (_CENTRAL, "z[j] = central(mcp) ? ndtri_central(mcp) "
+                                 ": ndtri_tail(mcp);")],
 }
 NOISE_ABLATIONS = {
-    # every lane takes ndtri's central branch (the tail's cost, divergence
-    # included, is the difference)
-    "central_branch_only": [("if (mcp > CN_F(EXP_M2)) {", "if (true) {")],
-    # the uniform itself is the draw: threefry and the add alone
-    "skip_ndtri": [(_NORMAL, "return uniform(threefry2x32(k0, k1, lo, "
-                             "hi).x);")],
-    # one multiply for threefry's 20 rounds: ndtri and the add alone
-    "skip_threefry": [(_NORMAL, "return ndtri_f32(uniform((lo ^ k0) * "
-                                "0x9E3779B9u));")],
+    # every lane takes ndtri's central branch: the compacted tail's cost is
+    # the difference
+    "central_branch_only": [(_TAIL, "const bool tail = false;")],
+    # the uniform itself is the draw: threefry, the queue's votes and the
+    # pass alone
+    "skip_ndtri": [(_TAIL, "const bool tail = false;"),
+                   (_CENTRAL, "z[j] = mcp;")],
+    # one multiply for threefry's 20 rounds: ndtri and the pass alone
+    "skip_threefry": [("p = uniform(threefry2x32(k0, k1, lo, hi).x);",
+                       "p = uniform((lo ^ k0) * 0x9E3779B9u);")],
 }
+# noise_update.cu with a run's operands loaded before its draw (the first
+# design: they then hold registers through it, 101, 2 blocks an SM)
+NOISE_UPDATE_PATCHES = {
+    "loads_first": [
+        ("    float xi[cn::RUN];\n    if (noise)\n",
+         "    float xi[cn::RUN], gv[cn::RUN], mv[cn::RUN], vv[cn::RUN], "
+         "pv[cn::RUN];\n    if (r < runs) {\n"
+         "      cn::load_run(g + i, gv);\n      cn::load_run(m + i, mv);\n"
+         "      if (ADAMW) cn::load_run(v + i, vv);\n"
+         "      cn::load_run(p + i, pv);\n    }\n    if (noise)\n"),
+        ("      float gv[cn::RUN], mv[cn::RUN], vv[cn::RUN], pv[cn::RUN];\n"
+         "      cn::load_run(g + i, gv);\n      cn::load_run(m + i, mv);\n"
+         "      if (ADAMW) cn::load_run(v + i, vv);\n"
+         "      cn::load_run(p + i, pv);\n", "")],
+}
+# the blocks an SM must hold (MIN_BLOCKS in counter_noise.cu and
+# noise_update.cu), so the registers a thread may take (2: up to 128; 3:
+# 80; 4: 64): each kernel is also built with the counts it does not keep
+NOISE_BLOCKS = (2, 3, 4)
+_MIN_BLOCKS = re.compile(r"constexpr int MIN_BLOCKS = (\d+);")
+
+
+def blocks_patches(cu: str, blocks: int) -> list:
+    """csrc/``cu``'s MIN_BLOCKS set to ``blocks``: [] where it is kept."""
+    text = (build.CSRC / cu).read_text()
+    kept = _MIN_BLOCKS.search(text)
+    if kept is None:
+        raise RuntimeError(f"{cu}: no MIN_BLOCKS")
+    return [] if int(kept.group(1)) == blocks else [
+        (kept.group(0), f"constexpr int MIN_BLOCKS = {blocks};")]
 
 
 def patched(src: Path, patches) -> str:
@@ -799,24 +847,60 @@ def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (ordered(a) - ordered(b)).abs()
 
 
-def noise_source(patches) -> str:
-    """csrc/counter_noise.cu with csrc/counter_normal.cuh, patched, in place
-    of its #include."""
-    cu = (build.CSRC / "counter_noise.cu").read_text()
+def noise_source(patches, cu: str = "counter_noise.cu",
+                 cu_patches=()) -> str:
+    """csrc/``cu`` (counter_noise.cu or noise_update.cu), patched by
+    ``cu_patches``, with csrc/counter_normal.cuh, patched by ``patches``,
+    in place of its #include."""
+    text = patched(build.CSRC / cu, cu_patches)
     inc = '#include "counter_normal.cuh"'
-    if cu.count(inc) != 1:
-        raise RuntimeError(f"counter_noise.cu: {inc} is not there once")
-    return cu.replace(inc, patched(build.CSRC / "counter_normal.cuh",
-                                   patches).replace("#pragma once\n", ""))
+    if text.count(inc) != 1:
+        raise RuntimeError(f"{cu}: {inc} is not there once")
+    return text.replace(inc, patched(build.CSRC / "counter_normal.cuh",
+                                     patches).replace("#pragma once\n", ""))
+
+
+def fused_adamw_takes_mixed(dev: str = "cuda") -> bool:
+    """Whether ``torch._fused_adamw_`` (noise_update's library yardstick,
+    here and in chip_smoke.py) takes bf16 params and grads with f32
+    moments on the card: one probe launch of 8 elements."""
+    z = (lambda dt: torch.zeros(8, dtype=dt, device=dev))
+    try:
+        torch._fused_adamw_([z(torch.bfloat16)], [z(torch.bfloat16)],
+                            [z(torch.float32)], [z(torch.float32)], [],
+                            [torch.ones((), device=dev)], lr=1e-3,
+                            beta1=0.9, beta2=0.999, weight_decay=0.0,
+                            eps=1e-8, amsgrad=False, maximize=False)
+        torch.cuda.synchronize()
+        return True
+    except RuntimeError:
+        return False
 
 
 def study_noise(tmp: Path, dev: str) -> None:
     from repro_torch.core import noise
     variants = {n: noise_source(p)
                 for n, p in {**NOISE_PATCHES, **NOISE_ABLATIONS}.items()}
+    variants["first_version"] = (DESIGNS / "counter_noise_per_element.cu"
+                                 ).read_text()
+    for n in ("kept", "no_compaction"):
+        variants[f"update_{n}"] = noise_source(NOISE_PATCHES[n],
+                                               "noise_update.cu")
+    for n, cu_patches in NOISE_UPDATE_PATCHES.items():
+        variants[f"update_{n}"] = noise_source([], "noise_update.cu",
+                                               cu_patches)
+    for b in NOISE_BLOCKS:
+        for prefix, cu in (("", "counter_noise.cu"),
+                           ("update_", "noise_update.cu")):
+            patches = blocks_patches(cu, b)
+            if patches:
+                variants[f"{prefix}min_blocks_{b}"] = noise_source(
+                    [], cu, patches)
     libs = build_variants(variants, tmp)
-    for lib, _ in libs.values():
-        lib.dp_counter_noise.argtypes = build.SIGNATURES["dp_counter_noise"]
+    for name, (lib, _) in libs.items():
+        entry = "dp_noise_update" if name.startswith("update_") else \
+            "dp_counter_noise"
+        getattr(lib, entry).argtypes = build.SIGNATURES[entry]
     path, shape = "blocks/mlp/up/w", (28, 1536, 17920)   # train's largest
     key = noise._path_rng(noise.fold_in(noise.prng_key(1), 0), path)
     keys = (ctypes.c_uint32 * 2)(*key)
@@ -836,6 +920,8 @@ def study_noise(tmp: Path, dev: str) -> None:
 
     kept_out = kept_xi = None
     for name, (lib, notes) in libs.items():
+        if name.startswith("update_"):
+            continue
         fn = (lambda lib=lib: launch(lib, leaf, out, 1, alpha, denom))
         launch(lib, zero, xi, 0, 1.0, 1.0)
         fn()
@@ -852,7 +938,7 @@ def study_noise(tmp: Path, dev: str) -> None:
                "draws_unequal_kept": int((gap > 0).sum()),
                "draws": zero.numel(), "ptxas": notes}
         print(json.dumps(row), flush=True)
-    del kept_out, zero, xi
+    del zero, xi
 
     def chain():
         return (leaf + alpha * torch.randn(shape, generator=g, device=dev)
@@ -861,6 +947,60 @@ def study_noise(tmp: Path, dev: str) -> None:
                       "leaf": path, "shape": shape, "dtype": "bfloat16",
                       "ms": events_ms(chain, n=10),
                       "device_ms": device_ms(chain, reps=3)}), flush=True)
+
+    # noise_update (AdamW, step 1) on the same leaf: the kept kernel with
+    # and without its draw (the no-noise mode: its bytes and the step
+    # alone), the draw without compaction; beside them torch._fused_adamw_
+    # over the noised leaf (kept_out)
+    m = torch.zeros(shape, device=dev)
+    v = torch.zeros(shape, device=dev)
+    p = (torch.randn(shape, generator=g, device=dev) * 0.02).to(
+        torch.bfloat16)
+    hyper = (ctypes.c_float * 11)(alpha, denom, 3e-4, 0.9, 0.1, 0.999,
+                                  0.001, 1e-8, 0.1, 0.001, 0.0)
+    trail = noise.counter_split(shape)[1]
+    nbytes = leaf.numel() * 22
+
+    def update(lib, noisy):
+        _check(lib.dp_noise_update(
+            leaf.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(),
+            ctypes.addressof(keys), 1, 0, noisy, 0, trail, leaf.numel(), 1,
+            1, 1, ctypes.addressof(hyper), 0), "dp_noise_update")
+
+    for name, noisy in (("update_kept", 1), ("update_kept", 0),
+                        ("update_no_compaction", 1),
+                        ("update_loads_first", 1),
+                        *((n, 1) for n in libs if
+                          n.startswith("update_min_blocks"))):
+        lib, notes = libs[name]
+        fn = (lambda lib=lib, noisy=noisy: update(lib, noisy))
+        ms = events_ms(fn, n=10)
+        print(json.dumps({"study": "noise_update", "variant": name,
+                          "noise": bool(noisy), "leaf": path,
+                          "shape": shape, "dtype": "bfloat16",
+                          "optimizer": "AdamW", "ms": ms,
+                          "device_ms": device_ms(fn, reps=3),
+                          "bytes": nbytes,
+                          "bytes_ms": nbytes / 3.35e12 * 1e3,
+                          "ptxas": notes}), flush=True)
+    step_t = torch.ones((), device=dev)
+
+    def fused(pp, gg):
+        torch._fused_adamw_([pp], [gg], [m], [v], [], [step_t], lr=3e-4,
+                            beta1=0.9, beta2=0.999, weight_decay=0.0,
+                            eps=1e-8, amsgrad=False, maximize=False)
+    if fused_adamw_takes_mixed(dev):
+        on = "bf16 p and gradient, f32 moments"
+        pp, gg = p, kept_out
+    else:
+        on = "f32 copies of p and the gradient (bf16 p refused)"
+        pp, gg = p.float(), kept_out.float()
+    fn = (lambda: fused(pp, gg))
+    print(json.dumps({"study": "noise_update",
+                      "variant": "torch._fused_adamw_", "on": on,
+                      "leaf": path, "shape": shape,
+                      "ms": events_ms(fn, n=10),
+                      "device_ms": device_ms(fn, reps=3)}), flush=True)
 
 
 def main(argv=None) -> int:

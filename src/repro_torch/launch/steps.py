@@ -2,19 +2,23 @@
 
 ``step_fn(state, batch) -> (state, loss)`` runs BK over the logical batch
 (microbatched when asked), then the noise-add and the optimizer update in
-ONE pass over the leaves (``noise_leaf_fn`` inside ``update_leaves``), so no
-second full-size gradient tree is live; on the card each leaf's noise is
-one ``counter_noise`` launch, written over its clipped sum. The baseline
-modes (nonprivate, opacus, ghostclip, ...) take their private gradient
-tree (``accumulated_private_grad``), then ``Optimizer.update``. Step s
-draws under ``fold_in(state.rng, s)``, as the JAX package's step does, so
-its noise is the reference's and a resumed run replays the same draws.
-Shardings and buffer donation (the JAX step's mesh lowering) are not
-ported.
+ONE pass over the leaves (``noise_leaf_fn(..., out="deferred")`` inside
+``update_leaves``), so no second full-size gradient tree is live; on the
+card each leaf's noise and update are one ``noise_update`` launch. The
+baseline modes (nonprivate, opacus, ghostclip, ...) take their private
+gradient tree (``accumulated_private_grad``), then ``Optimizer.update``
+(one ``noise_update`` launch a leaf, without noise). The profiler ranges
+``bk_phases_1_3`` (``core.bk``) and ``phase4_update`` attribute a step's
+device time. Step s draws under ``fold_in(state.rng, s)``, as the JAX
+package's step does, so its noise is the reference's and a resumed run
+replays the same draws. Shardings and buffer donation (the JAX step's mesh
+lowering) are not ported.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
 
 from repro_torch.core.bk import BK_MODES
 from repro_torch.core.noise import fold_in, tape_seed
@@ -46,20 +50,22 @@ def make_train_step(apply_fn, params_like, opt, dp, microbatch: int = 0):
             grads, aux = accumulated_private_grad(
                 apply_fn, state.params, batch, rng, policy, microbatch,
                 state.step)
-            params, opt_state = opt.update(grads, state.opt_state,
-                                           state.params, state.step)
+            with torch.profiler.record_function("phase4_update"):
+                params, opt_state = opt.update(grads, state.opt_state,
+                                               state.params, state.step)
             return TrainState(params, opt_state, state.step + 1,
                               state.rng), aux["loss"]
         sums, aux, B = accumulated_clipped_sum(
             apply_fn, state.params, batch, policy, microbatch,
             tape_seed(rng))
         leaf = noise_leaf_fn(policy, res, rng, float(B), state.step,
-                             inplace=True)
-        # each clipped sum is dropped as soon as its leaf is updated (the
-        # noise kernel writes over it)
-        params, opt_state = opt.update_leaves(
-            lambda path, p: leaf(path, sums.pop(path)),
-            state.opt_state, state.params, state.step)
+                             out="deferred")
+        # each clipped sum is dropped as soon as its leaf is updated (its
+        # noise is drawn inside the update's pass)
+        with torch.profiler.record_function("phase4_update"):
+            params, opt_state = opt.update_leaves(
+                lambda path, p: leaf(path, sums.pop(path)),
+                state.opt_state, state.params, state.step)
         return TrainState(params, opt_state, state.step + 1,
                           state.rng), aux["loss"]
 

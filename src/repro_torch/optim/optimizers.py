@@ -6,14 +6,18 @@
     params, state = opt.update(grads, state, params, step)
 
 ``update_leaves`` takes ``grad_for(path, param) -> grad leaf`` and walks the
-leaves ONCE, producing each gradient (e.g. clipped sum + noise,
-``core.policy.noise_leaf_fn``) immediately before its update, so a second
-full-size gradient tree is never live next to the optimizer state.
-``update`` takes a materialized gradient tree (the baseline modes'), and
-delegates to ``update_leaves``, so the two cannot diverge. State is
-float32. Unlike the JAX package's functional updates, the port updates the
-state and the params IN PLACE (the returned dicts are the ones passed in),
-which keeps the peak at one leaf's f32 temporaries.
+leaves ONCE, producing each gradient immediately before its update, so a
+second full-size gradient tree is never live next to the optimizer state.
+A grad leaf is a tensor, or a ``core.noise.NoisedLeaf`` (the clipped sum
+with its phase-4 noise not yet drawn, ``core.policy.noise_leaf_fn(...,
+out="deferred")``). Each leaf's update is one ``kernels.noise_update`` call:
+on the card one launch that draws the noise and applies the step, on the
+CPU its plain version (the noise by ``counter_noise``'s plain version, then
+the torch chain of the step). ``update`` takes a materialized gradient tree
+(the baseline modes'), and delegates to ``update_leaves``, so the two
+cannot diverge. State is float32. Unlike the JAX package's functional
+updates, the port updates the state and the params IN PLACE (the returned
+dicts are the ones passed in).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.kernels.noise_update import AdamW, SGD, noise_update
 from repro_torch.utils.tree import flatten, unflatten
 
 F32 = torch.float32
@@ -50,27 +55,16 @@ def _zeros_f32(params):
                       for k, v in flatten(params).items()})
 
 
-def _apply(p: torch.Tensor, upd: torch.Tensor, lr: float,
-           weight_decay: float) -> None:
-    """p <- p - lr * (upd + wd * p), computed in f32, stored in p's dtype."""
-    p32 = p.to(F32)
-    if weight_decay:
-        upd.add_(p32, alpha=weight_decay)
-    p.copy_(p32.sub_(upd, alpha=lr))
-
-
 # ---------------------------------------------------------------------- sgd
 def sgd(lr_fn, momentum: float = 0.9, weight_decay: float = 0.0) -> Optimizer:
     def init(params):
         return {"m": _zeros_f32(params)}
 
     def update_leaves(grad_for, state, params, step):
-        lr = lr_fn(step)
+        hp = SGD(lr_fn(step), momentum, weight_decay)
         fm = flatten(state["m"])
         for path, p in flatten(params).items():
-            m = fm[path]
-            m.mul_(momentum).add_(grad_for(path, p).to(F32))
-            _apply(p, m.clone(), lr, weight_decay)
+            noise_update(grad_for(path, p), p, fm[path], None, hp)
         return params, state
 
     return Optimizer(init, update_leaves, _materialized(update_leaves))
@@ -83,18 +77,12 @@ def adamw(lr_fn, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return {"m": _zeros_f32(params), "v": _zeros_f32(params)}
 
     def update_leaves(grad_for, state, params, step):
-        lr = lr_fn(step)
         t = step + 1
-        bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+        hp = AdamW(lr_fn(step), b1, b2, eps, 1.0 - b1 ** t, 1.0 - b2 ** t,
+                   weight_decay)
         fm, fv = flatten(state["m"]), flatten(state["v"])
         for path, p in flatten(params).items():
-            g = grad_for(path, p).to(F32)
-            m, v = fm[path], fv[path]
-            m.mul_(b1).add_(g, alpha=1 - b1)
-            v.mul_(b2).addcmul_(g, g, value=1 - b2)
-            del g
-            upd = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
-            _apply(p, upd, lr, weight_decay)
+            noise_update(grad_for(path, p), p, fm[path], fv[path], hp)
         return params, state
 
     return Optimizer(init, update_leaves, _materialized(update_leaves))

@@ -1308,7 +1308,8 @@ def test_cuda_source_parses_against_the_stub_headers(cu):
 def _design_sources():
     for table in ("EMB_PATCHES", "GHOST_PATCHES", "WKV_PATCHES",
                   "WKV_ABLATIONS", "MOE_PATCHES", "EMB_NORM_PATCHES",
-                  "FUSED_PATCHES", "NOISE_PATCHES", "NOISE_ABLATIONS"):
+                  "FUSED_PATCHES", "NOISE_PATCHES", "NOISE_ABLATIONS",
+                  "NOISE_BLOCKS", "NOISE_UPDATE_PATCHES"):
         for name in getattr(design_study, table):
             yield f"{table}:{name}"
     for cu in sorted(design_study.DESIGNS.glob("*.cu")):
@@ -1328,9 +1329,22 @@ def test_design_study_source_parses(which, tmp_path):
         for h in build.CSRC.glob("*.cuh"):
             shutil.copy(h, tmp_path)
         cu = tmp_path / f"{name}.cu"
-        if table.startswith("NOISE"):    # counter_normal.cuh's patches
+        if table == "NOISE_UPDATE_PATCHES":
             cu.write_text(design_study.noise_source(
-                getattr(design_study, table)[name]))
+                [], "noise_update.cu",
+                design_study.NOISE_UPDATE_PATCHES[name]))
+        elif table == "NOISE_BLOCKS":    # the kernels' own sources
+            for src in ("counter_noise.cu", "noise_update.cu"):
+                cu.write_text(design_study.noise_source(
+                    [], src, design_study.blocks_patches(src, int(name))))
+                ok, out = syntax_check.check(cu)
+                assert ok, out
+        elif table.startswith("NOISE"):  # counter_normal.cuh's patches
+            for src in ("counter_noise.cu", "noise_update.cu"):
+                cu.write_text(design_study.noise_source(
+                    getattr(design_study, table)[name], src))
+                ok, out = syntax_check.check(cu)
+                assert ok, out
         else:
             src, patches = getattr(design_study, table)[name]
             cu.write_text(design_study.patched(build.CSRC / src, patches))

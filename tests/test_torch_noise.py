@@ -634,6 +634,61 @@ def test_mechanism_launches_one_kernel_a_leaf(fake_lib):
     assert isinstance(words, int)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deferred_leaf_is_the_eager_leaf_on_the_cpu(dtype):
+    """add_leaf(..., out="deferred") returns the leaf's noise undrawn (a
+    NoisedLeaf: the sum, the keys, alpha, denom, the window); drawn by
+    ``noise_update.gradient`` it is bitwise the eager leaf, for the
+    Gaussian mechanism and the tree's increment."""
+    from repro_torch.kernels import noise_update as nu
+    g = torch.randn(3, 7, generator=torch.Generator().manual_seed(2)).to(
+        dtype)
+    gm = noise.GaussianMechanism()
+    tree = noise.TreeAggregationMechanism(seed=1, depth=8, restart_every=4,
+                                          completion=True)
+    for mech, rng, step in ((gm, (0, 9), None), (tree, None, 3),
+                            (tree, None, 5)):
+        rec = mech.add_leaf("w", g, rng, 0.7, 1.3, 4.0, step=step,
+                            out="deferred")
+        assert isinstance(rec, noise.NoisedLeaf) and rec.g is g
+        assert (rec.alpha, rec.denom, rec.start, rec.trail) == \
+            (0.7 * 1.3, 4.0, 0, 21)
+        eager = mech.add_leaf("w", g, rng, 0.7, 1.3, 4.0, step=step)
+        assert torch.equal(nu.gradient(rec), eager)
+    # sigma 0: the mechanism's own g / denom, a tensor
+    assert torch.equal(gm.add_leaf("w", g, (0, 9), 0.0, 1.3, 4.0,
+                                   out="deferred"), g / 4.0)
+
+
+def test_deferred_leaf_launches_nothing(fake_lib):
+    """On a leaf that is not on the CPU, out="deferred" draws nothing: the
+    record carries the keys the eager launch would have passed."""
+    g = torch.empty(2, 3, device="meta")
+    tree = noise.TreeAggregationMechanism(seed=1, depth=8)
+    rec = tree.add_leaf("w", g, None, 1.0, 2.0, 4.0, step=5, out="deferred")
+    assert fake_lib.calls == []
+    assert list(rec.hi_keys) == tree.node_keys("w", 6)
+    assert list(rec.lo_keys) == tree.node_keys("w", 5)
+    rec = noise.GaussianMechanism().add_leaf("w", g, (0, 1), 1.0, 2.0, 4.0,
+                                             out="deferred")
+    assert rec.hi_keys == (noise._path_rng((0, 1), "w"),) and \
+        rec.lo_keys == ()
+    assert fake_lib.calls == []
+
+
+
+def test_add_leaf_refuses_an_unknown_out():
+    """out is one of noise.OUTS: another word raises, for both mechanisms,
+    rather than falling back to a new tensor."""
+    g = torch.ones(2, 3)
+    tree = noise.TreeAggregationMechanism(seed=1, depth=8)
+    for mech, rng, step in ((noise.GaussianMechanism(), (0, 1), None),
+                            (tree, None, 5)):
+        with pytest.raises(ValueError, match="out must be one of"):
+            mech.add_leaf("w", g, rng, 1.0, 2.0, 4.0, step=step,
+                          out="over")
+
+
 # -------------------------------------------------------------- golden file
 TRIPLES = ((0, 0, "embed/w"), (0, 2, "blocks/mlp/up/w"), (5, 7, "head/w"))
 # (full shape, indices): a qwen2-1.5b leaf, and a tensor past 2^32 elements
