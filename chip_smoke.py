@@ -91,7 +91,16 @@ Phases, each printing JSON lines:
             dtype's TOL; the draws bitwise counter_noise's (m from m = v =
             0 under b1 = 0); bitwise run to run; each train leaf's time
             beside the plain version's and ``torch._fused_adamw_``'s
-            (library_ms); its device time from ``train``'s profiled step
+            (library_ms); its device time from ``train``'s profiled step.
+            Its FTRL branch (DP-FTRL, momentum 0.9) at every leaf of
+            ``train`` (bf16, timed: the ``ftrl`` entry of its summary
+            row, against 26 and 24 bytes an element): a restart step at
+            its 1 key (local t = 1) and an ordinary one at t = 3 of a tree
+            without restarts (hi 2, lo 1: 2 distinct draws); both at those
+            3 keys at its three largest leaves in f32, ragged, unaligned
+            and mixed-alignment leaves and no noise; s, m and t0 bitwise
+            the plain version's, bf16 p within half an ulp of the plain
+            f32 p (+ f32 TOL), bitwise run to run
   noise     (not in the default run) counter_noise's and noise_update's
             checks alone
   wgmma     (not in the default run) the short call after a tensor-core
@@ -125,8 +134,15 @@ Phases, each printing JSON lines:
   train_tape        qwen2-1.5b, full, B=2, T=2048, tape 'recompute': no
                     weighted-grad kernel, a reweighted backward per unit
                     (2 steps)
+  train_ftrl        qwen2-1.5b, full, B=8, T=512, 4 steps of DP-FTRL
+                    (--optimizer ftrl --ftrl-momentum 0.9 --restart-every 2
+                    --tree-completion --epsilon 3 --dataset-size 50000):
+                    sigma from the tree accountant, the ledger's epsilon at
+                    the end; train's kernels and one FTRL noise_update a
+                    leaf a step
             each: the arch's registered policy, bk-mixopt (unless named),
-            sigma=1.0, AdamW, through ``repro_torch.launch.train.train``;
+            sigma=1.0, AdamW (train_ftrl: as named), through
+            ``repro_torch.launch.train.train`` (losses drained every step);
             launch counts per step (noise_update: one a leaf on every path;
             counter_noise: one a noised leaf on train_ghostclip, none on
             the BK paths and under 'nonprivate'); the last step runs under
@@ -151,7 +167,13 @@ Phases, each printing JSON lines:
             launches count; f32, so every launch takes the SIMT routes);
             then one noised AdamW step over the kernel run's sums, the
             train step's route (one noise_update a leaf) against the plain
-            version leaf by leaf, params and moments at f32 TOL
+            version leaf by leaf, params and moments at f32 TOL; at
+            parity_layer's smoke width (2 layers, f32), three noised steps
+            of DP-FTRL (tree noise, restarts every 2 with completion: one
+            noise_update a leaf a step), LAMB and Adafactor (one
+            counter_noise a noised leaf a step, then their torch chains)
+            on the card held to the same steps on the CPU (the plain
+            versions), params and state at f32 TOL
   parity_modes
             every mode of ``core.engine.make_grad_fn`` on the card (f32,
             one seed) against opacus: qwen2-1.5b at full width and 2 layers
@@ -189,7 +211,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TRAINS = ("train", "train_nonprivate", "train_ghostclip", "train_moe",
-          "train_moe_direct", "train_long", "train_layer", "train_tape")
+          "train_moe_direct", "train_long", "train_layer", "train_tape",
+          "train_ftrl")
 PREFILLS = ("prefill", "prefill_rwkv")
 SERVES = ("serve", "serve_rwkv")
 PARITIES = ("parity", "parity_moe", "parity_long", "parity_layer",
@@ -373,6 +396,17 @@ RUNS = {
                        steps=2, direct=False, tape="recompute",
                        per_step=_per_step(grad_norm_direct=2, ghost_norm=3,
                                           emb_ghost_norm=1)),
+    # DP-FTRL: sigma from --epsilon 3 over 50000 samples by the tree
+    # accountant; restarts every 2 steps with completion (steps 1 and 3
+    # complete a tree, step 2 restarts it and the anchor); train's kernels,
+    # and one FTRL noise_update a leaf
+    "train_ftrl": dict(arch="qwen2-1.5b", layers=0, batch=8, seq=512,
+                       steps=4, direct=False, optimizer="ftrl",
+                       ftrl_momentum=0.9, restart_every=2,
+                       tree_completion=True, epsilon=3.0,
+                       dataset_size=50000, per_step=_per_step(
+                           ghost_norm=5, clipped_grad=5, emb_ghost_norm=1,
+                           emb_clipped_grad=1)),
 }
 # fused_clip_grad's gate-edge cases (name, L, d, p; bf16, B=8, T=512): the
 # largest units the reference's rule (kernels.dispatch.fused_plan) sends to
@@ -483,12 +517,19 @@ def fresh_peak() -> int:
 
 
 def train_config(name):
-    """The TrainConfig a train path hands ``train``: its shapes, steps and
-    the clipping-scope / tape flags of the CLI."""
+    """The TrainConfig a train path hands ``train``: its shapes, steps, the
+    clipping-scope / tape flags and the optimizer with its DP-FTRL knobs
+    (FTRL under the constant schedule, as the CLI forces it)."""
     from repro_torch.configs.base import TrainConfig
     run = RUNS[name]
+    opt = run.get("optimizer", "adamw")
     return TrainConfig(global_batch=run["batch"], seq_len=run["seq"],
-                       steps=run["steps"], lr=3e-4, optimizer="adamw",
+                       steps=run["steps"], lr=3e-4, optimizer=opt,
+                       lr_schedule=("constant" if opt == "ftrl"
+                                    else TrainConfig.lr_schedule),
+                       ftrl_momentum=run.get("ftrl_momentum", 0.0),
+                       restart_every=run.get("restart_every", 0),
+                       tree_completion=run.get("tree_completion", False),
                        clipping_scope=run.get("scope", ""),
                        tape=run.get("tape", ""))
 
@@ -503,8 +544,10 @@ def run_config(name, flags=True):
     cfg = get_config(run["arch"])
     if run["layers"]:
         cfg = cfg.with_(n_layers=run["layers"])
+    # sigma 1.0, or 0 where the path calibrates it from its epsilon
     dp = resolve_dp(cfg.name, "auto", run.get("mode", "bk-mixopt"),
-                    "automatic", 1.0, log=lambda m: None)
+                    "automatic", 0.0 if run.get("epsilon") else 1.0,
+                    log=lambda m: None)
     if run["direct"]:
         dp = dataclasses.replace(dp, groups=tuple(
             dataclasses.replace(g, method="direct") if g.name == "experts"
@@ -582,6 +625,12 @@ def compare(got, want, tol) -> dict:
         ok = ok and bool((diff <= atol + rtol * wi.abs()).all())
     return {"max_abs_err": max_abs, "max_rel_err": max_rel,
             "rtol": rtol, "atol": atol, "ok": ok}
+
+
+def draws(hi, lo) -> int:
+    """The draws a noised leaf's function needs: its distinct node keys (a
+    key in both ``hi`` and ``lo`` is the same draw on both sides)."""
+    return len(set(hi) | set(lo))
 
 
 def bound(nbytes: float, ops: float, dtype_name: str):
@@ -1876,7 +1925,7 @@ def counter_noise_checks(record, rnd):
         record(name, path, f"{label} {tuple(shape)} {str(dtype)[6:]}", out,
                want, TOL[str(dtype)[6:]], ms_k, ms_p,
                2 * n * g.element_size(),
-               THREEFRY["draw_ops"] * n * (len(hi) + len(lo)), "int32",
+               THREEFRY["draw_ops"] * n * draws(hi, lo), "int32",
                again=again, timed=timed, **extra)
         del g, out, again, want
         torch.cuda.empty_cache()
@@ -1965,6 +2014,11 @@ RANGES = ("bk_phases_1_3", "phase4_update")
 
 # noise_update's library yardstick, as the noise checks found it
 LIBRARY_NOTE = {}
+# noise_update's FTRL branch over train's leaves (bf16; a restart step at
+# 1 key, an ordinary one at 3 keys, 2 draws), summed by step kind:
+# {"ordinary" | "restart": {keys, draws, leaves, elements, ms, plain_ms,
+# bound_ms, max_abs_err}}; set by the noise checks
+FTRL_ROW = {}
 
 
 def noise_update_checks(record, rnd):
@@ -2052,6 +2106,7 @@ def noise_update_checks(record, rnd):
                  "optimizer": type(hp).__name__,
                  "weight_decay": hp.weight_decay, "noise": noisy,
                  "keys": len(hi) + len(lo) if noisy else 0,
+                 "draws": draws(hi, lo) if noisy else 0,
                  "offsets": list(offsets), "state_bitwise_repeat": repeat}
         bad = []
         for key, got, want in (("m", mk, mp), ("v", vk, vp)):
@@ -2110,7 +2165,7 @@ def noise_update_checks(record, rnd):
             del gn, lib
         es_g, es_p = g.element_size(), pk.element_size()
         nbytes = n * (es_g + 2 * es_p + (16 if adam else 8))
-        ops = THREEFRY["draw_ops"] * n * (len(hi) + len(lo)) if noisy else 0
+        ops = THREEFRY["draw_ops"] * n * draws(hi, lo) if noisy else 0
         record(name, path, f"{label} {tuple(shape)}", pk, pp,
                TOL[str(p_dt)[6:]], ms_k, ms_p, nbytes, ops, "int32",
                ms_lib=ms_lib, again=None, timed=timed, **extra)
@@ -2164,6 +2219,136 @@ def noise_update_checks(record, rnd):
          0.0, 1.0, adamw(0.1), noisy=False)
     case("no noise sgd", "no_noise", (28, 1536, 256), bf16, bf16, [], [],
          0.0, 1.0, nu.SGD(3e-4, 0.9, 0.1), noisy=False)
+
+    def ftrl_case(label, shape, g_dt, p_dt, hi, lo, restart, timed=False,
+                  noisy=True, offsets=(0, 0, 0)):
+        """noise_update's FTRL branch on one leaf (momentum 0.9): s, m and
+        t0 bitwise the plain version's, p as the AdamW cases hold it,
+        bitwise run to run; ``offsets``: of g, p and the state."""
+        g = shifted(rnd(*shape, dtype=g_dt), offsets[0])
+        start, trail = cn.window(g.shape)
+        rec = noise.NoisedLeaf(g, tuple(hi), tuple(lo), alpha, denom,
+                               start, trail) if noisy else g
+        s0 = rnd(*shape, dtype=f32)
+        m0 = rnd(*shape, dtype=f32)
+        t00 = rnd(*shape, dtype=f32).mul_(0.02)
+        p0 = rnd(*shape, dtype=f32).mul_(0.02).to(p_dt)
+        hp = nu.FTRL(3e-4, 0.9, restart)
+
+        def fresh():
+            return (shifted(p0.clone(), offsets[1]),
+                    shifted(s0.clone(), offsets[2]),
+                    shifted(m0.clone(), offsets[2]),
+                    shifted(t00.clone(), offsets[2]))
+
+        def launch(q):
+            nu.noise_update(rec, q[0], q[1], q[2], hp, t0=q[3])
+
+        runs = []
+        for _ in range(2):
+            q = fresh()
+            launch(q)
+            runs.append(q)
+        torch.cuda.synchronize()
+        (pk, sk, mk, tk), again = runs
+        repeat = all(torch.equal(a, b) for a, b in zip(runs[0], again))
+        del runs, again
+        pp, sp, mp, tp = fresh()
+        pp32 = pp.float()
+        nu.plain(rec, pp32, sp, mp, hp, t0=tp)
+        pp = pp32.to(p_dt)
+        extra = {"dtype": f"g {str(g_dt)[6:]} p {str(p_dt)[6:]}",
+                 "optimizer": "FTRL", "restart": restart, "noise": noisy,
+                 "keys": len(hi) + len(lo) if noisy else 0,
+                 "draws": draws(hi, lo) if noisy else 0,
+                 "offsets": list(offsets), "state_bitwise_repeat": repeat}
+        bad = [k for k, got, want in (("s", sk, sp), ("m", mk, mp),
+                                      ("t0", tk, tp))
+               if not torch.equal(got, want)]
+        extra["s_m_t0_bitwise_plain"] = not bad
+        for key, got, want in (("s", sk, sp), ("m", mk, mp)):
+            extra[f"{key}_max_ulp"] = int(ulp_gap(got, want).max())
+        del sp, mp, tp
+        if p_dt == bf16:
+            gap = bf16_ulp_gap(pk, pp)
+            extra["p_bf16_one_ulp_off"] = int((gap == 1).sum())
+            extra["p_bf16_over_one_ulp_off"] = int((gap > 1).sum())
+            del gap
+            over = p_rounding_excess(pk, pp32, TOL["float32"])
+            extra["p_bf16_rounding_excess"] = over
+            if over > 0:
+                bad.append("p")
+        else:
+            extra["p_max_ulp"] = int(ulp_gap(pk, pp).max())
+        del pp32
+        ms_k = ms_p = None
+        if timed:
+            q = fresh()
+            ms_k = cuda_ms(lambda: launch(q), reps=5)
+            q = fresh()
+            ms_p = cuda_ms(lambda: nu.plain(rec, q[0], q[1], q[2], hp,
+                                            t0=q[3]), reps=1, warmup=1)
+            del q
+        n = g.numel()
+        es_g, es_p = g.element_size(), pk.element_size()
+        # an ordinary step reads the anchor and not p; a restart step reads
+        # p and writes the anchor: g, p's write, s and m read and written,
+        # t0 once, and p's read on a restart
+        nbytes = n * (es_g + es_p + 20 + (es_p if restart else 0))
+        ops = THREEFRY["draw_ops"] * n * draws(hi, lo) if noisy else 0
+        path = "train_ftrl" if timed else "ftrl"
+        record(name, path, f"ftrl {label} {tuple(shape)}", pk, pp,
+               TOL[str(p_dt)[6:]], ms_k, ms_p, nbytes, ops, "int32",
+               timed=timed, **extra)
+        if timed:
+            row = FTRL_ROW.setdefault(
+                "restart" if restart else "ordinary",
+                {"keys": extra["keys"], "draws": extra["draws"],
+                 "leaves": 0, "elements": 0, "ms": 0.0, "plain_ms": 0.0,
+                 "bound_ms": 0.0, "max_abs_err": 0.0})
+            row["leaves"] += 1
+            row["elements"] += n
+            row["ms"] += ms_k
+            row["plain_ms"] += ms_p
+            row["bound_ms"] += bound(nbytes, ops, "int32")[0]
+            row["max_abs_err"] = max(row["max_abs_err"], float(
+                (pk.float() - pp.float()).abs().max()))
+        if bad or not repeat:
+            raise AssertionError(f"{name} [ftrl {label}]: {extra}, not as "
+                                 f"the plain version: {bad}")
+        del g, rec, pk, sk, mk, tk, pp, s0, m0, t00, p0
+        torch.cuda.empty_cache()
+
+    # FTRL at every train leaf (bf16, timed) at the keys each step kind
+    # has: a restart step is a tree's local t = 1 (node (0, 1), no lo
+    # keys); the ordinary one is t = 3 of a tree with no restarts (nodes
+    # (0, 3) and (1, 1) minus node (1, 1) of t - 1 = 2: 3 keys, 2 draws).
+    # Then both step kinds at those 3 keys at train's three largest leaves
+    # in f32, ragged and unaligned leaves, and without noise
+    ftree = noise.TreeAggregationMechanism(seed=3, depth=10)
+    for path, (shape, dtype) in sorted(shapes.items()):
+        ftrl_case(f"train {path}", shape, dtype, dtype,
+                  ftree.node_keys(path, 1), [], True, timed=True)
+        ftrl_case(f"train {path}", shape, dtype, dtype,
+                  ftree.node_keys(path, 3), ftree.node_keys(path, 2),
+                  False, timed=True)
+    for path in largest:
+        for restart in (True, False):
+            ftrl_case(f"train {path}", shapes[path][0], f32, f32,
+                      ftree.node_keys(path, 3), ftree.node_keys(path, 2),
+                      restart)
+    for restart in (True, False):
+        ftrl_case("ragged", (28, 3, 1537), bf16, bf16, [(7, 12), (7, 14)],
+                  [(7, 16)], restart)
+        ftrl_case("unaligned", (3, 4099), bf16, bf16, [(7, 13)], [],
+                  restart, offsets=(1, 1, 1))
+        ftrl_case("unaligned mixed", (3, 4099), bf16, f32, [(7, 13)], [],
+                  restart, offsets=(1, 0, 0))
+        ftrl_case("no noise", (28, 1536, 256), bf16, bf16, [], [], restart,
+                  noisy=False)
+    emit(phase="kernels", kernel=name, case="ftrl over train's leaves",
+         **FTRL_ROW, library_ms=None,
+         library="none: no single call computes the FTRL step")
 
 
 def _range_device_ms(prof) -> dict:
@@ -2302,9 +2487,13 @@ def phase_train(name, stats: dict):
             prof["p"].stop()
 
     floor = fresh_peak()
+    summary, logs = {}, []
     reset_counts(ws)                  # counts from here on are the path's
-    params, losses = train(cfg, tc, dp, device="cuda", log=lambda m: None,
-                           on_step=on_step)
+    params, losses = train(cfg, tc, dp, device="cuda", log=logs.append,
+                           on_step=on_step,
+                           dataset_size=run.get("dataset_size", 0),
+                           target_epsilon=run.get("epsilon", 0.0),
+                           summary_out=summary)
     torch.cuda.synchronize()
     totals = {k: w.launches for k, w in ws.items()}
     wgmma = check_routes(name, ws, True)
@@ -2328,10 +2517,13 @@ def phase_train(name, stats: dict):
          methods={g.name: g.method or "rule" for g in dp.groups},
          scopes={g.name: g.scope for g in ran.groups},
          tape=ran.tape_policy,
-         optimizer="adamw", batch=tc.global_batch, seq=tc.seq_len,
-         steps=tc.steps, sigma=dp.sigma, losses=losses,
-         max_memory_allocated=peak, allocated_at_start=floor,
-         launches=totals, wgmma_launches=wgmma)
+         optimizer=tc.optimizer, batch=tc.global_batch, seq=tc.seq_len,
+         steps=tc.steps, sigma=summary["ledger"]["entries"][0]["sigma"],
+         epsilon_spent=summary["epsilon"], delta=summary["delta"],
+         ledger=summary["ledger"], driver_log=[
+             m for m in logs if not m.startswith("step ")],
+         losses=losses, max_memory_allocated=peak,
+         allocated_at_start=floor, launches=totals, wgmma_launches=wgmma)
     profile = _profile_summary(prof["p"], prof["ms"])
     emit(phase=f"{name}_profile", step=tc.steps - 1, **profile)
     stats[name] = {"step_seconds": per_step[-2]["seconds"],
@@ -2627,6 +2819,8 @@ def phase_parity(name):
             check_routes(name, ws, False)     # f32: the SIMT routes
             if not counts and label == mode:
                 update_parity(name, params, sk, pol, B)
+            if counts:
+                optimizer_parity(name, params, sk, pol, B)
             del out, sk, sp
         del model, params, batch
         torch.cuda.empty_cache()
@@ -2681,6 +2875,130 @@ def update_parity(name, params, sums, policy, B):
                              f"launches for {len(flat)} leaves)")
     del got, state, fg, fm, fv
     torch.cuda.empty_cache()
+
+
+# the optimizers held card to CPU by optimizer_parity, with their knobs;
+# each takes OPT_STEPS steps: under ftrl's tree noise (restarts every 2,
+# completion) step 1 completes the tree and step 2 restarts it and the
+# anchor
+PARITY_OPTIMIZERS = {"ftrl": dict(momentum=0.9, restart_every=2),
+                     "lamb": {}, "adafactor": {}}
+OPT_STEPS = 3
+# optimizer_parity's step check: each param's change over OPT_STEPS, card
+# against CPU, within STEP_TOL of the leaf's largest change. f32 TOL alone
+# (atol 1e-4) is about a whole step's change at lr 3e-4: it could not fail
+# a halved lr or a flipped sign.
+STEP_TOL = 1e-2
+
+
+def _optimizer_run(name, params, sums, policy, B, dev, lr=3e-4):
+    """OPT_STEPS deferred steps of optimizer ``name`` (``lr``, constant)
+    from ``params`` over the clipped sums ``sums``, every tensor copied to
+    ``dev`` -> (flat params, flat state, noise_update and counter_noise
+    launches). ftrl draws the tree noise the train driver switches it to;
+    lamb and adafactor the policy's Gaussian noise."""
+    import torch
+    from repro_torch.core.noise import fold_in, prng_key
+    from repro_torch.core.policy import noise_leaf_fn, resolve_policy
+    from repro_torch.kernels import counter_noise as cn
+    from repro_torch.kernels import noise_update as nu
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.utils.tree import flatten, unflatten
+
+    if name == "ftrl":
+        policy = dataclasses.replace(policy, noise="tree", noise_depth=2,
+                                     noise_restart_every=2,
+                                     noise_completion=True)
+    flat = {k: v.detach().to(dev, copy=True)
+            for k, v in flatten(params).items()}
+    res = resolve_policy(policy, flat)
+    opt = make_optimizer(name, lambda s: lr, **PARITY_OPTIMIZERS[name])
+    p = unflatten(flat)
+    state = opt.init(p)
+    n0 = (nu.noise_update.launches, cn.counter_noise.launches)
+    for step in range(OPT_STEPS):
+        leaf = noise_leaf_fn(policy, res, fold_in(prng_key(1), step),
+                             float(B), step, out="deferred")
+        # a copy of each sum: lamb and adafactor draw over it in place
+        opt.update_leaves(lambda path, q: leaf(
+            path, sums[path].to(dev, copy=True)), state, p, step)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    return flatten(p), flatten(state), (
+        nu.noise_update.launches - n0[0],
+        cn.counter_noise.launches - n0[1])
+
+
+def optimizer_gap(got_p, got_s, want_p, want_s, p0) -> dict:
+    """optimizer_parity's comparison of two runs of one optimizer from the
+    params ``p0`` (flat dicts): every param and state leaf at f32 TOL and
+    finite, and every param's change ``p - p0`` within STEP_TOL of the
+    leaf's largest change in ``want`` (a leaf that ``want`` leaves as it
+    was must stay so) -> {max_abs_err, step_err (the largest change gap
+    over its leaf's largest change), step_min / step_max (the smallest and
+    largest leaf's largest change), failed}."""
+    import torch
+    worst, bad = 0.0, []
+    for key, got, want in ([("p:" + k, got_p[k], want_p[k]) for k in want_p]
+                           + [("state:" + k, got_s[k], want_s[k])
+                              for k in want_s]):
+        got = got.cpu()
+        cmp = compare(got, want.cpu(), TOL["float32"])
+        worst = max(worst, cmp["max_abs_err"])
+        if not cmp["ok"] or not bool(torch.isfinite(got).all()):
+            bad.append(key)
+    step_err, sizes = 0.0, []
+    for k, p in p0.items():
+        before = p.cpu().double()
+        d_want = want_p[k].cpu().double() - before
+        gap = float((got_p[k].cpu().double() - before - d_want).abs().max())
+        size = float(d_want.abs().max())
+        sizes.append(size)
+        err = gap / size if size else (0.0 if gap == 0 else math.inf)
+        step_err = max(step_err, err)
+        if not err <= STEP_TOL:
+            bad.append("step:" + k)
+    return {"max_abs_err": worst, "step_err": step_err,
+            "step_min": min(sizes), "step_max": max(sizes), "failed": bad}
+
+
+def optimizer_parity(name, params, sums, policy, B):
+    """DP-FTRL (tree noise, restarts), LAMB and Adafactor, OPT_STEPS noised
+    steps each over the clipped sums ``sums`` of a parity model (f32): the
+    port's run on the card (ftrl: one noise_update launch a leaf a step;
+    lamb, adafactor: one counter_noise launch a noised leaf a step) held to
+    its run on the CPU (the plain versions) by ``optimizer_gap``: params
+    and every state leaf at f32 TOL, each param's change within STEP_TOL
+    of its leaf's largest."""
+    import torch
+    from repro_torch.core.policy import resolve_policy
+    from repro_torch.utils.tree import flatten
+
+    p0 = flatten(params)
+    leaves = len(p0)
+    noised = len(resolve_policy(policy, p0).unit_of)
+    for opt in PARITY_OPTIMIZERS:
+        t0 = time.perf_counter()
+        gp, gs, launched = _optimizer_run(opt, params, sums, policy, B,
+                                          "cuda")
+        seconds = time.perf_counter() - t0
+        wp, ws, _ = _optimizer_run(opt, params, sums, policy, B, "cpu")
+        gap = optimizer_gap(gp, gs, wp, ws, p0)
+        bad = gap["failed"]
+        want_launched = ((OPT_STEPS * leaves, 0) if opt == "ftrl"
+                         else (0, OPT_STEPS * noised))
+        emit(phase=name, case=f"{opt} card vs cpu", steps=OPT_STEPS,
+             sigma=policy.sigma, leaves=leaves,
+             noise_update_launches=launched[0],
+             counter_noise_launches=launched[1], card_seconds=seconds,
+             rtol=TOL["float32"][0], atol=TOL["float32"][1],
+             step_tol=STEP_TOL, **gap)
+        if bad or launched != want_launched:
+            raise AssertionError(f"{name} [{opt}]: the card run disagrees "
+                                 f"with the CPU run on {bad} (launches "
+                                 f"{launched}, want {want_launched})")
+        del gp, gs, wp, ws
+        torch.cuda.empty_cache()
 
 
 # parity_modes: every mode of core.engine against opacus, f32 (name, B, T):
@@ -2880,6 +3198,12 @@ def main(argv=None) -> int:
                    if name in LIBRARY_NOTE else {}),
                 **({k: s[k] for k in ("composed_ms", "device_ms")
                     if k in s}),
+                # noise_update's FTRL branch over train's leaves: its own
+                # time, plain time and bound, by step kind
+                **({"ftrl": {**FTRL_ROW, "library_ms": None, "library":
+                             "none: no single call computes the FTRL "
+                             "step"}}
+                   if name == "noise_update" and FTRL_ROW else {}),
                 # its device time by torch.profiler: the main path's own
                 # step (the kernels phase's short sessions lose events)
                 **({"train_step_device_ms":

@@ -59,7 +59,16 @@ class TrainConfig:
     optimizer: str = "adamw"
     weight_decay: float = 0.0
     warmup: int = 0
+    # DP-FTRL (optimizer="ftrl"): momentum over noisy gradient prefixes,
+    # epoch restarts every N steps (0 = never; also drives the tree-noise
+    # mechanism's restarts), and Honaker tree completion at each restart
+    ftrl_momentum: float = 0.0
+    restart_every: int = 0
+    tree_completion: bool = False
     seed: int = 0
+    # loss log + device->host flush period in steps: the loop keeps losses
+    # on the device and drains them every log_every steps (and at exit)
+    log_every: int = 10
     # tape residency override (core.tape.TAPE_POLICIES): "" keeps whatever
     # the DPConfig / policy preset configured; tape_chunks 0 likewise
     tape: str = ""

@@ -16,14 +16,17 @@ package's noise (``core.policy.finalize_noise`` / ``noise_leaf_fn``).
 Modes: 'nonprivate' | 'tfprivacy' | 'opacus' | 'fastgradclip' | 'ghostclip'
      | 'bk' | 'bk-mixghost' | 'bk-mixopt'
 
-Not ported: the accountant behind ``target_epsilon`` (ROADMAP B3) and the
-mesh arguments (ROADMAP B7).
+``PrivacyEngine(..., target_epsilon=...)`` calibrates sigma by
+``core.accounting.budget_for`` and keeps the budget as ``.budget``. Not
+ported: the mesh arguments (ROADMAP B7).
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Callable
 
 from repro_torch.core import baselines
+from repro_torch.core.accounting import budget_for
 from repro_torch.core.bk import BK_MODES, bk_private_grad, plan_report
 from repro_torch.core.policy import as_policy
 
@@ -58,16 +61,21 @@ def make_grad_fn(apply_fn: Callable, cfg) -> Callable:
 
 
 class PrivacyEngine:
-    """A gradient function and its kernel plans for one model and policy."""
+    """A gradient function and its kernel plans for one model and policy;
+    with ``target_epsilon`` > 0, sigma calibrated to the (epsilon, delta)
+    budget of ``epochs`` over ``dataset_size`` samples in batches of
+    ``batch_size`` (the SGM accountant), kept as ``.budget``."""
 
     def __init__(self, apply_fn: Callable, cfg, batch_size: int = 0,
                  dataset_size: int = 0, epochs: float = 0.0,
                  target_epsilon: float = 0.0, delta: float = 1e-5):
         if target_epsilon > 0.0:
-            raise NotImplementedError(
-                "PrivacyEngine(target_epsilon=...) calibrates sigma with "
-                "accounting.budget_for, which is not ported yet (ROADMAP "
-                "B3: the accountant); pass sigma in the DPConfig / policy")
+            budget = budget_for(target_epsilon, delta, batch_size,
+                                dataset_size, epochs)
+            cfg = replace(cfg, sigma=budget.sigma)
+            self.budget = budget
+        else:
+            self.budget = None
         self.cfg = cfg
         self.policy = as_policy(cfg)
         self.apply_fn = apply_fn

@@ -45,6 +45,16 @@ def tap_w(key: str) -> str:
     return parse_key(key)[0] + "/w"
 
 
+def _layer_slice(path: str, v, l: int, per_sample) -> dict:
+    """Layer ``l`` of the stacked subtree ``v`` at ``path`` (a module-level
+    recursion: a nested one would hold itself, and with it the tape and
+    every record, in a reference cycle until the garbage collector runs)."""
+    if isinstance(v, dict):
+        return {k: _layer_slice(f"{path}/{k}", x, l, per_sample)
+                for k, x in v.items()}
+    return v[:, l] if path in per_sample else v[l]
+
+
 class Tape:
     """Collects activation records and tap outputs during a forward pass.
 
@@ -129,12 +139,7 @@ class Tape:
         """Layer ``l`` of the stacked param subtree ``params`` (at ``name``).
         Weights and vector params are (L, ...); per-sample vector params are
         (B, L, ...) and are sliced on their second axis."""
-        def take(path, v):
-            if isinstance(v, dict):
-                return {k: take(f"{path}/{k}", x) for k, x in v.items()}
-            return v[:, l] if path in self.per_sample else v[l]
-
-        return take(name, params)
+        return _layer_slice(name, params, l, self.per_sample)
 
     # ------------------------------------------------------------------- taps
     def record(self, name: str, kind: str, s: torch.Tensor, act) -> torch.Tensor:

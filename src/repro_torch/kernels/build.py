@@ -69,7 +69,7 @@ SIGNATURES = {
     "dp_counter_noise": [_P] * 3 + [_I] * 2 + [_U64] * 2 + [_I64, _F, _F,
                                                             _I, _P],
     "dp_noise_update": [_P] * 5 + [_I] * 3 + [_U64] * 2 + [_I64] + [_I] * 3
-                       + [_P, _P],
+                       + [_P] * 3,
     "dp_threefry_bits": [_P, _P, _I64, _P],
     "dp_ndtri_f32": [_P, _P, _I64, _P],
 }

@@ -4,29 +4,40 @@
 //     AdamW:  m = b1 m + (1 - b1) gn,  v = b2 v + (1 - b2) gn^2,
 //             p = p - lr ((m / bc1) / (sqrt(v / bc2) + eps) + wd p)
 //     SGD:    m = momentum m + gn,     p = p - lr (m + wd p)
+//     FTRL:   keep = 0 on a restart step, else 1;
+//             s = keep s + gn,  m = (momentum keep) m + s,
+//             t0 = p (restart) or t0,  p = t0 - lr m
 //
-//     g: the leaf's clipped sum (f32 or bf16), m, v: f32 state, p: the
-//     parameter (f32 or bf16); m, v and p written in place
+//     g: the leaf's clipped sum (f32 or bf16), the state (AdamW m, v; SGD
+//     m; FTRL s, m, t0): f32, p: the parameter (f32 or bf16); the state and
+//     p written in place
 //
 // with xi the phase-4 draw of counter_noise.cu (the same keys, counters and
 // sums: cn::warp_xi) and gn the noised gradient at the reference's rounding
 // points in g's dtype (cn::noised), then widened to f32; the step in f32, p
 // rounded to its dtype, as repro/optim/optimizers.py's adamw (:76-101) and
-// sgd (:57-72) do. Without noise (frozen leaves, sigma = 0 after the
-// mechanism's own g / denom, the baseline modes' materialized trees) the
-// leaf is taken as given.
+// sgd (:57-72) and repro/optim/ftrl.py (:81-97) do. FTRL's s, m and t0 round
+// where its plain version's torch chain rounds (a product, then a sum: no
+// contraction), so they come out bitwise the chain's. Without noise (frozen
+// leaves, sigma = 0 after the mechanism's own g / denom, the baseline modes'
+// materialized trees) the leaf is taken as given.
 //
 // Replaces no TPU kernel: the JAX package writes the noise and the update in
-// jnp (repro/core/noise.py::counter_normal, repro/optim/optimizers.py), which
-// XLA fuses into a few passes; the port's first phase 4 ran counter_noise
-// over the leaf, then ~14 torch passes of the update (its plain version,
-// kernels/noise_update.py).
+// jnp (repro/core/noise.py::counter_normal, repro/optim/optimizers.py,
+// repro/optim/ftrl.py), which XLA fuses into a few passes; the port's first
+// phase 4 ran counter_noise over the leaf, then ~14 torch passes of the
+// update (its plain version, kernels/noise_update.py).
 //
 // Bound on the H100: bytes. AdamW over a bf16 leaf reads g 2, m 4, v 4 and
 // p 2 bytes an element and writes m, v and p (10): 22 bytes, 11.67 ms over
 // qwen2-1.5b's 1.78 G elements at 3.35 TB/s; SGD 14 bytes; f32 g and p 28
-// (AdamW). The draw's integer work (~5.4 ms for those elements, 51 ALU-pipe
-// instructions a threefry2x32 block) issues beside the bytes. The design:
+// (AdamW). FTRL's new p does not depend on the old one except on a restart
+// step, where it becomes the anchor, and the anchor is then not read: an
+// ordinary step reads g 2, s 4, m 4, t0 4 and writes s, m (8) and p 2, 24
+// bytes (12.73 ms over those elements); a restart step reads p 2 in place
+// of t0 and writes t0 4 more, 26 bytes (13.79 ms). The draw's integer work
+// (~5.4 ms for those elements, 51 ALU-pipe instructions a threefry2x32
+// block) issues beside the bytes. The design:
 // counter_noise.cu's pass (runs of 8 elements a lane, g and p as one 16-byte
 // vector each in bf16, m and v as two float4 each, the draw compacted per
 // warp); a run's operands loaded after its draw, so that the kernel takes 78
@@ -51,18 +62,29 @@ constexpr int WARPS = THREADS / 32;
 // SM, and their times differ by no more than run to run)
 constexpr int MIN_BLOCKS = 3;
 
-// the step's scalars, in f32 (host-rounded once)
+// the optimizers (the C entry's ``opt``)
+constexpr int SGD = 0, ADAMW = 1, FTRL = 2;
+
+// the step's scalars, in f32 (host-rounded once). SGD: b1 = momentum.
+// FTRL: b1 = momentum x keep, omb1 = keep (0 on a restart step, else 1).
 struct Hyper {
   float alpha, denom;        // the noise (unused without it)
-  float lr, b1, omb1, b2, omb2, eps, bc1, bc2, wd;   // SGD: b1 = momentum
+  float lr, b1, omb1, b2, omb2, eps, bc1, bc2, wd;
 };
 
 // One element's update from its noised gradient (f32) -> m, v, p in place.
-template <bool ADAMW>
+// FTRL: m holds s, v holds m, and p comes in as the anchor t0.
+template <int OPT>
 __device__ __forceinline__ void step(float gn, float& m, float& v, float& p,
                                      const Hyper& h) {
+  if (OPT == FTRL) {
+    m = __fadd_rn(__fmul_rn(h.omb1, m), gn);
+    v = __fadd_rn(__fmul_rn(h.b1, v), m);
+    p = __fmaf_rn(-h.lr, v, p);
+    return;
+  }
   float upd;
-  if (ADAMW) {
+  if (OPT == ADAMW) {
     m = __fmaf_rn(h.omb1, gn, __fmul_rn(h.b1, m));
     v = __fmaf_rn(h.omb2, __fmul_rn(gn, gn), __fmul_rn(h.b2, v));
     upd = __fdiv_rn(__fdiv_rn(m, h.bc1),
@@ -75,14 +97,19 @@ __device__ __forceinline__ void step(float gn, float& m, float& v, float& p,
   p = __fmaf_rn(-h.lr, upd, p);
 }
 
-template <typename G, typename P, bool ADAMW>
+template <typename G, typename P, int OPT>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-    noise_update_kernel(const G* g, P* p, float* m, float* v,
+    noise_update_kernel(const G* g, P* p, float* m, float* v, float* t0,
                         const __grid_constant__ cn::Keys keys, int n_hi,
                         int n_lo, int noise, unsigned long long start,
                         uint32_t trail, long long n, long long head,
                         const Hyper h) {
   constexpr bool G_BF16 = sizeof(G) == 2;
+  constexpr bool TWO = OPT != SGD;      // a second state: AdamW v, FTRL m
+  // FTRL reads p only on a restart step (it becomes the anchor, written to
+  // t0), and the anchor t0 only on the others
+  const bool restart = OPT == FTRL && h.omb1 == 0.f;
+  const bool from_t0 = OPT == FTRL && !restart;
   __shared__ float queues[WARPS][cn::WARP_RUN];
   float* queue = queues[threadIdx.x / 32];
   const long long runs = (n - head) / cn::RUN;
@@ -102,17 +129,21 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       float gv[cn::RUN], mv[cn::RUN], vv[cn::RUN], pv[cn::RUN];
       cn::load_run(g + i, gv);
       cn::load_run(m + i, mv);
-      if (ADAMW) cn::load_run(v + i, vv);
-      cn::load_run(p + i, pv);
+      if (TWO) cn::load_run(v + i, vv);
+      if (from_t0)
+        cn::load_run(t0 + i, pv);
+      else
+        cn::load_run(p + i, pv);
+      if (restart) cn::store_run(t0 + i, pv);
 #pragma unroll
       for (int j = 0; j < cn::RUN; ++j) {
         const float gn =
             noise ? cn::noised<G_BF16>(gv[j], xi[j], h.alpha, h.denom)
                   : gv[j];
-        step<ADAMW>(gn, mv[j], vv[j], pv[j], h);
+        step<OPT>(gn, mv[j], vv[j], pv[j], h);
       }
       cn::store_run(m + i, mv);
-      if (ADAMW) cn::store_run(v + i, vv);
+      if (TWO) cn::store_run(v + i, vv);
       cn::store_run(p + i, pv);
     }
   }
@@ -127,58 +158,71 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
           gn, cn::xi_at(keys, n_hi, n_lo, start + (unsigned long long)i,
                         trail),
           h.alpha, h.denom);
-    float mi = m[i], vi = ADAMW ? v[i] : 0.f, pi = cn::load_one(p, i);
-    step<ADAMW>(gn, mi, vi, pi, h);
+    float mi = m[i], vi = TWO ? v[i] : 0.f;
+    float pi = from_t0 ? t0[i] : cn::load_one(p, i);
+    if (restart) t0[i] = pi;
+    step<OPT>(gn, mi, vi, pi, h);
     m[i] = mi;
-    if (ADAMW) v[i] = vi;
+    if (TWO) v[i] = vi;
     cn::store_one(p, i, pi);
   }
 }
 
-template <typename G, typename P, bool ADAMW>
-int launch(const void* g, void* p, float* m, float* v, const cn::Keys& k,
-           int n_hi, int n_lo, int noise, unsigned long long start,
-           uint32_t trail, long long n, const Hyper& h, cudaStream_t st) {
-  const void* ptrs[4] = {g, p, m, ADAMW ? v : m};
-  const int sizes[4] = {(int)sizeof(G), (int)sizeof(P), 4, 4};
-  const long long head = cn::aligned_head(ptrs, sizes, 4, n);
+template <typename G, typename P, int OPT>
+int launch(const void* g, void* p, float* m, float* v, float* t0,
+           const cn::Keys& k, int n_hi, int n_lo, int noise,
+           unsigned long long start, uint32_t trail, long long n,
+           const Hyper& h, cudaStream_t st) {
+  const void* ptrs[5] = {g, p, m, OPT != SGD ? v : m, OPT == FTRL ? t0 : m};
+  const int sizes[5] = {(int)sizeof(G), (int)sizeof(P), 4, 4, 4};
+  const long long head = cn::aligned_head(ptrs, sizes, 5, n);
   const int blocks =
-      cn::pass_blocks(noise_update_kernel<G, P, ADAMW>, THREADS, n, head);
+      cn::pass_blocks(noise_update_kernel<G, P, OPT>, THREADS, n, head);
   if (blocks <= 0) return (int)cudaErrorInvalidValue;
-  noise_update_kernel<G, P, ADAMW><<<blocks, THREADS, 0, st>>>(
-      (const G*)g, (P*)p, m, v, k, n_hi, n_lo, noise, start, trail, n, head,
-      h);
+  noise_update_kernel<G, P, OPT><<<blocks, THREADS, 0, st>>>(
+      (const G*)g, (P*)p, m, v, t0, k, n_hi, n_lo, noise, start, trail, n,
+      head, h);
   return (int)cudaGetLastError();
 }
 
 template <typename G, typename P>
-int launch_opt(int adamw, const void* g, void* p, float* m, float* v,
-               const cn::Keys& k, int n_hi, int n_lo, int noise,
+int launch_opt(int opt, const void* g, void* p, float* m, float* v,
+               float* t0, const cn::Keys& k, int n_hi, int n_lo, int noise,
                unsigned long long start, uint32_t trail, long long n,
                const Hyper& h, cudaStream_t st) {
-  return adamw ? launch<G, P, true>(g, p, m, v, k, n_hi, n_lo, noise, start,
-                                    trail, n, h, st)
-               : launch<G, P, false>(g, p, m, v, k, n_hi, n_lo, noise, start,
-                                     trail, n, h, st);
+  switch (opt) {
+    case SGD:
+      return launch<G, P, SGD>(g, p, m, v, t0, k, n_hi, n_lo, noise, start,
+                               trail, n, h, st);
+    case ADAMW:
+      return launch<G, P, ADAMW>(g, p, m, v, t0, k, n_hi, n_lo, noise,
+                                 start, trail, n, h, st);
+    default:
+      return launch<G, P, FTRL>(g, p, m, v, t0, k, n_hi, n_lo, noise,
+                                start, trail, n, h, st);
+  }
 }
 
 }  // namespace
 
 // g: n contiguous elements of the leaf's clipped sum (bf16 when g_bf16,
 // else f32); p: the parameter, n elements (bf16 when p_bf16, else f32); m,
-// v: f32 state (v unused by SGD); keys, n_hi, n_lo, start, trail: as
-// dp_counter_noise takes them, read when noise != 0; adamw: 1 AdamW, 0 SGD;
-// hyper: 11 floats on the host, alpha, denom, lr, b1 (SGD: momentum),
-// 1 - b1, b2, 1 - b2, eps, bc1, bc2, weight decay.
+// v: f32 state (AdamW m, v; SGD m, v unused; FTRL the prefix sum s, the
+// momentum m); keys, n_hi, n_lo, start, trail: as dp_counter_noise takes
+// them, read when noise != 0; opt: 0 SGD, 1 AdamW, 2 FTRL; hyper: 11 floats
+// on the host, alpha, denom, lr, b1 (SGD: momentum; FTRL: momentum x
+// keep), 1 - b1 (FTRL: keep, 0 on a restart step, else 1), b2, 1 - b2,
+// eps, bc1, bc2, weight decay; t0: FTRL's f32 anchor (else unused).
 extern "C" int dp_noise_update(const void* g, void* p, float* m, float* v,
                                const uint32_t* keys, int n_hi, int n_lo,
                                int noise, unsigned long long start,
                                unsigned long long trail, long long n,
-                               int g_bf16, int p_bf16, int adamw,
-                               const float* hyper, void* stream) {
+                               int g_bf16, int p_bf16, int opt,
+                               const float* hyper, float* t0, void* stream) {
   if (n <= 0 || n_hi < 0 || n_lo < 0 || n_hi + n_lo > cn::MAX_KEYS ||
-      (noise && (trail == 0 || trail >= (1ULL << 32))) ||
-      (adamw && v == nullptr))
+      (noise && (trail == 0 || trail >= (1ULL << 32))) || opt < SGD ||
+      opt > FTRL || (opt != SGD && v == nullptr) ||
+      (opt == FTRL && t0 == nullptr))
     return (int)cudaErrorInvalidValue;
   cn::Keys k = {};
   if (noise)
@@ -190,12 +234,12 @@ extern "C" int dp_noise_update(const void* g, void* p, float* m, float* v,
   cudaStream_t st = (cudaStream_t)stream;
   using bf = __nv_bfloat16;
   if (g_bf16)
-    return p_bf16 ? launch_opt<bf, bf>(adamw, g, p, m, v, k, n_hi, n_lo,
+    return p_bf16 ? launch_opt<bf, bf>(opt, g, p, m, v, t0, k, n_hi, n_lo,
                                        noise, start, tr, n, h, st)
-                  : launch_opt<bf, float>(adamw, g, p, m, v, k, n_hi, n_lo,
-                                          noise, start, tr, n, h, st);
-  return p_bf16 ? launch_opt<float, bf>(adamw, g, p, m, v, k, n_hi, n_lo,
+                  : launch_opt<bf, float>(opt, g, p, m, v, t0, k, n_hi,
+                                          n_lo, noise, start, tr, n, h, st);
+  return p_bf16 ? launch_opt<float, bf>(opt, g, p, m, v, t0, k, n_hi, n_lo,
                                         noise, start, tr, n, h, st)
-                : launch_opt<float, float>(adamw, g, p, m, v, k, n_hi, n_lo,
-                                           noise, start, tr, n, h, st);
+                : launch_opt<float, float>(opt, g, p, m, v, t0, k, n_hi,
+                                           n_lo, noise, start, tr, n, h, st);
 }

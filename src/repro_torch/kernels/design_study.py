@@ -384,12 +384,15 @@ NOISE_UPDATE_PATCHES = {
          "    float xi[cn::RUN], gv[cn::RUN], mv[cn::RUN], vv[cn::RUN], "
          "pv[cn::RUN];\n    if (r < runs) {\n"
          "      cn::load_run(g + i, gv);\n      cn::load_run(m + i, mv);\n"
-         "      if (ADAMW) cn::load_run(v + i, vv);\n"
-         "      cn::load_run(p + i, pv);\n    }\n    if (noise)\n"),
+         "      if (TWO) cn::load_run(v + i, vv);\n"
+         "      if (from_t0)\n        cn::load_run(t0 + i, pv);\n"
+         "      else\n        cn::load_run(p + i, pv);\n    }\n"
+         "    if (noise)\n"),
         ("      float gv[cn::RUN], mv[cn::RUN], vv[cn::RUN], pv[cn::RUN];\n"
          "      cn::load_run(g + i, gv);\n      cn::load_run(m + i, mv);\n"
-         "      if (ADAMW) cn::load_run(v + i, vv);\n"
-         "      cn::load_run(p + i, pv);\n", "")],
+         "      if (TWO) cn::load_run(v + i, vv);\n"
+         "      if (from_t0)\n        cn::load_run(t0 + i, pv);\n"
+         "      else\n        cn::load_run(p + i, pv);\n", "")],
 }
 # the blocks an SM must hold (MIN_BLOCKS in counter_noise.cu and
 # noise_update.cu), so the registers a thread may take (2: up to 128; 3:
@@ -965,7 +968,7 @@ def study_noise(tmp: Path, dev: str) -> None:
         _check(lib.dp_noise_update(
             leaf.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(),
             ctypes.addressof(keys), 1, 0, noisy, 0, trail, leaf.numel(), 1,
-            1, 1, ctypes.addressof(hyper), 0), "dp_noise_update")
+            1, 1, ctypes.addressof(hyper), None, 0), "dp_noise_update")
 
     for name, noisy in (("update_kept", 1), ("update_kept", 0),
                         ("update_no_compaction", 1),

@@ -1,8 +1,13 @@
-"""DP training driver: synthetic batches -> BK clipped sum -> noise +
-optimizer, one step at a time, printing the loss of every step.
+"""DP training driver: data pipeline -> BK clipped sum -> noise +
+optimizer, with the privacy ledger, one step at a time.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
         --steps 3 --batch 8 --seq 512 --sigma 1.0
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --steps 4 --epsilon 3 --out summary.json
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --optimizer ftrl --restart-every 2 --tree-completion --epsilon 3 \
+        --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch deepseek-moe-16b --smoke --device cpu --steps 2
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
@@ -10,31 +15,51 @@ optimizer, one step at a time, printing the loss of every step.
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --steps 2 --mode ghostclip      # or nonprivate, opacus, ...
 
+``--epsilon`` calibrates sigma to the (epsilon, delta=1e-5) budget of the
+run over ``--dataset-size`` samples (``core.accounting.budget_for``: the
+subsampled-Gaussian accountant, or the tree accountant whenever tree noise
+runs). ``--optimizer ftrl`` trains with momentum DP-FTRL: the policy's noise
+is switched to binary-tree aggregation (depth sized to the run's horizon),
+``--restart-every N`` restarts both the optimizer anchor and the noise tree
+every N steps, ``--tree-completion`` applies the honest-restart variance
+correction at each boundary. Every step is recorded in a
+``PrivacyLedger``; the run ends with the epsilon spent, and ``--out`` writes
+a JSON summary (steps, epsilon, the params' sha256, the ledger). Losses
+stay on the device and are drained every ``--log-every`` steps.
+
 Runs on the CUDA card by default; ``--device cpu`` runs the same engine with
 the kernels' plain PyTorch versions (tests, small configs). Without a card
-the default raises instead of falling back to the CPU.
+the default raises instead of falling back to the CPU. Checkpoints
+(``--ckpt-dir``), meshes (``--mesh``) and ``--autotune`` are not ported
+(ROADMAP B6, B7, B9).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import math
 import time
 
 import torch
 
+from repro_torch.checkpoint.run_state import params_digest
 from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import (build, get_config, get_policy,
                                           has_policy, list_archs,
                                           list_policies, smoke_config)
+from repro_torch.core.accounting import PrivacyLedger, budget_for
 from repro_torch.core.bk import DPConfig
 from repro_torch.core.engine import ALL_MODES
-from repro_torch.core.noise import prng_key
-from repro_torch.core.policy import with_scope
+from repro_torch.core.noise import next_pow2, prng_key
+from repro_torch.core.policy import as_policy, with_scope
 from repro_torch.core.tape import TAPE_POLICIES
-from repro_torch.data.synthetic import make_batch
+from repro_torch.data.pipeline import Pipeline, PipelineConfig
 from repro_torch.launch.steps import TrainState, make_train_step
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.optim.schedules import make_schedule
+
+OPTIMIZERS = ("sgd", "adamw", "lamb", "adafactor", "ftrl")
 
 
 def resolve_device(device) -> torch.device:
@@ -79,34 +104,173 @@ def train_policy(dp, tc: TrainConfig):
     return with_scope(dp, tc.clipping_scope) if tc.clipping_scope else dp
 
 
+def calibrate(dp, tc: TrainConfig, dataset_size: int,
+              target_epsilon: float, delta: float, log=print):
+    """``dp`` with sigma calibrated to (target_epsilon, delta) over the run
+    (``budget_for``), when a budget is asked and the policy sets no sigma.
+    Tree releases (DP-FTRL, or any policy with noise='tree') get no
+    subsampling amplification: they take the tree accountant."""
+    policy = as_policy(dp)
+    if not (target_epsilon > 0 and dataset_size > 0 and policy.sigma == 0.0):
+        return dp
+    tree_release = tc.optimizer == "ftrl" or policy.noise == "tree"
+    mechanism = "tree" if tree_release else "sgm"
+    budget = budget_for(target_epsilon, delta, tc.global_batch,
+                        dataset_size, tc.steps * tc.global_batch
+                        / dataset_size, mechanism=mechanism,
+                        restart_every=(tc.restart_every
+                                       or policy.noise_restart_every))
+    log(f"calibrated sigma={budget.sigma:.3f} for eps={budget.epsilon:.2f} "
+        f"({mechanism} accountant)")
+    if any(g.sigma_scale != 1.0 for g in policy.groups):
+        log("WARNING: sigma was calibrated with the FLAT single-sigma "
+            "accountant, but this policy sets per-group sigma_scale — the "
+            "true joint-bound epsilon differs (larger when any scale < 1). "
+            "Re-check with compute_epsilon(resolved.noise_multipliers(), "
+            "...).")
+    return dataclasses.replace(dp, sigma=budget.sigma)
+
+
+def ftrl_policy(dp, tc: TrainConfig, log=print):
+    """-> (policy, FTRL restart period): the DP-FTRL knobs validated, and
+    under ``--optimizer ftrl`` the policy switched to tree noise with depth
+    sized to the horizon (a policy that configures tree noise keeps its
+    knobs; the optimizer anchor and the noise tree must restart
+    together)."""
+    if tc.optimizer != "ftrl" and (tc.restart_every or tc.tree_completion
+                                   or tc.ftrl_momentum):
+        raise ValueError(
+            "--restart-every/--tree-completion/--ftrl-momentum are DP-FTRL "
+            f"knobs; pass --optimizer ftrl (got {tc.optimizer!r})")
+    if tc.tree_completion and tc.restart_every <= 0:
+        raise ValueError("--tree-completion corrects the noise at epoch "
+                         "boundaries; pass --restart-every N (> 0) with it")
+    if tc.optimizer == "ftrl" and tc.lr_schedule != "constant":
+        log(f"WARNING: FTRL rescales the WHOLE gradient prefix by the "
+            f"current lr — a decaying schedule ({tc.lr_schedule!r}) drags "
+            "the iterate back toward its anchor and undoes most of "
+            "training. Use lr_schedule='constant' (the CLI driver forces "
+            "it for --optimizer ftrl).")
+    pol = as_policy(dp)
+    if tc.optimizer != "ftrl" or pol.mode == "nonprivate":
+        return dp, tc.restart_every
+    pol_tree = pol.noise == "tree"
+    if pol_tree and pol.noise_restart_every and tc.restart_every and \
+            pol.noise_restart_every != tc.restart_every:
+        raise ValueError(
+            f"policy sets noise_restart_every={pol.noise_restart_every} "
+            f"but --restart-every={tc.restart_every}: the FTRL anchor "
+            "and the noise tree must restart together")
+    restart = tc.restart_every or \
+        (pol.noise_restart_every if pol_tree else 0)
+    completion = tc.tree_completion or \
+        (pol.noise_completion if pol_tree else False)
+    horizon = restart if restart > 0 else tc.steps
+    depth = (pol.noise_depth if pol_tree and pol.noise_depth
+             else max(next_pow2(horizon).bit_length(), 1))
+    pol = dataclasses.replace(pol, noise="tree", noise_depth=depth,
+                              noise_restart_every=restart,
+                              noise_completion=completion)
+    log(f"DP-FTRL: tree noise depth={pol.noise_depth} "
+        f"restart_every={restart or 'never'} completion={completion}")
+    return pol, restart
+
+
 def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
-          on_step=None):
+          on_step=None, dataset_size: int = 0, target_epsilon: float = 0.0,
+          delta: float = 1e-5, summary_out=None):
     """Run ``tc.steps`` DP steps from a random init (seed ``tc.seed``)
-    under ``train_policy(dp, tc)``. ``on_step(step, loss, seconds)`` is
-    called after every step; the time covers the step up to its loss on the
-    host. -> (params, losses)."""
+    under ``train_policy(dp, tc)``, sigma calibrated to ``target_epsilon``
+    when asked (:func:`calibrate`), DP-FTRL's tree noise under
+    ``tc.optimizer == 'ftrl'`` (:func:`ftrl_policy`). Every step is
+    recorded in a ``PrivacyLedger``. Losses are drained every
+    ``tc.log_every`` steps; ``on_step(step, loss, seconds)``, when given, is
+    called after every step, which then drains its loss: the seconds cover
+    the step up to its loss on the host. ``summary_out`` (a dict) receives
+    the run's summary. -> (params, losses)."""
     dev = resolve_device(device)
     dp = train_policy(dp, tc)
+    dp = calibrate(dp, tc, dataset_size, target_epsilon, delta, log)
+    dp, ftrl_restart = ftrl_policy(dp, tc, log)
+    # check the tree horizon up front for every optimizer, as the reference
+    # does (the mechanism's own per-step guard would fire mid-run)
+    policy = as_policy(dp)
+    if policy.noise == "tree" and policy.noise_depth and \
+            not policy.noise_restart_every and \
+            tc.steps > (1 << policy.noise_depth) - 1:
+        raise ValueError(
+            f"noise_depth={policy.noise_depth} covers only "
+            f"{(1 << policy.noise_depth) - 1} steps but the run has "
+            f"{tc.steps}; raise noise_depth or set restarts")
+    policy.mechanism()           # mechanism config errors before the init
+
     model = build(model_cfg)
+    opt_kw = ({"momentum": tc.ftrl_momentum, "restart_every": ftrl_restart}
+              if tc.optimizer == "ftrl" else {})
     opt = make_optimizer(tc.optimizer,
                          make_schedule(tc.lr_schedule, tc.lr, tc.warmup,
                                        tc.steps),
-                         weight_decay=tc.weight_decay)
+                         weight_decay=tc.weight_decay, **opt_kw)
+    pipe = Pipeline(model_cfg, PipelineConfig(tc.global_batch, tc.seq_len,
+                                              seed=tc.seed), device=dev)
+
+    # the privacy ledger: every executed absolute step accounted once
+    mech_kind = "tree" if policy.noise == "tree" else "sgm"
+    ledger_restart = ftrl_restart or policy.noise_restart_every
+    ledger_kw = dict(
+        sigma=float(policy.sigma),
+        sample_rate=(tc.global_batch / dataset_size if dataset_size > 0
+                     else 1.0),
+        mechanism=mech_kind, restart_every=ledger_restart,
+        participations=(max(1, math.ceil(tc.steps * tc.global_batch
+                                         / dataset_size))
+                        if dataset_size > 0 else 1))
+    ledger = PrivacyLedger()
+
     params = model.init(tc.seed, dev)
     state = TrainState(params, opt.init(params), 0, prng_key(tc.seed + 1))
     step_fn = make_train_step(model.apply, params, opt, dp, tc.microbatch)
-    losses = []
+    del params
+    losses, pending = [], []
+    log_every = 1 if on_step is not None else max(1, tc.log_every)
+    t_flush = time.perf_counter()
+
+    def flush(step: int):
+        nonlocal t_flush
+        n = len(pending)
+        losses.extend(torch.stack(pending).float().tolist())  # waits
+        pending.clear()
+        dt = (time.perf_counter() - t_flush) / n
+        t_flush = time.perf_counter()
+        log(f"step {step:5d} loss {losses[-1]:.4f} ({dt:.3f}s/step over "
+            f"last {n})")
+
     for step in range(tc.steps):
-        batch = make_batch(model_cfg, tc.global_batch, tc.seq_len, tc.seed,
-                           step, dev)
+        batch = pipe.batch(step)
         t0 = time.perf_counter()
         state, loss = step_fn(state, batch)
-        loss = float(loss)          # waits for the device
-        dt = time.perf_counter() - t0
-        losses.append(loss)
-        log(f"step {step:5d} loss {loss:.4f} ({dt:.3f}s)")
+        pending.append(loss.detach())
+        ledger.record_to(step + 1, **ledger_kw)
+        if (step + 1) % log_every == 0 or step == tc.steps - 1:
+            flush(step)
         if on_step is not None:
-            on_step(step, loss, dt)
+            on_step(step, losses[-1], time.perf_counter() - t0)
+
+    epsilon = None
+    if policy.mode != "nonprivate" and ledger.recorded_to > 0:
+        epsilon = ledger.epsilon(delta)
+        log(f"privacy spent: eps={epsilon:.4g} (delta={delta:g}) over "
+            f"{ledger.recorded_to} accounted steps "
+            f"[{mech_kind}{' restarts' if ledger_restart else ''}]")
+    if summary_out is not None:
+        summary_out.update({
+            "steps_done": ledger.recorded_to,
+            "resumed_from": 0,
+            "epsilon": epsilon,
+            "delta": delta,
+            "params_sha256": params_digest(state.params),
+            "ledger": ledger.to_json(),
+        })
     return state.params, losses
 
 
@@ -120,12 +284,28 @@ def main(argv=None):
     ap.add_argument("--microbatch", type=int, default=0)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
+    ap.add_argument("--optimizer", default="adamw", choices=OPTIMIZERS,
+                    help="ftrl: DP-FTRL (tree-aggregation noise, prefix-sum "
+                         "iterate, constant lr)")
+    ap.add_argument("--ftrl-momentum", type=float, default=0.0,
+                    help="DP-FTRL momentum over noisy gradient prefixes")
+    ap.add_argument("--restart-every", type=int, default=0,
+                    help="DP-FTRL epoch restart period in steps (0 = never); "
+                         "restarts the optimizer anchor AND the noise tree")
+    ap.add_argument("--tree-completion", action="store_true",
+                    help="Honaker completion: advance each epoch's tree to "
+                         "the next power of two before restarting")
     ap.add_argument("--mode", default="bk-mixopt", choices=ALL_MODES,
                     help="a BK mode, or a baseline the paper compares "
                          "against (core.engine)")
     ap.add_argument("--clipping", default="automatic")
     ap.add_argument("--sigma", type=float, default=0.0)
+    ap.add_argument("--epsilon", type=float, default=0.0,
+                    help="target epsilon (delta 1e-5): calibrates sigma "
+                         "when --sigma is 0")
+    ap.add_argument("--dataset-size", type=int, default=50000,
+                    help="samples the run's epochs cover (the sample rate "
+                         "is batch / dataset size)")
     ap.add_argument("--policy", default="auto",
                     help="PrivacyPolicy preset name; 'auto' = the arch's "
                          f"registered preset (known: {list_policies()}), "
@@ -145,6 +325,11 @@ def main(argv=None):
                          "flat (one pool), group (per policy group), layer "
                          "(each param path its own clip unit, streamed); "
                          "'' keeps the policy's scopes")
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="loss log + device->host flush period in steps")
+    ap.add_argument("--out", default="",
+                    help="write a json run summary (steps done, epsilon, "
+                         "params sha256, ledger)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -154,12 +339,28 @@ def main(argv=None):
         mc = mc.with_(param_dtype="float32")
     tc = TrainConfig(global_batch=args.batch, microbatch=args.microbatch,
                      seq_len=args.seq, steps=args.steps, lr=args.lr,
-                     optimizer=args.optimizer, seed=args.seed,
-                     tape=args.tape, tape_chunks=args.tape_chunks,
+                     optimizer=args.optimizer,
+                     # FTRL rescales the whole prefix by lr_t: a decay
+                     # would pull the iterate back toward the anchor
+                     lr_schedule=("constant" if args.optimizer == "ftrl"
+                                  else TrainConfig.lr_schedule),
+                     ftrl_momentum=args.ftrl_momentum,
+                     restart_every=args.restart_every,
+                     tree_completion=args.tree_completion, seed=args.seed,
+                     log_every=args.log_every, tape=args.tape,
+                     tape_chunks=args.tape_chunks,
                      clipping_scope=args.clipping_scope)
     dp = resolve_dp(args.arch, args.policy, args.mode, args.clipping,
                     args.sigma)
-    return train(mc, tc, dp, device=args.device)
+    summary = {} if args.out else None
+    out = train(mc, tc, dp, device=args.device,
+                dataset_size=args.dataset_size, target_epsilon=args.epsilon,
+                summary_out=summary)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(summary, f, indent=2)
+        print(f"summary written to {args.out}")
+    return out
 
 
 if __name__ == "__main__":

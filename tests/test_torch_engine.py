@@ -210,10 +210,19 @@ def test_privacy_engine_grad_and_kernel_report():
 
 
 def test_privacy_engine_target_epsilon_needs_the_accountant():
+    """With the accountant ported, target_epsilon calibrates sigma by
+    budget_for (the reference's budget) instead of raising, on two grids
+    (batch, dataset size, epochs); without it there is no budget."""
+    from repro.core.accounting import budget_for
     _, _, _, tm = _setup()
-    with pytest.raises(NotImplementedError, match="B3"):
-        PrivacyEngine(tm.apply, get_policy("qwen2-1.5b"), batch_size=4,
-                      dataset_size=1000, epochs=1.0, target_epsilon=3.0)
+    for batch, n, epochs in ((4, 1000, 1.0), (64, 50000, 0.5)):
+        engine = PrivacyEngine(tm.apply, get_policy("qwen2-1.5b"),
+                               batch_size=batch, dataset_size=n,
+                               epochs=epochs, target_epsilon=3.0)
+        want = budget_for(3.0, 1e-5, batch, n, epochs)
+        assert vars(engine.budget) == vars(want)
+        assert engine.policy.sigma == want.sigma
+    assert PrivacyEngine(tm.apply, get_policy("qwen2-1.5b")).budget is None
 
 
 @pytest.mark.parametrize("mode", ALL_MODES)

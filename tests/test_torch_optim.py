@@ -401,3 +401,264 @@ def test_bf16_p_gate_holds_the_step_itself(name):
                   step(hyper(1.0), p0.clone()),
                   step(hyper(-3e-4), p0.clone())):
         assert cs.p_rounding_excess(wrong, want32, tol) > 0
+
+
+# ------------------------------------------------- ftrl, lamb, adafactor
+def _run_steps(pkg, name, opt_kw, sigma, np_dt, mech, steps, dtype=None):
+    """``steps`` deferred steps of ``name`` under the test policy with
+    ``mech``'s noise knobs, through one package -> (flat params, state)."""
+    r = np.random.default_rng(3)
+    params = {p: (0.1 * r.standard_normal(s)).astype(np_dt)
+              for p, s in SHAPES.items()}
+    sums = [{p: r.standard_normal(s).astype(np_dt) for p, s in SHAPES.items()}
+            for _ in range(steps)]
+    pol = _policy(jpol if pkg is jopt else tpol, sigma, **mech)
+    if pkg is jopt:
+        res = jpol.resolve_policy(pol, list(SHAPES))
+        opt = jopt.make_optimizer(name, lambda s: LR, **opt_kw)
+        p = {k: jnp.asarray(v) for k, v in params.items()}
+        state = opt.init(p)
+        for step, s in enumerate(sums):
+            leaf = jpol.noise_leaf_fn(pol, res, jax.random.fold_in(
+                jax.random.PRNGKey(1), step), 4.0, step=step)
+            js = {k: jnp.asarray(v) for k, v in s.items()}
+            p, state = opt.update_leaves(
+                lambda path, _p: leaf(path, js[path]), state, p,
+                jnp.asarray(step))
+        return jflatten(p), jflatten(state)
+    res = tpol.resolve_policy(pol, list(SHAPES))
+    opt = topt.make_optimizer(name, lambda s: LR, **opt_kw)
+    p = _torch(params, dtype)
+    state = opt.init(p)
+    for step, s in enumerate(sums):
+        leaf = tpol.noise_leaf_fn(pol, res, noise.fold_in(noise.prng_key(1),
+                                                          step), 4.0,
+                                  step=step, out="deferred")
+        ts = _torch(s, dtype)
+        p, state = opt.update_leaves(lambda path, _p: leaf(path, ts[path]),
+                                     state, p, step)
+    return tflatten(p), tflatten(state)
+
+
+def _assert_close(got, want, dtype):
+    tol = TOL if dtype == "float32" else TOL_BF16
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].float().numpy(),
+                                   np.asarray(want[k], np.float32),
+                                   err_msg=k, **tol)
+
+
+def _tree(restart):
+    return dict(noise="tree", noise_seed=5, noise_depth=6,
+                noise_restart_every=restart, noise_completion=restart > 0)
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+@pytest.mark.parametrize("restart", [0, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sigma", [0.7, 0.0])
+def test_ftrl_matches_jax(momentum, restart, dtype, sigma):
+    """Five DP-FTRL steps over tree-noised deferred leaves (restarts every
+    2 with completion: steps 1 and 3 complete a tree, steps 2 and 4
+    restart it and the anchor), params, sum, m and theta0 against
+    repro.optim.ftrl's."""
+    np_dt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    kw = dict(momentum=momentum, restart_every=restart)
+    want_p, want_s = _run_steps(jopt, "ftrl", kw, sigma, np_dt,
+                                _tree(restart), 5)
+    got_p, got_s = _run_steps(topt, "ftrl", kw, sigma, np_dt, _tree(restart),
+                              5, getattr(torch, dtype))
+    assert all(v.dtype == getattr(torch, dtype) for v in got_p.values())
+    _assert_close(got_p, want_p, dtype)
+    _assert_close(got_s, want_s, dtype)
+
+
+@pytest.mark.parametrize("name", ["lamb", "adafactor"])
+@pytest.mark.parametrize("mech", sorted(MECHANISMS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sigma", [0.7, 0.0])
+def test_lamb_adafactor_match_jax(name, mech, dtype, sigma):
+    """Three steps (the noise drawn by counter_noise's route, then the torch
+    chain), params and state (adafactor's ``<param>/vr|vc`` and ``/v``
+    keys) against the reference's."""
+    np_dt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    want_p, want_s = _run_steps(jopt, name, {}, sigma, np_dt,
+                                MECHANISMS[mech], 3)
+    got_p, got_s = _run_steps(topt, name, {}, sigma, np_dt,
+                              MECHANISMS[mech], 3, getattr(torch, dtype))
+    _assert_close(got_p, want_p, dtype)
+    _assert_close(got_s, want_s, dtype)
+    if name == "adafactor":
+        assert {k.rsplit("/", 1)[1] for k in got_s} == {"vr", "vc", "v"}
+
+
+def test_adafactor_state_layout_across_convert():
+    """A stacked (L, d, p) weight keeps vr (L, d) and vc (L, p); the
+    reference's state converts to the port's key for key, shape for
+    shape."""
+    from repro_torch.convert import params_from_jax
+    shapes = {"blocks/w": (3, 5, 7), "head/w": (5, 7), "norm/g": (5,)}
+    jp = {k: jnp.zeros(s) for k, s in shapes.items()}
+    want = jflatten(jopt.make_optimizer("adafactor", lambda s: LR).init(
+        {"blocks": {"w": jp["blocks/w"]}, "head": {"w": jp["head/w"]},
+         "norm": {"g": jp["norm/g"]}}))
+    got = tflatten(topt.make_optimizer("adafactor", lambda s: LR).init(
+        {"blocks": {"w": torch.zeros(3, 5, 7)},
+         "head": {"w": torch.zeros(5, 7)}, "norm": {"g": torch.zeros(5)}}))
+    assert {k: tuple(v.shape) for k, v in got.items()} == \
+        {k: tuple(v.shape) for k, v in want.items()}
+    assert tuple(got["s/blocks/w/vr"].shape) == (3, 5)
+    assert tuple(got["s/blocks/w/vc"].shape) == (3, 7)
+    back = tflatten(params_from_jax({k: np.asarray(v)
+                                     for k, v in want.items()}, "cpu"))
+    assert sorted(back) == sorted(got)
+
+
+def test_make_optimizer_names_and_refusals():
+    for name in ("sgd", "adamw", "lamb", "adafactor", "ftrl"):
+        assert topt.make_optimizer(name, lambda s: LR).update_leaves
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        topt.make_optimizer("adagrad", lambda s: LR)
+    from repro_torch.optim.ftrl import epoch_of, ftrl
+    with pytest.raises(ValueError, match="weight decay"):
+        topt.make_optimizer("ftrl", lambda s: LR, weight_decay=0.1)
+    with pytest.raises(ValueError, match="restart_every"):
+        ftrl(lambda s: LR, restart_every=-1)
+    assert [epoch_of(s, 3) for s in (0, 2, 3, 7)] == [0, 0, 1, 2]
+    assert epoch_of(7, 0) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ftrl_anchor_is_a_copy_and_restart_rebases(dtype):
+    """theta0 never aliases p (the step writes p in place); a restart step
+    takes p as the new anchor and restarts s and m from the gradient."""
+    p = {"w": torch.full((3, 4), 0.5, dtype=dtype)}
+    opt = topt.make_optimizer("ftrl", lambda s: LR, momentum=0.9,
+                              restart_every=2)
+    state = opt.init(p)
+    assert state["theta0"]["w"].data_ptr() != p["w"].data_ptr()
+    g = {"w": torch.ones(3, 4, dtype=dtype)}
+    for step in range(2):
+        opt.update(g, state, p, step)
+    assert torch.equal(state["theta0"]["w"],
+                       torch.full((3, 4), 0.5))           # not moved
+    before = p["w"].float().clone()
+    opt.update(g, state, p, 2)                            # restart
+    assert torch.equal(state["theta0"]["w"], before)
+    assert torch.equal(state["sum"]["w"], torch.ones(3, 4))
+    assert torch.equal(state["m"]["w"], torch.ones(3, 4))
+
+
+def test_ftrl_plain_chain_rounds_as_written():
+    """The plain FTRL branch: s, m and theta0 exactly the chain's products
+    then sums (no contraction), restart or not."""
+    r = np.random.default_rng(2)
+    mk = (lambda: torch.from_numpy(r.standard_normal(4099).astype(
+        np.float32)))
+    g, p0, s0, m0, t00 = mk(), mk(), mk(), mk(), mk()
+    for restart in (False, True):
+        p, s, m, t0 = p0.clone(), s0.clone(), m0.clone(), t00.clone()
+        nu.plain(g, p, s, m, nu.FTRL(3e-3, 0.9, restart), t0=t0)
+        keep = np.float32(0.0 if restart else 1.0)
+        ws = (keep * s0.numpy()) + g.numpy()
+        wm = np.float32(0.9 * float(keep)) * m0.numpy() + ws
+        wt = p0.numpy() if restart else t00.numpy()
+        assert np.array_equal(s.numpy(), ws)
+        assert np.array_equal(m.numpy(), wm)
+        assert np.array_equal(t0.numpy(), wt)
+        np.testing.assert_allclose(p.numpy(), wt - np.float32(3e-3) * wm,
+                                   rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("g_dt,p_dt", [(torch.bfloat16, torch.bfloat16),
+                                       (torch.float32, torch.float32)])
+@pytest.mark.parametrize("restart", [False, True])
+def test_ftrl_wrapper_launches_with_its_arguments(fake_lib, g_dt, p_dt,
+                                                  restart):
+    """An FTRL step reaches ``dp_noise_update`` once with opt code 2, the
+    record's keys and window, momentum x keep and keep (0 on a restart
+    step) in the hyper-parameters, and the anchor as the third state."""
+    shape = (3, 1001)
+    rec = noise.NoisedLeaf(_meta(shape, g_dt), ((1, 2), (3, 4)), ((5, 6),),
+                           0.7, 8.0, 0, 1001)
+    p, s, m, t0 = _meta(shape, p_dt), _meta(shape), _meta(shape), \
+        _meta(shape)
+    n0 = nu.noise_update.launches
+    nu.noise_update(rec, p, s, m, nu.FTRL(1e-3, 0.9, restart), t0=t0)
+    assert nu.noise_update.launches == n0 + 1
+    (args, hyper, keys), = fake_lib.calls
+    assert len(args) == len(build.SIGNATURES["dp_noise_update"]) == 17
+    assert args[5:14] == (2, 1, 1, 0, 1001, 3003,
+                          int(g_dt == torch.bfloat16),
+                          int(p_dt == torch.bfloat16), 2)
+    assert keys == [1, 2, 3, 4, 5, 6]
+    keep = 0.0 if restart else 1.0
+    want = [float(torch.tensor(0.7, dtype=g_dt)), 8.0, 1e-3, 0.9 * keep,
+            keep, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0]
+    np.testing.assert_allclose(hyper, np.float32(want), rtol=1e-7)
+    with pytest.raises(ValueError, match="anchor"):
+        nu.noise_update(rec, p, s, m, nu.FTRL(1e-3, 0.9))
+    with pytest.raises(ValueError, match="match in size"):
+        nu.noise_update(rec, p, s, m, nu.FTRL(1e-3, 0.9), t0=_meta((4,)))
+    with pytest.raises(ValueError, match="float32"):
+        nu.noise_update(rec, p, s, m, nu.FTRL(1e-3, 0.9),
+                        t0=_meta(shape, torch.bfloat16))
+    assert len(fake_lib.calls) == 1
+
+
+def test_bf16_p_gate_holds_the_ftrl_step():
+    """chip_smoke.py's bf16 p rule on the FTRL step: the plain version
+    passes it; a step that keeps p, drops lr or flips its sign fails."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(12)
+    shape = (64, 257)
+    f = (lambda scale: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)) * scale)
+    g = f(1.0).to(torch.bfloat16)
+    rec = noise.NoisedLeaf(g, ((3, 9),), (), 0.7, 4.0, 0, shape[1])
+    s0, m0, t00 = f(1.0), f(1.0), f(0.02)
+    p0 = f(0.02).to(torch.bfloat16)
+
+    def step(lr, p):
+        nu.plain(rec, p, s0.clone(), m0.clone(), nu.FTRL(lr, 0.9),
+                 t0=t00.clone())
+        return p
+
+    want32 = step(3e-4, p0.float())
+    got = step(3e-4, p0.clone())
+    assert torch.equal(got, want32.to(torch.bfloat16))
+    tol = cs.TOL["float32"]
+    assert cs.p_rounding_excess(got, want32, tol) <= 0
+    for wrong in (p0, step(3e-4 * 0.5, p0.clone()), step(-3e-4, p0.clone())):
+        assert cs.p_rounding_excess(wrong, want32, tol) > 0
+
+
+@pytest.mark.parametrize("name", ["ftrl", "lamb", "adafactor"])
+def test_optimizer_parity_gate_catches_a_wrong_step(name):
+    """chip_smoke.py's card-to-CPU comparison of ftrl, lamb and adafactor
+    (``optimizer_gap`` over ``_optimizer_run``'s noised steps): a second
+    run of the same steps passes it; a run at half the lr or with the
+    step's sign flipped fails it on every param the step moves."""
+    from repro_torch.utils.tree import unflatten
+    cs = _chip_smoke()
+    params, sums = _inputs(np.float32, seed=4)
+    params = unflatten(_torch(params, torch.float32))
+    sums = _torch(sums[0], torch.float32)
+    policy = _policy(tpol, 0.7)
+    p0 = tflatten(params)
+
+    def run(lr):
+        p, s, _ = cs._optimizer_run(name, params, sums, policy, 4.0, "cpu",
+                                    lr=lr)
+        return p, s
+
+    want = run(3e-4)
+    same = cs.optimizer_gap(*run(3e-4), *want, p0)
+    assert same["failed"] == [] and same["step_err"] == 0.0
+    moved = {"step:" + k for k in p0
+             if not torch.equal(want[0][k], p0[k])}
+    assert moved
+    for lr in (1.5e-4, -3e-4):
+        gap = cs.optimizer_gap(*run(lr), *want, p0)
+        assert moved <= set(gap["failed"]), (lr, gap)
