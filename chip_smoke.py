@@ -227,13 +227,6 @@ EXTRA_PHASES = ("wgmma", "noise")
 # GHz boost clock (the integer work of counter_noise's threefry rounds)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int32": 132 * 64 * 1.98e9}
-# SASS opcodes the ALU pipe issues (64 integer results an SM a clock on
-# Hopper, as the FMA pipe's IMAD: the CUDA C++ Programming Guide's
-# arithmetic throughput table), and one SASS line's opcode
-SASS_ALU = ("IADD3", "LOP3", "SHF", "PRMT", "LEA", "ISETP", "SEL", "IABS",
-            "IMNMX", "VIMNMX", "FLO", "POPC", "BMSK", "SGXT", "PLOP3")
-SASS_OP = re.compile(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                     r"([A-Z][A-Z0-9]*(?:\.[A-Z0-9_]+)*)")
 # one threefry2x32 block's instructions in the built library's SASS
 # (``threefry_sass``; set by the build phase)
 THREEFRY = {}
@@ -627,12 +620,6 @@ def compare(got, want, tol) -> dict:
             "rtol": rtol, "atol": atol, "ok": ok}
 
 
-def draws(hi, lo) -> int:
-    """The draws a noised leaf's function needs: its distinct node keys (a
-    key in both ``hi`` and ``lo`` is the same draw on both sides)."""
-    return len(set(hi) | set(lo))
-
-
 def bound(nbytes: float, ops: float, dtype_name: str):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_OPS[dtype_name] * 1e3
@@ -654,20 +641,6 @@ def phase_card():
     return line
 
 
-def sass_text(lib: str) -> str:
-    """``cuobjdump -sass`` of the built library (the toolkit's cuobjdump,
-    else Triton's copy)."""
-    from repro_torch.kernels import build
-    tool = Path(build._nvcc()).with_name("cuobjdump")
-    if not tool.exists():
-        import importlib.util
-        spec = importlib.util.find_spec("triton")
-        tool = (Path(spec.origin).parent / "backends" / "nvidia" / "bin"
-                / "cuobjdump") if spec else tool
-    return subprocess.run([str(tool), "-sass", lib], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-
-
 def sass_counts(out: str) -> dict:
     """Tensor-core instructions in each tensor-core kernel's SASS: HGMMA
     and UTMALDG of each wgmma kernel, HMMA (mma.sync) of each kernel of a
@@ -686,46 +659,12 @@ def sass_counts(out: str) -> dict:
     return counts
 
 
-def threefry_sass(out: str) -> dict:
-    """The instructions of one threefry2x32 block, counted in the SASS of
-    ``threefry_bits_kernel`` (``dp_threefry_bits``: one block a thread,
-    straight-line code): those after its last load and before its first
-    store but the stores' address arithmetic (LEA), by opcode and by the
-    pipe that issues them (SASS_ALU, IMAD on the FMA pipe, the rest).
-    ``draw_ops``, the bound's integer operations a draw: the busier of the
-    two integer pipes, or half the instructions where issue (two a clock
-    for one integer result a lane) binds."""
-    ops, inside = [], False
-    for ln in out.splitlines():
-        if "Function :" in ln:
-            inside = "threefry_bits_kernel" in ln
-        elif inside:
-            m = SASS_OP.match(ln)
-            if m:
-                ops.append(m.group(1))
-    loads = [i for i, op in enumerate(ops) if op.startswith("LDG")]
-    stores = [i for i, op in enumerate(ops) if op.startswith("STG")]
-    if not loads or not stores or stores[0] < loads[-1]:
-        raise AssertionError(f"threefry_bits_kernel's SASS has no load-"
-                             f"compute-store shape: {ops}")
-    region = [op.split(".")[0] for op in ops[loads[-1] + 1:stores[0]]
-              if not op.startswith("LEA")]
-    by_op = {op: region.count(op) for op in sorted(set(region))}
-    alu = sum(n for op, n in by_op.items() if op in SASS_ALU)
-    fma = by_op.get("IMAD", 0)
-    if not by_op.get("SHF", 0) and not by_op.get("PRMT", 0):
-        raise AssertionError(f"no rotation in threefry_bits_kernel's "
-                             f"SASS: {by_op}")
-    return {"by_opcode": by_op, "alu": alu, "fma_imad": fma,
-            "other": len(region) - alu - fma, "instructions": len(region),
-            "draw_ops": max(alu, fma, len(region) / 2)}
-
-
 def warp_sass(out: str) -> dict:
     """The warp-level instructions of each instantiation of the kernels
     that draw by the warp-compacted draw (WARP_DRAW): VOTE (the tail
     queue's ballots), POPC (their prefix offsets), SHFL and WARPSYNC, by
     kernel and instantiation."""
+    from repro_torch.kernels.sass import SASS_OP
     ops = ("VOTE", "POPC", "SHFL", "WARPSYNC")
     counts, current = {}, None
     for ln in out.splitlines():
@@ -758,6 +697,7 @@ def ptxas_lines(report: str, source: str) -> list:
 
 def phase_build():
     from repro_torch.kernels import build
+    from repro_torch.kernels.sass import sass_text, threefry_sass
     info = build.build()
     regs = [ln.strip() for ln in info["ptxas"].splitlines()
             if "registers" in ln or "spill" in ln or ln.startswith("==")]
@@ -1800,6 +1740,7 @@ def counter_noise_checks(record, rnd):
     from repro_torch.core import noise
     from repro_torch.core.policy import resolve_policy
     from repro_torch.kernels import counter_noise as cn
+    from repro_torch.kernels.sass import draws
     from repro_torch.utils.tree import flatten
 
     dev = torch.device("cuda")
@@ -2051,6 +1992,7 @@ def noise_update_checks(record, rnd):
     from repro_torch.kernels import counter_noise as cn
     from repro_torch.kernels import noise_update as nu
     from repro_torch.kernels.design_study import fused_adamw_takes_mixed
+    from repro_torch.kernels.sass import draws
     from repro_torch.utils.tree import flatten
 
     dev = torch.device("cuda")

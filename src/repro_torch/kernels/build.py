@@ -66,9 +66,9 @@ SIGNATURES = {
     "dp_wkv6": [_P] * 6 + [_I] * 5 + [_P],
     "dp_wkv6_chunked_nparts": [_I, _I],
     "dp_wkv6_chunked": [_P] * 7 + [_I] * 5 + [_P],
-    "dp_counter_noise": [_P] * 3 + [_I] * 2 + [_U64] * 2 + [_I64, _F, _F,
-                                                            _I, _P],
-    "dp_noise_update": [_P] * 5 + [_I] * 3 + [_U64] * 2 + [_I64] + [_I] * 3
+    "dp_counter_noise": [_P] * 4 + [_I] + [_U64] * 2 + [_I64, _F, _F, _I,
+                                                       _P],
+    "dp_noise_update": [_P] * 6 + [_I] * 2 + [_U64] * 2 + [_I64] + [_I] * 3
                        + [_P] * 3,
     "dp_threefry_bits": [_P, _P, _I64, _P],
     "dp_ndtri_f32": [_P, _P, _I64, _P],

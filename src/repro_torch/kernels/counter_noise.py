@@ -6,7 +6,9 @@ with z the counter-based normal of ``core.noise.counter_normal`` at each
 element's linear index. One key is the Gaussian mechanism; the tree
 mechanism's increment is two key lists (``core.noise``). The keys are
 derived on the host (Python ints, no device work) and travel as kernel
-parameters. Source: ``csrc/counter_noise.cu`` with ``csrc/counter_normal.cuh``
+parameters in a key plan (:func:`key_plan`: each distinct key once, with
+the sums it is added to), so a key both lists hold is drawn once.
+Source: ``csrc/counter_noise.cu`` with ``csrc/counter_normal.cuh``
 (threefry2x32, the uniform, ndtri), which also says what bounds it on the
 H100. It replaces no TPU kernel: the JAX package draws this noise with jnp.
 
@@ -24,7 +26,8 @@ import torch
 from repro_torch.core import noise
 from repro_torch.kernels import build
 
-MAX_KEYS = 64          # csrc/counter_noise.cu: keys a launch takes
+MAX_KEYS = 64          # csrc/counter_normal.cuh: distinct keys a launch takes
+HI, LO = 1, 2          # a plan key's sides: added to the hi sum, the lo sum
 
 
 def window(shape, offsets=None, full_shape=None) -> tuple:
@@ -64,22 +67,72 @@ def _scalar(x: float, dtype) -> float:
     return float(torch.tensor(float(x), dtype=dtype))
 
 
+def key_plan(hi_keys, lo_keys) -> list:
+    """-> [(key, sides), ...]: the distinct keys of the two lists, each
+    once, in an order that keeps each list's own order; ``sides`` is HI
+    where the key is in ``hi_keys``, LO where it is in ``lo_keys``, HI | LO
+    where both hold it. Walking the plan and adding each key's draw to the
+    sums its sides name adds each list's draws in the list's own order, so
+    hi - lo is bitwise the two lists summed apart, with one draw a distinct
+    key. Raises ValueError where the lists hold their shared keys in
+    conflicting orders (no walk keeps both) or a list holds a key twice."""
+    hi = [tuple(int(w) for w in k) for k in hi_keys]
+    lo = [tuple(int(w) for w in k) for k in lo_keys]
+    for name, keys in (("hi", hi), ("lo", lo)):
+        if len(set(keys)) != len(keys):
+            raise ValueError(f"key_plan: the {name} list holds a key twice: "
+                             f"{keys}")
+    shared = set(hi) & set(lo)
+    plan, i, j = [], 0, 0
+    while i < len(hi) or j < len(lo):
+        if i < len(hi) and hi[i] not in shared:
+            plan.append((hi[i], HI))
+            i += 1
+        elif j < len(lo) and lo[j] not in shared:
+            plan.append((lo[j], LO))
+            j += 1
+        elif i < len(hi) and j < len(lo) and hi[i] == lo[j]:
+            plan.append((hi[i], HI | LO))
+            i += 1
+            j += 1
+        else:
+            raise ValueError(f"key_plan: the hi and lo lists hold their "
+                             f"shared keys in conflicting orders: hi {hi}, "
+                             f"lo {lo}")
+    return plan
+
+
+def plan_args(hi_keys, lo_keys, name: str) -> tuple:
+    """The key plan as the C entries take it: (keys, sides, n_keys), two
+    uint32 words a key and one byte of sides a key, as ctypes arrays."""
+    plan = key_plan(hi_keys, lo_keys)
+    if len(plan) > MAX_KEYS:
+        raise ValueError(f"{name} takes at most {MAX_KEYS} distinct keys, "
+                         f"got {len(plan)}")
+    words = [w & noise.M32 for key, _ in plan for w in key]
+    keys = (ctypes.c_uint32 * max(1, len(words)))(*words)
+    sides = (ctypes.c_uint8 * max(1, len(plan)))(*[s for _, s in plan])
+    return keys, sides, len(plan)
+
+
 def plain(g, hi_keys, lo_keys, alpha: float, denom: float, start: int = 0,
           trail: int | None = None) -> torch.Tensor:
-    """The kernel's function in plain torch: each key's draw by
-    ``noise.linear_normal``, summed in order from 0 in f32, then the
+    """The kernel's function in plain torch: each distinct key's draw by
+    ``noise.linear_normal`` (:func:`key_plan`), added to the hi sum, the lo
+    sum or both, each sum in its list's order from 0 in f32, then the
     reference's arithmetic in the leaf's dtype (0-dim device operands, so
     the division is a true division on either device)."""
     n = g.numel()
     trail = trail if trail is not None else noise.counter_split(g.shape)[1]
-
-    def total(keys):
-        s = torch.zeros(n, dtype=torch.float32, device=g.device)
-        for key in keys:
-            s = s + noise.linear_normal(key, start, n, trail, g.device)
-        return s
-
-    xi = (total(hi_keys) - total(lo_keys)).view(g.shape)
+    a = torch.zeros(n, dtype=torch.float32, device=g.device)
+    b = torch.zeros(n, dtype=torch.float32, device=g.device)
+    for key, sides in key_plan(hi_keys, lo_keys):
+        z = noise.linear_normal(key, start, n, trail, g.device)
+        if sides & HI:
+            a = a + z
+        if sides & LO:
+            b = b + z
+    xi = (a - b).view(g.shape)
     dt = g.dtype
     a = torch.tensor(alpha, dtype=dt, device=g.device)
     d = torch.tensor(denom, dtype=dt, device=g.device)
@@ -98,20 +151,16 @@ def counter_noise(g: torch.Tensor, hi_keys, lo_keys, alpha: float,
     if g.device.type == "cpu":
         return plain(g, hi_keys, lo_keys, alpha, denom, start, trail)
     bf16 = build.check_inputs("counter_noise", (g,))
-    if len(hi_keys) + len(lo_keys) > MAX_KEYS:
-        raise ValueError(f"counter_noise takes at most {MAX_KEYS} keys, got "
-                         f"{len(hi_keys) + len(lo_keys)}")
+    keys, sides, n_keys = plan_args(hi_keys, lo_keys, "counter_noise")
     out = g if inplace else torch.empty_like(g)
     if g.numel() == 0:
         return out
-    words = [int(w) & noise.M32 for key in hi_keys + lo_keys for w in key]
-    keys = (ctypes.c_uint32 * max(1, len(words)))(*words)
     lib = build.load()
     build.check(lib.dp_counter_noise(
-        g.data_ptr(), out.data_ptr(), ctypes.addressof(keys), len(hi_keys),
-        len(lo_keys), start, trail, g.numel(), _scalar(alpha, g.dtype),
-        _scalar(denom, g.dtype), int(bf16), build.stream_ptr(g)),
-        "counter_noise")
+        g.data_ptr(), out.data_ptr(), ctypes.addressof(keys),
+        ctypes.addressof(sides), n_keys, start, trail, g.numel(),
+        _scalar(alpha, g.dtype), _scalar(denom, g.dtype), int(bf16),
+        build.stream_ptr(g)), "counter_noise")
     counter_noise.launches += 1
     return out
 

@@ -1,14 +1,15 @@
 // counter_noise: phase 4 of DP training, drawn and added in one pass,
 //
-//     out[i] = (g[i] + alpha * (sum_{j < n_hi} z(key_j, start + i)
-//                               - sum_{j >= n_hi} z(key_j, start + i))) / denom
+//     out[i] = (g[i] + alpha * (sum_{key in hi} z(key, start + i)
+//                               - sum_{key in lo} z(key, start + i))) / denom
 //
 //     g, out: one contiguous leaf, f32 (bf16 == 0) or bf16; out may be g
 //
-// with z the counter-based normal of counter_normal.cuh. One key (n_hi = 1,
-// n_lo = 0) is the Gaussian mechanism; the tree mechanism's increment
+// with z the counter-based normal of counter_normal.cuh. One key (a plan of
+// one HI key) is the Gaussian mechanism; the tree mechanism's increment
 // N(t_hi) - N(t - 1) is two key lists, each the nodes whose index bit is set,
-// summed in ascending level order. The rounding points are the reference's
+// summed in ascending level order, which travel as their key plan (each
+// distinct key once, with its sides). The rounding points are the reference's
 // (cn::noised). It is the kernel of the paths that materialize a noised tree
 // (the baseline modes, core.policy.finalize_noise, and the mechanisms' direct
 // calls); the BK train step draws the same noise inside its optimizer pass
@@ -34,12 +35,14 @@
 // (bf16) or two float4 (f32) and its result stored likewise; the elements
 // before the first 16-byte-aligned index and after the last whole run, one
 // a thread (cn::xi_at, the same values); 256 threads a block, 3 blocks an SM
-// (80 registers), as many blocks as are resident, striding over the leaf;
-// no sums across threads, so the result is bitwise the same run to run, and
-// bitwise the first version's. On train's largest leaf it takes ~7.1 ms
-// against the first version's ~9.2 (design_study --only noise, H100 80GB
-// HBM3 at 700 W): threefry and the pass ~3.9, the central branch ~1.0, the
-// compacted tail ~2.2, where uncompacted it costs ~6.2.
+// (at most 80 registers), as many blocks as are resident, striding over
+// the leaf; no sums across threads, so the result is bitwise the same run
+// to run, and bitwise the first version's. On train's largest leaf it
+// takes ~6.7 ms against the first version's ~9.3 (design_study --only
+// noise, H100 80GB HBM3 at 700 W; PERF.md): threefry and the pass ~3.4, the
+// central branch ~1.1, the compacted tail ~2.2, where uncompacted it costs
+// ~5.6. The pass is bound by instruction issue: the division by a
+// power-of-two denom as a product (cn::quotient) saves ~0.4 of it.
 #include <cuda_bf16.h>
 
 #include "counter_normal.cuh"
@@ -55,10 +58,10 @@ constexpr int MIN_BLOCKS = 3;
 template <typename T>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     counter_noise_kernel(const T* g, T* out,
-                         const __grid_constant__ cn::Keys keys, int n_hi,
-                         int n_lo, unsigned long long start, uint32_t trail,
+                         const __grid_constant__ cn::Keys keys, int n_keys,
+                         unsigned long long start, uint32_t trail,
                          long long n, long long head, float alpha,
-                         float denom) {
+                         const cn::Denom denom) {
   constexpr bool BF16 = sizeof(T) == 2;
   __shared__ float queues[WARPS][cn::WARP_RUN];
   float* queue = queues[threadIdx.x / 32];
@@ -73,8 +76,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     const bool live = r < runs;
     float v[cn::RUN], xi[cn::RUN];
     if (live) cn::load_run(g + i, v);
-    cn::warp_xi(keys, n_hi, n_lo, start + (unsigned long long)i, trail,
-                queue, xi);
+    cn::warp_xi(keys, n_keys, start + (unsigned long long)i, trail, queue,
+                xi);
     if (live) {
 #pragma unroll
       for (int j = 0; j < cn::RUN; ++j)
@@ -88,7 +91,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
        k += (long long)gridDim.x * THREADS) {
     const long long i = k < head ? k : head + runs * cn::RUN + (k - head);
     const float xi =
-        cn::xi_at(keys, n_hi, n_lo, start + (unsigned long long)i, trail);
+        cn::xi_at(keys, n_keys, start + (unsigned long long)i, trail);
     cn::store_one(out, i, cn::noised<BF16>(cn::load_one(g, i), xi, alpha,
                                            denom));
   }
@@ -119,7 +122,7 @@ int blocks_for(long long n, long long cap) {
 }
 
 template <typename T>
-int launch(const void* g, void* out, const cn::Keys& k, int n_hi, int n_lo,
+int launch(const void* g, void* out, const cn::Keys& k, int n_keys,
            unsigned long long start, uint32_t trail, long long n, float alpha,
            float denom, cudaStream_t st) {
   const void* ptrs[2] = {g, out};
@@ -129,33 +132,34 @@ int launch(const void* g, void* out, const cn::Keys& k, int n_hi, int n_lo,
       cn::pass_blocks(counter_noise_kernel<T>, THREADS, n, head);
   if (blocks <= 0) return (int)cudaErrorInvalidValue;
   counter_noise_kernel<T><<<blocks, THREADS, 0, st>>>(
-      (const T*)g, (T*)out, k, n_hi, n_lo, start, trail, n, head, alpha,
-      denom);
+      (const T*)g, (T*)out, k, n_keys, start, trail, n, head, alpha,
+      cn::denom_of(denom));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // g, out: n contiguous elements (f32, or bf16 when bf16 != 0; out may be g);
-// keys: 2 * (n_hi + n_lo) uint32 on the host, key j at keys[2j], keys[2j+1],
-// the n_hi added first, then the n_lo subtracted; start: the leaf's first
-// linear index in the whole tensor; trail: the span of counter word 0.
+// the key plan on the host: keys, 2 * n_keys uint32, key j at keys[2j],
+// keys[2j+1]; sides, n_keys bytes, key j's at sides[j] (1: its normal is
+// added to the hi sum, 2: to the lo sum, 3: to both; xi = hi - lo); start:
+// the leaf's first linear index in the whole tensor; trail: the span of
+// counter word 0.
 extern "C" int dp_counter_noise(const void* g, void* out,
-                                const uint32_t* keys, int n_hi, int n_lo,
-                                unsigned long long start,
+                                const uint32_t* keys, const uint8_t* sides,
+                                int n_keys, unsigned long long start,
                                 unsigned long long trail, long long n,
                                 float alpha, float denom, int bf16,
                                 void* stream) {
-  if (n <= 0 || n_hi < 0 || n_lo < 0 || n_hi + n_lo > cn::MAX_KEYS ||
-      trail == 0 || trail >= (1ULL << 32))
-    return (int)cudaErrorInvalidValue;
   cn::Keys k = {};
-  for (int j = 0; j < 2 * (n_hi + n_lo); ++j) k.k[j] = keys[j];
+  if (n <= 0 || trail == 0 || trail >= (1ULL << 32) ||
+      !cn::read_plan(keys, sides, n_keys, k))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? launch<__nv_bfloat16>(g, out, k, n_hi, n_lo, start,
+  return bf16 ? launch<__nv_bfloat16>(g, out, k, n_keys, start,
                                       (uint32_t)trail, n, alpha, denom, st)
-              : launch<float>(g, out, k, n_hi, n_lo, start, (uint32_t)trail,
-                              n, alpha, denom, st);
+              : launch<float>(g, out, k, n_keys, start, (uint32_t)trail, n,
+                              alpha, denom, st);
 }
 
 // in (n, 4) uint32 rows (k0, k1, x0, x1) -> out (n, 2): threefry2x32 blocks.

@@ -27,6 +27,14 @@
 // 2^24 uniforms, and 0 this way (PERF.md; design_study --only noise builds
 // and times the contracted way).
 //
+// A leaf's keys travel as a plan (repro_torch.kernels.counter_noise.key_plan):
+// the distinct keys of the hi and lo lists, each once, in an order that keeps
+// each list's own, each with its sides (HI: added to the hi sum, LO: to the
+// lo sum, both where the lists share it). Walking the plan adds each list's
+// draws in its own order, so xi = hi - lo is bitwise the two lists summed
+// apart, and a key the lists share (a tree's node at an FTRL step) is drawn
+// once.
+//
 // Two ways to draw. ``normal`` gives one value a thread (the check entries,
 // and the few elements of a leaf outside its runs). ``warp_xi`` draws a run
 // of RUN consecutive elements a lane, 32 runs a warp together, for the
@@ -48,6 +56,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace cn {
@@ -56,34 +65,47 @@ struct Bits {
   uint32_t x, y;
 };
 
+// x + y mod 2^32: every add of a threefry2x32 block (a round's and a key
+// injection's), which ptxas issues as IADD3 or IMAD as it chooses: 68
+// instructions a block, 51 of them on the ALU pipe (kernels/sass.py's
+// threefry_sass). design_study --only noise builds threefry_imad, every add
+// an IMAD on the FMA pipe (41 on the ALU pipe, 81 in all): on the H100 it
+// was 3.8% faster for noise_update's AdamW pass and 1.9% for
+// counter_noise's, and 2.0% slower for the FTRL pass, which this header
+// serves as well (PERF.md).
+__device__ __forceinline__ uint32_t iadd(uint32_t x, uint32_t y) {
+  return x + y;
+}
+
 template <int R>
 __device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1) {
-  x0 += x1;
+  x0 = iadd(x0, x1);
   x1 = __funnelshift_l(x1, x1, R);
   x1 ^= x0;
+}
+
+// x0 += a, x1 += b: a key injection between groups of four rounds
+__device__ __forceinline__ void inject(uint32_t& x0, uint32_t& x1,
+                                       uint32_t a, uint32_t b) {
+  x0 = iadd(x0, a);
+  x1 = iadd(x1, b);
 }
 
 // One threefry2x32 block of key (k0, k1) on counter (x0, x1).
 __device__ __forceinline__ Bits threefry2x32(uint32_t k0, uint32_t k1,
                                              uint32_t x0, uint32_t x1) {
   const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0;
-  x1 += k1;
+  inject(x0, x1, k0, k1);
   mix<13>(x0, x1); mix<15>(x0, x1); mix<26>(x0, x1); mix<6>(x0, x1);
-  x0 += k1;
-  x1 += k2 + 1u;
+  inject(x0, x1, k1, k2 + 1u);
   mix<17>(x0, x1); mix<29>(x0, x1); mix<16>(x0, x1); mix<24>(x0, x1);
-  x0 += k2;
-  x1 += k0 + 2u;
+  inject(x0, x1, k2, k0 + 2u);
   mix<13>(x0, x1); mix<15>(x0, x1); mix<26>(x0, x1); mix<6>(x0, x1);
-  x0 += k0;
-  x1 += k1 + 3u;
+  inject(x0, x1, k0, k1 + 3u);
   mix<17>(x0, x1); mix<29>(x0, x1); mix<16>(x0, x1); mix<24>(x0, x1);
-  x0 += k1;
-  x1 += k2 + 4u;
+  inject(x0, x1, k1, k2 + 4u);
   mix<13>(x0, x1); mix<15>(x0, x1); mix<26>(x0, x1); mix<6>(x0, x1);
-  x0 += k2;
-  x1 += k0 + 5u;
+  inject(x0, x1, k2, k0 + 5u);
   Bits out;
   out.x = x0;
   out.y = x1;
@@ -221,16 +243,34 @@ __device__ __forceinline__ float normal(uint32_t k0, uint32_t k1,
 }
 
 // ---------------------------------------------------------- a leaf's draws
-constexpr int MAX_KEYS = 64;        // keys a launch takes
+constexpr int MAX_KEYS = 64;        // distinct keys a launch takes
 constexpr int RUN = 8;              // consecutive elements a lane draws
 constexpr int WARP_RUN = 32 * RUN;  // elements a warp draws at once
+constexpr uint8_t HI = 1, LO = 2;   // a plan key's sides (HI | LO: both)
 
-// The keys, as kernel parameters (__grid_constant__: read from the
+// The plan, as kernel parameters (__grid_constant__: read from the
 // constant bank by every thread, no local copy): key j at k[2j], k[2j+1],
-// the n_hi added first, then the n_lo subtracted.
+// its sides at side[j].
 struct Keys {
   uint32_t k[2 * MAX_KEYS];
+  uint8_t side[MAX_KEYS];
 };
+
+// The C entries' plan: n_keys keys from the host arrays (2 words a key,
+// one side a key) into ``out``; false where n_keys is out of range or a
+// side is not HI, LO or both.
+__host__ inline bool read_plan(const uint32_t* keys, const uint8_t* sides,
+                               int n_keys, Keys& out) {
+  out = {};
+  if (n_keys < 0 || n_keys > MAX_KEYS) return false;
+  for (int j = 0; j < n_keys; ++j) {
+    if (sides[j] == 0 || (sides[j] & ~(HI | LO))) return false;
+    out.k[2 * j] = keys[2 * j];
+    out.k[2 * j + 1] = keys[2 * j + 1];
+    out.side[j] = sides[j];
+  }
+  return true;
+}
 
 // The counter words of linear index c: c mod trail, c div trail (trail <
 // 2^32, repro_torch.core.noise.counter_split); no division below trail.
@@ -249,16 +289,19 @@ __device__ __forceinline__ void split(unsigned long long c, uint32_t trail,
 // xi at one linear index: the hi keys' normals summed in order from 0 in
 // f32, minus the lo keys' likewise (repro/core/noise.py::prefix_noise adds
 // 0 z for the tree's unset levels, and every z here is finite, so skipping
-// them is exact).
-__device__ __forceinline__ float xi_at(const Keys& keys, int n_hi, int n_lo,
+// them is exact), by the plan: each key drawn once, added to its sides.
+__device__ __forceinline__ float xi_at(const Keys& keys, int n_keys,
                                        unsigned long long c, uint32_t trail) {
   uint32_t lo, hi;
   split(c, trail, lo, hi);
+  if (n_keys == 1 && keys.side[0] == HI)      // (0 + z) - 0 is z: see below
+    return normal(keys.k[0], keys.k[1], lo, hi);
   float a = 0.f, b = 0.f;
-  for (int j = 0; j < n_hi; ++j)
-    a = __fadd_rn(a, normal(keys.k[2 * j], keys.k[2 * j + 1], lo, hi));
-  for (int j = n_hi; j < n_hi + n_lo; ++j)
-    b = __fadd_rn(b, normal(keys.k[2 * j], keys.k[2 * j + 1], lo, hi));
+  for (int j = 0; j < n_keys; ++j) {
+    const float z = normal(keys.k[2 * j], keys.k[2 * j + 1], lo, hi);
+    if (keys.side[j] & HI) a = __fadd_rn(a, z);
+    if (keys.side[j] & LO) b = __fadd_rn(b, z);
+  }
   return __fsub_rn(a, b);
 }
 
@@ -305,24 +348,34 @@ __device__ __forceinline__ void warp_normals(uint32_t k0, uint32_t k1,
 }
 
 // xi at a lane's RUN consecutive linear indices from c (the warp's 32
-// lanes together): xi_at's sums, each key drawn by warp_normals.
-__device__ __forceinline__ void warp_xi(const Keys& keys, int n_hi, int n_lo,
+// lanes together): xi_at's sums by the plan, each key drawn once by
+// warp_normals (the sides are warp-uniform: no divergence). A plan of one
+// HI key (the Gaussian mechanism) skips the sums: every z is finite and
+// none is -0 (the one zero, at the uniform 1/2, is +0; a negative z comes
+// from the lower half, where p < 1/2), so (0 + z) - 0 is z bit for bit
+// (all 2^24 uniforms: tests/test_torch_noise.py).
+__device__ __forceinline__ void warp_xi(const Keys& keys, int n_keys,
                                         unsigned long long c, uint32_t trail,
                                         float* queue, float (&xi)[RUN]) {
   uint32_t lo, hi;
   split(c, trail, lo, hi);
+  if (n_keys == 1 && keys.side[0] == HI) {
+    warp_normals(keys.k[0], keys.k[1], lo, hi, trail, queue, xi);
+    return;
+  }
   float a[RUN], b[RUN], z[RUN];
 #pragma unroll
   for (int j = 0; j < RUN; ++j) a[j] = b[j] = 0.f;
-  for (int k = 0; k < n_hi; ++k) {
+  for (int k = 0; k < n_keys; ++k) {
     warp_normals(keys.k[2 * k], keys.k[2 * k + 1], lo, hi, trail, queue, z);
+    if (keys.side[k] & HI) {
 #pragma unroll
-    for (int j = 0; j < RUN; ++j) a[j] = __fadd_rn(a[j], z[j]);
-  }
-  for (int k = n_hi; k < n_hi + n_lo; ++k) {
-    warp_normals(keys.k[2 * k], keys.k[2 * k + 1], lo, hi, trail, queue, z);
+      for (int j = 0; j < RUN; ++j) a[j] = __fadd_rn(a[j], z[j]);
+    }
+    if (keys.side[k] & LO) {
 #pragma unroll
-    for (int j = 0; j < RUN; ++j) b[j] = __fadd_rn(b[j], z[j]);
+      for (int j = 0; j < RUN; ++j) b[j] = __fadd_rn(b[j], z[j]);
+    }
   }
 #pragma unroll
   for (int j = 0; j < RUN; ++j) xi[j] = __fsub_rn(a[j], b[j]);
@@ -338,13 +391,48 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// The quotient by denom, the batch size a leaf's clipped sum is divided by,
+// which a whole launch shares. Where denom is a power of two, s * (1 /
+// denom) and s / denom round the same real number, so the product is the
+// IEEE quotient bit for bit, for every s; one __fdiv_rn an element costs
+// the noise passes ~7% of their time on the H100, which they spend issuing
+// instructions (design_study --only noise: ieee_division).
+//
+// pow2_inverse: 1 / d where d is a power of two whose reciprocal is a
+// normal float, else 0 (host).
+__host__ inline float pow2_inverse(float d) {
+  int e = 0;
+  const float m = frexpf(d, &e);           // d = m 2^e, m in [0.5, 1)
+  return m == 0.5f && e - 1 >= -126 && e - 1 <= 126 ? ldexpf(1.f, 1 - e)
+                                                     : 0.f;
+}
+
+// A launch's divisor with its inverse (host: denom_of)
+struct Denom {
+  float d, inv;              // d, pow2_inverse(d)
+};
+
+__host__ inline Denom denom_of(float d) { return {d, pow2_inverse(d)}; }
+
+// s / d: the product where d is a power of two, else divided
+__device__ __forceinline__ float quotient(float s, const Denom& q) {
+  return q.inv != 0.f ? __fmul_rn(s, q.inv) : __fdiv_rn(s, q.d);
+}
+
+template <bool BF16>
+__device__ __forceinline__ float noised(float g, float xi, float alpha,
+                                        const Denom& denom) {
+  if (!BF16) return quotient(__fadd_rn(g, __fmul_rn(alpha, xi)), denom);
+  const float t = bf16_round(__fmul_rn(alpha, bf16_round(xi)));
+  const float s = bf16_round(__fadd_rn(g, t));
+  return bf16_round(quotient(s, denom));
+}
+
+// the same, always divided (the first versions under designs/)
 template <bool BF16>
 __device__ __forceinline__ float noised(float g, float xi, float alpha,
                                         float denom) {
-  if (!BF16) return __fdiv_rn(__fadd_rn(g, __fmul_rn(alpha, xi)), denom);
-  const float t = bf16_round(__fmul_rn(alpha, bf16_round(xi)));
-  const float s = bf16_round(__fadd_rn(g, t));
-  return bf16_round(__fdiv_rn(s, denom));
+  return noised<BF16>(g, xi, alpha, Denom{denom, 0.f});
 }
 
 // --------------------------------------------- a run's loads and stores
@@ -411,17 +499,19 @@ __host__ inline long long aligned_head(const void* const* a, const int* size,
   return n;
 }
 
-// Blocks of a pass over n elements from head (threads a block): enough
-// for its runs (a warp 32 of them) and for the elements outside them, at
-// most the blocks the card holds resident; 0 where a query fails.
+// Blocks of a pass over n elements from head (threads a block, smem bytes
+// of dynamic shared memory a block): enough for its runs (a warp 32 of
+// them) and for the elements outside them, at most the blocks the card
+// holds resident; 0 where a query fails.
 template <typename K>
-__host__ int pass_blocks(K kernel, int threads, long long n, long long head) {
+__host__ int pass_blocks(K kernel, int threads, long long n, long long head,
+                         size_t smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                    0) != cudaSuccess)
+                                                    smem) != cudaSuccess)
     return 0;
   const long long runs = (n - head) / RUN;
   const long long rest = n - runs * RUN;

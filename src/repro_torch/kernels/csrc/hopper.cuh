@@ -1,6 +1,7 @@
 // Hopper (sm_90a) machinery shared by the tensor-core kernels: TMA tensor
-// maps and loads, mbarrier rings, and the wgmma pieces (shared-memory matrix
-// descriptors, fences, the m64nNk16 bf16 -> f32 products).
+// maps and loads, 1-D bulk copies, mbarrier rings, and the wgmma pieces
+// (shared-memory matrix descriptors, fences, the m64nNk16 bf16 -> f32
+// products).
 //
 // Every tile here is a TMA box whose inner dimension is 64 bf16 (128 bytes)
 // loaded with CU_TENSOR_MAP_SWIZZLE_128B, so that a box of R rows is R
@@ -199,6 +200,29 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_addr(dst)),
       "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// ---- 1-D bulk copies (no tensor map): ``bytes`` contiguous bytes, the
+// addresses and the size multiples of 16. A load completes on ``bar`` (count
+// its bytes in the phase's mbar_expect_tx); a store joins this thread's
+// bulk group (bulk_commit, then bulk_wait_read before its source is written
+// again).
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"((uint64_t)src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store_1d(void* dst, const void* src,
+                                              uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+          (uint64_t)dst),
+      "r"(smem_addr(src)), "r"(bytes)
       : "memory");
 }
 

@@ -12,15 +12,15 @@
 //     m; FTRL s, m, t0): f32, p: the parameter (f32 or bf16); the state and
 //     p written in place
 //
-// with xi the phase-4 draw of counter_noise.cu (the same keys, counters and
-// sums: cn::warp_xi) and gn the noised gradient at the reference's rounding
-// points in g's dtype (cn::noised), then widened to f32; the step in f32, p
-// rounded to its dtype, as repro/optim/optimizers.py's adamw (:76-101) and
-// sgd (:57-72) and repro/optim/ftrl.py (:81-97) do. FTRL's s, m and t0 round
-// where its plain version's torch chain rounds (a product, then a sum: no
-// contraction), so they come out bitwise the chain's. Without noise (frozen
-// leaves, sigma = 0 after the mechanism's own g / denom, the baseline modes'
-// materialized trees) the leaf is taken as given.
+// with xi the phase-4 draw of counter_noise.cu (the same key plan, counters
+// and sums: cn::warp_xi) and gn the noised gradient at the reference's
+// rounding points in g's dtype (cn::noised), then widened to f32; the step
+// in f32, p rounded to its dtype, as repro/optim/optimizers.py's adamw
+// (:76-101) and sgd (:57-72) and repro/optim/ftrl.py (:81-97) do. FTRL's s,
+// m and t0 round where its plain version's torch chain rounds (a product,
+// then a sum: no contraction), so they come out bitwise the chain's. Without
+// noise (frozen leaves, sigma = 0 after the mechanism's own g / denom, the
+// baseline modes' materialized trees) the leaf is taken as given.
 //
 // Replaces no TPU kernel: the JAX package writes the noise and the update in
 // jnp (repro/core/noise.py::counter_normal, repro/optim/optimizers.py,
@@ -36,18 +36,30 @@
 // ordinary step reads g 2, s 4, m 4, t0 4 and writes s, m (8) and p 2, 24
 // bytes (12.73 ms over those elements); a restart step reads p 2 in place
 // of t0 and writes t0 4 more, 26 bytes (13.79 ms). The draw's integer work
-// (~5.4 ms for those elements, 51 ALU-pipe instructions a threefry2x32
-// block) issues beside the bytes. The design:
-// counter_noise.cu's pass (runs of 8 elements a lane, g and p as one 16-byte
-// vector each in bf16, m and v as two float4 each, the draw compacted per
-// warp); a run's operands loaded after its draw, so that the kernel takes 78
-// registers, 3 blocks an SM are resident, and the other warps' draws cover
-// the loads' latency (loaded before the draw, design_study's loads_first,
-// they hold ~30 registers through it: 101, 2 blocks an SM); the elements
-// outside the runs one a thread; as many blocks as are resident; no shared
-// memory beyond the draw's warp queues and no sums across threads, so the
-// result is bitwise the same run to run, and its draws bitwise
-// counter_noise's.
+// (one threefry2x32 block a distinct key an element; kernels/sass.py counts
+// its instructions) issues beside the bytes.
+//
+// The design: runs of 8 elements a lane, 32 runs a warp. Each warp draws
+// its 32 runs together (cn::warp_xi: the key plan, each distinct key once,
+// ndtri's tail compacted per warp), then each lane loads its run's operands
+// (g, p or t0, m, v: whatever the step reads) from device memory, steps and
+// stores them as 16-byte vectors, so that the operands hold no registers
+// through the draw (at most 80 registers: 3 blocks an SM). Runs start on
+// 16-byte boundaries (cn::aligned_head); the elements outside them go one a
+// thread. As many blocks as are resident. Without noise the same loop
+// streams the leaf as given. No sums across threads, so the result is
+// bitwise the same run to run, bitwise the first version's
+// (designs/noise_update_per_lane.cu), and its draws bitwise counter_noise's.
+//
+// What the H100 showed (design_study --only noise, train's up leaf; the
+// numbers in PERF.md): the pass is bound by instruction issue, not by the
+// loads' latency. Staging the operands in shared memory by bulk copies
+// while the warp draws (designs/noise_update_staged.cu) took ~3.5% longer;
+// fewer instructions are what shorten it: the division by a power-of-two
+// denom as a product (cn::quotient) and a single HI key drawn without the
+// plan's sums (cn::warp_xi). What the key plan buys is one draw a distinct
+// key: FTRL's ordinary step at a tree's t = 3 draws 2 keys where the first
+// version drew 3.
 #include <cuda_bf16.h>
 
 #include "counter_normal.cuh"
@@ -56,10 +68,8 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-// blocks an SM holds at once, by the registers a thread may take: 3, as
-// counter_noise.cu (design_study --only noise builds 2, 3 and 4; the
-// kernel takes 78 registers under both 2 and 3, so both hold 3 blocks an
-// SM, and their times differ by no more than run to run)
+// blocks an SM holds at once, so the registers a thread may take (80);
+// design_study --only noise builds 2, 3 and 4
 constexpr int MIN_BLOCKS = 3;
 
 // the optimizers (the C entry's ``opt``)
@@ -70,6 +80,7 @@ constexpr int SGD = 0, ADAMW = 1, FTRL = 2;
 struct Hyper {
   float alpha, denom;        // the noise (unused without it)
   float lr, b1, omb1, b2, omb2, eps, bc1, bc2, wd;
+  cn::Denom dn;              // cn::denom_of(denom)
 };
 
 // One element's update from its noised gradient (f32) -> m, v, p in place.
@@ -100,10 +111,9 @@ __device__ __forceinline__ void step(float gn, float& m, float& v, float& p,
 template <typename G, typename P, int OPT>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     noise_update_kernel(const G* g, P* p, float* m, float* v, float* t0,
-                        const __grid_constant__ cn::Keys keys, int n_hi,
-                        int n_lo, int noise, unsigned long long start,
-                        uint32_t trail, long long n, long long head,
-                        const Hyper h) {
+                        const __grid_constant__ cn::Keys keys, int n_keys,
+                        int noise, unsigned long long start, uint32_t trail,
+                        long long n, long long head, const Hyper h) {
   constexpr bool G_BF16 = sizeof(G) == 2;
   constexpr bool TWO = OPT != SGD;      // a second state: AdamW v, FTRL m
   // FTRL reads p only on a restart step (it becomes the anchor, written to
@@ -115,16 +125,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const long long runs = (n - head) / cn::RUN;
   const long long warp = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
   const long long warps = (long long)gridDim.x * WARPS;
-  // warp-uniform trip count and noise flag: every lane draws together. A
-  // run's operands are loaded after its draw, so that they do not hold
-  // registers through it (the resident warps' draws hide their latency)
+  // warp-uniform trip count and noise flag: every lane draws together
   for (long long r0 = warp * 32; r0 < runs; r0 += warps * 32) {
     const long long r = r0 + (threadIdx.x & 31);
     const long long i = head + r * cn::RUN;
     float xi[cn::RUN];
     if (noise)
-      cn::warp_xi(keys, n_hi, n_lo, start + (unsigned long long)i, trail,
-                  queue, xi);
+      cn::warp_xi(keys, n_keys, start + (unsigned long long)i, trail, queue,
+                  xi);
     if (r < runs) {
       float gv[cn::RUN], mv[cn::RUN], vv[cn::RUN], pv[cn::RUN];
       cn::load_run(g + i, gv);
@@ -138,8 +146,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 #pragma unroll
       for (int j = 0; j < cn::RUN; ++j) {
         const float gn =
-            noise ? cn::noised<G_BF16>(gv[j], xi[j], h.alpha, h.denom)
-                  : gv[j];
+            noise ? cn::noised<G_BF16>(gv[j], xi[j], h.alpha, h.dn) : gv[j];
         step<OPT>(gn, mv[j], vv[j], pv[j], h);
       }
       cn::store_run(m + i, mv);
@@ -155,9 +162,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     float gn = cn::load_one(g, i);
     if (noise)
       gn = cn::noised<G_BF16>(
-          gn, cn::xi_at(keys, n_hi, n_lo, start + (unsigned long long)i,
-                        trail),
-          h.alpha, h.denom);
+          gn, cn::xi_at(keys, n_keys, start + (unsigned long long)i, trail),
+          h.alpha, h.dn);
     float mi = m[i], vi = TWO ? v[i] : 0.f;
     float pi = from_t0 ? t0[i] : cn::load_one(p, i);
     if (restart) t0[i] = pi;
@@ -170,9 +176,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
 template <typename G, typename P, int OPT>
 int launch(const void* g, void* p, float* m, float* v, float* t0,
-           const cn::Keys& k, int n_hi, int n_lo, int noise,
-           unsigned long long start, uint32_t trail, long long n,
-           const Hyper& h, cudaStream_t st) {
+           const cn::Keys& k, int n_keys, int noise, unsigned long long start,
+           uint32_t trail, long long n, const Hyper& h, cudaStream_t st) {
   const void* ptrs[5] = {g, p, m, OPT != SGD ? v : m, OPT == FTRL ? t0 : m};
   const int sizes[5] = {(int)sizeof(G), (int)sizeof(P), 4, 4, 4};
   const long long head = cn::aligned_head(ptrs, sizes, 5, n);
@@ -180,26 +185,26 @@ int launch(const void* g, void* p, float* m, float* v, float* t0,
       cn::pass_blocks(noise_update_kernel<G, P, OPT>, THREADS, n, head);
   if (blocks <= 0) return (int)cudaErrorInvalidValue;
   noise_update_kernel<G, P, OPT><<<blocks, THREADS, 0, st>>>(
-      (const G*)g, (P*)p, m, v, t0, k, n_hi, n_lo, noise, start, trail, n,
-      head, h);
+      (const G*)g, (P*)p, m, v, t0, k, n_keys, noise, start, trail, n, head,
+      h);
   return (int)cudaGetLastError();
 }
 
 template <typename G, typename P>
 int launch_opt(int opt, const void* g, void* p, float* m, float* v,
-               float* t0, const cn::Keys& k, int n_hi, int n_lo, int noise,
+               float* t0, const cn::Keys& k, int n_keys, int noise,
                unsigned long long start, uint32_t trail, long long n,
                const Hyper& h, cudaStream_t st) {
   switch (opt) {
     case SGD:
-      return launch<G, P, SGD>(g, p, m, v, t0, k, n_hi, n_lo, noise, start,
+      return launch<G, P, SGD>(g, p, m, v, t0, k, n_keys, noise, start,
                                trail, n, h, st);
     case ADAMW:
-      return launch<G, P, ADAMW>(g, p, m, v, t0, k, n_hi, n_lo, noise,
-                                 start, trail, n, h, st);
+      return launch<G, P, ADAMW>(g, p, m, v, t0, k, n_keys, noise, start,
+                                 trail, n, h, st);
     default:
-      return launch<G, P, FTRL>(g, p, m, v, t0, k, n_hi, n_lo, noise,
-                                start, trail, n, h, st);
+      return launch<G, P, FTRL>(g, p, m, v, t0, k, n_keys, noise, start,
+                                trail, n, h, st);
   }
 }
 
@@ -208,38 +213,39 @@ int launch_opt(int opt, const void* g, void* p, float* m, float* v,
 // g: n contiguous elements of the leaf's clipped sum (bf16 when g_bf16,
 // else f32); p: the parameter, n elements (bf16 when p_bf16, else f32); m,
 // v: f32 state (AdamW m, v; SGD m, v unused; FTRL the prefix sum s, the
-// momentum m); keys, n_hi, n_lo, start, trail: as dp_counter_noise takes
-// them, read when noise != 0; opt: 0 SGD, 1 AdamW, 2 FTRL; hyper: 11 floats
-// on the host, alpha, denom, lr, b1 (SGD: momentum; FTRL: momentum x
-// keep), 1 - b1 (FTRL: keep, 0 on a restart step, else 1), b2, 1 - b2,
-// eps, bc1, bc2, weight decay; t0: FTRL's f32 anchor (else unused).
+// momentum m); keys, sides, n_keys, start, trail: the key plan and window
+// as dp_counter_noise takes them, read when noise != 0; opt: 0 SGD, 1
+// AdamW, 2 FTRL; hyper: 11 floats on the host, alpha, denom, lr, b1 (SGD:
+// momentum; FTRL: momentum x keep), 1 - b1 (FTRL: keep, 0 on a restart
+// step, else 1), b2, 1 - b2, eps, bc1, bc2, weight decay; t0: FTRL's f32
+// anchor (else unused).
 extern "C" int dp_noise_update(const void* g, void* p, float* m, float* v,
-                               const uint32_t* keys, int n_hi, int n_lo,
-                               int noise, unsigned long long start,
+                               const uint32_t* keys, const uint8_t* sides,
+                               int n_keys, int noise,
+                               unsigned long long start,
                                unsigned long long trail, long long n,
                                int g_bf16, int p_bf16, int opt,
                                const float* hyper, float* t0, void* stream) {
-  if (n <= 0 || n_hi < 0 || n_lo < 0 || n_hi + n_lo > cn::MAX_KEYS ||
-      (noise && (trail == 0 || trail >= (1ULL << 32))) || opt < SGD ||
-      opt > FTRL || (opt != SGD && v == nullptr) ||
+  cn::Keys k = {};
+  if (n <= 0 || n_keys < 0 || n_keys > cn::MAX_KEYS ||
+      (noise && (trail == 0 || trail >= (1ULL << 32) ||
+                 !cn::read_plan(keys, sides, n_keys, k))) ||
+      opt < SGD || opt > FTRL || (opt != SGD && v == nullptr) ||
       (opt == FTRL && t0 == nullptr))
     return (int)cudaErrorInvalidValue;
-  cn::Keys k = {};
-  if (noise)
-    for (int j = 0; j < 2 * (n_hi + n_lo); ++j) k.k[j] = keys[j];
-  const Hyper h = {hyper[0], hyper[1], hyper[2], hyper[3],
-                   hyper[4], hyper[5], hyper[6], hyper[7],
-                   hyper[8], hyper[9], hyper[10]};
+  const Hyper h = {hyper[0], hyper[1], hyper[2],  hyper[3],
+                   hyper[4], hyper[5], hyper[6],  hyper[7],
+                   hyper[8], hyper[9], hyper[10], cn::denom_of(hyper[1])};
   const uint32_t tr = (uint32_t)trail;
   cudaStream_t st = (cudaStream_t)stream;
   using bf = __nv_bfloat16;
   if (g_bf16)
-    return p_bf16 ? launch_opt<bf, bf>(opt, g, p, m, v, t0, k, n_hi, n_lo,
-                                       noise, start, tr, n, h, st)
-                  : launch_opt<bf, float>(opt, g, p, m, v, t0, k, n_hi,
-                                          n_lo, noise, start, tr, n, h, st);
-  return p_bf16 ? launch_opt<float, bf>(opt, g, p, m, v, t0, k, n_hi, n_lo,
+    return p_bf16 ? launch_opt<bf, bf>(opt, g, p, m, v, t0, k, n_keys, noise,
+                                       start, tr, n, h, st)
+                  : launch_opt<bf, float>(opt, g, p, m, v, t0, k, n_keys,
+                                          noise, start, tr, n, h, st);
+  return p_bf16 ? launch_opt<float, bf>(opt, g, p, m, v, t0, k, n_keys,
                                         noise, start, tr, n, h, st)
-                : launch_opt<float, float>(opt, g, p, m, v, t0, k, n_hi,
-                                           n_lo, noise, start, tr, n, h, st);
+                : launch_opt<float, float>(opt, g, p, m, v, t0, k, n_keys,
+                                           noise, start, tr, n, h, st);
 }

@@ -78,20 +78,41 @@ smoke-width and gate-edge units:
   variants: the kept kernel (``csrc/counter_normal.cuh``'s warp draw:
   ndtri's tail compacted per warp, products and sums each rounded), ndtri
   contracted to FMA, the tail not compacted (each lane its own, divergent),
-  the other blocks an SM must hold (:data:`NOISE_BLOCKS`: the registers a
-  thread may take), and the first version, one thread an element
-  (``designs/counter_noise_per_element.cu``); then ablations
+  threefry's adds as IMAD on the FMA pipe (``threefry_imad``; the kept
+  draw leaves them to ptxas), the quotient by denom always an IEEE
+  division, the other blocks an SM must hold (:data:`NOISE_BLOCKS`: the
+  registers a thread may take), and the first version, one thread an
+  element (``designs/counter_noise_per_element.cu``); then ablations
   (:data:`NOISE_ABLATIONS`, wrong by design): every lane on ndtri's
   central branch, no ndtri (the uniform is the draw), no threefry (one
   multiply for its rounds); beside them the chain the first phase 4 ran
   (``randn``, multiply, add, divide). Each row says whether the output is
   bitwise the kept kernel's and how many ulp its draws are from the kept
-  kernel's. noise_update (AdamW, bf16 p, f32 moments): the kept kernel
-  with its draw and without (its bytes and the step alone), the draw not
-  compacted, each run loaded before its draw (:data:`NOISE_UPDATE_PATCHES`;
-  the kept kernel loads after it), the other blocks an SM; beside them
-  ``torch._fused_adamw_`` over the noised leaf (on f32 copies of p and the
-  gradient where it refuses bf16 params with f32 moments).
+  kernel's, and counts each variant's threefry2x32 block in its SASS
+  (:func:`threefry_counts`); then the kept draw and ``threefry_imad``
+  timed interleaved, three times. noise_update: first the kept kernel
+  (``csrc/noise_update.cu``: a warp's runs drawn, then each lane's
+  operands loaded) and the staged design (``designs/noise_update_staged.cu``:
+  each warp's next operands staged in shared memory by bulk copies while
+  it draws), each against the first version
+  (``designs/noise_update_per_lane.cu``: the keys as two lists) on the
+  same inputs, p and every state bitwise (:data:`UPDATE_CASES`: AdamW,
+  SGD, FTRL ordinary at a tree's t = 3, whose lists share a node, and
+  restart; bf16 and f32 g and p; a ragged n; an unaligned head;
+  power-of-two and other denoms), raising after the timings where any
+  differs; then, on the up leaf, AdamW (bf16 p, f32 moments) and FTRL
+  (t = 3, and a restart at t = 1): the kept kernel with its draw and
+  without (its bytes and the step alone), and dividing by a denom of 7;
+  the first version; the staged design; the draw not compacted; every
+  quotient by denom an IEEE division; the designs of
+  :data:`NOISE_UPDATE_PATCHES` (the first version loading before its draw
+  or drawing by the key plan; the staged design with 3 stages, its results
+  stored by bulk copies, a proxy fence before each refill, the largest
+  shared-memory carveout asked for); the other blocks an SM; the kept
+  kernel and ``threefry_imad`` interleaved, three times each on AdamW and
+  FTRL; beside them ``torch._fused_adamw_`` over the noised leaf (on f32
+  copies of p and the gradient where it refuses bf16 params with f32
+  moments).
 
 Prints one JSON line a variant: CUDA-event ms around the C call (median of
 5 runs of 20 calls), device ms by kernel (torch.profiler), whether the
@@ -350,12 +371,17 @@ WKV_ABLATIONS = {
 # counter_noise and noise_update: patches of csrc/counter_normal.cuh, which
 # each variant's source (csrc/counter_noise.cu or csrc/noise_update.cu)
 # takes in place of its #include. ndtri's products and sums contracted to
-# FMA, and the draw without its tail compacted (each lane evaluates its own
-# tail values, divergent: the ways not taken); then ablations of the kept
-# draw, whose outputs are wrong by design and whose times say what each
-# part of a draw costs
+# FMA, the draw without its tail compacted (each lane evaluates its own
+# tail values, divergent), and threefry's adds as IMAD on the FMA pipe
+# (a mad.lo by a 1 ptxas cannot fold) instead of ptxas's own mix of IADD3
+# and IMAD: the ways not taken; then ablations
+# of the kept draw, whose outputs are wrong by design and whose times say
+# what each part of a draw costs
 _TAIL = "const bool tail = !central(mcp);"
 _CENTRAL = "z[j] = ndtri_central(mcp);"
+_IADD = """__device__ __forceinline__ uint32_t iadd(uint32_t x, uint32_t y) {
+  return x + y;
+}"""
 NOISE_PATCHES = {
     "kept": [],
     "ndtri_contracted": [("return __fmul_rn(a, b);", "return a * b;"),
@@ -363,6 +389,19 @@ NOISE_PATCHES = {
     "no_compaction": [(_TAIL, "const bool tail = false;"),
                       (_CENTRAL, "z[j] = central(mcp) ? ndtri_central(mcp) "
                                  ": ndtri_tail(mcp);")],
+    # the quotient by denom always by __fdiv_rn (the kept draw multiplies
+    # by 1 / denom where denom is a power of two: bitwise the same)
+    "ieee_division": [
+        ("return q.inv != 0.f ? __fmul_rn(s, q.inv) : __fdiv_rn(s, q.d);",
+         "return __fdiv_rn(s, q.d);")],
+    "threefry_imad": [(_IADD, """__device__ __forceinline__ uint32_t iadd(uint32_t x, uint32_t y) {
+  uint32_t sms, r;
+  asm("mov.u32 %0, %%nsmid;" : "=r"(sms));
+  asm("mad.lo.u32 %0, %1, %2, %3;"
+      : "=r"(r)
+      : "r"(y), "r"(sms != 0u ? 1u : 0u), "r"(x));
+  return r;
+}""")],
 }
 NOISE_ABLATIONS = {
     # every lane takes ndtri's central branch: the compacted tail's cost is
@@ -376,10 +415,16 @@ NOISE_ABLATIONS = {
     "skip_threefry": [("p = uniform(threefry2x32(k0, k1, lo, hi).x);",
                        "p = uniform((lo ^ k0) * 0x9E3779B9u);")],
 }
-# noise_update.cu with a run's operands loaded before its draw (the first
-# design: they then hold registers through it, 101, 2 blocks an SM)
+# noise_update's designs not taken, each (source, patches of it): the first
+# version with a run's operands loaded before its draw (they then hold
+# registers through it, 101, 2 blocks an SM); the operands staged in shared
+# memory by 1-D bulk copies while the warp draws, a ring of 2 stages a warp
+# (designs/noise_update_staged.cu), and that design with a ring of 3 stages
+# (72-96 KB of shared memory a block: 2 blocks an SM)
+_PER_LANE = DESIGNS / "noise_update_per_lane.cu"
+_STAGED = DESIGNS / "noise_update_staged.cu"
 NOISE_UPDATE_PATCHES = {
-    "loads_first": [
+    "loads_first": (_PER_LANE, [
         ("    float xi[cn::RUN];\n    if (noise)\n",
          "    float xi[cn::RUN], gv[cn::RUN], mv[cn::RUN], vv[cn::RUN], "
          "pv[cn::RUN];\n    if (r < runs) {\n"
@@ -392,7 +437,76 @@ NOISE_UPDATE_PATCHES = {
          "      cn::load_run(g + i, gv);\n      cn::load_run(m + i, mv);\n"
          "      if (TWO) cn::load_run(v + i, vv);\n"
          "      if (from_t0)\n        cn::load_run(t0 + i, pv);\n"
-         "      else\n        cn::load_run(p + i, pv);\n", "")],
+         "      else\n        cn::load_run(p + i, pv);\n", "")]),
+    "staged": (_STAGED, []),
+    "stages_3": (_STAGED, [("constexpr int STAGES = 2;",
+                                      "constexpr int STAGES = 3;")]),
+    # lane 0 runs fence.proxy.async before it refills a stage
+    "proxy_fence": (_STAGED, [
+        ("      const uint32_t p_bytes = e * (from_t0 ? 4u : "
+         "(uint32_t)sizeof(P));\n",
+         "      const uint32_t p_bytes = e * (from_t0 ? 4u : "
+         "(uint32_t)sizeof(P));\n      hopper::fence_proxy_async();\n")]),
+    # the first version drawing by the key plan (cn::warp_xi) instead of
+    # its two lists: what the plan's walk costs
+    "per_lane_plan": (_PER_LANE, [
+        ("      warp_xi_lists(keys, n_hi, n_lo, start + (unsigned long long)i,\n"
+         "                    trail, queue, xi);",
+         "      cn::warp_xi(keys, n_hi + n_lo, start + (unsigned long long)i,\n"
+         "                  trail, queue, xi);"),
+        ("    for (int j = 0; j < 2 * (n_hi + n_lo); ++j) k.k[j] = keys[j];",
+         "    for (int j = 0; j < 2 * (n_hi + n_lo); ++j) k.k[j] = keys[j];\n"
+         "  for (int j = 0; j < n_hi + n_lo; ++j)\n"
+         "    k.side[j] = j < n_hi ? cn::HI : cn::LO;")]),
+    # the SM's largest shared-memory carveout asked for (the staged design
+    # leaves it to the CUDA driver)
+    "carveout_max_shared": (_STAGED, [
+        ("  static const int allowed = hopper::allow_smem(kernel, ring);\n",
+         "  static const int allowed =\n"
+         "      hopper::allow_smem(kernel, ring) |\n"
+         "      (int)cudaFuncSetAttribute(\n"
+         "          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,\n"
+         "          (int)cudaSharedmemCarveoutMaxShared);\n")]),
+    # the results written back into the stage and stored by lane 0's 1-D
+    # bulk copies (hopper::bulk_store_1d, one bulk group a tile, read out
+    # before the stage is refilled) instead of each lane's vector stores
+    "bulk_stores": (_STAGED, [
+        ("      if (lane != 0) return;\n",
+         "      if (lane != 0) return;\n"
+         "      hopper::bulk_wait_read<0>();\n"),
+        ("        cn::store_run(m + i, mv);\n"
+         "        if (TWO) cn::store_run(v + i, vv);\n"
+         "        cn::store_run(p + i, pv);\n"
+         "      }\n"
+         "      __syncwarp();               // stage s is free for tile k + "
+         "STAGES\n"
+         "    }\n",
+         "        uint8_t* sw = mine + s * S::BYTES;\n"
+         "        cn::store_run(reinterpret_cast<float*>(sw + S::M_OFF) + at, "
+         "mv);\n"
+         "        if (TWO)\n"
+         "          cn::store_run(reinterpret_cast<float*>(sw + S::V_OFF) + "
+         "at, vv);\n"
+         "        cn::store_run(reinterpret_cast<P*>(sw + S::P_OFF) + at, "
+         "pv);\n"
+         "        hopper::fence_proxy_async();\n"
+         "      }\n"
+         "      __syncwarp();\n"
+         "      if (lane == 0) {\n"
+         "        const long long left = runs - r0;\n"
+         "        const uint32_t e = (uint32_t)((left < 32 ? left : 32) * "
+         "cn::RUN);\n"
+         "        const long long i0 = head + r0 * cn::RUN;\n"
+         "        uint8_t* sw = mine + s * S::BYTES;\n"
+         "        hopper::bulk_store_1d(m + i0, sw + S::M_OFF, e * 4u);\n"
+         "        if (TWO) hopper::bulk_store_1d(v + i0, sw + S::V_OFF, "
+         "e * 4u);\n"
+         "        hopper::bulk_store_1d(p + i0, sw + S::P_OFF,\n"
+         "                              e * (uint32_t)sizeof(P));\n"
+         "        hopper::bulk_commit();\n"
+         "      }\n"
+         "    }\n"
+         "    if (lane == 0) hopper::bulk_wait<0>();\n")]),
 }
 # the blocks an SM must hold (MIN_BLOCKS in counter_noise.cu and
 # noise_update.cu), so the registers a thread may take (2: up to 128; 3:
@@ -850,11 +964,11 @@ def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (ordered(a) - ordered(b)).abs()
 
 
-def noise_source(patches, cu: str = "counter_noise.cu",
-                 cu_patches=()) -> str:
-    """csrc/``cu`` (counter_noise.cu or noise_update.cu), patched by
-    ``cu_patches``, with csrc/counter_normal.cuh, patched by ``patches``,
-    in place of its #include."""
+def noise_source(patches, cu="counter_noise.cu", cu_patches=()) -> str:
+    """``cu`` (counter_noise.cu or noise_update.cu under csrc/, or a path:
+    a design under designs/), patched by ``cu_patches``, with
+    csrc/counter_normal.cuh, patched by ``patches``, in place of its
+    #include."""
     text = patched(build.CSRC / cu, cu_patches)
     inc = '#include "counter_normal.cuh"'
     if text.count(inc) != 1:
@@ -880,18 +994,129 @@ def fused_adamw_takes_mixed(dev: str = "cuda") -> bool:
         return False
 
 
+# the first versions' C entries (designs/noise_update_per_lane.cu,
+# designs/counter_noise_per_element.cu): the keys as two lists, n_hi added,
+# then n_lo subtracted
+PER_LANE_SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
+    [ctypes.c_ulonglong] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + \
+    [ctypes.c_void_p] * 3
+PER_ELEMENT_SIGNATURE = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + \
+    [ctypes.c_ulonglong] * 2 + [ctypes.c_longlong, ctypes.c_float,
+                                ctypes.c_float, ctypes.c_int,
+                                ctypes.c_void_p]
+_BF16, _F32 = torch.bfloat16, torch.float32
+# noise_update's kept kernel against its first version, bitwise: (optimizer,
+# shape, g dtype, p dtype, offset of every operand in its buffer, keys: 0
+# the Gaussian's one key, else a depth-10 tree's local t: t = 3 holds node
+# (1, 1) in both lists, t = 7 two nodes, t = 1 is FTRL's restart step;
+# denom: a power of two, which the kept kernel multiplies by its inverse,
+# or not, which it divides by, as the first version always does)
+UPDATE_CASES = [
+    ("adamw", (28, 1536, 256), _BF16, _BF16, 0, 0, 8.0),
+    ("adamw", (28, 1536, 256), _BF16, _BF16, 0, 0, 7.0),
+    ("adamw", (28, 3, 1537), _F32, _F32, 0, 0, 8.0),
+    ("adamw", (3, 4099), _BF16, _F32, 1, 0, 0.5),
+    ("adamw", (28, 3, 1537), _BF16, _BF16, 1, 7, 3.0),
+    ("sgd", (28, 1536, 256), _F32, _F32, 0, 0, 8.0),
+    ("sgd", (28, 3, 1537), _BF16, _BF16, 1, 0, 6.0),
+    ("ftrl", (28, 1536, 256), _BF16, _BF16, 0, 3, 8.0),
+    ("ftrl", (28, 3, 1537), _F32, _F32, 1, 3, 0.75),
+    ("ftrl_restart", (28, 1536, 256), _BF16, _BF16, 0, 1, 8.0),
+    ("ftrl_restart", (28, 3, 1537), _F32, _BF16, 1, 1, 1024.0),
+]
+
+
+def _shifted(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``x`` copied into a buffer at element offset ``k`` (k = 1: no
+    operand 16-byte aligned at index 0, a head of 7 elements)."""
+    if not k:
+        return x.clone()
+    buf = torch.empty(x.numel() + k, dtype=x.dtype, device=x.device)
+    buf[k:].copy_(x.reshape(-1))
+    return buf[k:].view(x.shape)
+
+
+class _Update:
+    """One noise_update leaf's inputs and the calls of both C entries:
+    ``run(lib, per_lane, state, noisy)`` launches on ``state`` (p, m, v,
+    t0: updated in place)."""
+
+    def __init__(self, opt, shape, g_dt, p_dt, offset, t, dev, seed,
+                 denom=8.0):
+        from repro_torch.core import noise
+        from repro_torch.kernels import counter_noise as cn
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        rnd = (lambda: torch.randn(shape, generator=gen, device=dev))
+        self.g = _shifted(rnd().to(g_dt), offset)
+        self.p0 = rnd().mul_(0.02).to(p_dt)
+        self.m0, self.v0 = rnd().mul_(1e-2), rnd().square_().mul_(1e-4)
+        self.t00 = rnd().mul_(0.02)
+        self.offset, self.n = offset, self.g.numel()
+        path = "blocks/mlp/up/w"
+        if t:
+            tree = noise.TreeAggregationMechanism(seed=3, depth=10)
+            hi, lo = tree.node_keys(path, t), tree.node_keys(path, t - 1)
+        else:
+            hi = [noise._path_rng(noise.fold_in(noise.prng_key(1), 0), path)]
+            lo = []
+        self.draws = len(cn.key_plan(hi, lo))
+        self.lists = len(hi) + len(lo)
+        self.plan = cn.plan_args(hi, lo, "design_study")
+        words = [w & noise.M32 for key in hi + lo for w in key]
+        self.words = (ctypes.c_uint32 * max(1, len(words)))(*words)
+        self.n_hi, self.n_lo = len(hi), len(lo)
+        self.trail = noise.counter_split(shape)[1]
+        alpha, denom = cn._scalar(0.7, g_dt), cn._scalar(denom, g_dt)
+        code = {"sgd": 0, "adamw": 1}.get(opt, 2)
+        keep = 0.0 if opt == "ftrl_restart" else 1.0
+        t_adam = 1 + 97 * (seed - SEED)        # AdamW's step: its bc1, bc2
+        scal = {0: (3e-4, 0.9, 1.0, 0.0, 0.0, 0.0, 1.0, 1.0, 0.01),
+                1: (3e-4, 0.9, 0.1, 0.999, 0.001, 1e-8, 1.0 - 0.9 ** t_adam,
+                    1.0 - 0.999 ** t_adam, 0.1),
+                2: (3e-4, 0.9 * keep, keep, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0)}
+        self.hyper = (ctypes.c_float * 11)(alpha, denom, *scal[code])
+        self.code = code
+        self.dtypes = (int(g_dt == _BF16), int(p_dt == _BF16))
+
+    def fresh(self):
+        return [_shifted(x, self.offset)
+                for x in (self.p0, self.m0, self.v0, self.t00)]
+
+    def run(self, lib, per_lane, state, noisy=1):
+        p, m, v, t0 = state
+        plan = (ctypes.addressof(self.words), self.n_hi, self.n_lo) \
+            if per_lane else (ctypes.addressof(self.plan[0]),
+                              ctypes.addressof(self.plan[1]), self.plan[2])
+        _check(lib.dp_noise_update(
+            self.g.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(),
+            *plan, noisy, 0, self.trail, self.n, *self.dtypes, self.code,
+            ctypes.addressof(self.hyper), t0.data_ptr(), 0),
+            "dp_noise_update")
+
+
+def threefry_counts(lib: Path) -> dict:
+    """One threefry2x32 block's SASS instructions in a variant's library
+    (``lib``, built from counter_noise.cu: its threefry_bits_kernel), by
+    opcode and pipe, as chip_smoke.py's build phase counts them in the
+    kept library (:func:`repro_torch.kernels.sass.threefry_sass`)."""
+    from repro_torch.kernels import sass
+    return sass.threefry_sass(sass.sass_text(str(lib)))
+
+
 def study_noise(tmp: Path, dev: str) -> None:
     from repro_torch.core import noise
+    from repro_torch.kernels import counter_noise as cn
     variants = {n: noise_source(p)
                 for n, p in {**NOISE_PATCHES, **NOISE_ABLATIONS}.items()}
     variants["first_version"] = (DESIGNS / "counter_noise_per_element.cu"
                                  ).read_text()
-    for n in ("kept", "no_compaction"):
+    for n in ("kept", "no_compaction", "threefry_imad", "ieee_division"):
         variants[f"update_{n}"] = noise_source(NOISE_PATCHES[n],
                                                "noise_update.cu")
-    for n, cu_patches in NOISE_UPDATE_PATCHES.items():
-        variants[f"update_{n}"] = noise_source([], "noise_update.cu",
-                                               cu_patches)
+    variants["update_per_lane"] = noise_source([], _PER_LANE)
+    for n, (cu, cu_patches) in NOISE_UPDATE_PATCHES.items():
+        variants[f"update_{n}"] = noise_source([], cu, cu_patches)
     for b in NOISE_BLOCKS:
         for prefix, cu in (("", "counter_noise.cu"),
                            ("update_", "noise_update.cu")):
@@ -900,13 +1125,20 @@ def study_noise(tmp: Path, dev: str) -> None:
                 variants[f"{prefix}min_blocks_{b}"] = noise_source(
                     [], cu, patches)
     libs = build_variants(variants, tmp)
+    per_lane = {"update_per_lane",
+                *(f"update_{n}" for n, (cu, _) in
+                  NOISE_UPDATE_PATCHES.items() if cu == _PER_LANE)}
     for name, (lib, _) in libs.items():
-        entry = "dp_noise_update" if name.startswith("update_") else \
-            "dp_counter_noise"
-        getattr(lib, entry).argtypes = build.SIGNATURES[entry]
+        if name.startswith("update_"):
+            lib.dp_noise_update.argtypes = PER_LANE_SIGNATURE \
+                if name in per_lane else build.SIGNATURES["dp_noise_update"]
+        else:
+            lib.dp_counter_noise.argtypes = PER_ELEMENT_SIGNATURE \
+                if name == "first_version" else \
+                build.SIGNATURES["dp_counter_noise"]
     path, shape = "blocks/mlp/up/w", (28, 1536, 17920)   # train's largest
     key = noise._path_rng(noise.fold_in(noise.prng_key(1), 0), path)
-    keys = (ctypes.c_uint32 * 2)(*key)
+    keys, sides, n_keys = cn.plan_args([key], [], "design_study")
     alpha, denom = 0.7, 8.0
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
@@ -915,9 +1147,11 @@ def study_noise(tmp: Path, dev: str) -> None:
     zero = torch.zeros(1 << 24, device=dev)         # the draws themselves
     xi = torch.empty_like(zero)
 
-    def launch(lib, src, dst, bf16, a, d):
+    def launch(lib, src, dst, bf16, a, d, lists=False):
+        plan = (ctypes.addressof(keys), 1, 0) if lists else \
+            (ctypes.addressof(keys), ctypes.addressof(sides), n_keys)
         _check(lib.dp_counter_noise(
-            src.data_ptr(), dst.data_ptr(), ctypes.addressof(keys), 1, 0, 0,
+            src.data_ptr(), dst.data_ptr(), *plan, 0,
             noise.counter_split(src.shape)[1], src.numel(), a, d, bf16, 0),
             "dp_counter_noise")
 
@@ -925,15 +1159,20 @@ def study_noise(tmp: Path, dev: str) -> None:
     for name, (lib, notes) in libs.items():
         if name.startswith("update_"):
             continue
-        fn = (lambda lib=lib: launch(lib, leaf, out, 1, alpha, denom))
-        launch(lib, zero, xi, 0, 1.0, 1.0)
+        lists = name == "first_version"
+        fn = (lambda lib=lib, lists=lists: launch(lib, leaf, out, 1, alpha,
+                                                  denom, lists))
+        launch(lib, zero, xi, 0, 1.0, 1.0, lists)
         fn()
         torch.cuda.synchronize()
         if kept_out is None:
             kept_out, kept_xi = out.clone(), xi.clone()
         gap = _ulps(xi, kept_xi)
+        sass = threefry_counts(tmp / f"lib{name}.so") \
+            if name in NOISE_PATCHES else None
         row = {"study": "counter_noise", "variant": name,
                "ablation": name in NOISE_ABLATIONS, "leaf": path,
+               "threefry_sass": sass,
                "shape": shape, "dtype": "bfloat16",
                "ms": events_ms(fn, n=10), "device_ms": device_ms(fn, reps=3),
                "bitwise_kept": bool(torch.equal(out, kept_out)),
@@ -943,6 +1182,17 @@ def study_noise(tmp: Path, dev: str) -> None:
         print(json.dumps(row), flush=True)
     del zero, xi
 
+    # threefry's adds: the kept draw against threefry_imad, interleaved
+    # (kept, imad, imad, kept, three times): whether the IMAD form's
+    # difference stands above the spread of repeated timings
+    for rep in range(3):
+        for name in ("kept", "threefry_imad", "threefry_imad", "kept"):
+            fn = (lambda lib=libs[name][0]: launch(lib, leaf, out, 1, alpha,
+                                                   denom))
+            print(json.dumps({"study": "counter_noise", "variant": name,
+                              "repeat": rep, "leaf": path,
+                              "ms": events_ms(fn, n=10)}), flush=True)
+
     def chain():
         return (leaf + alpha * torch.randn(shape, generator=g, device=dev)
                 .to(torch.bfloat16)) / denom
@@ -950,60 +1200,124 @@ def study_noise(tmp: Path, dev: str) -> None:
                       "leaf": path, "shape": shape, "dtype": "bfloat16",
                       "ms": events_ms(chain, n=10),
                       "device_ms": device_ms(chain, reps=3)}), flush=True)
+    del leaf, out
+    torch.cuda.empty_cache()
 
-    # noise_update (AdamW, step 1) on the same leaf: the kept kernel with
-    # and without its draw (the no-noise mode: its bytes and the step
-    # alone), the draw without compaction; beside them torch._fused_adamw_
-    # over the noised leaf (kept_out)
-    m = torch.zeros(shape, device=dev)
-    v = torch.zeros(shape, device=dev)
-    p = (torch.randn(shape, generator=g, device=dev) * 0.02).to(
-        torch.bfloat16)
-    hyper = (ctypes.c_float * 11)(alpha, denom, 3e-4, 0.9, 0.1, 0.999,
-                                  0.001, 1e-8, 0.1, 0.001, 0.0)
-    trail = noise.counter_split(shape)[1]
-    nbytes = leaf.numel() * 22
+    # noise_update: the kept kernel and the staged design each bitwise the
+    # first version, p and every state, at each of UPDATE_CASES
+    first = libs["update_per_lane"][0]
+    unequal = []
+    for k, (opt, shp, g_dt, p_dt, offset, t, d) in enumerate(UPDATE_CASES):
+        case = _Update(opt, shp, g_dt, p_dt, offset, t, dev, SEED + k, d)
+        theirs = case.fresh()
+        case.run(first, True, theirs)
+        label = (f"{opt} {tuple(shp)} g {str(g_dt)[6:]} p {str(p_dt)[6:]} "
+                 f"offset {offset} t {t} denom {d}")
+        for name in ("update_kept", "update_staged"):
+            mine = case.fresh()
+            case.run(libs[name][0], False, mine)
+            torch.cuda.synchronize()
+            same = {nm: bool(torch.equal(a, b))
+                    for nm, a, b in zip(("p", "m", "v", "t0"), mine, theirs)}
+            print(json.dumps({"study": "noise_update", "variant": name,
+                              "case": label, "keys_in_lists": case.lists,
+                              "draws": case.draws,
+                              "bitwise_first_version": same}), flush=True)
+            if not all(same.values()):
+                unequal.append(f"{name}: {label}")
+            del mine
+        del case, theirs
+    torch.cuda.empty_cache()
 
-    def update(lib, noisy):
-        _check(lib.dp_noise_update(
-            leaf.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(),
-            ctypes.addressof(keys), 1, 0, noisy, 0, trail, leaf.numel(), 1,
-            1, 1, ctypes.addressof(hyper), None, 0), "dp_noise_update")
-
-    for name, noisy in (("update_kept", 1), ("update_kept", 0),
-                        ("update_no_compaction", 1),
-                        ("update_loads_first", 1),
-                        *((n, 1) for n in libs if
-                          n.startswith("update_min_blocks"))):
+    # then the times on the up leaf (denom 8, train's batch): AdamW (train's
+    # step-0 key; the kept kernel with and without its draw, and dividing
+    # by a denom of 7, each variant), FTRL ordinary (t = 3: 3 keys in the
+    # lists, 2 distinct) and restart (t = 1); the kept kernel against
+    # threefry_imad interleaved on AdamW and FTRL (kept, imad, imad, kept,
+    # three times); beside them torch._fused_adamw_ over the noised leaf
+    imad = [(n, opt, t, 1, 8.0) for opt, t in (("adamw", 0), ("ftrl", 3))
+            for _ in range(3) for n in ("update_kept", "update_threefry_imad",
+                                        "update_threefry_imad", "update_kept")]
+    rows = [("update_kept", "adamw", 0, 1, 8.0),
+            ("update_kept", "adamw", 0, 0, 8.0),
+            ("update_per_lane", "adamw", 0, 1, 8.0),
+            ("update_per_lane", "adamw", 0, 0, 8.0),
+            ("update_staged", "adamw", 0, 1, 8.0),
+            ("update_staged", "adamw", 0, 0, 8.0),
+            ("update_no_compaction", "adamw", 0, 1, 8.0),
+            ("update_loads_first", "adamw", 0, 1, 8.0),
+            ("update_stages_3", "adamw", 0, 1, 8.0),
+            ("update_proxy_fence", "adamw", 0, 1, 8.0),
+            ("update_carveout_max_shared", "adamw", 0, 1, 8.0),
+            ("update_per_lane_plan", "adamw", 0, 1, 8.0),
+            ("update_bulk_stores", "adamw", 0, 1, 8.0),
+            ("update_kept", "adamw", 0, 1, 8.0),
+            ("update_staged", "adamw", 0, 1, 8.0),
+            ("update_per_lane", "adamw", 0, 1, 8.0),
+            *((n, "adamw", 0, 1, 8.0) for n in libs
+              if n.startswith("update_min_blocks")),
+            ("update_kept", "adamw", 0, 1, 7.0),
+            ("update_ieee_division", "adamw", 0, 1, 8.0),
+            *imad[:12],
+            ("update_staged", "ftrl", 3, 1, 8.0),
+            ("update_per_lane", "ftrl", 3, 1, 8.0),
+            *imad[12:],
+            ("update_kept", "ftrl_restart", 1, 1, 8.0),
+            ("update_staged", "ftrl_restart", 1, 1, 8.0),
+            ("update_per_lane", "ftrl_restart", 1, 1, 8.0)]
+    cases = {}
+    for name, opt, t, noisy, d in rows:
+        if (opt, t, d) not in cases:
+            cases.clear()
+            torch.cuda.empty_cache()
+            cases[(opt, t, d)] = _Update(opt, shape, _BF16, _BF16, 0, t, dev,
+                                         SEED, d)
+        case = cases[(opt, t, d)]
         lib, notes = libs[name]
-        fn = (lambda lib=lib, noisy=noisy: update(lib, noisy))
+        state = case.fresh()
+        fn = (lambda lib=lib, name=name, noisy=noisy: case.run(
+            lib, name in per_lane, state, noisy))
         ms = events_ms(fn, n=10)
+        adam = opt == "adamw"
+        nbytes = case.n * (22 if adam else 24 if opt == "ftrl" else 26)
         print(json.dumps({"study": "noise_update", "variant": name,
                           "noise": bool(noisy), "leaf": path,
                           "shape": shape, "dtype": "bfloat16",
-                          "optimizer": "AdamW", "ms": ms,
+                          "optimizer": opt, "denom": d,
+                          "keys_in_lists": case.lists,
+                          "draws": case.draws if noisy else 0, "ms": ms,
                           "device_ms": device_ms(fn, reps=3),
                           "bytes": nbytes,
                           "bytes_ms": nbytes / 3.35e12 * 1e3,
                           "ptxas": notes}), flush=True)
+        del state
+    cases.clear()
+    torch.cuda.empty_cache()
+    case = _Update("adamw", shape, _BF16, _BF16, 0, 0, dev, SEED)
+    p, m, v, _ = case.fresh()
+    gn = torch.empty_like(case.g)
+    launch(libs["kept"][0], case.g, gn, 1, 0.7, 8.0)
     step_t = torch.ones((), device=dev)
 
     def fused(pp, gg):
         torch._fused_adamw_([pp], [gg], [m], [v], [], [step_t], lr=3e-4,
-                            beta1=0.9, beta2=0.999, weight_decay=0.0,
+                            beta1=0.9, beta2=0.999, weight_decay=0.1,
                             eps=1e-8, amsgrad=False, maximize=False)
     if fused_adamw_takes_mixed(dev):
         on = "bf16 p and gradient, f32 moments"
-        pp, gg = p, kept_out
+        pp, gg = p, gn
     else:
         on = "f32 copies of p and the gradient (bf16 p refused)"
-        pp, gg = p.float(), kept_out.float()
+        pp, gg = p.float(), gn.float()
     fn = (lambda: fused(pp, gg))
     print(json.dumps({"study": "noise_update",
                       "variant": "torch._fused_adamw_", "on": on,
                       "leaf": path, "shape": shape,
                       "ms": events_ms(fn, n=10),
                       "device_ms": device_ms(fn, reps=3)}), flush=True)
+    if unequal:
+        raise AssertionError(f"noise_update: the kept kernel is not "
+                             f"bitwise its first version at {unequal}")
 
 
 def main(argv=None) -> int:

@@ -10,10 +10,13 @@ pass.
 its keys, alpha and denom, not yet drawn) or as a tensor taken as it is
 (frozen leaves, sigma = 0, the baseline modes' materialized trees). The
 state and p are updated in place. The draw is ``counter_noise``'s, bit for
-bit; the step is the JAX package's ``repro/optim/optimizers.py`` sgd and
-adamw, or its ``repro/optim/ftrl.py`` (s, m and theta0 bitwise the plain
-version's chain on the card).
-Source: ``csrc/noise_update.cu`` with the warp draw of
+bit (the record's keys as ``counter_noise.key_plan``: each distinct key
+drawn once); the step is the JAX package's ``repro/optim/optimizers.py``
+sgd and adamw, or its ``repro/optim/ftrl.py`` (s, m and theta0 bitwise the
+plain version's chain on the card).
+Source: ``csrc/noise_update.cu`` (a warp's 32 runs of 8 elements drawn
+together, then each lane's operands loaded, stepped and stored) with the
+warp draw of
 ``csrc/counter_normal.cuh``; the source says what bounds it on the H100. It
 replaces no TPU kernel: the JAX package writes phase 4 and the update in
 jnp.
@@ -137,13 +140,9 @@ def noise_update(g, p: torch.Tensor, m: torch.Tensor, v, hp,
                          f"match in size, got {leaf.shape}, {p.shape}, "
                          + ", ".join(str(t.shape) for t in state))
     hi, lo = (list(rec.hi_keys), list(rec.lo_keys)) if rec else ([], [])
-    if len(hi) + len(lo) > cn.MAX_KEYS:
-        raise ValueError(f"noise_update takes at most {cn.MAX_KEYS} keys, "
-                         f"got {len(hi) + len(lo)}")
+    keys, sides, n_keys = cn.plan_args(hi, lo, "noise_update")
     if p.numel() == 0:
         return
-    words = [int(w) & noise.M32 for key in hi + lo for w in key]
-    keys = (ctypes.c_uint32 * max(1, len(words)))(*words)
     if rec is not None:
         alpha = cn._scalar(rec.alpha, leaf.dtype)
         denom = cn._scalar(rec.denom, leaf.dtype)
@@ -163,7 +162,8 @@ def noise_update(g, p: torch.Tensor, m: torch.Tensor, v, hp,
     build.check(build.load().dp_noise_update(
         leaf.data_ptr(), p.data_ptr(), m.data_ptr(),
         v.data_ptr() if opt != OPT[SGD] else 0, ctypes.addressof(keys),
-        len(hi), len(lo), int(rec is not None), start, trail, p.numel(),
+        ctypes.addressof(sides), n_keys, int(rec is not None), start, trail,
+        p.numel(),
         int(g_bf16), int(p_bf16), opt, ctypes.addressof(hyper),
         t0.data_ptr() if opt == OPT[FTRL] else 0, build.stream_ptr(p)),
         "noise_update")

@@ -1329,10 +1329,9 @@ def test_design_study_source_parses(which, tmp_path):
         for h in build.CSRC.glob("*.cuh"):
             shutil.copy(h, tmp_path)
         cu = tmp_path / f"{name}.cu"
-        if table == "NOISE_UPDATE_PATCHES":
+        if table == "NOISE_UPDATE_PATCHES":   # (source, its patches)
             cu.write_text(design_study.noise_source(
-                [], "noise_update.cu",
-                design_study.NOISE_UPDATE_PATCHES[name]))
+                [], *design_study.NOISE_UPDATE_PATCHES[name]))
         elif table == "NOISE_BLOCKS":    # the kernels' own sources
             for src in ("counter_noise.cu", "noise_update.cu"):
                 cu.write_text(design_study.noise_source(

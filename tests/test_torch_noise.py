@@ -162,6 +162,18 @@ def test_ndtri_over_every_uniform_within_8_ulp():
     assert 5.0 < got[-1] < 6.0
 
 
+def test_no_draw_is_negative_zero():
+    """The kernels draw a plan of one HI key as z itself, not (0 + z) - 0:
+    equal bit for bit because no normal of the 2^24 uniforms is -0 (the one
+    zero, at the uniform 1/2, is +0)."""
+    z = noise.ndtri(_all_uniforms())
+    zero = z == 0
+    assert int(zero.sum()) == 1 and not bool(torch.signbit(z[zero]).any())
+    zeros = torch.zeros_like(z)
+    assert torch.equal(((zeros + z) - zeros).view(torch.int32),
+                       z.view(torch.int32))
+
+
 def test_reference_top_bucket_is_inf_and_the_ports_is_finite():
     """The reference's one departure from a finite normal: among the first
     2^26 counters under a train step's embedding key, the draws whose top
@@ -533,6 +545,126 @@ def test_plain_version_is_the_mechanisms_arithmetic():
                        want16)
 
 
+# ------------------------------------------------------------ the key plan
+def _lists_plain(g, hi_keys, lo_keys, alpha, denom):
+    """The plain version as it was before the key plan: each list's draws
+    summed apart from 0 in f32 (a key both lists hold drawn for each), then
+    hi - lo and the reference's arithmetic in the leaf's dtype."""
+    n, trail = g.numel(), noise.counter_split(g.shape)[1]
+
+    def total(keys):
+        s = torch.zeros(n, dtype=torch.float32)
+        for key in keys:
+            s = s + noise.linear_normal(key, 0, n, trail, g.device)
+        return s
+
+    hi, lo = total(hi_keys), total(lo_keys)
+    xi = (hi - lo).view(g.shape)
+    dt = g.dtype
+    return hi, lo, (g + torch.tensor(alpha, dtype=dt) * xi.to(dt)) / \
+        torch.tensor(denom, dtype=dt)
+
+
+def _plan_sums(plan, n, trail):
+    """The plan's walk as the kernels take it: each key drawn once, added
+    to the hi sum, the lo sum or both."""
+    a = torch.zeros(n, dtype=torch.float32)
+    b = torch.zeros(n, dtype=torch.float32)
+    for key, sides in plan:
+        z = noise.linear_normal(key, 0, n, trail, torch.device("cpu"))
+        if sides & cn_mod.HI:
+            a = a + z
+        if sides & cn_mod.LO:
+            b = b + z
+    return a, b
+
+
+# (restart_every, completion): no restarts (local t = step + 1), restarts
+# with and without completion (t = E completes to next_pow2(E))
+PLAN_TREES = [(0, False), (32, False), (32, True), (20, False), (20, True)]
+
+
+def _tree_steps(E, completion):
+    """-> [(step, t, hi keys, lo keys)]: every local t in 1..32 (two epochs
+    where the tree restarts) of a depth-6 tree on one leaf."""
+    tree = noise.TreeAggregationMechanism(seed=4, depth=6, restart_every=E,
+                                          completion=completion)
+    out = []
+    for step in range(2 * E if E else 32):
+        epoch, t, t_hi = tree._local_prefix(1.0, step)
+        out.append((step, t, tree.node_keys("blocks/mlp/up/w", t_hi, epoch),
+                    tree.node_keys("blocks/mlp/up/w", t - 1, epoch)))
+    return out
+
+
+@pytest.mark.parametrize("E,completion", PLAN_TREES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_key_plan_walk_is_bitwise_the_two_lists(E, completion, dtype):
+    """At every local t in 1..32 of a tree (with and without restarts and
+    completion) the plan's walk gives the hi and lo sums bitwise equal to
+    each list summed apart, and ``counter_noise.plain`` (now by the plan)
+    gives bitwise the output of the two-list chain it replaced, f32 and
+    bf16 (tolerance: none, bitwise)."""
+    shape = (3, 37)
+    trail = noise.counter_split(shape)[1]
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(E)).to(
+        dtype)
+    shared = 0
+    for step, t, hi, lo in _tree_steps(E, completion):
+        plan = cn_mod.key_plan(hi, lo)
+        a, b = _plan_sums(plan, g.numel(), trail)
+        want_hi, want_lo, want = _lists_plain(g, hi, lo, 0.7, 4.0)
+        assert torch.equal(a, want_hi) and torch.equal(b, want_lo), (step, t)
+        assert torch.equal(cn_mod.plain(g, hi, lo, 0.7, 4.0), want), (step, t)
+        assert [k for k, s in plan if s & cn_mod.HI] == hi
+        assert [k for k, s in plan if s & cn_mod.LO] == lo
+        shared += sum(s == cn_mod.HI | cn_mod.LO for _, s in plan)
+    assert shared > 0          # some t share a node between hi and lo
+
+
+def test_key_plan_merges_keeps_orders_and_raises_on_conflicts():
+    """The plan holds each distinct key once, in an order that keeps both
+    lists' own, with its sides; lists that hold their shared keys in
+    conflicting orders, or a key twice, raise by name."""
+    A, B, C, D = (0, 1), (0, 2), (0, 3), (0, 4)
+    HI, LO = cn_mod.HI, cn_mod.LO
+    assert cn_mod.key_plan([A], []) == [(A, HI)]
+    assert cn_mod.key_plan([], [A]) == [(A, LO)]
+    assert cn_mod.key_plan([A, C], [B, C]) == [(A, HI), (B, LO),
+                                               (C, HI | LO)]
+    assert cn_mod.key_plan([A, C, D], [C]) == [(A, HI), (C, HI | LO),
+                                               (D, HI)]
+    assert cn_mod.key_plan([A], [A]) == [(A, HI | LO)]
+    # the tree at t = 3: nodes (0, 3), (1, 1) over t - 1 = 2: node (1, 1)
+    tree = noise.TreeAggregationMechanism(seed=3, depth=10)
+    hi, lo = tree.node_keys("w", 3), tree.node_keys("w", 2)
+    assert cn_mod.key_plan(hi, lo) == [(hi[0], HI), (hi[1], HI | LO)]
+    with pytest.raises(ValueError, match="key_plan.*conflicting orders"):
+        cn_mod.key_plan([A, B], [B, A])
+    with pytest.raises(ValueError, match="key_plan.*conflicting orders"):
+        cn_mod.key_plan([A, B, C], [C, D, A])
+    with pytest.raises(ValueError, match="key_plan.*twice"):
+        cn_mod.key_plan([A, B, A], [])
+    with pytest.raises(ValueError, match="key_plan.*twice"):
+        cn_mod.key_plan([], [C, C])
+    # a shared key drawn once: bitwise the two-list chain all the same
+    g = torch.randn(5, 9, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(cn_mod.plain(g, [A, C], [B, C], 0.7, 4.0),
+                       _lists_plain(g, [A, C], [B, C], 0.7, 4.0)[2])
+
+
+@pytest.mark.parametrize("E,completion", PLAN_TREES)
+def test_plan_draws_are_chip_smokes_draws(E, completion):
+    """The draws a plan makes (one a distinct key) are what chip_smoke.py
+    counts a noised row's bound by (``kernels.sass.draws(hi, lo)``): an
+    FTRL step at t = 3 makes 2, where the two lists hold 3 keys."""
+    from repro_torch.kernels.sass import draws
+    for step, t, hi, lo in _tree_steps(E, completion):
+        assert len(cn_mod.key_plan(hi, lo)) == draws(hi, lo), (step, t)
+        if t == 3 and not completion:
+            assert (len(hi) + len(lo), draws(hi, lo)) == (3, 2)
+
+
 def test_window_of_a_tensor_past_2_32():
     """A contiguous window of a (8, 2^31) tensor: its draws are that block
     of counter_normal; a block that is not contiguous is a shard (B7)."""
@@ -578,8 +710,8 @@ def fake_lib(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wrapper_launches_with_its_arguments(fake_lib, dtype):
     """A leaf that is not on the CPU reaches ``dp_counter_noise`` once,
-    with the keys, counts, window, alpha and denom rounded to the leaf's
-    dtype, and counts the launch; inplace writes over the leaf."""
+    with the key plan's count, the window, alpha and denom rounded to the
+    leaf's dtype, and counts the launch; inplace writes over the leaf."""
     g = torch.empty(3, 1001, dtype=dtype, device="meta")
     n0 = cn_mod.counter_noise.launches
     out = cn_mod.counter_noise(g, [(1, 2), (3, 4)], [(5, 6)], 0.7, 8.0)
@@ -588,9 +720,8 @@ def test_wrapper_launches_with_its_arguments(fake_lib, dtype):
     (name, args), = fake_lib.calls
     assert name == "dp_counter_noise"
     assert len(args) == len(build.SIGNATURES[name])
-    n_hi, n_lo, start, trail, n, alpha, denom, bf16 = args[3:11]
-    assert (n_hi, n_lo, start, trail, n, denom) == (2, 1, 0, 3003, 3003,
-                                                    8.0)
+    n_keys, start, trail, n, alpha, denom, bf16 = args[4:11]
+    assert (n_keys, start, trail, n, denom) == (3, 0, 3003, 3003, 8.0)
     assert alpha == float(torch.tensor(0.7, dtype=dtype))
     assert bf16 == int(dtype == torch.bfloat16)
     assert cn_mod.counter_noise(g, [(1, 2)], [], 0.7, 8.0,
@@ -601,6 +732,14 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(fake_lib):
     g = torch.empty(4, device="meta")
     with pytest.raises(ValueError, match="at most"):
         cn_mod.counter_noise(g, [(0, k) for k in range(65)], [], 1.0, 1.0)
+    # 65 keys in all, 64 of them distinct: the plan fits
+    keys = [(0, k) for k in range(64)]
+    cn_mod.counter_noise(g, keys, keys[:1], 1.0, 1.0)
+    (name, args), = fake_lib.calls
+    assert args[4] == 64
+    fake_lib.calls.clear()
+    with pytest.raises(ValueError, match="conflicting orders"):
+        cn_mod.counter_noise(g, keys[:2], keys[1::-1], 1.0, 1.0)
     assert fake_lib.calls == []
 
 
@@ -628,8 +767,10 @@ def test_mechanism_launches_one_kernel_a_leaf(fake_lib):
     tree = noise.TreeAggregationMechanism(seed=1, depth=8)
     tree.add_leaf("w", g, None, 1.0, 2.0, 4.0, step=5)   # t = 6, t - 1 = 5
     assert [n for n, _ in fake_lib.calls] == ["dp_counter_noise"] * 2
-    assert fake_lib.calls[0][1][3:5] == (1, 0)
-    assert fake_lib.calls[1][1][3:5] == (2, 2)
+    # the Gaussian: one key; the tree at t = 6 (hi: nodes (1, 3), (2, 1))
+    # over t - 1 = 5 (lo: nodes (0, 5), (2, 1)): 3 distinct keys
+    assert fake_lib.calls[0][1][4] == 1
+    assert fake_lib.calls[1][1][4] == 3
     words = fake_lib.calls[1][1][2]
     assert isinstance(words, int)
 

@@ -23,6 +23,7 @@ from repro.utils.tree import flatten as jflatten
 from repro_torch.core import noise
 from repro_torch.core import policy as tpol
 from repro_torch.kernels import build
+from repro_torch.kernels import counter_noise as cn
 from repro_torch.kernels import noise_update as nu
 from repro_torch.optim import optimizers as topt
 from repro_torch.utils.tree import flatten as tflatten
@@ -227,12 +228,15 @@ def test_update_delegates_to_update_leaves():
 class _FakeLib:
     def __init__(self):
         self.calls = []
+        self.sides = []
 
     def dp_noise_update(self, *args):
         hyper = list((ctypes.c_float * 11).from_address(args[14]))
-        n = args[5] + args[6]
+        n = args[6]
         keys = list((ctypes.c_uint32 * max(1, 2 * n)).from_address(args[4]))
+        sides = list((ctypes.c_uint8 * max(1, n)).from_address(args[5]))
         self.calls.append((args, hyper, keys[:2 * n]))
+        self.sides.append(sides[:n])
         return 0
 
 
@@ -266,9 +270,9 @@ def _meta(shape, dtype=torch.float32):
                                        (torch.bfloat16, torch.float32)])
 def test_wrapper_launches_with_its_arguments(fake_lib, g_dt, p_dt):
     """A parameter that is not on the CPU reaches ``dp_noise_update`` once:
-    the record's keys, window, alpha and denom (rounded to the sum's
-    dtype), the dtypes, the optimizer and its scalars; the launch is
-    counted."""
+    the record's key plan (no key shared: each list's keys, hi first), its
+    window, alpha and denom (rounded to the sum's dtype), the dtypes, the
+    optimizer and its scalars; the launch is counted."""
     shape = (3, 1001)
     rec = noise.NoisedLeaf(_meta(shape, g_dt), ((1, 2), (3, 4)), ((5, 6),),
                            0.7, 8.0, 11, 3003)
@@ -279,12 +283,12 @@ def test_wrapper_launches_with_its_arguments(fake_lib, g_dt, p_dt):
     assert nu.noise_update.launches == n0 + 1
     (args, hyper, keys), = fake_lib.calls
     assert len(args) == len(build.SIGNATURES["dp_noise_update"])
-    (n_hi, n_lo, noisy, start, trail, n, g_bf16, p_bf16,
-     adamw) = args[5:14]
-    assert (n_hi, n_lo, noisy, start, trail, n) == (2, 1, 1, 11, 3003, 3003)
+    (n_keys, noisy, start, trail, n, g_bf16, p_bf16, adamw) = args[6:14]
+    assert (n_keys, noisy, start, trail, n) == (3, 1, 11, 3003, 3003)
     assert (g_bf16, p_bf16, adamw) == (int(g_dt == torch.bfloat16),
                                        int(p_dt == torch.bfloat16), 1)
     assert keys == [1, 2, 3, 4, 5, 6]
+    assert fake_lib.sides == [[cn.HI, cn.HI, cn.LO]]
     want = [float(torch.tensor(0.7, dtype=g_dt)), 8.0, 1e-3, 0.9, 0.1,
             0.99, 1 - 0.99, 1e-8, 0.19, 0.0199, 0.1]
     np.testing.assert_allclose(hyper, np.float32(want), rtol=1e-7)
@@ -297,8 +301,8 @@ def test_wrapper_without_noise_and_sgd(fake_lib):
     nu.noise_update(_meta((5,), torch.bfloat16), p, m, None,
                     nu.SGD(0.1, 0.8, 0.01))
     (args, hyper, keys), = fake_lib.calls
-    assert args[3] in (0, None) and args[5:8] == (0, 0, 0)
-    assert args[13] == 0 and keys == []
+    assert args[3] in (0, None) and args[6:8] == (0, 0)
+    assert args[13] == 0 and keys == [] and fake_lib.sides == [[]]
     np.testing.assert_allclose(hyper[2:4], np.float32([0.1, 0.8]))
     assert hyper[10] == np.float32(0.01)
 
@@ -332,7 +336,6 @@ def test_wrapper_refuses_a_tensor_neither_cpu_nor_cuda():
 def test_train_step_launches_one_update_a_leaf(fake_lib):
     """On a parameter that is not on the CPU, update_leaves launches the
     kernel once a leaf, deferred noise or not, and counter_noise never."""
-    from repro_torch.kernels import counter_noise as cn
     tp = _policy(tpol, 0.7)
     res = tpol.resolve_policy(tp, list(SHAPES))
     params = {k: _meta(s) for k, s in SHAPES.items()}
@@ -571,6 +574,72 @@ def test_ftrl_plain_chain_rounds_as_written():
                                    rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("E,steps", [(0, (0, 1, 2, 5, 6, 14, 31)),
+                                     (20, (2, 18, 19, 20, 22))])
+def test_ftrl_plan_update_matches_jax_tree(E, steps):
+    """``noise_update.plain`` on the tree's deferred leaf (its keys drawn by
+    the key plan, a node both lists hold once) against the JAX package:
+    ``TreeAggregationMechanism.add_leaf``'s noised gradient, then
+    ``repro.optim.ftrl``'s step on it (f32, momentum 0.9; restarts every 20
+    with completion: step 19 completes the tree, step 20 restarts it and
+    the anchor); p, s, m and theta0 within f32 TOL."""
+    from repro.core import noise as jn
+    from repro.optim import ftrl as jftrl
+    shape, path, sigma, scale, denom = (5, 33), "w", 0.9, \
+        1.3, 4.0
+    completion = E > 0
+    jtree = jn.TreeAggregationMechanism(seed=6, depth=6, restart_every=E,
+                                        completion=completion)
+    ttree = noise.TreeAggregationMechanism(seed=6, depth=6, restart_every=E,
+                                           completion=completion)
+    jopt_ = jftrl.ftrl(lambda s: LR, momentum=0.9, restart_every=E)
+    r = np.random.default_rng(E)
+    for step in steps:
+        g, p0, s0, m0, t00 = (r.standard_normal(shape).astype(np.float32)
+                              for _ in range(5))
+        gj = jtree.add_leaf(path, jnp.asarray(g), None, sigma, scale, denom,
+                            step=step)
+        state = {"sum": {path: jnp.asarray(s0)}, "m": {path: jnp.asarray(m0)},
+                 "theta0": {path: jnp.asarray(t00)}}
+        want_p, want = jopt_.update_leaves(lambda _path, _p: gj, state,
+                                           {path: jnp.asarray(p0)}, step)
+        rec = ttree.add_leaf(path, torch.from_numpy(g), None, sigma, scale,
+                             denom, step=step, out="deferred")
+        tp, ts, tm, tt = (torch.from_numpy(a.copy())
+                          for a in (p0, s0, m0, t00))
+        restart = E > 0 and step > 0 and step % E == 0
+        nu.plain(rec, tp, ts, tm, nu.FTRL(LR, 0.9, restart), t0=tt)
+        for got, w, name in ((tp, want_p[path], "p"),
+                             (ts, want["sum"][path], "s"),
+                             (tm, want["m"][path], "m"),
+                             (tt, want["theta0"][path], "theta0")):
+            np.testing.assert_allclose(got.numpy(), np.asarray(w),
+                                       err_msg=f"{name} at step {step}",
+                                       **TOL)
+
+
+def test_wrapper_passes_the_key_plan(fake_lib):
+    """The C entry gets the record's key plan: an FTRL step at t = 3 (hi:
+    nodes (0, 3), (1, 1); lo: node (1, 1)) passes its 2 distinct keys,
+    node (1, 1) once with both sides; the Gaussian's one key, HI."""
+    shape = (3, 1001)
+    tree = noise.TreeAggregationMechanism(seed=3, depth=10)
+    rec = tree.add_leaf("w", _meta(shape), None, 1.0, 1.0, 4.0, step=2,
+                        out="deferred")
+    hi, lo = tree.node_keys("w", 3), tree.node_keys("w", 2)
+    assert (list(rec.hi_keys), list(rec.lo_keys)) == (hi, lo)
+    p, s, m, t0 = (_meta(shape) for _ in range(4))
+    nu.noise_update(rec, p, s, m, nu.FTRL(1e-3, 0.9), t0=t0)
+    rec = noise.GaussianMechanism().add_leaf("w", _meta(shape), (0, 1), 1.0,
+                                             1.0, 4.0, out="deferred")
+    nu.noise_update(rec, p, s, m, nu.AdamW(1e-3, 0.9, 0.99, 1e-8, 0.1,
+                                           0.01))
+    (a1, _, k1), (a2, _, k2) = fake_lib.calls
+    assert a1[6] == 2 and k1 == [*hi[0], *hi[1]]
+    assert a2[6] == 1 and k2 == list(rec.hi_keys[0])
+    assert fake_lib.sides == [[cn.HI, cn.HI | cn.LO], [cn.HI]]
+
+
 @pytest.mark.parametrize("g_dt,p_dt", [(torch.bfloat16, torch.bfloat16),
                                        (torch.float32, torch.float32)])
 @pytest.mark.parametrize("restart", [False, True])
@@ -589,10 +658,10 @@ def test_ftrl_wrapper_launches_with_its_arguments(fake_lib, g_dt, p_dt,
     assert nu.noise_update.launches == n0 + 1
     (args, hyper, keys), = fake_lib.calls
     assert len(args) == len(build.SIGNATURES["dp_noise_update"]) == 17
-    assert args[5:14] == (2, 1, 1, 0, 1001, 3003,
-                          int(g_dt == torch.bfloat16),
+    assert args[6:14] == (3, 1, 0, 1001, 3003, int(g_dt == torch.bfloat16),
                           int(p_dt == torch.bfloat16), 2)
     assert keys == [1, 2, 3, 4, 5, 6]
+    assert fake_lib.sides == [[cn.HI, cn.HI, cn.LO]]
     keep = 0.0 if restart else 1.0
     want = [float(torch.tensor(0.7, dtype=g_dt)), 8.0, 1e-3, 0.9 * keep,
             keep, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0]
