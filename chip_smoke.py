@@ -16,7 +16,7 @@ Phases, each printing JSON lines:
             (``threefry_sass``: the draw's bound); the warp votes of the
             compacted draw in every instantiation of counter_noise's and
             noise_update's kernels (``warp_sass``: none is a failure)
-  kernels   each of the thirteen kernels against its plain PyTorch version on
+  kernels   each of the fourteen kernels against its plain PyTorch version on
             the card, at the shapes each train path below gives it (bf16;
             each tap routed as ``core.bk.plan_report`` says, MoE records and
             masks from the path's own step-0 forward), at the prefill
@@ -55,7 +55,18 @@ Phases, each printing JSON lines:
             multiple of 16: held to its scan kernel likewise (simt_ms: the
             scan's time), and at the prefill's shapes all three versions to
             a float64 recurrence at one head (the chunked kernel within
-            WKV_LONG_TOL of it).
+            WKV_LONG_TOL of it); also with u per sample, (B,H,h), at
+            train_rwkv's shapes and ragged f32. wkv6_backward (no TPU
+            counterpart: the recurrence's gradients, from the chunked
+            forward's saved chunk states) against ``plain_backward``
+            (autograd through the recurrence) at WKV_BWD_TOL: at
+            train_rwkv's shapes (bf16, u per sample), ragged f32 (T not a
+            multiple of a chunk, h 16 and 64, both u layouts), the strong
+            constant decays and the mixed decay (f32 and bf16); at one
+            (b, head) against float64 autograd; bitwise run to run; its
+            bound from the six h x h f32 FMA passes a token and head.
+            rwkv6's narrow mm taps (tm_w1, tm_w2_i, wa, wb: the direct
+            norm and clipped_grad at widths 32 to 160) in ``wgmma``.
             emb_ghost_norm and emb_clipped_grad at train's ids, the ragged
             ids, ids of 4 values and one id at every position (bitwise run
             to run), each with its device time by torch.profiler beside
@@ -109,8 +120,9 @@ Phases, each printing JSON lines:
             ghost_norm items take the p split, the ``prefill`` attention,
             ``train_moe``'s up tap with random records under a router-like
             mask, ``train_long``'s qkv tap), fused_clip_grad at FUSED_EDGES
-            and one tile, and every wkv6 case of the kernels phase, without
-            building a model
+            and one tile, rwkv6's narrow mm taps, and every wkv6 and
+            wkv6_backward case of the kernels phase, without building a
+            model
   train             qwen2-1.5b, full (28 layers, bf16), B=8, T=512
   train_nonprivate  the same, mode 'nonprivate' (standard training: the
                     mean loss's gradient, no port kernel)
@@ -140,6 +152,12 @@ Phases, each printing JSON lines:
                     sigma from the tree accountant, the ledger's epsilon at
                     the end; train's kernels and one FTRL noise_update a
                     leaf a step
+  train_rwkv        rwkv6-3b at full width (d 2560, 40 heads x 64, d_ff
+                    8960, V 65536, bf16), RWKV_LAYERS of its 32 layers (the
+                    depth one card holds), B=8, T=512: the recurrence
+                    through Wkv6Fn (wkv6 and wkv6_backward once a layer),
+                    the direct norm on its narrow taps (a flat DPConfig: no
+                    registered policy)
             each: the arch's registered policy, bk-mixopt (unless named),
             sigma=1.0, AdamW (train_ftrl: as named), through
             ``repro_torch.launch.train.train`` (losses drained every step);
@@ -174,6 +192,15 @@ Phases, each printing JSON lines:
             counter_noise a noised leaf a step, then their torch chains)
             on the card held to the same steps on the CPU (the plain
             versions), params and state at f32 TOL
+  parity_rwkv
+            one BK step of a 2-layer, full-width, f32 rwkv6-3b model, B=4,
+            T=512, on the card (on the card the recurrence always takes
+            wkv6 and wkv6_backward) against the same params and batch on
+            the CPU (the plain versions; the recurrence by the JAX
+            package's route): norms at NORM_TOL, sums at f32 TOL; then one
+            noised AdamW step as in ``parity``; then bk-mixopt against
+            opacus on the card (sigma 0; opacus runs Wkv6Fn under
+            vmap(grad))
   parity_modes
             every mode of ``core.engine.make_grad_fn`` on the card (f32,
             one seed) against opacus: qwen2-1.5b at full width and 2 layers
@@ -212,11 +239,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TRAINS = ("train", "train_nonprivate", "train_ghostclip", "train_moe",
           "train_moe_direct", "train_long", "train_layer", "train_tape",
-          "train_ftrl")
+          "train_ftrl", "train_rwkv")
 PREFILLS = ("prefill", "prefill_rwkv")
 SERVES = ("serve", "serve_rwkv")
 PARITIES = ("parity", "parity_moe", "parity_long", "parity_layer",
-            "parity_modes")
+            "parity_modes", "parity_rwkv")
 SERVE_PARITIES = ("parity_prefill", "parity_prefill_rwkv")
 PHASES = (("card", "build", "kernels") + TRAINS + PREFILLS + SERVES
           + PARITIES + SERVE_PARITIES)
@@ -249,7 +276,13 @@ SIMT_GRAD_TOL = (1e-3, 1e-4)
 FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (5e-2, 2e-2)}
 WKV_TOL = (2e-4, 2e-4)
 WKV_LONG_TOL = (1e-3, 1e-3)
+# wkv6_backward against autograd through the recurrence: the reference's
+# own tolerance for the recurrence's grads (tests/test_rwkv_chunked.py:41)
+WKV_BWD_TOL = (2e-3, 2e-3)
 MOE_LAYERS = 6      # dense0_0 + 5 MoE blocks: the depth one 80 GB card holds
+# of rwkv6-3b's 32 layers, what one 80 GB card holds at B=8, T=512: 30 and
+# 32 run out of memory (scripts/rwkv_depth_probe.py)
+RWKV_LAYERS = 28
 # host seconds of idle margin at each end of device_ms's recorded calls:
 # the profiler keeps only device events whose timestamps, converted to the
 # host clock, fall inside its window, and on the card's machine that
@@ -277,7 +310,7 @@ THREEFRY_KATS = (((0, 0), (0, 0), (0x6b200159, 0x99ba4efe)),
 KERNELS = ("ghost_norm", "clipped_grad", "emb_ghost_norm", "emb_clipped_grad",
            "grad_norm_direct", "moe_ghost_norm", "moe_direct_norm",
            "moe_clipped_grad", "fused_clip_grad", "flash_attention", "wkv6",
-           "counter_noise", "noise_update")
+           "counter_noise", "noise_update", "wkv6_backward")
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "ghost_norm": ("ghost_norm_wgmma.cu", "ghost_norm.py:62"),
@@ -294,10 +327,12 @@ SOURCES = {
     "wkv6": ("wkv6_chunked.cu", "wkv6.py:76"),
     "counter_noise": ("counter_noise.cu", None),
     "noise_update": ("noise_update.cu", None),
+    "wkv6_backward": ("wkv6_backward.cu", None),
 }
 # kernels with no TPU counterpart: the JAX code each replaces
 NO_TPU_KERNEL = {"counter_noise": "src/repro/core/noise.py:103",
-                 "noise_update": "src/repro/optim/optimizers.py:76"}
+                 "noise_update": "src/repro/optim/optimizers.py:76",
+                 "wkv6_backward": "src/repro/models/rwkv6.py:200-206"}
 # the kernels that draw by the warp-compacted draw (counter_normal.cuh's
 # warp_xi): their names in the SASS, each instantiation of which must vote
 WARP_DRAW = {"counter_noise": "counter_noise_kernel",
@@ -325,6 +360,7 @@ NO_LIBRARY = {
     "fused_clip_grad": "no single call clips per sample (composed_ms: the "
                        "norm + weighted-grad kernels it replaces)",
     "wkv6": "no single call runs the recurrence",
+    "wkv6_backward": "no single call runs the recurrence's backward",
     "counter_noise": "no single call draws threefry normals (composed_ms: "
                      "the randn + multiply + add + divide chain it "
                      "replaces)",
@@ -400,6 +436,18 @@ RUNS = {
                        dataset_size=50000, per_step=_per_step(
                            ghost_norm=5, clipped_grad=5, emb_ghost_norm=1,
                            emb_clipped_grad=1)),
+    # rwkv6-3b (no registered policy: a flat DPConfig): the recurrence
+    # through Wkv6Fn, one wkv6 (chunked) and one wkv6_backward a layer; mm
+    # taps r, k, v, g, o, key, value, receptance and head ghost, tm_w1,
+    # tm_w2_0..4, wa, wb direct (2T^2 > pd), each to clipped_grad. Its
+    # first loss sits near ln(V) + 1/2: the head's 1/sqrt(d) init after a
+    # layernorm gives logits of unit variance (qwen2's 0.1/sqrt(d) none)
+    "train_rwkv": dict(arch="rwkv6-3b", layers=RWKV_LAYERS, batch=8, seq=512,
+                       steps=3, direct=False, loss0_excess=0.5,
+                       per_step=_per_step(
+                           ghost_norm=9, grad_norm_direct=8, clipped_grad=17,
+                           emb_ghost_norm=1, emb_clipped_grad=1,
+                           wkv6=RWKV_LAYERS, wkv6_backward=RWKV_LAYERS)),
 }
 # fused_clip_grad's gate-edge cases (name, L, d, p; bf16, B=8, T=512): the
 # largest units the reference's rule (kernels.dispatch.fused_plan) sends to
@@ -423,7 +471,8 @@ ROW_PATH = {"ghost_norm": "train", "clipped_grad": "train",
             "moe_direct_norm": "train_moe_direct",
             "moe_clipped_grad": "train_moe", "fused_clip_grad": "parity_layer",
             "flash_attention": "prefill", "wkv6": "prefill_rwkv",
-            "counter_noise": "train", "noise_update": "train"}
+            "counter_noise": "train", "noise_update": "train",
+            "wkv6_backward": "train_rwkv"}
 # the train path whose profiled step gives a kernel's device time a step in
 # the summary line (the path that launches it on train's leaves)
 STEP_DEVICE = {"counter_noise": "train_ghostclip", "noise_update": "train"}
@@ -470,7 +519,8 @@ def wrappers():
             "fused_clip_grad": fc.fused_clip_grad,
             "flash_attention": fa.flash_attention, "wkv6": wk.wkv6,
             "counter_noise": cn.counter_noise,
-            "noise_update": nu.noise_update}
+            "noise_update": nu.noise_update,
+            "wkv6_backward": wk.wkv6_backward}
 
 
 def reset_counts(ws):
@@ -566,13 +616,20 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 5, launched: dict | None = None) -> dict:
+def device_ms(fn, reps: int = 5, launched: dict | None = None,
+              calls: dict | None = None, pad: float = PROFILE_PAD_S) -> dict:
     """Device milliseconds of ``fn`` a call, by kernel name (every kernel
     it launches, by torch.profiler), summed over ``reps`` calls and divided
     by them; ``launched``, if given, receives the device events a call by
-    name. The profiler's schedule runs two calls as its warm-up before the
-    ``reps`` it records (its first kernels after start-up can be lost); the
-    recorded calls sit PROFILE_PAD_S from either end of their window."""
+    name. ``calls``, if given, receives a call's device events
+    (``device``), its launch calls on the host (``host``: the CUDA
+    runtime's or driver's ``*Launch*`` records) and its launches
+    (``launches``: the correlation ids of either, so that a launch counts
+    once, and still counts where the profiler dropped one of its two
+    records). The profiler's schedule runs two calls as its warm-up before
+    the ``reps`` it records (its first kernels after start-up can be lost);
+    the recorded calls sit ``pad`` seconds from either end of their
+    window."""
     import torch
     from torch.autograd import DeviceType
     fn()
@@ -583,11 +640,11 @@ def device_ms(fn, reps: int = 5, launched: dict | None = None) -> dict:
                                              repeat=1)) as prof:
         for i, n in enumerate((1, 1, reps)):
             if i == 2:
-                time.sleep(PROFILE_PAD_S)
+                time.sleep(pad)
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-            time.sleep(PROFILE_PAD_S)
+            time.sleep(pad)
             prof.step()
     by_name = {}
     for e in prof.events():
@@ -597,6 +654,15 @@ def device_ms(fn, reps: int = 5, launched: dict | None = None) -> dict:
                              + e.time_range.elapsed_us() / reps / 1e3)
             if launched is not None:
                 launched[name] = launched.get(name, 0.0) + 1.0 / reps
+    if calls is not None:
+        kept = prof.profiler.kineto_results.events()
+        host = {e.correlation_id() for e in kept
+                if e.device_type() == DeviceType.CPU and "Launch" in e.name()}
+        dev = {e.correlation_id() for e in kept
+               if e.device_type() == DeviceType.CUDA
+               and not e.is_user_annotation()}
+        calls.update(host=len(host) / reps, device=len(dev) / reps,
+                     launches=len(host | dev) / reps)
     return by_name
 
 
@@ -1109,21 +1175,31 @@ def phase_kernels(only_wgmma=False, only_noise=False):
                 r = 10
                 ms_k = cuda_ms(lambda: fc.fused_clip_grad(*args), r, 2)
                 ms_p = cuda_ms(lambda: fc.plain(*args), 3, 1)
-                # a profile that lost device events (fewer than one a call)
-                # is taken again, at most twice; more than one a call fails
+                # launches a call: a launch is counted by its host record
+                # and its device record together (the profiler drops some
+                # of either: scripts/profiler_window.py). A profile that
+                # lost both records of a launch is taken again, at most
+                # twice, each time with four times the idle margin; more
+                # than one launch a call, or a kernel of another name,
+                # fails
                 for attempt in range(3):
-                    launched = {}
+                    launched, calls = {}, {}
                     dev_k = device_ms(lambda: fc.fused_clip_grad(*args),
-                                      launched=launched)
-                    if sum(launched.values()) > 1.0 - 1e-6:
+                                      launched=launched, calls=calls,
+                                      pad=PROFILE_PAD_S * 4 ** attempt)
+                    if calls["launches"] > 1.0 - 1e-6:
                         break
                 extra.update(device_ms=sum(dev_k.values()),
                              device_by_kernel=dev_k,
-                             kernels_a_call=sum(launched.values()),
+                             kernels_a_call=calls["launches"],
+                             device_events_a_call=calls["device"],
+                             host_launches_a_call=calls["host"],
                              profiles=attempt + 1)
-                if abs(extra["kernels_a_call"] - 1.0) > 1e-6:
+                if abs(calls["launches"] - 1.0) > 1e-6 or len(launched) != 1:
                     raise AssertionError(f"fused_clip_grad [{case}]: one call "
-                                         f"launched {launched}, want one "
+                                         f"launched {calls['launches']} "
+                                         f"kernels ({calls}; device events "
+                                         f"by name {launched}), want one "
                                          "kernel")
                 extra["simt_ms"] = ms_k if route == "simt" else cuda_ms(
                     lambda: fc.fused_clip_grad(*args, kernel="simt"), r, 2)
@@ -1396,13 +1472,14 @@ def phase_kernels(only_wgmma=False, only_noise=False):
         f32 sums -> each version's max abs error there; raises unless the
         chunked kernel is within ``tol`` of it."""
         r_, k_, v_, w, u = (t.double() for t in args)
+        u0 = u[0, 0] if u.dim() == 3 else u[0]
         x = [t[0, :, 0] for t in (r_, k_, v_, w)]
         S = torch.zeros(x[0].shape[-1], x[0].shape[-1], dtype=torch.float64,
                         device=dev)
         exact = torch.empty_like(x[0])
         for t in range(x[0].shape[0]):
             rt, kt, vt, wt = (y[t] for y in x)
-            exact[t] = rt @ S + (rt * u[0] * kt).sum() * vt
+            exact[t] = rt @ S + (rt * u0 * kt).sum() * vt
             S = wt[:, None] * S + kt[:, None] * vt[None, :]
         got = {k: fn()[0, :, 0] for k, fn in (
             ("chunked", lambda: wk.wkv6(*args)),
@@ -1415,15 +1492,22 @@ def phase_kernels(only_wgmma=False, only_noise=False):
         return {k: float((g.double() - exact).abs().max())
                 for k, g in got.items()}
 
-    def wkv_case(path, case, B, T, H, h, dtype, tol, decay=None, f64=False):
-        """r, k, v standard normal, w as ``wkv_decay`` draws it, u normal *
-        0.5 (f32, as the wrapper hands it to the kernel); on the chunked
-        route also (b) against the scan kernel at ``tol``; ``f64``: every
-        version against a float64 recurrence at one head."""
+    def wkv_u(B, H, h, per_sample):
+        """u normal * 0.5, f32 (as the wrapper hands it to the kernel):
+        (H,h), or (B,H,h) per sample (the BK step's psp layout)."""
+        lead = (B,) if per_sample else ()
+        return torch.randn(*lead, H, h, generator=gen, device=dev) * 0.5
+
+    def wkv_case(path, case, B, T, H, h, dtype, tol, decay=None, f64=False,
+                 per_sample_u=False):
+        """r, k, v standard normal, w as ``wkv_decay`` draws it, u as
+        ``wkv_u``; on the chunked route also (b) against the scan kernel
+        at ``tol``; ``f64``: every version against a float64 recurrence at
+        one head."""
         dname = str(dtype).split(".")[-1]
         r_, k_, v_ = (rnd(B, T, H, h, dtype=dtype) for _ in range(3))
         w = wkv_decay((B, T, H, h), decay).to(dtype)
-        u = torch.randn(H, h, generator=gen, device=dev) * 0.5
+        u = wkv_u(B, H, h, per_sample_u)
         args = (r_, k_, v_, w, u)
         n = B * T * H * h
         extra = {"f64_max_abs_err": wkv_vs_f64(args, tol)} if f64 else {}
@@ -1435,6 +1519,70 @@ def phase_kernels(only_wgmma=False, only_noise=False):
                     simt=(lambda *a: wk.wkv6(*a, kernel="scan")) if chunked
                     else None, route="chunked", **extra)
         del r_, k_, v_, w, u, args
+
+    def wkv_bwd_vs_f64(args, got, want):
+        """The five grads at (b 0, head 0) against float64 autograd through
+        the recurrence there -> the kernel's and the plain version's max
+        abs error; raises unless the kernel is within WKV_BWD_TOL."""
+        do, r_, k_, v_, w, u, _ = args
+        one = [t[:1, :, :1].double() for t in (r_, k_, v_, w, do)]
+        u1 = (u[:1, :1] if u.dim() == 3 else u[None, :1]).double()
+        exact = wk.plain_backward(*one[:4], u1, one[4])
+
+        def head(gs):
+            return torch.cat([*(g[:1, :, :1].reshape(-1) for g in gs[:4]),
+                              gs[4][:1, :1].reshape(-1)]).double()
+        want64 = torch.cat([g.reshape(-1) for g in exact])
+        cmp = compare(head(got), want64, WKV_BWD_TOL)
+        if not cmp["ok"]:
+            raise AssertionError(f"wkv6_backward: the kernel is off the "
+                                 f"float64 gradients: {cmp}")
+        return {"kernel": cmp["max_abs_err"],
+                "plain": float((head(want) - want64).abs().max())}
+
+    def wkv_bwd_case(path, case, B, T, H, h, dtype, decay=None, f64=False,
+                     per_sample_u=False):
+        """wkv6_backward on r, k, v standard normal, w as ``wkv_decay``
+        draws it, u as ``wkv_u``, do standard normal (f32) and the chunk
+        states the chunked forward saves on them: (a) its five grads
+        against ``plain_backward`` (autograd through the recurrence) at
+        WKV_BWD_TOL, (c) itself run twice, bitwise; ``f64``: at one (b,
+        head) against float64 autograd. Bound: the inputs, do and the saved
+        states read once and the five grads written once, against the six
+        h x h f32 FMA passes a token and head (the S and dS updates, dr,
+        dk, dv, dw)."""
+        dname = str(dtype).split(".")[-1]
+        r_, k_, v_ = (rnd(B, T, H, h, dtype=dtype) for _ in range(3))
+        w = wkv_decay((B, T, H, h), decay).to(dtype)
+        u = wkv_u(B, H, h, per_sample_u)
+        do = torch.randn(B, T, H, h, generator=gen, device=dev)
+        state = wk._forward(r_, k_, v_, w, u, "chunked")[1]
+        args = (do, r_, k_, v_, w, u, state)
+
+        def flat(gs):
+            return torch.cat([g.reshape(-1) for g in gs])
+        got, again = wk.wkv6_backward(*args), wk.wkv6_backward(*args)
+        want = wk.plain_backward(r_, k_, v_, w, u, do)
+        per_grad = {}
+        for name, g, x in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+            c = compare(g, x, WKV_BWD_TOL)
+            per_grad[name] = {"max_abs_err": c["max_abs_err"], "ok": c["ok"]}
+        extra = {"per_grad": per_grad, "u": "per sample (B,H,h)"
+                 if per_sample_u else "shared (H,h)"}
+        if f64:
+            extra["f64_max_abs_err"] = wkv_bwd_vs_f64(args, got, want)
+        r, wu = reps(path, "wkv6_backward")
+        ms_k = cuda_ms(lambda: wk.wkv6_backward(*args), r, wu)
+        ms_p = cuda_ms(lambda: wk.plain_backward(r_, k_, v_, w, u, do), 2, 1)
+        n = B * T * H * h
+        nbytes = (4 * n * r_.element_size() + u.numel() * 4 + n * 4
+                  + state.numel() * 4 + 4 * n * 4 + B * H * h * 4)
+        record("wkv6_backward", path, f"{path} {case} B={B} T={T} H={H} "
+               f"h={h} {dname[:4]}", flat(got), flat(want), WKV_BWD_TOL,
+               ms_k, ms_p, nbytes, 12.0 * n * h, "float32", None,
+               flat(again), **extra)
+        del r_, k_, v_, w, u, do, state, args, got, again, want
+        torch.cuda.empty_cache()
 
     def wkv_shapes():
         """wkv6 at the prefill's shapes (bf16, against float64 at one head
@@ -1458,6 +1606,33 @@ def phase_kernels(only_wgmma=False, only_noise=False):
                  "mixed")
         wkv_case("ragged", mixed, 2, 1000, 4, 64, torch.bfloat16,
                  WKV_LONG_TOL, "mixed")
+        # u per sample (B,H,h), as the BK step gives it: train_rwkv's shapes
+        # (bf16, float64 at one head) and ragged f32
+        rt = RUNS["train_rwkv"]
+        w_cfg = get_config(rt["arch"])
+        Hr, hr = w_cfg.d_model // w_cfg.hd, w_cfg.hd
+        wkv_case("train_rwkv", "w~U[0.5,0.999], u per sample", rt["batch"],
+                 rt["seq"], Hr, hr, torch.bfloat16, WKV_LONG_TOL, f64=True,
+                 per_sample_u=True)
+        wkv_case("ragged", "w~U[0.5,0.999], u per sample", 3, 509, 3, 64,
+                 torch.float32, WKV_TOL, per_sample_u=True)
+        # the backward: train_rwkv's shapes (bf16, u per sample, float64 at
+        # one head), ragged f32 (T not a multiple of a chunk, h 16 and 64,
+        # both u layouts), the strong constant decays and the mixed decay
+        wkv_bwd_case("train_rwkv", "w~U[0.5,0.999], u per sample",
+                     rt["batch"], rt["seq"], Hr, hr, torch.bfloat16,
+                     f64=True, per_sample_u=True)
+        for h in (16, 64):
+            for per_sample in (False, True):
+                wkv_bwd_case("ragged", "w~U[0.5,0.999]", 3, 509, 3, h,
+                             torch.float32, per_sample_u=per_sample)
+        for decay in (0.1, 0.01):
+            wkv_bwd_case("ragged", f"strong decay w={decay}", 2, 509, 3, 64,
+                         torch.float32, decay, f64=True)
+        wkv_bwd_case("ragged", mixed, 2, 509, 3, 64, torch.float32, "mixed",
+                     f64=True)
+        wkv_bwd_case("ragged", mixed, 2, 1000, 4, 64, torch.bfloat16,
+                     "mixed", per_sample_u=True)
 
     bf16 = torch.bfloat16
     fp = SERVING["prefill"]
@@ -1512,6 +1687,15 @@ def phase_kernels(only_wgmma=False, only_noise=False):
             for H in (2, 12):                   # G = 1 and 6 over K = 2
                 for causal in (True, False):
                     flash_case("ragged", 2, 509, 509, H, 2, h, causal, bf16)
+        # rwkv6-3b's narrow mm taps (train_rwkv: the direct norm, then
+        # clipped_grad), two layers of random records at its B and T
+        rt = RUNS["train_rwkv"]
+        for tap, d, p in (("tm_w1", 2560, 160), ("tm_w2_i", 32, 2560),
+                          ("wa", 2560, 64), ("wb", 64, 2560)):
+            mm_case(f"rwkv6 narrow {tap} L=2 B={rt['batch']} T={rt['seq']} "
+                    f"d={d} p={p} bf16", 2, rt["batch"], rt["seq"], d, p,
+                    bf16, dict.fromkeys(("grad_norm_direct", "clipped_grad"),
+                                        "ragged"))
 
     def fused_edges():
         """fused_clip_grad at the largest units the reference's rule sends
@@ -1585,8 +1769,9 @@ def phase_kernels(only_wgmma=False, only_noise=False):
         wkv_shapes()
         return summary
 
-    # ---- the train paths' shapes, each tap routed as the engine routes it
-    for paths in PATH_GROUPS:
+    def group_cases(paths):
+        """The train paths' shapes, each tap routed as the engine routes
+        it."""
         cfg, batch, taps, records = path_taps(paths, dev)
         B, T = RUNS[paths[0]]["batch"], RUNS[paths[0]]["seq"]
         for key, kind, a_shape, ds_shape, kernels in taps:
@@ -1612,6 +1797,9 @@ def phase_kernels(only_wgmma=False, only_noise=False):
                          f"p={ds_shape[-1]} bf16", a, mask, ds_shape[-1],
                          kernels)
         del records
+
+    for paths in PATH_GROUPS:
+        group_cases(paths)
 
     # ---- fused_clip_grad where a driven path launches it: the smoke-width
     # case of parity_layer (f32), whose every mm unit fits fused_plan's
@@ -1645,6 +1833,10 @@ def phase_kernels(only_wgmma=False, only_noise=False):
                  rnd(2, 3, 5, 7, d, dtype=torch.float32), mask, p, moe_all)
     emb_edges(dict.fromkeys(("emb_ghost_norm", "emb_clipped_grad"),
                             "ragged"))
+    # train_rwkv's taps after fused_clip_grad's cases: its profiled
+    # one-kernel-a-call check loses device events as the process ages (the
+    # profiler's clock drifts: scripts/profiler_window.py)
+    group_cases(("train_rwkv",))
 
     flash_case("prefill", fp["batch"], fp["seq"], fp["seq"], q_cfg.n_heads,
                q_cfg.n_kv_heads, q_cfg.hd, True, torch.bfloat16)
@@ -2342,7 +2534,7 @@ def _profile_summary(prof, window_ms: float) -> dict:
         "fused_clip_wgmma", "fused_clip_simt", "counter_noise",
         "noise_update",
         "moe_ghost_wgmma", "flash_attention", "wkv6", "wkv6_state",
-        "wkv6_out"))
+        "wkv6_out", "wkv6_bwd", "wkv6_bwd_sum"))
     kinds = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
     noise_ms = update_ms = 0.0
     for name, ms in by_name.items():
@@ -2395,8 +2587,9 @@ def phase_train(name, stats: dict):
     step seconds (unprofiled: the step before the profiled one), profiled
     seconds, peak and profiled device time, for the paper's ratios."""
     import torch
+    from repro_torch.configs.registry import has_policy
     from repro_torch.core.bk import BK_MODES
-    from repro_torch.core.policy import resolve_policy
+    from repro_torch.core.policy import as_policy, resolve_policy
     from repro_torch.launch.train import train, train_policy
     from repro_torch.utils.tree import flatten
 
@@ -2443,7 +2636,8 @@ def phase_train(name, stats: dict):
     for s in per_step:
         emit(phase=name, step=s["step"], loss=s["loss"],
              step_seconds=s["seconds"], launches=s["launches"])
-    ran = train_policy(dp, tc)
+    # the policy train ran (a flat DPConfig as its one-unit policy)
+    ran = as_policy(train_policy(dp, tc))
     # phase 4: one noise_update launch a leaf a step on every path (the BK
     # step draws the noise inside it); counter_noise only where a baseline
     # materializes the noised tree: one launch a noised leaf (none without
@@ -2455,8 +2649,9 @@ def phase_train(name, stats: dict):
     del params, flat
     emit(phase=name, arch=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.param_dtype,
-         mode=dp.mode, policy=cfg.name,
-         methods={g.name: g.method or "rule" for g in dp.groups},
+         mode=dp.mode,
+         policy=cfg.name if has_policy(cfg.name) else "flat DPConfig",
+         methods={g.name: g.method or "rule" for g in as_policy(dp).groups},
          scopes={g.name: g.scope for g in ran.groups},
          tape=ran.tape_policy,
          optimizer=tc.optimizer, batch=tc.global_batch, seq=tc.seq_len,
@@ -2477,9 +2672,10 @@ def phase_train(name, stats: dict):
                    "phase4_ms": profile["by_range_ms"]["phase4_update"]}
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{name}: non-finite loss: {losses}")
-    if abs(losses[0] - math.log(cfg.vocab)) > 0.5:
+    loss0 = math.log(cfg.vocab) + run.get("loss0_excess", 0.0)
+    if abs(losses[0] - loss0) > 0.5:
         raise AssertionError(f"{name}: step-0 loss {losses[0]} is not near "
-                             f"ln(vocab) = {math.log(cfg.vocab)}")
+                             f"{loss0} (ln(vocab) = {math.log(cfg.vocab)})")
     for s in per_step:
         for k, n in s["launches"].items():
             if n != want[k]:
@@ -2819,6 +3015,121 @@ def update_parity(name, params, sums, policy, B):
     torch.cuda.empty_cache()
 
 
+# parity_rwkv: the 2-layer, full-width, f32 rwkv6-3b step at train_rwkv's
+# T and a smaller B (the CPU side runs the same step)
+RWKV_PARITY = dict(layers=2, batch=4)
+
+
+def phase_parity_rwkv(name):
+    """One BK step of a 2-layer, full-width, f32 rwkv6-3b model (bk-mixopt,
+    sigma 1.0, as train_rwkv's policy; B=4, T=512) on the card, the kernels
+    launched (on the card the recurrence always takes wkv6 and
+    wkv6_backward), against the same params and batch on the CPU (the
+    plain versions; the recurrence by the JAX package's route, autograd of
+    wkv6_chunked): per-sample norms at NORM_TOL, sums at f32 TOL. Then one
+    noised AdamW step over the card's sums against its plain version
+    (``update_parity``), and bk-mixopt against opacus on the card at sigma
+    0 (norms at NORM_TOL, grads at f32 TOL; opacus runs Wkv6Fn under
+    vmap(grad)). -> {} (these launches do not count as a path's)."""
+    import torch
+    from repro_torch.configs.registry import build
+    from repro_torch.core.bk import bk_clipped_sum
+    from repro_torch.core.engine import make_grad_fn
+    from repro_torch.core.noise import prng_key
+    from repro_torch.core.policy import as_policy
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.utils.tree import flatten, unflatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, dp = run_config("train_rwkv")
+    dp = as_policy(dp)               # a flat DPConfig: its one-unit policy
+    small = cfg.with_(n_layers=RWKV_PARITY["layers"], param_dtype="float32")
+    B, T = RWKV_PARITY["batch"], RUNS["train_rwkv"]["seq"]
+    model = build(small)
+    params = model.init(seed=1, device="cuda")
+    batch = make_batch(small, B, T, seed=1, device="cuda")
+    ws = wrappers()
+    reset_counts(ws)
+    t0 = time.perf_counter()
+    sk, ak = bk_clipped_sum(model.apply, params, batch, dp)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launched = {k: w.launches for k, w in ws.items() if w.launches}
+    check_routes(name, ws, False)             # f32: the SIMT routes
+    cpu_params = unflatten({k: v.cpu() for k, v in flatten(params).items()})
+    t0 = time.perf_counter()
+    sp, ap = bk_clipped_sum(model.apply, cpu_params,
+                            {k: v.cpu() for k, v in batch.items()}, dp)
+    cpu_s = time.perf_counter() - t0
+    rtol, atol = TOL["float32"]
+    worst, bad = 0.0, []
+    pairs = [(f"sum:{k}", sk[k].cpu(), sp[k], TOL["float32"])
+             for k in sorted(sk)]
+    pairs.append(("per_sample_norms", ak["per_sample_norms"].cpu(),
+                  ap["per_sample_norms"], NORM_TOL))
+    for key, g, w, tol in pairs:
+        cmp = compare(g, w, tol)
+        worst = max(worst, cmp["max_abs_err"])
+        if not cmp["ok"]:
+            bad.append(key)
+    emit(phase=name, case="card vs CPU", arch=small.name,
+         layers=small.n_layers, d_model=small.d_model, vocab=small.vocab,
+         dtype="float32", batch=B, seq=T, mode=dp.mode, sigma=dp.sigma,
+         rtol=rtol, atol=atol, norm_tol=NORM_TOL, compared=len(pairs),
+         max_abs_err=worst, failed=bad, launched=launched,
+         card_seconds=card_s, cpu_seconds=cpu_s)
+    # at 2 layers bk-mixopt caches the narrow taps' per-sample grads (no
+    # grad_norm_direct; train_rwkv's depth launches it)
+    want = ("wkv6", "wkv6_backward", "ghost_norm", "clipped_grad",
+            "emb_ghost_norm", "emb_clipped_grad")
+    if bad or launched.get("wkv6") != small.n_layers or \
+            launched.get("wkv6_backward") != small.n_layers or \
+            not all(launched.get(k) for k in want):
+        raise AssertionError(f"{name}: the card's step disagrees with the "
+                             f"CPU's on {bad}, or launched {launched} (want "
+                             f"{want}, the recurrence's once a layer)")
+    del sp, ap, cpu_params
+    update_parity(name, params, sk, dp, B)
+    del sk, ak
+    # bk-mixopt against opacus on the card, sigma 0
+    out = {}
+    for mode in ("opacus", "bk-mixopt"):
+        reset_counts(ws)
+        floor = fresh_peak()
+        t0 = time.perf_counter()
+        grads, aux = make_grad_fn(model.apply, dataclasses.replace(
+            dp, mode=mode, sigma=0.0))(params, batch, prng_key(7))
+        torch.cuda.synchronize()
+        out[mode] = (flatten(grads), aux, {
+            "seconds": time.perf_counter() - t0,
+            "launched": {k: w.launches for k, w in ws.items() if w.launches},
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "allocated_at_start": floor})
+    (ref, ref_aux, ref_stats), (got, aux, stats) = out["opacus"], \
+        out["bk-mixopt"]
+    worst, bad = 0.0, []
+    for k in sorted(ref):
+        cmp = compare(got[k], ref[k], (rtol, atol))
+        worst = max(worst, cmp["max_abs_err"])
+        if not cmp["ok"]:
+            bad.append(k)
+    norms = compare(aux["per_sample_norms"], ref_aux["per_sample_norms"],
+                    NORM_TOL)
+    emit(phase=name, case="bk-mixopt vs opacus", sigma=0.0,
+         grads_max_abs_err=worst, rtol=rtol, atol=atol, norms=norms,
+         failed=bad, opacus=ref_stats, bk_mixopt=stats)
+    if bad or not norms["ok"] or \
+            not ref_stats["launched"].get("wkv6_backward"):
+        raise AssertionError(f"{name}: bk-mixopt disagrees with opacus on "
+                             f"{bad}, norms {norms}, or opacus launched "
+                             f"{ref_stats['launched']} (want wkv6_backward "
+                             f"under vmap)")
+    del model, params, batch, out, ref, got
+    torch.cuda.empty_cache()
+    return {}
+
+
 # the optimizers held card to CPU by optimizer_parity, with their knobs;
 # each takes OPT_STEPS steps: under ftrl's tree noise (restarts every 2,
 # completion) step 1 completes the tree and step 2 restarts it and the
@@ -3113,8 +3424,8 @@ def main(argv=None) -> int:
             phase_serve(name)
     for name in PARITIES:
         if name in phases:
-            run = phase_parity_modes if name == "parity_modes" else \
-                phase_parity
+            run = {"parity_modes": phase_parity_modes,
+                   "parity_rwkv": phase_parity_rwkv}.get(name, phase_parity)
             for k, n in run(name).items():
                 launches[k] = launches.get(k, 0) + n
     for name in SERVE_PARITIES:

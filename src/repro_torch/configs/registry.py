@@ -65,7 +65,7 @@ def build(cfg: ModelConfig):
         from repro_torch.models.rwkv6 import Rwkv6LM
         return Rwkv6LM(cfg)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 9)")
+        f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 B8)")
 
 
 def smoke_config(name: str) -> ModelConfig:

@@ -63,9 +63,11 @@ SIGNATURES = {
     "dp_fused_clip_grad": [_P] * 7 + [_I] * 8 + [_F, _F, _P],
     "dp_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
     "dp_flash_attention_wgmma": [_P] * 4 + [_I] * 7 + [_P],
-    "dp_wkv6": [_P] * 6 + [_I] * 5 + [_P],
+    "dp_wkv6": [_P] * 5 + [_I, _P] + [_I] * 5 + [_P],
     "dp_wkv6_chunked_nparts": [_I, _I],
-    "dp_wkv6_chunked": [_P] * 7 + [_I] * 5 + [_P],
+    "dp_wkv6_chunked": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 5 + [_P],
+    "dp_wkv6_backward_nparts": [_I],
+    "dp_wkv6_backward": [_P] * 5 + [_I] + [_P] * 8 + [_I] * 5 + [_P],
     "dp_counter_noise": [_P] * 4 + [_I] + [_U64] * 2 + [_I64, _F, _F, _I,
                                                        _P],
     "dp_noise_update": [_P] * 6 + [_I] * 2 + [_U64] * 2 + [_I64] + [_I] * 3

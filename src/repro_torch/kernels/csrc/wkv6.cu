@@ -3,7 +3,8 @@
 //     o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 //     S_t = diag(w_t) S_{t-1} + k_t^T v_t          S_0 = 0, S (h,h) per head
 //
-// r, k, v, w (B,T,H,h) f32 or bf16, u (H,h) f32 -> o (B,T,H,h) f32. Replaces
+// r, k, v, w (B,T,H,h) f32 or bf16, u (H,h) or per sample (B,H,h) f32 -> o
+// (B,T,H,h) f32. Replaces
 // the TPU kernel repro/kernels/wkv6.py::wkv6, and computes the recurrence
 // that kernel stands for (repro/kernels/ref.py::wkv6_ref): the Pallas kernel
 // rewrites a chunk as matmuls through k / P with P the in-chunk cumulative
@@ -35,8 +36,8 @@ template <typename T, int HM>
 __global__ void __launch_bounds__(HM)
     wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ w,
-                const float* __restrict__ u, float* __restrict__ o, int Tn,
-                int H, int h) {
+                const float* __restrict__ u, int ub, float* __restrict__ o,
+                int Tn, int H, int h) {
   constexpr int CT = HM <= 64 ? 32 : 16;  // tokens staged at once (32 KB)
   __shared__ __align__(16) float sr[CT][HM];
   __shared__ __align__(16) float sk[CT][HM];
@@ -49,7 +50,7 @@ __global__ void __launch_bounds__(HM)
   const int head = blockIdx.x, b = blockIdx.y;
   const long long stride = (long long)H * h;
   const long long base = (long long)b * Tn * stride + (long long)head * h + j;
-  su[j] = j < h ? u[head * h + j] : 0.f;
+  su[j] = j < h ? u[(long long)b * ub + head * h + j] : 0.f;
 
   float S[HM];
 #pragma unroll
@@ -103,33 +104,34 @@ __global__ void __launch_bounds__(HM)
 
 template <typename T, int HM>
 int launch(const void* r, const void* k, const void* v, const void* w,
-           const float* u, float* o, int B, int Tn, int H, int h,
+           const float* u, int ub, float* o, int B, int Tn, int H, int h,
            cudaStream_t st) {
   dim3 grid(H, B);
   wkv6_kernel<T, HM><<<grid, HM, 0, st>>>((const T*)r, (const T*)k,
-                                          (const T*)v, (const T*)w, u, o, Tn,
-                                          H, h);
+                                          (const T*)v, (const T*)w, u, ub, o,
+                                          Tn, H, h);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* r, const void* k, const void* v, const void* w,
-             const float* u, float* o, int B, int Tn, int H, int h,
+             const float* u, int ub, float* o, int B, int Tn, int H, int h,
              cudaStream_t st) {
-  if (h <= 32) return launch<T, 32>(r, k, v, w, u, o, B, Tn, H, h, st);
-  if (h <= 64) return launch<T, 64>(r, k, v, w, u, o, B, Tn, H, h, st);
-  return launch<T, 128>(r, k, v, w, u, o, B, Tn, H, h, st);
+  if (h <= 32) return launch<T, 32>(r, k, v, w, u, ub, o, B, Tn, H, h, st);
+  if (h <= 64) return launch<T, 64>(r, k, v, w, u, ub, o, B, Tn, H, h, st);
+  return launch<T, 128>(r, k, v, w, u, ub, o, B, Tn, H, h, st);
 }
 
 }  // namespace
 
-// r, k, v, w (B,T,H,h) contiguous, all f32 (bf16 == 0) or all bf16; u (H,h)
-// f32; o (B,T,H,h) f32; 1 <= h <= 128 (the wrapper checks).
+// r, k, v, w (B,T,H,h) contiguous, all f32 (bf16 == 0) or all bf16; u f32,
+// (H,h) shared (ub == 0) or (B,H,h) per sample (ub == H h, its batch
+// stride); o (B,T,H,h) f32; 1 <= h <= 128 (the wrapper checks).
 extern "C" int dp_wkv6(const void* r, const void* k, const void* v,
-                       const void* w, const float* u, float* o, int B, int T,
-                       int H, int h, int bf16, void* stream) {
+                       const void* w, const float* u, int ub, float* o, int B,
+                       int T, int H, int h, int bf16, void* stream) {
   if (h < 1 || h > 128) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? dispatch<__nv_bfloat16>(r, k, v, w, u, o, B, T, H, h, st)
-              : dispatch<float>(r, k, v, w, u, o, B, T, H, h, st);
+  return bf16 ? dispatch<__nv_bfloat16>(r, k, v, w, u, ub, o, B, T, H, h, st)
+              : dispatch<float>(r, k, v, w, u, ub, o, B, T, H, h, st);
 }

@@ -4,8 +4,8 @@
 //     o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 //     S_t = diag(w_t) S_{t-1} + k_t^T v_t          S_0 = 0, S (h,h) per head
 //
-// r, k, v, w (B,T,H,h) f32 or bf16, u (H,h) f32 -> o (B,T,H,h) f32, h a
-// multiple of 16 up to 128. Replaces the TPU kernel
+// r, k, v, w (B,T,H,h) f32 or bf16, u (H,h) or per sample (B,H,h) f32 -> o
+// (B,T,H,h) f32, h a multiple of 16 up to 128. Replaces the TPU kernel
 // repro/kernels/wkv6.py::wkv6 on the prefill (bf16) and the f32 parity
 // prefill; other head sizes keep wkv6.cu, the token-by-token scan.
 //
@@ -388,7 +388,7 @@ template <typename T, int HM, int C>
 __global__ void __launch_bounds__(C / SUB * 64)
     wkv6_out_kernel(const T* __restrict__ r, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ w,
-                    const float* __restrict__ u,
+                    const float* __restrict__ u, int ub,
                     const float* __restrict__ state, float* __restrict__ o,
                     int Tn, int H, int h, int nc) {
   using Ly = Layout<T, HM, C>;
@@ -481,7 +481,7 @@ __global__ void __launch_bounds__(C / SUB * 64)
       const int i = grp * QC + ii;
       const float2 ra = ld2(sr + ta * RS + i), rb = ld2(sr + tb * RS + i);
       const float2 ui = i < h ? *reinterpret_cast<const float2*>(
-                                    u + head * h + i)
+                                    u + (long long)b * ub + head * h + i)
                               : make_float2(0.f, 0.f);
       const float2 ka = ld2(sk + ta * RS + i), kb2 = ld2(sk + tb * RS + i);
       bon_a = fmaf(ra.y * ui.y, ka.y, fmaf(ra.x * ui.x, ka.x, bon_a));
@@ -685,8 +685,8 @@ __global__ void __launch_bounds__(C / SUB * 64)
 
 template <typename T, int HM, int C>
 int launch(const void* r, const void* k, const void* v, const void* w,
-           const float* u, float* state, float* o, int B, int Tn, int H,
-           int h, cudaStream_t st) {
+           const float* u, int ub, float* state, float* o, int B, int Tn,
+           int H, int h, cudaStream_t st) {
   using Ly = Layout<T, HM, C>;
   const int nc = (Tn + C - 1) / C;
   auto pass1 = wkv6_state_kernel<T, HM, C>;
@@ -702,8 +702,8 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   err = (int)cudaGetLastError();
   if (err) return err;
   pass2<<<dim3(nc, H, B), Ly::THREADS, Ly::OUT_SMEM, st>>>(
-      (const T*)r, (const T*)k, (const T*)v, (const T*)w, u, state, o, Tn, H,
-      h, nc);
+      (const T*)r, (const T*)k, (const T*)v, (const T*)w, u, ub, state, o, Tn,
+      H, h, nc);
   return (int)cudaGetLastError();
 }
 
@@ -712,13 +712,13 @@ int chunk_of(int h) { return h > 64 ? 32 : 64; }
 
 template <typename T>
 int dispatch(const void* r, const void* k, const void* v, const void* w,
-             const float* u, float* state, float* o, int B, int Tn, int H,
-             int h, cudaStream_t st) {
+             const float* u, int ub, float* state, float* o, int B, int Tn,
+             int H, int h, cudaStream_t st) {
   if (h <= 32)
-    return launch<T, 32, 64>(r, k, v, w, u, state, o, B, Tn, H, h, st);
+    return launch<T, 32, 64>(r, k, v, w, u, ub, state, o, B, Tn, H, h, st);
   if (h <= 64)
-    return launch<T, 64, 64>(r, k, v, w, u, state, o, B, Tn, H, h, st);
-  return launch<T, 128, 32>(r, k, v, w, u, state, o, B, Tn, H, h, st);
+    return launch<T, 64, 64>(r, k, v, w, u, ub, state, o, B, Tn, H, h, st);
+  return launch<T, 128, 32>(r, k, v, w, u, ub, state, o, B, Tn, H, h, st);
 }
 
 }  // namespace
@@ -729,15 +729,18 @@ extern "C" int dp_wkv6_chunked_nparts(int T, int h) {
 }
 
 // r, k, v, w (B,T,H,h) contiguous, 16-byte aligned, all f32 (bf16 == 0) or
-// all bf16; u (H,h) f32; state: scratch of (B, H, nparts(T, h), h, h) f32;
+// all bf16; u f32, (H,h) shared (ub == 0) or (B,H,h) per sample (ub == H h,
+// its batch stride); state: scratch of (B, H, nparts(T, h), h, h) f32, whose
+// chunk c >= 1 holds the state before chunk c when the call returns (the
+// backward's saved tensor, csrc/wkv6_backward.cu; chunk 0 is not written);
 // o (B,T,H,h) f32; h a multiple of 16 up to 128 (the wrapper checks).
 extern "C" int dp_wkv6_chunked(const void* r, const void* k, const void* v,
-                               const void* w, const float* u, float* state,
-                               float* o, int B, int T, int H, int h, int bf16,
-                               void* stream) {
+                               const void* w, const float* u, int ub,
+                               float* state, float* o, int B, int T, int H,
+                               int h, int bf16, void* stream) {
   if (h < 16 || h > 128 || h % 16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? dispatch<__nv_bfloat16>(r, k, v, w, u, state, o, B, T, H, h,
-                                        st)
-              : dispatch<float>(r, k, v, w, u, state, o, B, T, H, h, st);
+  return bf16 ? dispatch<__nv_bfloat16>(r, k, v, w, u, ub, state, o, B, T, H,
+                                        h, st)
+              : dispatch<float>(r, k, v, w, u, ub, state, o, B, T, H, h, st);
 }

@@ -4,9 +4,10 @@ taken, beside the kernels kept, so that those comparisons can be run again:
     PYTHONPATH=src python -m repro_torch.kernels.design_study
     PYTHONPATH=src python -m repro_torch.kernels.design_study --only emb
 
-(``--only ghost``, ``wkv``, ``moe``, ``emb_norm``, ``fused`` and
-``noise`` likewise.) Each variant is built alone into a temporary directory (one
-nvcc a variant, all started together): the kept source with one line or
+(``--only ghost``, ``wkv``, ``wkv_bwd``, ``moe``, ``emb_norm``, ``fused``
+and ``noise`` likewise.) Each variant is built alone into a temporary
+directory (one nvcc a variant, all started together): the kept source with
+one line or
 block replaced (:data:`EMB_PATCHES`, :data:`GHOST_PATCHES`,
 :data:`WKV_PATCHES`, :data:`MOE_PATCHES`, :data:`EMB_NORM_PATCHES`,
 :data:`FUSED_PATCHES`, :data:`NOISE_PATCHES`; a replacement that no
@@ -32,6 +33,15 @@ smoke-width and gate-edge units:
   scan kernel (``csrc/wkv6.cu``) of the kept library. Then ablations
   (:data:`WKV_ABLATIONS`): the kept kernel with one phase skipped, whose
   outputs are wrong by design and whose times say what that phase costs.
+- ``wkv6_backward``: rwkv6-3b's ``train_rwkv`` shapes, r, k, v, w
+  (8, 512, 40, 64) bf16 (w uniform in [0.5, 0.999]), u (8, 40, 64) f32 per
+  sample, do f32 normal, the chunked forward's saved states. Variants: the
+  kept kernel (``csrc/wkv6_backward.cu``: the sub-chunk starts in
+  registers, each sub-chunk's inputs loaded while the one before it is
+  walked, two CTAs an SM) and the first version
+  (``designs/wkv6_backward_first.cu``: the starts in shared memory, one CTA
+  an SM); the kept kernel's five grads must be bitwise the first's (raises
+  after the timings otherwise).
 - ``moe_ghost_norm`` (wgmma): the up tap of ``train_moe``, a
   (5, 8, 64, 60, 2048), ds (..., 2816) bf16, random records under a
   router-like 0/1 mask (each (l, b, e) keeps a random count of its first
@@ -206,7 +216,8 @@ GHOST_PATCHES = {
 }
 
 _CHUNK = "int chunk_of(int h) { return h > 64 ? 32 : 64; }"
-_H64 = "return launch<T, 64, 64>(r, k, v, w, u, state, o, B, Tn, H, h, st);"
+_H64 = ("return launch<T, 64, 64>(r, k, v, w, u, ub, state, o, B, Tn, H, h, "
+        "st);")
 WKV_PATCHES = {
     "kept": ("wkv6_chunked.cu", []),
     "chunk_32": ("wkv6_chunked.cu", [
@@ -735,12 +746,12 @@ def study_wkv(tmp: Path, dev: str) -> None:
     ptrs = [t.data_ptr() for t in (r, k, v, w, u)]
     calls = {}
     for name, (lib, notes) in libs.items():
-        lib.dp_wkv6_chunked.argtypes = [P] * 7 + [I] * 5 + [P]
+        lib.dp_wkv6_chunked.argtypes = [P] * 5 + [I] + [P] * 2 + [I] * 5 + [P]
         lib.dp_wkv6_chunked_nparts.argtypes = [I, I]
         state = torch.empty(Bw, Hw, lib.dp_wkv6_chunked_nparts(Tw, hw), hw,
                             hw, device=dev)
         calls[name] = (lambda f=lib.dp_wkv6_chunked, st=state: _check(f(
-            *ptrs, st.data_ptr(), out.data_ptr(), Bw, Tw, Hw, hw, 1, 0),
+            *ptrs, 0, st.data_ptr(), out.data_ptr(), Bw, Tw, Hw, hw, 1, 0),
             "dp_wkv6_chunked"))
     calls["scan"] = lambda: wk.wkv6(r, k, v, w, u, kernel="scan")
     kept = None
@@ -758,6 +769,46 @@ def study_wkv(tmp: Path, dev: str) -> None:
         if name in WKV_ABLATIONS:
             row["ablation"] = "one phase skipped: the output is wrong"
         print(json.dumps(row), flush=True)
+
+
+def study_wkv_bwd(tmp: Path, dev: str) -> None:
+    from repro_torch.kernels import wkv6 as wk
+    libs = build_variants({
+        "kept": (build.CSRC / "wkv6_backward.cu").read_text(),
+        "first": (DESIGNS / "wkv6_backward_first.cu").read_text()}, tmp)
+    B, T, H, h = 8, 512, 40, 64
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    r, k, v = (torch.randn(B, T, H, h, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    w = (torch.rand(B, T, H, h, generator=g, device=dev) * 0.499
+         + 0.5).to(torch.bfloat16)
+    u = torch.randn(B, H, h, generator=g, device=dev) * 0.5
+    do = torch.randn(B, T, H, h, generator=g, device=dev)
+    state = wk._forward(r, k, v, w, u, "chunked")[1]
+    part = torch.empty(3 * B * T * H * h + B * H * h, device=dev)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    outs, calls = {}, {}
+    for name, (lib, _) in libs.items():
+        lib.dp_wkv6_backward.argtypes = [P] * 5 + [I] + [P] * 8 + [I] * 5 + [P]
+        outs[name] = [torch.empty(B, T, H, h, device=dev) for _ in range(4)]
+        outs[name].append(torch.empty(B, H, h, device=dev))
+        ptrs = [t.data_ptr() for t in (r, k, v, w, u)] + [H * h] + [
+            t.data_ptr() for t in (do, state, *outs[name], part)]
+        calls[name] = (lambda f=lib.dp_wkv6_backward, a=ptrs: _check(
+            f(*a, B, T, H, h, 1, 0), "dp_wkv6_backward"))
+        calls[name]()
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b)
+                  for a, b in zip(outs["kept"], outs["first"]))
+    for name, fn in calls.items():
+        print(json.dumps({"study": "wkv6_backward", "variant": name,
+                          "ms": events_ms(fn), "device_ms": device_ms(fn),
+                          "bitwise_first": bitwise,
+                          "ptxas": libs[name][1]}), flush=True)
+    if not bitwise:
+        raise RuntimeError("wkv6_backward: the kept kernel's grads are not "
+                           "bitwise the first version's")
 
 
 def study_moe(tmp: Path, dev: str) -> None:
@@ -1322,8 +1373,8 @@ def study_noise(tmp: Path, dev: str) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("emb", "ghost", "wkv", "moe",
-                                       "emb_norm", "fused", "noise"),
+    ap.add_argument("--only", choices=("emb", "ghost", "wkv", "wkv_bwd",
+                                       "moe", "emb_norm", "fused", "noise"),
                     default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1338,6 +1389,8 @@ def main(argv=None) -> int:
             study_ghost(Path(tmp) / "ghost", "cuda")
         if args.only in (None, "wkv"):
             study_wkv(Path(tmp) / "wkv", "cuda")
+        if args.only in (None, "wkv_bwd"):
+            study_wkv_bwd(Path(tmp) / "wkv_bwd", "cuda")
         if args.only in (None, "moe"):
             study_moe(Path(tmp) / "moe", "cuda")
         if args.only in (None, "emb_norm"):

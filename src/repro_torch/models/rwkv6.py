@@ -1,5 +1,6 @@
-"""RWKV6 "Finch" (arXiv:2404.05892), the serving side: an attention-free LM
-with data-dependent per-channel decay. Time-mix recurrence:
+"""RWKV6 "Finch" (arXiv:2404.05892): an attention-free LM with
+data-dependent per-channel decay, trained under DP and served. Time-mix
+recurrence:
 
     S_t = diag(w_t) S_{t-1} + k_t^T v_t
     o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
@@ -9,12 +10,19 @@ mixing (5-way lerp deltas through a small tanh bottleneck). Params are the
 JAX package's flat keys, blocks stacked (L, ...); its ``lax.scan`` over the
 blocks is a Python loop over layer slices here.
 
-``prefill`` runs the recurrence through the ``wkv6`` kernel on the card; on
-the CPU it takes the JAX package's own route (``wkv6_chunked`` at
-T >= 2 * ``ssm_chunk``, ``wkv6_ref`` below), so the two agree to f32
-rounding. ``decode_step`` is O(1) state per token (``wkv6_step``) and
-updates the cache of ``init_cache`` in place. DP training (``apply``) is not
-ported: it needs a backward of the recurrence.
+``apply`` (the BK step's forward, per-sample losses) runs the blocks under
+``tape.stacked("blocks")``, as the JAX package scans them: the taps tm_w1,
+tm_w2_{0..4}, wa, wb, r, k, v, g, o (att) and key, value, receptance (ffn),
+with embed and head; every vector (maa_*, w0, u, lnx_g/b, the layernorms)
+takes the psp route, so u reaches the recurrence per sample, (B,H,h).
+On the card the recurrence runs through the wkv6 kernels: under grad
+``kernels.wkv6.Wkv6Fn`` (the chunked forward, whose chunk states it saves,
+and the ``wkv6_backward`` kernel), else the forward kernel alone
+(``prefill``). On the CPU it takes the JAX package's own route
+(``wkv6_chunked`` at T >= 2 * ``ssm_chunk``, ``wkv6_ref`` below),
+differentiated by autograd, so that a CPU step equals the reference's.
+``decode_step`` is O(1) state per token (``wkv6_step``) and updates the
+cache of ``init_cache`` in place.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tape import Tape
+from repro_torch.kernels.wkv6 import Wkv6Fn
 from repro_torch.kernels.wkv6 import wkv6 as wkv6_kernel
 from repro_torch.models import layers as L
 
@@ -40,22 +49,26 @@ def _shift(x):
 # ------------------------------------------------------------- recurrence
 def wkv6_step(S, r, k, v, w, u):
     """Single step. r,k,v,w (B,H,h); u (H,h) or (B,H,h); S (B,H,h,h)
-    -> (new S, out (B,H,h)), f32."""
-    r, k, v, w, S = (t.to(F32) for t in (r, k, v, w, S))
+    -> (new S, out (B,H,h)), f32 (float64 for float64 inputs)."""
+    dt = torch.promote_types(r.dtype, F32)
+    r, k, v, w, S = (t.to(dt) for t in (r, k, v, w, S))
     out = (torch.einsum("bhi,bhij->bhj", r, S)
-           + torch.sum(r * u.to(F32) * k, -1, keepdim=True) * v)
+           + torch.sum(r * u.to(dt) * k, -1, keepdim=True) * v)
     return w[..., :, None] * S + k[..., :, None] * v[..., None, :], out
 
 
 def wkv6_ref(r, k, v, w, u):
     """Reference recurrence, token by token. r,k,v,w (B,T,H,h); u (H,h) or
-    (B,H,h) -> (B,T,H,h) f32."""
+    (B,H,h) -> (B,T,H,h) f32 (float64 for float64 inputs). Functional (the
+    steps stacked), so that ``torch.func.vmap`` runs it."""
     B, T, H, h = r.shape
-    S = torch.zeros(B, H, h, h, dtype=F32, device=r.device)
-    out = torch.empty(B, T, H, h, dtype=F32, device=r.device)
+    S = torch.zeros(B, H, h, h, dtype=torch.promote_types(r.dtype, F32),
+                    device=r.device)
+    outs = []
     for t in range(T):
-        S, out[:, t] = wkv6_step(S, r[:, t], k[:, t], v[:, t], w[:, t], u)
-    return out
+        S, o = wkv6_step(S, r[:, t], k[:, t], v[:, t], w[:, t], u)
+        outs.append(o)
+    return torch.stack(outs, 1) if outs else S.new_zeros(B, 0, H, h)
 
 
 def wkv6_chunked(r, k, v, w, u, chunk: int = 32):
@@ -173,9 +186,16 @@ def _heads(t, H):
 
 
 def _wkv(r, k, v, w, u, cfg: ModelConfig):
-    """(B,T,H,h) -> (B,T,H,h) f32: the wkv6 kernel off the CPU; on the CPU
-    the JAX package's route."""
+    """(B,T,H,h) -> (B,T,H,h) f32. On the card the wkv6 kernels: under grad
+    ``Wkv6Fn`` (the forward, its saved chunk states, the backward kernel),
+    else the forward alone. On the CPU the JAX package's route,
+    differentiated by autograd. On the meta device (shape planning,
+    ``core.bk.tap_act_structs``) its shape alone."""
+    if r.device.type == "meta":
+        return r.new_empty(r.shape, dtype=F32)
     if r.device.type != "cpu":
+        if torch.is_grad_enabled():
+            return Wkv6Fn.apply(r, k, v, w, u)[0]
         return wkv6_kernel(r, k, v, w, u)
     if r.shape[1] >= 2 * cfg.ssm_chunk:
         return wkv6_chunked(r, k, v, w, u, chunk=cfg.ssm_chunk)
@@ -249,9 +269,21 @@ class Rwkv6LM:
                 "head": L.linear_init(gen, d, cfg.vocab, dt)}
 
     def apply(self, params, batch, tape: Tape):
-        raise NotImplementedError(
-            "DP training of rwkv6 is not ported yet: it needs a backward of "
-            "the wkv recurrence (ROADMAP Queue 1 item 9)")
+        """batch {'tokens': (B,T) int32 [, 'mask']} -> per-sample losses
+        (B,): the blocks under ``tape.stacked("blocks")``, as the JAX
+        package scans them."""
+        cfg, tokens = self.cfg, batch["tokens"]
+        x = L.embedding(tape, "embed", params["embed"], tokens)
+        x = L.layernorm(params["ln_in"], x)
+        with tape.stacked("blocks"):
+            for l in range(cfg.n_layers):
+                x = block_apply(tape.layer_params("blocks", params["blocks"],
+                                                  l), tape, x, cfg)
+        x = L.layernorm(params["final_norm"], x)
+        logits = L.linear(tape, "head", params["head"], x)
+        mask = batch.get("mask")
+        mask = mask[:, 1:] if mask is not None else None
+        return L.lm_per_sample_loss(logits[:, :-1], tokens[:, 1:], mask)
 
     @torch.no_grad()
     def prefill(self, params, tokens):

@@ -957,6 +957,7 @@ def test_grad_norm_direct_launches_its_route(fake_lib, empty_shapes, dtype,
     assert grad_norm_direct.wgmma_launches == w0 + wgmma
 
 
+@pytest.mark.parametrize("per_sample_u", [False, True])
 @pytest.mark.parametrize("dtype,h,kernel,entry", [
     (torch.bfloat16, 64, None, "dp_wkv6_chunked"),
     (torch.float32, 64, None, "dp_wkv6_chunked"),
@@ -965,18 +966,20 @@ def test_grad_norm_direct_launches_its_route(fake_lib, empty_shapes, dtype,
     (torch.bfloat16, 64, "scan", "dp_wkv6"),
 ])
 def test_wkv6_launches_its_route(fake_lib, empty_shapes, dtype, h, kernel,
-                                 entry):
+                                 entry, per_sample_u):
     """The wrapper launches the C entry its route names, with the argument
-    count of its signature and (B, T, H, h), gives the chunked kernel the
+    count of its signature, u's batch stride (0 for (H,h), H h for the
+    per-sample (B,H,h)) and (B, T, H, h), gives the chunked kernel the
     (B, H, chunks, h, h) f32 state scratch the C side asks for, and counts
     every launch and the chunked ones."""
     B, T, H = 2, 100, 3
     fake_lib.sizes["dp_wkv6_chunked_nparts"] = 2
     n0, c0 = wkv6.launches, wkv6.chunked_launches
-    out = wkv6(*(_meta(B, T, H, h, dtype=dtype),) * 4, _meta(H, h),
-               kernel=kernel)
+    u = _meta(B, H, h) if per_sample_u else _meta(H, h)
+    out = wkv6(*(_meta(B, T, H, h, dtype=dtype),) * 4, u, kernel=kernel)
     assert out.shape == (B, T, H, h) and out.dtype == torch.float32
     assert fake_lib.calls == [(entry, len(build.SIGNATURES[entry]))]
+    assert fake_lib.last_args[5] == (H * h if per_sample_u else 0)
     chunked = entry == "dp_wkv6_chunked"
     if chunked:
         assert fake_lib.asked == [("dp_wkv6_chunked_nparts", (T, h))]

@@ -3,7 +3,7 @@ size, f32: the same params (converted key by key, rwkv6's flat keys
 unchanged) and numpy tokens -> the same prefill logits (below 2 * ssm_chunk
 through ``wkv6_ref``, above it through ``wkv6_chunked`` with padding, as the
 JAX model routes them on the CPU), decode chain, state caches and greedy
-tokens. DP training is not ported and says so."""
+tokens. Its DP training: tests/test_torch_rwkv6_train.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -84,8 +84,3 @@ def test_generate_matches_jax():
     jl, _, _, _ = decode_chain(jm, jp, tm, tp, want, 0)
     np.testing.assert_allclose(logits.numpy(), jl, **TOL)
 
-
-def test_apply_is_not_ported():
-    _, _, tm, tp = models(ARCH)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tm.apply(tp, {"tokens": torch.zeros(1, 4, dtype=torch.int32)}, None)
