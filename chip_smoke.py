@@ -166,6 +166,26 @@ Phases, each printing JSON lines:
             the BK paths and under 'nonprivate'); the last step runs under
             torch.profiler, whose summary gives the device time of the
             ``bk_phases_1_3`` and ``phase4_update`` ranges
+  train_resume  checkpoint and restart through ``launch.train``'s command
+                line (``RESUME_CASES``): (a) qwen2-1.5b at full width and
+                depth, registered policy, bk-mixopt, AdamW, B=8, T=512,
+                sigma 1.0, 4 steps; (b) DP-FTRL at the smoke width (f32,
+                restarts every 4, 8 steps). Each: the run without a
+                checkpoint directory in this process, then with
+                ``--ckpt-dir`` (``--ckpt-every 2``) in a subprocess that
+                ``REPRO_FAULT`` kills at the top of step 3 (b: 6) and must
+                die so, then the same command again in this process: it
+                must resume (``resumed_from`` > 0) and end with the first
+                run's ``params_sha256`` and epsilon, each equal, launching
+                each kernel a step as that run did. Prints the disk's free
+                bytes and MemAvailable, the checkpoint's bytes, the seconds
+                its save blocked the step (the copy to pinned host
+                buffers), the writer thread's seconds, the seconds of
+                ``latest_step`` + ``restore``, and the saving step's peak
+                device memory against the same step of the first run: the
+                gap must stay under SAVE_PEAK_GAP (1 GiB: no device copy).
+                The checkpoints go under ``build/train_resume/`` and are
+                deleted
   prefill       qwen2-1.5b, full (28 layers, bf16), B=4, T=4096, through
                 ``model.prefill``: flash_attention once a layer
   prefill_rwkv  rwkv6-3b, full (32 layers, bf16), B=4, T=4096: wkv6 once a
@@ -229,7 +249,9 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -245,7 +267,8 @@ SERVES = ("serve", "serve_rwkv")
 PARITIES = ("parity", "parity_moe", "parity_long", "parity_layer",
             "parity_modes", "parity_rwkv")
 SERVE_PARITIES = ("parity_prefill", "parity_prefill_rwkv")
-PHASES = (("card", "build", "kernels") + TRAINS + PREFILLS + SERVES
+RESUMES = ("train_resume",)
+PHASES = (("card", "build", "kernels") + TRAINS + RESUMES + PREFILLS + SERVES
           + PARITIES + SERVE_PARITIES)
 EXTRA_PHASES = ("wgmma", "noise")
 
@@ -491,6 +514,26 @@ SERVING = {"prefill": dict(arch="qwen2-1.5b", batch=4, seq=4096,
 # train paths that share one model, seed and batch (so one set of records)
 PATH_GROUPS = (("train", "train_layer"), ("train_moe", "train_moe_direct"),
                ("train_long", "train_tape"))
+# train_resume's cases: a train command line (``launch.train``'s flags),
+# the checkpoint period and the step whose top kills the checkpointing run.
+# full: qwen2-1.5b at full width and depth, its registered policy,
+# bk-mixopt, AdamW, sigma 1.0 (train's run, 4 steps); ftrl_smoke: DP-FTRL
+# across a tree and anchor restart at the smoke width, f32 (the argv of
+# tests/test_elastic_restart.py)
+RESUME_CASES = {
+    "full": dict(argv=["--arch", "qwen2-1.5b", "--steps", "4", "--batch", "8",
+                       "--seq", "512", "--sigma", "1.0", "--optimizer",
+                       "adamw", "--ckpt-every", "2", "--keep-checkpoints",
+                       "1"], kill=3),
+    "ftrl_smoke": dict(argv=["--arch", "qwen2-1.5b", "--smoke", "--steps",
+                             "8", "--batch", "4", "--seq", "16", "--lr",
+                             "1e-3", "--optimizer", "ftrl", "--restart-every",
+                             "4", "--mode", "bk", "--policy", "", "--sigma",
+                             "0.5", "--ckpt-every", "2"], kill=6),
+}
+# the most a step that saves may add to the device's peak memory: the save
+# copies to pinned host buffers, never to a second device copy
+SAVE_PEAK_GAP = 1 << 30
 
 
 def emit(**obj):
@@ -2684,6 +2727,139 @@ def phase_train(name, stats: dict):
     return totals
 
 
+def _train_in_process(argv, ws):
+    """``launch.train``'s command line ``argv`` run in this process (the
+    configuration ``main`` builds) -> (summary, per step: seconds, peak
+    device bytes since the step before, launches; driver log)."""
+    import torch
+    from repro_torch.launch.train import cli_args, train
+    kwargs, _ = cli_args(argv)
+    steps, logs, summary = {}, [], {}
+    counts = {k: 0 for k in ws}
+
+    def on_step(step, loss, seconds):
+        now = {k: w.launches for k, w in ws.items()}
+        steps[step] = {"loss": loss, "seconds": seconds,
+                       "peak_bytes": torch.cuda.max_memory_allocated(),
+                       "launches": {k: now[k] - counts[k] for k in now}}
+        counts.update(now)
+        torch.cuda.reset_peak_memory_stats()
+
+    fresh_peak()
+    reset_counts(ws)
+    params, _ = train(**kwargs, log=logs.append, on_step=on_step,
+                      summary_out=summary)
+    del params
+    fresh_peak()
+    return summary, steps, [m for m in logs if not m.startswith("step ")]
+
+
+def phase_train_resume(name):
+    """Kill-and-resume through ``launch.train`` (``RESUME_CASES``): the
+    uninterrupted run without a checkpoint directory (this process), the
+    same run with ``--ckpt-dir`` in a subprocess killed by ``REPRO_FAULT``
+    at a step's top (it must die as ``expected_death`` says), then the same
+    command again (this process), which must resume and end with the first
+    run's ``params_sha256`` and epsilon, each equal. Prints the disk's free
+    bytes and the host's MemAvailable before the writes, one checkpoint's
+    bytes, the seconds a save blocks its step, the writer's seconds, the
+    seconds of ``latest_step`` + ``restore``, and the peak device memory of
+    the resumed run's saving step against the same step of the first run
+    (under SAVE_PEAK_GAP). -> launch totals of the in-process runs."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.runtime import fault_injection as fi
+    ws = wrappers()
+    totals = dict.fromkeys(ws, 0)
+    for case, spec in RESUME_CASES.items():
+        root = ROOT / "build" / "train_resume" / case
+        shutil.rmtree(root, ignore_errors=True)
+        root.mkdir(parents=True)
+        ck = root / "ck"
+        argv = spec["argv"]
+        ref, ref_steps, ref_log = _train_in_process(argv, ws)
+        meminfo = Path("/proc/meminfo").read_text()
+        emit(phase=name, case=case, run="uninterrupted", argv=argv,
+             disk_free_bytes=shutil.disk_usage(root).free,
+             mem_available_kb=int(re.search(r"MemAvailable:\s+(\d+)",
+                                            meminfo).group(1)),
+             params_sha256=ref["params_sha256"], epsilon=ref["epsilon"],
+             steps=ref_steps, driver_log=ref_log)
+
+        fault = fi.FaultSpec("step", spec["kill"], "sigkill")
+        code = ("from repro_torch.launch.train import main\n"
+                f"main({[*argv, '--ckpt-dir', str(ck)]!r})\n")
+        t0 = time.perf_counter()
+        killed = fi.run_subprocess(code, fault,
+                                   env={"PYTHONPATH": str(ROOT / "src"),
+                                        "PYTHONUNBUFFERED": "1"},
+                                   timeout=900, cwd=str(ROOT))
+        killed_s = time.perf_counter() - t0
+        latest = ckpt.latest_step(str(ck))
+        # its saves' host copies, from its log (the first pins the buffers)
+        copies = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+            r"checkpoint step (\d+): copied to the host in ([\d.]+)s",
+            killed.stdout)}
+        emit(phase=name, case=case, run="killed", fault=fault.encode(),
+             returncode=killed.returncode, seconds=killed_s,
+             latest_step=latest, listed=ckpt.steps(str(ck)),
+             on_disk=sorted(os.listdir(ck)), save_blocking_seconds=copies,
+             driver_log=killed.stdout.splitlines()[-12:])
+        if latest is None:
+            raise AssertionError(f"{name} {case}: the killed run left no "
+                                 "valid checkpoint")
+
+        got, got_steps, got_log = _train_in_process(
+            [*argv, "--ckpt-dir", str(ck)], ws)
+        shutil.rmtree(root)
+        saves = got["checkpoints"]["saves"]
+        every = int(argv[argv.index("--ckpt-every") + 1])
+        saving = [s for s in got_steps if s % every == 0]
+        row = dict(
+            phase=name, case=case, run="resumed",
+            resumed_from=got["resumed_from"],
+            params_sha256=got["params_sha256"], epsilon=got["epsilon"],
+            bitwise=got["params_sha256"] == ref["params_sha256"],
+            epsilon_equal=got["epsilon"] == ref["epsilon"],
+            checkpoint_bytes=saves[-1]["bytes"],
+            save_blocking_seconds=saves[-1]["snapshot_seconds"],
+            writer_seconds=saves[-1]["writer_seconds"],
+            restore_seconds=got["checkpoints"]["restore_seconds"],
+            saves=saves, steps=got_steps, driver_log=got_log)
+        if saving:
+            s = saving[-1]
+            row.update(saving_step=s,
+                       saving_step_peak_bytes=got_steps[s]["peak_bytes"],
+                       same_step_unsaved_peak_bytes=ref_steps[s]["peak_bytes"],
+                       saving_step_seconds=got_steps[s]["seconds"],
+                       same_step_unsaved_seconds=ref_steps[s]["seconds"])
+            row["save_peak_gap_bytes"] = (row["saving_step_peak_bytes"]
+                                          - row["same_step_unsaved_peak_bytes"])
+        emit(**row)
+        if not got["resumed_from"] > 0:
+            raise AssertionError(f"{name} {case}: the rerun did not resume")
+        if not (row["bitwise"] and row["epsilon_equal"]):
+            raise AssertionError(
+                f"{name} {case}: the resumed run ends at {got['params_sha256']}"
+                f", epsilon {got['epsilon']}; the uninterrupted run at "
+                f"{ref['params_sha256']}, epsilon {ref['epsilon']}")
+        if not saving:
+            raise AssertionError(f"{name} {case}: the resumed run "
+                                 "saved at no step")
+        if row["save_peak_gap_bytes"] >= SAVE_PEAK_GAP:
+            raise AssertionError(f"{name} {case}: a saving step peaks "
+                                 f"{row['save_peak_gap_bytes']} bytes above "
+                                 "the same step unsaved")
+        for s, rec in got_steps.items():
+            if rec["launches"] != ref_steps[s]["launches"]:
+                raise AssertionError(
+                    f"{name} {case} step {s}: resumed launches "
+                    f"{rec['launches']}, uninterrupted {ref_steps[s]['launches']}")
+        for rec in (*ref_steps.values(), *got_steps.values()):
+            for k, n in rec["launches"].items():
+                totals[k] += n
+    return totals
+
+
 def paper_ratios(stats: dict) -> dict:
     """The paper's two comparisons at qwen2-1.5b's full width and depth:
     bk-mixopt (``train``) over standard training (``train_nonprivate``),
@@ -3415,6 +3591,10 @@ def main(argv=None) -> int:
             totals = (phase_train(name, train_stats) if name in TRAINS
                       else phase_prefill(name))
             for k, n in totals.items():
+                launches[k] = launches.get(k, 0) + n
+    for name in RESUMES:
+        if name in phases:
+            for k, n in phase_train_resume(name).items():
                 launches[k] = launches.get(k, 0) + n
     if all(p in train_stats for p in ("train", "train_nonprivate",
                                       "train_ghostclip")):

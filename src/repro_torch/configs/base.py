@@ -69,6 +69,12 @@ class TrainConfig:
     # loss log + device->host flush period in steps: the loop keeps losses
     # on the device and drains them every log_every steps (and at exit)
     log_every: int = 10
+    # checkpoint every N steps into checkpoint_dir ("" or N = 0: none; a
+    # SIGTERM or a stall still forces one where a dir is set), keeping the
+    # newest keep_checkpoints
+    checkpoint_every: int = 0
+    checkpoint_dir: str = ""
+    keep_checkpoints: int = 3
     # tape residency override (core.tape.TAPE_POLICIES): "" keeps whatever
     # the DPConfig / policy preset configured; tape_chunks 0 likewise
     tape: str = ""

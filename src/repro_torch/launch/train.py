@@ -24,14 +24,32 @@ is switched to binary-tree aggregation (depth sized to the run's horizon),
 every N steps, ``--tree-completion`` applies the honest-restart variance
 correction at each boundary. Every step is recorded in a
 ``PrivacyLedger``; the run ends with the epsilon spent, and ``--out`` writes
-a JSON summary (steps, epsilon, the params' sha256, the ledger). Losses
-stay on the device and are drained every ``--log-every`` steps.
+a JSON summary (steps, the step it resumed from, epsilon, the params'
+sha256, the ledger). Losses stay on the device and are drained every
+``--log-every`` steps.
+
+Checkpoint and restart: ``--ckpt-dir D --ckpt-every N`` saves a format-2
+checkpoint (``checkpoint.checkpoint``: params, optimizer state, the step,
+the base key, and the run state of ``checkpoint.run_state`` in its
+manifest) every N steps, keeping the newest ``--keep-checkpoints``. The
+copy to the host blocks the step; the write runs on a thread. The same
+command run again after a SIGKILL, a SIGTERM or a torn write resumes from
+the newest valid checkpoint and ends bitwise where the run that never
+stopped ends (``params_sha256``), with the same epsilon; a SIGTERM (or a
+stalled step) saves the current step and exits 0. ``REPRO_FAULT``
+(``runtime.fault_injection``) injects such faults:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --steps 8 \
+        --ckpt-dir ck --ckpt-every 2 --out s.json
+    REPRO_FAULT=step@5 PYTHONPATH=src python -m repro_torch.launch.train \
+        --steps 8 --ckpt-dir ck --ckpt-every 2 --out s.json   # killed
+    PYTHONPATH=src python -m repro_torch.launch.train --steps 8 \
+        --ckpt-dir ck --ckpt-every 2 --out s.json   # resumes
 
 Runs on the CUDA card by default; ``--device cpu`` runs the same engine with
 the kernels' plain PyTorch versions (tests, small configs). Without a card
-the default raises instead of falling back to the CPU. Checkpoints
-(``--ckpt-dir``), meshes (``--mesh``) and ``--autotune`` are not ported
-(ROADMAP B6, B7, B9).
+the default raises instead of falling back to the CPU. Meshes (``--mesh``)
+and ``--autotune`` are not ported (ROADMAP B7, B9).
 """
 from __future__ import annotations
 
@@ -41,9 +59,12 @@ import json
 import math
 import time
 
+import numpy as np
 import torch
 
-from repro_torch.checkpoint.run_state import params_digest
+from repro_torch.checkpoint.run_state import (check_resume,
+                                              config_fingerprint, pack_meta,
+                                              params_digest)
 from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import (build, get_config, get_policy,
                                           has_policy, list_archs,
@@ -58,6 +79,9 @@ from repro_torch.data.pipeline import Pipeline, PipelineConfig
 from repro_torch.launch.steps import TrainState, make_train_step
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.optim.schedules import make_schedule
+from repro_torch.runtime.fault_injection import maybe_fault
+from repro_torch.runtime.fault_tolerance import (CheckpointManager,
+                                                 Heartbeat, PreemptionGuard)
 
 OPTIMIZERS = ("sgd", "adamw", "lamb", "adafactor", "ftrl")
 
@@ -186,8 +210,17 @@ def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
     recorded in a ``PrivacyLedger``. Losses are drained every
     ``tc.log_every`` steps; ``on_step(step, loss, seconds)``, when given, is
     called after every step, which then drains its loss: the seconds cover
-    the step up to its loss on the host. ``summary_out`` (a dict) receives
-    the run's summary. -> (params, losses)."""
+    the step up to its loss on the host (and the blocking part of a save
+    at that step). ``summary_out`` (a dict) receives the run's summary.
+
+    With ``tc.checkpoint_dir`` set, the run first resumes from the newest
+    valid checkpoint there (params, optimizer state, the base key, the
+    ledger; the run state checked by ``run_state.check_resume``) at its
+    step + 1, saves every ``tc.checkpoint_every`` steps (the host copy
+    blocks, the write runs on a thread), and on SIGTERM or a stalled step
+    saves the current step and returns; the summary then also has
+    ``checkpoints`` (each save's bytes, blocking and writer seconds, the
+    restore's seconds). -> (params, losses)."""
     dev = resolve_device(device)
     dp = train_policy(dp, tc)
     dp = calibrate(dp, tc, dataset_size, target_epsilon, delta, log)
@@ -202,7 +235,9 @@ def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
             f"noise_depth={policy.noise_depth} covers only "
             f"{(1 << policy.noise_depth) - 1} steps but the run has "
             f"{tc.steps}; raise noise_depth or set restarts")
-    policy.mechanism()           # mechanism config errors before the init
+    # mechanism config errors before the init; the instance also carries
+    # the noise state a checkpoint persists
+    mech = policy.mechanism()
 
     model = build(model_cfg)
     opt_kw = ({"momentum": tc.ftrl_momentum, "restart_every": ftrl_restart}
@@ -226,35 +261,104 @@ def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
                                          / dataset_size))
                         if dataset_size > 0 else 1))
     ledger = PrivacyLedger()
+    fingerprint = config_fingerprint(tc, policy, ftrl_restart)
 
-    params = model.init(tc.seed, dev)
-    state = TrainState(params, opt.init(params), 0, prng_key(tc.seed + 1))
-    step_fn = make_train_step(model.apply, params, opt, dp, tc.microbatch)
-    del params
-    losses, pending = [], []
-    log_every = 1 if on_step is not None else max(1, tc.log_every)
-    t_flush = time.perf_counter()
+    guard = PreemptionGuard()
 
-    def flush(step: int):
-        nonlocal t_flush
-        n = len(pending)
-        losses.extend(torch.stack(pending).float().tolist())  # waits
-        pending.clear()
-        dt = (time.perf_counter() - t_flush) / n
+    def on_stall(report):
+        # a hung step cannot be checkpointed from here, but if the loop
+        # ever returns it saves before it exits instead of running on
+        log(report.describe() + "; requesting graceful stop + checkpoint")
+        guard.request_stop()
+
+    hb = Heartbeat(timeout_s=600.0, on_stall=on_stall, device=dev)
+    mgr = (CheckpointManager(tc.checkpoint_dir, every=tc.checkpoint_every,
+                             keep=tc.keep_checkpoints)
+           if tc.checkpoint_dir else None)
+    try:
+        params = model.init(tc.seed, dev)
+        opt_state = opt.init(params)
+        rng, start = prng_key(tc.seed + 1), 0
+        if mgr is not None:
+            state0, step0, meta0 = mgr.resume(
+                template={"params": params, "opt": opt_state,
+                          "step": np.asarray(0),
+                          "rng": np.asarray(rng, np.uint32)}, device=dev)
+            if state0 is not None:
+                # raises on privacy-critical drift; the ledger resumes as
+                # it was saved
+                ledger = check_resume(meta0, mech, pipe, fingerprint, log=log)
+                params, opt_state = state0["params"], state0["opt"]
+                # the checkpointed base key: each step folds its absolute
+                # index in, so the resumed run replays the same noise
+                rng = tuple(int(k) for k in state0["rng"].tolist())
+                start = step0 + 1
+                log(f"resumed from step {step0} (ledger covers "
+                    f"{ledger.recorded_to} steps; restore "
+                    f"{mgr.restore_seconds:.3f}s)")
+            del state0
+        state = TrainState(params, opt_state, start, rng)
+        step_fn = make_train_step(model.apply, params, opt, dp,
+                                  tc.microbatch)
+        del params, opt_state
+
+        def snapshot(s: TrainState, step: int) -> dict:
+            return {"params": s.params, "opt": s.opt_state,
+                    "step": np.asarray(step),
+                    "rng": np.asarray(s.rng, np.uint32)}
+
+        losses, pending = [], []
+        log_every = 1 if on_step is not None else max(1, tc.log_every)
         t_flush = time.perf_counter()
-        log(f"step {step:5d} loss {losses[-1]:.4f} ({dt:.3f}s/step over "
-            f"last {n})")
 
-    for step in range(tc.steps):
-        batch = pipe.batch(step)
-        t0 = time.perf_counter()
-        state, loss = step_fn(state, batch)
-        pending.append(loss.detach())
-        ledger.record_to(step + 1, **ledger_kw)
-        if (step + 1) % log_every == 0 or step == tc.steps - 1:
-            flush(step)
-        if on_step is not None:
-            on_step(step, losses[-1], time.perf_counter() - t0)
+        def flush(step: int):
+            nonlocal t_flush
+            n = len(pending)
+            losses.extend(torch.stack(pending).float().tolist())  # waits
+            pending.clear()
+            dt = (time.perf_counter() - t_flush) / n
+            t_flush = time.perf_counter()
+            log(f"step {step:5d} loss {losses[-1]:.4f} ({dt:.3f}s/step "
+                f"over last {n})")
+
+        for step in range(start, tc.steps):
+            maybe_fault("step", step)     # crash / preemption injection
+            batch = pipe.batch(step)
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, batch)
+            pending.append(loss.detach())
+            hb.beat(step)
+            # a resumed run's replayed steps are no-ops (idempotent)
+            ledger.record_to(step + 1, **ledger_kw)
+            stop = guard.should_stop()
+            if mgr is not None:
+                # the snapshot copies before the next step updates in place
+                meta = pack_meta(mech, ledger, pipe, fingerprint)
+                saved = mgr.maybe_save(step, snapshot(state, step), meta=meta)
+                if stop and not saved:
+                    saved = mgr.maybe_save(step, snapshot(state, step),
+                                           force=True, meta=meta)
+                if saved:
+                    log(f"checkpoint step {step}: copied to the host in "
+                        f"{mgr.saves[-1]['snapshot_seconds']:.3f}s")
+            if stop or (step + 1) % log_every == 0 or step == tc.steps - 1:
+                flush(step)
+            if on_step is not None:
+                on_step(step, losses[-1], time.perf_counter() - t0)
+            if stop:
+                log(f"preempted at step {step}"
+                    + ("; checkpoint saved" if mgr is not None else ""))
+                break
+        if mgr is not None:
+            mgr.wait()
+            for rec in mgr.saves:
+                log(f"checkpoint step {rec['step']}: {rec['bytes']} bytes "
+                    f"written in {rec['writer_seconds']:.3f}s")
+    finally:
+        hb.close()
+        guard.close()
+        if mgr is not None:
+            mgr.close()
 
     epsilon = None
     if policy.mode != "nonprivate" and ledger.recorded_to > 0:
@@ -265,16 +369,23 @@ def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
     if summary_out is not None:
         summary_out.update({
             "steps_done": ledger.recorded_to,
-            "resumed_from": 0,
+            "resumed_from": start,
             "epsilon": epsilon,
             "delta": delta,
             "params_sha256": params_digest(state.params),
             "ledger": ledger.to_json(),
         })
+        if mgr is not None:
+            summary_out["checkpoints"] = {
+                "saves": mgr.saves, "restore_seconds": mgr.restore_seconds}
     return state.params, losses
 
 
-def main(argv=None):
+def cli_args(argv=None):
+    """The command line -> (``train``'s keyword arguments, the ``--out``
+    path). ``main`` runs ``train(**kwargs)``; a caller that runs the same
+    command line in its own process (``chip_smoke.py``) builds the same
+    configuration here."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list_archs(), default="qwen2-1.5b")
     ap.add_argument("--smoke", action="store_true",
@@ -327,9 +438,18 @@ def main(argv=None):
                          "'' keeps the policy's scopes")
     ap.add_argument("--log-every", type=int, default=10,
                     help="loss log + device->host flush period in steps")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint directory: resume from its newest "
+                         "valid checkpoint, save into it (every "
+                         "--ckpt-every steps, and on SIGTERM)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="checkpoint period in steps (0 = only on SIGTERM "
+                         "or a stall)")
+    ap.add_argument("--keep-checkpoints", type=int, default=3,
+                    help="the newest checkpoints kept in --ckpt-dir")
     ap.add_argument("--out", default="",
-                    help="write a json run summary (steps done, epsilon, "
-                         "params sha256, ledger)")
+                    help="write a json run summary (steps done, the step "
+                         "it resumed from, epsilon, params sha256, ledger)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -349,17 +469,25 @@ def main(argv=None):
                      tree_completion=args.tree_completion, seed=args.seed,
                      log_every=args.log_every, tape=args.tape,
                      tape_chunks=args.tape_chunks,
-                     clipping_scope=args.clipping_scope)
+                     clipping_scope=args.clipping_scope,
+                     checkpoint_dir=args.ckpt_dir,
+                     checkpoint_every=args.ckpt_every,
+                     keep_checkpoints=args.keep_checkpoints)
     dp = resolve_dp(args.arch, args.policy, args.mode, args.clipping,
                     args.sigma)
-    summary = {} if args.out else None
-    out = train(mc, tc, dp, device=args.device,
-                dataset_size=args.dataset_size, target_epsilon=args.epsilon,
-                summary_out=summary)
-    if args.out:
-        with open(args.out, "w") as f:
+    return dict(model_cfg=mc, tc=tc, dp=dp, device=args.device,
+                dataset_size=args.dataset_size,
+                target_epsilon=args.epsilon), args.out
+
+
+def main(argv=None):
+    kwargs, out_path = cli_args(argv)
+    summary = {} if out_path else None
+    out = train(**kwargs, summary_out=summary)
+    if out_path:
+        with open(out_path, "w") as f:
             json.dump(summary, f, indent=2)
-        print(f"summary written to {args.out}")
+        print(f"summary written to {out_path}")
     return out
 
 
