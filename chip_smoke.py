@@ -111,9 +111,21 @@ Phases, each printing JSON lines:
             3 keys at its three largest leaves in f32, ragged, unaligned
             and mixed-alignment leaves and no noise; s, m and t0 bitwise
             the plain version's, bf16 p within half an ulp of the plain
-            f32 p (+ f32 TOL), bitwise run to run
+            f32 p (+ f32 TOL), bitwise run to run.
+            shard blocks (both noise kernels' block route, a rank's block
+            of a leaf under a mesh; ``shard_block_checks``): every rank
+            block of every leaf of ``train`` under the meshes (2,2),
+            (4,2) and (2,2,2) (runs that stay in their rows), then
+            SHARD_RAGGED's blocks and train's o/w at an odd offset (runs
+            that cross rows), counter_noise at a Gaussian key and a tree's
+            two draws, noise_update's AdamW, SGD and FTRL at both: each
+            block bitwise the same block of the whole-leaf launch, the
+            plain version on the card and a zeroed guard around it
+            untouched; then one (2,2) rank's blocks of train's leaves timed
+            by the block route beside the window route over the same
+            elements (each kernel's summary row: ``shard_block_route``)
   noise     (not in the default run) counter_noise's and noise_update's
-            checks alone
+            checks alone, shard blocks included
   wgmma     (not in the default run) the short call after a tensor-core
             kernel edit: those checks at one tile, the ragged bf16 shapes
             and one row shape of each (the head tap of ``train``, whose
@@ -166,6 +178,31 @@ Phases, each printing JSON lines:
             the BK paths and under 'nonprivate'); the last step runs under
             torch.profiler, whose summary gives the device time of the
             ``bk_phases_1_3`` and ``phase4_update`` ranges
+  train_mesh    ``train`` through the mesh path: --mesh 1,1, a world of one
+                process under NCCL (B=8, T=512, sigma 1, 3 AdamW steps);
+                its params' sha256 and epsilon equal a no-mesh run's in
+                the same phase; its launches a step as train's (none by
+                the noise kernels' block route), its last step profiled
+  train_mesh2   two processes sharing the card under gloo (NCCL cannot put
+                two ranks on one device), qwen2-1.5b at full width and 4 of
+                its 28 layers, f32, B=8, T=512, sigma 1, 3 AdamW steps
+                (MESH2), after the same run in this process (world 1): (a)
+                --mesh 2,1 (4 rows a rank, one all-reduce a weighted grad,
+                a checkpoint every step) within rtol 1e-3 / atol 1e-5 and
+                losses within 1e-4, (b) --mesh 1,2 (the model axis: blocks
+                that take the noise kernels' block route) bitwise, (c) (a)'s
+                last checkpoint (two process files, slices at nonzero
+                offsets) restored in this process with (a)'s params sha256
+                and epsilon; every run's launches a step held to train's
+                kernels on the SIMT routes (f32) and one noise_update a
+                leaf, of them the block route's as many as the rank's
+                blocks that are not one run of the leaf (none on world 1,
+                some on (b)); (d) the bf16 clipped sums of one step over
+                2,1 equal to world 1's in 99% of elements or more (f32
+                partials summed, then cast once), every gap within one
+                bf16 ulp of its leaf's largest magnitude;
+                each rank's peak, the bytes of its blocks at rest and its
+                step seconds. No multi-card number: one card
   train_resume  checkpoint and restart through ``launch.train``'s command
                 line (``RESUME_CASES``): (a) qwen2-1.5b at full width and
                 depth, registered policy, bk-mixopt, AdamW, B=8, T=512,
@@ -261,15 +298,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TRAINS = ("train", "train_nonprivate", "train_ghostclip", "train_moe",
           "train_moe_direct", "train_long", "train_layer", "train_tape",
-          "train_ftrl", "train_rwkv")
+          "train_ftrl", "train_rwkv", "train_mesh")
 PREFILLS = ("prefill", "prefill_rwkv")
 SERVES = ("serve", "serve_rwkv")
 PARITIES = ("parity", "parity_moe", "parity_long", "parity_layer",
             "parity_modes", "parity_rwkv")
 SERVE_PARITIES = ("parity_prefill", "parity_prefill_rwkv")
 RESUMES = ("train_resume",)
-PHASES = (("card", "build", "kernels") + TRAINS + RESUMES + PREFILLS + SERVES
-          + PARITIES + SERVE_PARITIES)
+MESHES = ("train_mesh2",)
+PHASES = (("card", "build", "kernels") + TRAINS + MESHES + RESUMES + PREFILLS
+          + SERVES + PARITIES + SERVE_PARITIES)
 EXTRA_PHASES = ("wgmma", "noise")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s by
@@ -471,7 +509,22 @@ RUNS = {
                            ghost_norm=9, grad_norm_direct=8, clipped_grad=17,
                            emb_ghost_norm=1, emb_clipped_grad=1,
                            wkv6=RWKV_LAYERS, wkv6_backward=RWKV_LAYERS)),
+    # train through the mesh path: --mesh 1,1, a world of one process under
+    # NCCL (the sharded step's gathers, all-reduces and block noise all of
+    # one rank); its params' sha256 must equal a no-mesh run's
+    "train_mesh": dict(arch="qwen2-1.5b", layers=0, batch=8, seq=512,
+                       steps=3, direct=False, mesh=(1, 1),
+                       per_step=_per_step(
+                           ghost_norm=5, clipped_grad=5, emb_ghost_norm=1,
+                           emb_clipped_grad=1)),
 }
+# two processes sharing the card under gloo (NCCL cannot put two ranks on
+# one device): qwen2-1.5b at full width, 4 of its 28 layers, f32, sigma 1,
+# 3 AdamW steps (``phase_train_mesh2``): (a) --mesh 2,1 (B=8, 4 a rank, a
+# checkpoint every step), (b) --mesh 1,2, each against world 1
+MESH2 = dict(arch="qwen2-1.5b", layers=4, batch=8, seq=512, steps=3,
+             dtype="float32", cases={"a": (2, 1), "b": (1, 2)})
+MESH2_TOL = dict(rtol=1e-3, atol=1e-5)     # tests/test_sharded_step.py:80
 # fused_clip_grad's gate-edge cases (name, L, d, p; bf16, B=8, T=512): the
 # largest units the reference's rule (kernels.dispatch.fused_plan) sends to
 # it, square, stacked exactly at its budget, and the rank-16 adapter's A and
@@ -534,6 +587,28 @@ RESUME_CASES = {
 # the most a step that saves may add to the device's peak memory: the save
 # copies to pinned host buffers, never to a second device copy
 SAVE_PEAK_GAP = 1 << 30
+# the meshes whose rank blocks of train's leaves the noise kernels' block
+# route draws in the kernels phase (``shard_block_checks``)
+SHARD_MESHES = ((2, 2), (4, 2), (2, 2, 2))
+# elements of a zeroed guard on each side of a block's buffer: the block
+# route must write the block's elements and nothing around them
+GUARD = 64
+# blocks whose runs cross their rows' ends (the block route's other form):
+# (label, leaf shape, dtype, spec, mesh, operands' offset in their buffers)
+SHARD_RAGGED = (
+    ("rows of 769", (28, 4, 1538), "float32", (None, "data", "model"),
+     (2, 2), 0),
+    ("rows of 3", (64, 6), "bfloat16", ("data", "model"), (2, 2), 0),
+    ("4 dims, rows of 3", (7, 13, 10, 6), "float32",
+     (None, "data", None, "model"), (2, 2), 0),
+    ("(2,2,2) rows of 769, offset 1", (28, 4, 1538), "bfloat16",
+     (None, "data", "model"), (2, 2, 2), 1))
+# the rank whose blocks of train's leaves time the block route, against the
+# contiguous route over the same leaves cut to the blocks' shapes
+BLOCK_TIMING = ((2, 2), (0, 0))
+# that timing, a row a noise kernel: {kernel: {leaves, elements, block_ms,
+# contiguous_ms, bound_ms}}; set by the block checks
+BLOCK_ROW = {}
 
 
 def emit(**obj):
@@ -570,7 +645,8 @@ def reset_counts(ws):
     """Every launch count to 0, the wgmma and chunked routes' counts too."""
     for w in ws.values():
         w.launches = 0
-        for count in ("wgmma_launches", "chunked_launches"):
+        for count in ("wgmma_launches", "chunked_launches",
+                      "block_launches"):
             if hasattr(w, count):
                 setattr(w, count, 0)
 
@@ -1783,6 +1859,7 @@ def phase_kernels(only_wgmma=False, only_noise=False):
     if only_noise:
         counter_noise_checks(record, rnd)
         noise_update_checks(record, rnd)
+        shard_block_checks(rnd)
         return summary
     if only_wgmma:
         wgmma_shapes()
@@ -1892,6 +1969,7 @@ def phase_kernels(only_wgmma=False, only_noise=False):
     wkv_shapes()
     counter_noise_checks(record, rnd)
     noise_update_checks(record, rnd)
+    shard_block_checks(rnd)
     return summary
 
 
@@ -1905,6 +1983,254 @@ def shifted(t, offset: int):
     out = buf[offset:].view(t.shape)
     out.copy_(t)
     return out
+
+
+def _stand_in_mesh(shape, coords):
+    """A rank of a mesh of ``shape`` at ``coords``, as ``launch.sharding``
+    reads one (axis sizes and the rank's coordinates; no processes)."""
+    import types
+    names = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                        "model")
+    return types.SimpleNamespace(shape=dict(zip(names, shape)),
+                                 axis_names=names,
+                                 coords=dict(zip(names, coords)))
+
+
+def shard_block_checks(rnd):
+    """The noise kernels' block route (``shard blocks``): every rank block
+    that the rules table gives a leaf of ``train`` (qwen2-1.5b at full
+    width, bf16) under each of SHARD_MESHES, the replicas once (rows a
+    multiple of 8 elements, runs from index 0: the route whose runs stay in
+    their rows), then SHARD_RAGGED's blocks (rows of 769 and of 3 elements,
+    a 4-dim leaf) and train's o/w blocks at an odd offset (their runs cross
+    rows: the other route).
+    (a) counter_noise draws each block at train's step-0 key (Gaussian) and
+        at a tree's t = 3 (hi 2 + lo 1 keys: 2 draws), written in place over
+        the block inside a zeroed guard of GUARD elements each side; each
+        block bitwise the same block of the whole-leaf launch, bitwise the
+        plain version on the card (``counter_noise.plain`` at the block's
+        geometry), and the guard untouched (the block's elements drawn,
+        not the leaf's);
+    (b) noise_update at both key sets updates each block (AdamW, SGD, and
+        FTRL's ordinary step; p in the leaf's dtype, f32 state): p and the
+        state bitwise the same block of the whole-leaf launch's; from m = v
+        = 0 with b1 = 0 the m it writes bitwise the plain version's noised
+        gradient; FTRL's s, m and t0 bitwise the plain chain's;
+    (c) the timing of BLOCK_TIMING's rank: each kernel over its blocks of
+        train's leaves (one key, AdamW) by the block route, and by the
+        contiguous route over tensors of the blocks' shapes (the same
+        elements, each block taken as a whole leaf), with the bound of the
+        blocks' elements (BLOCK_ROW)."""
+    import itertools
+
+    import torch
+    from repro_torch.configs.registry import build
+    from repro_torch.core import noise
+    from repro_torch.core.policy import resolve_policy
+    from repro_torch.kernels import counter_noise as cn
+    from repro_torch.kernels import noise_update as nu
+    from repro_torch.kernels.sass import draws
+    from repro_torch.launch import sharding as sh
+    from repro_torch.utils.tree import flatten, unflatten
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    cfg, policy = run_config("train")
+    params = flatten(build(cfg).init(0, dev))
+    shapes = {k: (tuple(v.shape), v.dtype) for k, v in params.items()}
+    del params
+    like = unflatten({k: torch.empty(s, device="meta")
+                      for k, (s, _) in shapes.items()})
+    res = resolve_policy(policy, list(shapes))
+    rng = noise.fold_in(noise.prng_key(1), 0)      # train's step 0
+    alpha = policy.sigma * res.sensitivity
+    denom = float(RUNS["train"]["batch"])
+    tree = noise.TreeAggregationMechanism(seed=3, depth=10)
+    hypers = {"adamw": nu.AdamW(3e-4, 0.9, 0.999, 1e-8, 0.1, 0.001, 0.0),
+              "sgd": nu.SGD(3e-4, 0.9, 0.0), "ftrl": nu.FTRL(3e-4, 0.9)}
+    fresh_peak()
+
+    def update(rec, state, hp, shift=0):
+        p, m, v, t0 = (shifted(t.clone(), shift) for t in state)
+        nu.noise_update(rec, p, m, v, hp, t0=t0)
+        return p, m, v, t0
+
+    def leaf_blocks(label, path, shape, dtype, blocks, count, shift=0):
+        """Every check of (a) and (b) at each of ``blocks`` ({offsets:
+        local shape}) of one leaf; ``shift``: every operand that many
+        elements into its buffer."""
+        g = rnd(*shape, dtype=dtype)
+        state = (rnd(*shape, dtype=f32).mul_(0.02).to(dtype),
+                 rnd(*shape, dtype=f32).mul_(1e-2),
+                 rnd(*shape, dtype=f32).square_().mul_(1e-4),
+                 rnd(*shape, dtype=f32).mul_(0.02))
+        for kind, hi, lo in (("gaussian", [noise._path_rng(rng, path)], []),
+                             ("tree t=3", tree.node_keys(path, 3),
+                              tree.node_keys(path, 2))):
+            whole_g = cn.counter_noise(g, hi, lo, alpha, denom)
+            geo_w = noise.geometry(shape)
+            rec_w = noise.NoisedLeaf(g, tuple(hi), tuple(lo), alpha, denom,
+                                     geo_w.start, geo_w.trail)
+            whole = {opt: update(rec_w, state, hp)
+                     for opt, hp in hypers.items()}
+            for offs, local in sorted(blocks.items()):
+                cut = tuple(slice(o, o + n) for o, n in zip(offs, local))
+                gb = g[cut].contiguous()
+                n = gb.numel()
+                geo = noise.geometry(local, offs, shape)
+                count["block_route"] += not geo.contiguous
+                buf = torch.zeros(n + 2 * GUARD + shift, dtype=dtype,
+                                  device=dev)
+                at = GUARD + shift
+                buf[at:at + n] = gb.view(-1)
+                out = cn.counter_noise(buf[at:at + n].view(local), hi, lo,
+                                       alpha, denom, offs, shape,
+                                       inplace=True)
+                want = cn.plain(gb, hi, lo, alpha, denom, geo.start,
+                                geo.trail, geo.dims, geo.strides)
+                ok = {"counter_noise_whole": torch.equal(out, whole_g[cut]),
+                      "counter_noise_plain": torch.equal(out, want),
+                      "drawn_elements": out.numel() == n and bool(
+                          (buf[:at] == 0).all()
+                          and (buf[at + n:] == 0).all())}
+                del buf, out
+                rec = noise.NoisedLeaf(shifted(gb, shift), tuple(hi),
+                                       tuple(lo), alpha, denom, geo.start,
+                                       geo.trail, geo.dims, geo.strides)
+                sb = tuple(t[cut].contiguous() for t in state)
+                for opt, hp in hypers.items():
+                    got = update(rec, sb, hp, shift)
+                    ok[f"{opt}_whole"] = all(
+                        torch.equal(a, b[cut])
+                        for a, b in zip(got, whole[opt]))
+                    if opt == "ftrl":
+                        pp, sp, mp, tp = (t.clone() for t in sb)
+                        nu.plain(want, pp, sp, mp, hp, t0=tp)
+                        ok["ftrl_plain"] = all(torch.equal(a, b) for a, b
+                                               in zip(got[1:], (sp, mp, tp)))
+                        del pp, sp, mp, tp
+                    del got
+                zk = shifted(torch.zeros(local, dtype=f32, device=dev), shift)
+                nu.noise_update(rec, shifted(sb[0].clone(), shift), zk,
+                                shifted(torch.zeros_like(zk), shift),
+                                nu.AdamW(0.0, 0.0, 0.999, 1e-8, 1.0, 1.0))
+                ok["noise_update_draws_plain"] = torch.equal(zk,
+                                                             want.to(f32))
+                del zk, want, rec, sb, gb
+                count["blocks"] += 1
+                count["elements"] += n
+                if not all(ok.values()):
+                    raise AssertionError(
+                        f"shard blocks {label} {path} at {offs} ({kind}): "
+                        f"{[k for k, v in ok.items() if not v]} not bitwise")
+            del whole_g, whole
+        del g, state
+        torch.cuda.empty_cache()
+
+    def rank_blocks(mesh, shape, spec):
+        out = {}
+        for c in itertools.product(*map(range, mesh)):
+            local, offs = sh.local_block(shape, spec,
+                                         _stand_in_mesh(mesh, c))
+            out[offs] = local
+        return out
+
+    checks = ["counter_noise_whole", "counter_noise_plain", "drawn_elements",
+              "adamw_whole", "sgd_whole", "ftrl_whole", "ftrl_plain",
+              "noise_update_draws_plain"]
+    for mesh in SHARD_MESHES:
+        specs = sh.flat_param_pspecs(like, _stand_in_mesh(mesh, (0,) *
+                                                          len(mesh)))
+        t0 = time.perf_counter()
+        count = dict(leaves=0, blocks=0, elements=0, block_route=0)
+        for path, (shape, dtype) in sorted(shapes.items()):
+            blocks = rank_blocks(mesh, shape, specs[path])
+            if path in res.frozen or len(blocks) == 1:
+                continue           # whole on every rank: the leaf's own rows
+            count["leaves"] += 1
+            leaf_blocks(str(mesh), path, shape, dtype, blocks, count)
+        emit(phase="kernels", kernel="counter_noise, noise_update",
+             case="shard blocks", mesh=list(mesh), **count, checks=checks,
+             key_sets=["gaussian", "tree t=3 (2 draws)"], bitwise=True,
+             runs_stay_in_rows=True, seconds=time.perf_counter() - t0,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+    # the route whose runs cross rows: rows not a multiple of 8 elements,
+    # and operands at an odd offset
+    t0 = time.perf_counter()
+    count = dict(leaves=0, blocks=0, elements=0, block_route=0)
+    for label, shape, dtype, spec, mesh, shift in SHARD_RAGGED:
+        count["leaves"] += 1
+        leaf_blocks(label, label, shape, getattr(torch, dtype),
+                    rank_blocks(mesh, shape, spec), count, shift)
+    o_w = "blocks/attn/o/w"
+    spec = sh.flat_param_pspecs(like, _stand_in_mesh((2, 2), (0, 0)))[o_w]
+    leaf_blocks("odd offset", o_w, shapes[o_w][0], shapes[o_w][1],
+                rank_blocks((2, 2), shapes[o_w][0], spec), count, shift=1)
+    count["leaves"] += 1
+    emit(phase="kernels", kernel="counter_noise, noise_update",
+         case="shard blocks, runs crossing rows",
+         cases=[c[0] for c in SHARD_RAGGED] + ["train o/w (2,2), offset 1"],
+         **count, checks=checks, bitwise=True,
+         seconds=time.perf_counter() - t0)
+
+    # ---- (c) the block route's time against the contiguous route's
+    mesh, coords = BLOCK_TIMING
+    rank = _stand_in_mesh(mesh, coords)
+    specs = sh.flat_param_pspecs(like, rank)
+    for name in ("counter_noise", "noise_update"):
+        BLOCK_ROW[name] = dict(mesh=list(mesh), rank=list(coords), leaves=0,
+                               block_route_leaves=0, elements=0,
+                               block_ms=0.0, contiguous_ms=0.0, bound_ms=0.0)
+    hp = hypers["adamw"]
+    for path, (shape, dtype) in sorted(shapes.items()):
+        if path in res.frozen:
+            continue
+        local, offs = sh.local_block(shape, specs[path], rank)
+        geo = noise.geometry(local, offs, shape)
+        gb = rnd(*local, dtype=dtype)
+        n = gb.numel()
+        key = [noise._path_rng(rng, path)]
+        p, m, v = (rnd(*local, dtype=f32).mul_(0.02).to(dtype),
+                   rnd(*local, dtype=f32).mul_(1e-2),
+                   rnd(*local, dtype=f32).square_().mul_(1e-4))
+        rec_b = noise.NoisedLeaf(gb, tuple(key), (), alpha, denom, geo.start,
+                                 geo.trail, geo.dims, geo.strides)
+        whole = noise.geometry(local)
+        rec_c = noise.NoisedLeaf(gb, tuple(key), (), alpha, denom,
+                                 whole.start, whole.trail)
+        runs = {"counter_noise": (
+                    lambda: cn.counter_noise(gb, key, [], alpha, denom, offs,
+                                             shape),
+                    lambda: cn.counter_noise(gb, key, [], alpha, denom),
+                    bound(2 * n * gb.element_size(),
+                          THREEFRY["draw_ops"] * n, "int32")[0]),
+                "noise_update": (
+                    lambda: nu.noise_update(rec_b, p, m, v, hp),
+                    lambda: nu.noise_update(rec_c, p, m, v, hp),
+                    bound(n * (3 * gb.element_size() + 16),
+                          THREEFRY["draw_ops"] * n * draws(key, []),
+                          "int32")[0])}
+        for name, (block, contiguous, b_ms) in runs.items():
+            row = BLOCK_ROW[name]
+            ms_b, ms_c = cuda_ms(block, reps=5), cuda_ms(contiguous, reps=5)
+            row["leaves"] += 1
+            row["block_route_leaves"] += not geo.contiguous
+            row["elements"] += n
+            row["block_ms"] += ms_b
+            row["contiguous_ms"] += ms_c
+            row["bound_ms"] += b_ms
+            emit(phase="kernels", kernel=name, case="shard block timing",
+                 path=path, mesh=list(mesh), rank=list(coords),
+                 block=list(local), offsets=list(offs),
+                 geometry=[geo.start, list(geo.dims), list(geo.strides)],
+                 route="contiguous" if geo.contiguous else "block",
+                 elements=n, block_ms=ms_b, contiguous_ms=ms_c,
+                 bound_ms=b_ms)
+        del gb, p, m, v, rec_b, rec_c
+        torch.cuda.empty_cache()
+    for name, row in BLOCK_ROW.items():
+        emit(phase="kernels", kernel=name, case="shard block route", **row,
+             block_over_contiguous=row["block_ms"] / row["contiguous_ms"])
 
 
 def bf16_ulp_gap(a, b):
@@ -2666,14 +2992,16 @@ def phase_train(name, stats: dict):
 
     floor = fresh_peak()
     summary, logs = {}, []
+    mesh_kw = {"mesh": run["mesh"]} if "mesh" in run else {}
     reset_counts(ws)                  # counts from here on are the path's
     params, losses = train(cfg, tc, dp, device="cuda", log=logs.append,
                            on_step=on_step,
                            dataset_size=run.get("dataset_size", 0),
                            target_epsilon=run.get("epsilon", 0.0),
-                           summary_out=summary)
+                           summary_out=summary, **mesh_kw)
     torch.cuda.synchronize()
     totals = {k: w.launches for k, w in ws.items()}
+    block = ws["noise_update"].block_launches
     wgmma = check_routes(name, ws, True)
     peak = torch.cuda.max_memory_allocated()
     for s in per_step:
@@ -2724,7 +3052,339 @@ def phase_train(name, stats: dict):
             if n != want[k]:
                 raise AssertionError(f"{name} step {s['step']}: {k} launched "
                                      f"{n} times, want {want[k]}")
+    if "mesh" in run:
+        # the same steps without a mesh, in this phase: the same params
+        plain = {}
+        train(cfg, tc, dp, device="cuda", log=lambda m: None,
+              summary_out=plain)
+        fresh_peak()
+        same = plain["params_sha256"] == summary["params_sha256"]
+        emit(phase=name, mesh=list(run["mesh"]),
+             backend=summary["mesh"]["backend"],
+             block_launches=block, params_sha256=summary["params_sha256"],
+             no_mesh_params_sha256=plain["params_sha256"], bitwise=same,
+             epsilon=summary["epsilon"], no_mesh_epsilon=plain["epsilon"])
+        if not (same and plain["epsilon"] == summary["epsilon"]):
+            raise AssertionError(f"{name}: the mesh run's params or epsilon "
+                                 "differ from the run without a mesh")
+        # a world of one holds every leaf whole: the window route only
+        if summary["mesh"]["backend"] != "nccl" or block:
+            raise AssertionError(
+                f"{name}: backend {summary['mesh']['backend']}, {block} "
+                "block-route launches; want nccl and none")
     return totals
+
+
+def _mesh2_config():
+    """train_mesh2's (ModelConfig, TrainConfig, policy): qwen2-1.5b at full
+    width, MESH2's depth and dtype, its registered policy, bk-mixopt,
+    sigma 1."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import resolve_dp
+    cfg = get_config(MESH2["arch"]).with_(n_layers=MESH2["layers"],
+                                          param_dtype=MESH2["dtype"])
+    tc = TrainConfig(global_batch=MESH2["batch"], seq_len=MESH2["seq"],
+                     steps=MESH2["steps"], lr=3e-4, optimizer="adamw")
+    dp = resolve_dp(cfg.name, "auto", "bk-mixopt", "automatic", 1.0,
+                    log=lambda m: None)
+    return cfg, tc, dp
+
+
+def _mesh2_counts(ws) -> dict:
+    """Every kernel's launches so far, and noise_update's block route's
+    apart (``noise_update_block``)."""
+    counts = {k: w.launches for k, w in ws.items()}
+    counts["noise_update_block"] = ws["noise_update"].block_launches
+    return counts
+
+
+def _mesh2_per_step(steps) -> list:
+    """on_step's running totals -> each step's own launches."""
+    out, prev = [], None
+    for s in steps:
+        total = s.pop("total")
+        prev = prev or dict.fromkeys(total, 0)
+        out.append(dict(s, launches={k: total[k] - prev[k] for k in total}))
+        prev = total
+    return out
+
+
+def _mesh2_launch_check(name, run, per_step, want):
+    """Raises unless every step of ``run`` launched ``want``."""
+    for s in per_step:
+        if s["launches"] != want:
+            raise AssertionError(f"{name} {run} step {s['step']}: launched "
+                                 f"{s['launches']}, want {want}")
+
+
+def _mesh2_rank(rank, port, mesh, out, ckpt_dir):
+    """One rank of a train_mesh2 case (a spawned process): ``train`` over
+    ``mesh`` on the one card (gloo: the ranks outnumber the cards) ->
+    ``out``/rank<r>.pt: its losses, step seconds, launches a step (the
+    block route's apart), the block-route launches a step its blocks call
+    for, peak device bytes, the bytes of its blocks at rest (params, m and
+    v), the backend, and on rank 0 the whole params and the summary. Raises
+    unless every launch took the SIMT route (f32)."""
+    import torch
+    from repro_torch.core.noise import geometry
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.train import train
+    from repro_torch.utils.tree import flatten, unflatten
+    cfg, tc, dp = _mesh2_config()
+    if ckpt_dir:
+        tc = dataclasses.replace(tc, checkpoint_dir=ckpt_dir,
+                                 checkpoint_every=1, keep_checkpoints=1)
+    ws = wrappers()
+    reset_counts(ws)
+    steps, summary = [], {}
+
+    def on_step(step, loss, seconds):
+        steps.append({"step": step, "loss": loss, "seconds": seconds,
+                      "total": _mesh2_counts(ws)})
+
+    torch.cuda.reset_peak_memory_stats()
+    params, losses = train(cfg, tc, dp, device="cuda", log=lambda m: None,
+                           on_step=on_step, summary_out=summary, mesh=mesh,
+                           rank=rank, world=2,
+                           init_method=f"tcp://localhost:{port}")
+    torch.cuda.synchronize()
+    check_routes(f"train_mesh2 rank {rank}", ws, False)
+    flat = flatten(params)
+    coords = dict(zip(("data", "model"), divmod(rank, mesh[1])))
+    stand_in = _stand_in_mesh(mesh, tuple(coords.values()))
+    specs = sh.flat_param_pspecs(unflatten(flat), stand_in)
+    blocks = {k: sh.local_block(v.shape, specs[k], stand_in)
+              for k, v in flat.items()}
+    rest = sum(3 * 4 * math.prod(local) for local, _ in blocks.values())
+    # a block that is not one run of its leaf takes the block route
+    strided = sum(not geometry(local, offs, flat[k].shape).contiguous
+                  for k, (local, offs) in blocks.items())
+    rec = {"rank": rank, "coords": coords, "losses": losses,
+           "steps": _mesh2_per_step(steps),
+           "block_route_want": strided,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "bytes_at_rest": rest, "summary": summary}
+    if rank == 0:
+        rec["params"] = {k: v.cpu() for k, v in flat.items()}
+    torch.save(rec, Path(out) / f"rank{rank}.pt")
+
+
+def _mesh2_sums(dev, mesh=None) -> dict:
+    """train_mesh2 (d): ``bk_clipped_sum`` of MESH2's model at bf16 on its
+    step-0 batch (``mesh``: the calling rank's rows, its weighted grads
+    all-reduced) -> {path: the sum, on the host}."""
+    from repro_torch.configs.registry import build
+    from repro_torch.core.bk import bk_clipped_sum
+    from repro_torch.data.synthetic import make_batch
+    cfg, _, dp = _mesh2_config()
+    cfg = cfg.with_(param_dtype="bfloat16")
+    model = build(cfg)
+    params = model.init(0, dev)
+    batch = make_batch(cfg, MESH2["batch"], MESH2["seq"], 0, 0, dev)
+    sums, _ = bk_clipped_sum(model.apply, params, batch, dp, mesh=mesh)
+    return {k: v.cpu() for k, v in sums.items()}
+
+
+def _mesh2_sums_rank(rank, port, out):
+    """One rank of train_mesh2 (d) (a spawned process): :func:`_mesh2_sums`
+    over (2, 1) on the one card -> ``out``/sums.pt on rank 0."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import (init_distributed, make_mesh,
+                                         rank_device)
+    init_distributed(rank, 2, f"tcp://localhost:{port}", "cuda")
+    try:
+        dev = rank_device("cuda", rank)
+        sums = _mesh2_sums(dev, make_mesh((2, 1), device=dev))
+        if rank == 0:
+            torch.save(sums, Path(out) / "sums.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _bf16_against(one: dict, got: dict) -> dict:
+    """-> the elements, the share of them equal, the largest gap over the
+    leaf's largest magnitude, and the largest gap in the element's own bf16
+    ulps (2^(exponent - 7) at the larger magnitude) of ``got``'s bf16
+    tensors against ``one``'s."""
+    import torch
+    n = same = 0
+    of_top = ulps = 0.0
+    for k, a in one.items():
+        a, b = a.float(), got[k].float()
+        gap = (a - b).abs()
+        top = max(float(a.abs().max()), float(b.abs().max()))
+        of_top = max(of_top, float(gap.max()) / top if top else 0.0)
+        e = torch.frexp(torch.maximum(a.abs(), b.abs()))[1]
+        ulps = max(ulps, float((gap / torch.ldexp(torch.ones_like(a),
+                                                  e - 8)).max()))
+        n += a.numel()
+        same += int((a == b).sum())
+    return {"elements": n, "equal_share": same / n,
+            "max_gap_of_leaf_max": of_top, "max_gap_ulps": ulps}
+
+
+def phase_train_mesh2(name):
+    """train_mesh2 (MESH2): the world-1 run in this process, then each
+    case's two ranks spawned on the card under gloo. (a) --mesh 2,1 (the
+    batch split, one all-reduce a weighted grad) against world 1 at
+    MESH2_TOL, losses within 1e-4, a checkpoint every step; (b) --mesh 1,2
+    (the model axis: strided blocks, the noise kernels' block route)
+    bitwise world 1; (c) (a)'s last checkpoint (slices at nonzero offsets,
+    two process files) restored in this process: its params' sha256 and
+    its ledger's epsilon those of (a)'s run. Every step of every run
+    launches train's kernels on the SIMT routes (f32) and one noise_update
+    a leaf: on world 1 none by the block route, on each rank as many as its
+    blocks that are not one run of their leaf (some on (b)). (d) bf16
+    clipped sums over (2, 1) against world 1's: equal in 99% of elements
+    or more (the f32 partials summed, then cast once; partials cast first
+    leave about two thirds equal), every gap within one bf16 ulp of its
+    leaf's largest magnitude. Prints each rank's backend, launches a step, peak device bytes,
+    the bytes of its blocks at rest and its step seconds."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.checkpoint.run_state import params_digest
+    from repro_torch.core.accounting import PrivacyLedger
+    from repro_torch.launch.mesh import free_port
+    from repro_torch.launch.train import train
+    from repro_torch.utils.tree import flatten
+
+    cfg, tc, dp = _mesh2_config()
+    fresh_peak()
+    ws = wrappers()
+    one, logs, steps = {}, [], []
+    reset_counts(ws)                  # counts from here on are the run's
+    t0 = time.perf_counter()
+    params, losses = train(
+        cfg, tc, dp, device="cuda", log=logs.append, summary_out=one,
+        on_step=lambda step, loss, seconds: steps.append(
+            {"step": step, "total": _mesh2_counts(ws)}))
+    ref = {k: v.cpu() for k, v in flatten(params).items()}
+    del params
+    check_routes(name, ws, False)
+    per_step = _mesh2_per_step(steps)
+    # train's kernels, one noise_update a leaf
+    want = dict(_per_step(ghost_norm=5, clipped_grad=5, emb_ghost_norm=1,
+                          emb_clipped_grad=1), noise_update=len(ref))
+    emit(phase=name, run="world 1", arch=cfg.name, layers=cfg.n_layers,
+         dtype=cfg.param_dtype, batch=tc.global_batch, seq=tc.seq_len,
+         steps=tc.steps, losses=losses, params_sha256=one["params_sha256"],
+         epsilon=one["epsilon"], seconds=time.perf_counter() - t0,
+         peak_bytes=torch.cuda.max_memory_allocated(),
+         launches=[s["launches"] for s in per_step])
+    _mesh2_launch_check(name, "world 1", per_step,
+                        dict(want, noise_update_block=0))
+    fresh_peak()
+    root = ROOT / "build" / name
+    shutil.rmtree(root, ignore_errors=True)
+    for case, mesh in MESH2["cases"].items():
+        out = root / case
+        out.mkdir(parents=True)
+        ck = str(root / "ck") if case == "a" else ""
+        t0 = time.perf_counter()
+        mp.spawn(_mesh2_rank, args=(free_port(), mesh, str(out), ck),
+                 nprocs=2, join=True)
+        seconds = time.perf_counter() - t0
+        ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+        got = ranks[0]
+        worst = max(float((got["params"][k] - v).abs().max())
+                    for k, v in ref.items())
+        row = dict(phase=name, case=case, mesh=list(mesh),
+                   backend=got["summary"]["mesh"]["backend"],
+                   seconds=seconds, losses=got["losses"],
+                   world1_losses=losses,
+                   loss_max_gap=max(abs(a - b) for a, b in
+                                    zip(got["losses"], losses)),
+                   params_max_abs_gap=worst,
+                   params_sha256=got["summary"]["params_sha256"],
+                   bitwise=got["summary"]["params_sha256"]
+                   == one["params_sha256"],
+                   ranks=[{k: r[k] for k in ("rank", "coords", "peak_bytes",
+                                              "bytes_at_rest",
+                                              "block_route_want")}
+                          | {"step_seconds": [s["seconds"]
+                                              for s in r["steps"]],
+                             "launches": [s["launches"]
+                                          for s in r["steps"]]}
+                          for r in ranks])
+        emit(**row)
+        if row["backend"] != "gloo":
+            raise AssertionError(f"{name} ({case}): two ranks on one card "
+                                 f"took {row['backend']}, want gloo")
+        for r in ranks:
+            _mesh2_launch_check(name, f"({case}) rank {r['rank']}",
+                                r["steps"], dict(
+                                    want, noise_update_block=r[
+                                        "block_route_want"]))
+        if case == "b" and not sum(r["block_route_want"] for r in ranks):
+            raise AssertionError(f"{name} (b): no rank's block takes the "
+                                 "block route")
+        if case == "a":
+            for k, v in ref.items():
+                np.testing.assert_allclose(got["params"][k].numpy(),
+                                           v.numpy(), err_msg=k, **MESH2_TOL)
+            if row["loss_max_gap"] >= 1e-4:
+                raise AssertionError(f"{name} (a): losses {got['losses']} "
+                                     f"against world 1's {losses}")
+            # (c) the two-rank checkpoint, restored in one process
+            t1 = time.perf_counter()
+            step = ckpt.latest_step(str(root / "ck"))
+            manifest = json.loads((root / "ck" / f"step_{step:010d}"
+                                   / ckpt.MANIFEST).read_text())
+            state, step, meta = ckpt.restore(str(root / "ck"))
+            entries = [e for f in manifest["files"].values()
+                       for e in f["entries"].values()]
+            eps = PrivacyLedger.from_json(meta["ledger"]).epsilon(1e-5)
+            restored = dict(
+                phase=name, case="c", step=step,
+                process_files=sorted(manifest["files"]),
+                offset_slices=sum(any(o > 0 for o in e["offset"])
+                                  for e in entries),
+                slices=len(entries),
+                bytes=ckpt.nbytes(str(root / "ck" / f"step_{step:010d}")),
+                params_sha256=params_digest(state["params"]),
+                saved_params_sha256=got["summary"]["params_sha256"],
+                epsilon=eps, saved_epsilon=got["summary"]["epsilon"],
+                restore_seconds=time.perf_counter() - t1,
+                saves=got["summary"]["checkpoints"]["saves"])
+            del state
+            emit(**restored)
+            if not (restored["offset_slices"] > 0
+                    and len(restored["process_files"]) == 2
+                    and restored["params_sha256"]
+                    == restored["saved_params_sha256"]
+                    and eps == restored["saved_epsilon"]):
+                raise AssertionError(f"{name} (c): the two-rank checkpoint "
+                                     f"does not restore as saved: {restored}")
+        elif not row["bitwise"] or any(
+                not torch.equal(got["params"][k], v) for k, v in ref.items()):
+            raise AssertionError(f"{name} ({case}): --mesh "
+                                 f"{mesh} is not world 1's params bitwise")
+        del ranks, got
+    # (d) bf16 clipped sums over (2, 1): each rank's f32 partials summed,
+    # then rounded once, as world 1 rounds its f32 sum: equal but where the
+    # two f32 sums (apart by f32 reassociation) straddle a bf16 rounding
+    # boundary; an element that cancels can move many of its own ulps, so
+    # the gaps are held to the leaf's largest magnitude (one bf16 ulp)
+    out = root / "d"
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.spawn(_mesh2_sums_rank, args=(free_port(), str(out)), nprocs=2,
+             join=True)
+    got = torch.load(out / "sums.pt", weights_only=False)
+    seconds = time.perf_counter() - t0
+    cmp = _bf16_against(_mesh2_sums(torch.device("cuda")), got)
+    fresh_peak()
+    emit(phase=name, case="d", mesh=[2, 1], dtype="bfloat16",
+         what="bk_clipped_sum against world 1's", seconds=seconds, **cmp)
+    if cmp["max_gap_of_leaf_max"] > 2.0 ** -7 or cmp["equal_share"] < 0.99:
+        raise AssertionError(f"{name} (d): the bf16 sums over (2, 1) are "
+                             f"not world 1's rounded once: {cmp}")
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _train_in_process(argv, ws):
@@ -3592,6 +4252,9 @@ def main(argv=None) -> int:
                       else phase_prefill(name))
             for k, n in totals.items():
                 launches[k] = launches.get(k, 0) + n
+    for name in MESHES:
+        if name in phases:
+            phase_train_mesh2(name)
     for name in RESUMES:
         if name in phases:
             for k, n in phase_train_resume(name).items():
@@ -3637,6 +4300,10 @@ def main(argv=None) -> int:
                              "none: no single call computes the FTRL "
                              "step"}}
                    if name == "noise_update" and FTRL_ROW else {}),
+                # the block route over one rank's blocks of train's leaves
+                # beside the contiguous route over the same elements
+                **({"shard_block_route": BLOCK_ROW[name]}
+                   if name in BLOCK_ROW else {}),
                 # its device time by torch.profiler: the main path's own
                 # step (the kernels phase's short sessions lose events)
                 **({"train_step_device_ms":

@@ -27,7 +27,16 @@ falls back to the step before. The fault sites ``ckpt_mid_write`` and
 ``ckpt_pre_commit`` (``runtime.fault_injection``) kill the writer at those
 points. :func:`write_shard_file` (one process's file) and :func:`commit`
 (the manifest over every process's file) are separately callable, with
-``process_index`` and ``process_count``, for a multi-process save.
+``process_index`` and ``process_count``.
+
+A multi-process save (:func:`save` with ``process_count`` > 1 and a gloo
+``group``): each process snapshots the unique blocks it holds at their
+global offsets (``shard_snapshot(..., layout=)``; a replicated block is
+written by one process only), process 0 stages the directory, every process
+writes its own file (``ckpt_mid_write`` fires on each), the manifest
+fragments are gathered to process 0, which commits (``ckpt_pre_commit``),
+and every process waits for the commit. :func:`restore` reads, at any
+world size, the slices that overlap the blocks it asks for (``blocks=``).
 
 Snapshots: the port's optimizers update params and state in place, so
 :func:`shard_snapshot` copies every tensor to the host before the caller's
@@ -157,9 +166,14 @@ class ShardSlice:
         return f"{self.path}@{'x'.join(map(str, self.offset))}"
 
 
-def shard_snapshot(state, buffers: Optional[dict] = None) -> list:
-    """-> list[ShardSlice]: one slice a leaf at offset 0 (one process, one
-    device), backed by host copies complete when this returns.
+def shard_snapshot(state, buffers: Optional[dict] = None,
+                   layout: Optional[dict] = None) -> list:
+    """-> list[ShardSlice]: one slice a leaf, backed by host copies complete
+    when this returns. Without a ``layout`` each leaf is a whole leaf at
+    offset 0 (one process); with one, ``layout[path]`` = (offsets, global
+    shape) places the leaf, the process's block, in the whole leaf, and a
+    path the layout lacks is not written by this process (a replica another
+    one writes).
 
     A tensor is copied into ``buffers[path]`` where a dict is given (the
     buffers are allocated on first use and reused by every later snapshot
@@ -169,6 +183,8 @@ def shard_snapshot(state, buffers: Optional[dict] = None) -> list:
     arrays) are taken as numpy arrays."""
     slices, devices = [], set()
     for path, leaf in flatten(state).items():
+        if layout is not None and path not in layout:
+            continue
         if isinstance(leaf, torch.Tensor):
             leaf = leaf.detach()
             host = buffers.get(path) if buffers is not None else None
@@ -186,8 +202,10 @@ def shard_snapshot(state, buffers: Optional[dict] = None) -> list:
             data = np.asarray(leaf)
             name = str(data.dtype)
         shape = tuple(data.shape)
-        slices.append(ShardSlice(path, (0,) * len(shape), shape, shape, name,
-                                 data))
+        offset, whole = (layout[path] if layout is not None
+                         else ((0,) * len(shape), shape))
+        slices.append(ShardSlice(path, tuple(offset), shape, tuple(whole),
+                                 name, data))
     for dev in devices:
         torch.cuda.synchronize(dev)
     return slices
@@ -293,16 +311,38 @@ def stage_dir(root: str, step: int, fresh: bool = True) -> str:
 
 def save(root: str, step: int, state, keep: int = 3,
          meta: Optional[dict] = None, process_index: int = 0,
-         process_count: int = 1) -> str:
+         process_count: int = 1, group=None) -> str:
     """Persist a tree (or a :func:`shard_snapshot` list) atomically ->
     the committed checkpoint's path. ``meta`` is a json-able dict stored in
     the manifest (``run_state.pack_meta``: the noise mechanism's state, the
-    privacy ledger, the pipeline's config, the run's fingerprint)."""
+    privacy ledger, the pipeline's config, the run's fingerprint). With
+    ``process_count`` > 1 every process of the gloo ``group`` calls it with
+    its own slices, and process 0 commits the manifest over every file."""
     slices = state if isinstance(state, list) else shard_snapshot(state)
-    tmp = stage_dir(root, step, fresh=(process_index == 0))
-    fname, finfo, arrays = write_shard_file(tmp, process_index, slices)
-    return commit(root, step, tmp, {fname: finfo}, arrays, meta, keep,
-                  process_count)
+    if process_count <= 1:
+        tmp = stage_dir(root, step, fresh=(process_index == 0))
+        fname, finfo, arrays = write_shard_file(tmp, process_index, slices)
+        return commit(root, step, tmp, {fname: finfo}, arrays, meta, keep,
+                      process_count)
+    import torch.distributed as dist
+    if process_index == 0:
+        tmp = stage_dir(root, step, fresh=True)
+    dist.barrier(group=group)            # the staging dir exists, emptied
+    if process_index != 0:
+        tmp = stage_dir(root, step, fresh=False)
+    fragment = write_shard_file(tmp, process_index, slices)
+    fragments = [None] * process_count
+    dist.all_gather_object(fragments, fragment, group=group)
+    final = _ckpt_dir(root, step)
+    if process_index == 0:
+        files, arrays = {}, {}
+        for fname, finfo, arr in fragments:
+            files[fname] = finfo
+            arrays.update(arr)
+        final = commit(root, step, tmp, files, arrays, meta, keep,
+                       process_count)
+    dist.barrier(group=group)            # committed
+    return final
 
 
 def nbytes(path: str) -> int:
@@ -424,7 +464,8 @@ def _read_member(f, info: zipfile.ZipInfo, key: str, name: str,
     return crc
 
 
-def restore(root: str, step=None, template=None, device="cpu"):
+def restore(root: str, step=None, template=None, device="cpu",
+            blocks: Optional[dict] = None):
     """Load a checkpoint -> (state, step, meta), every leaf a tensor on
     ``device``.
 
@@ -434,6 +475,10 @@ def restore(root: str, step=None, template=None, device="cpu"):
     missing process file or a dropped slice raises instead of restoring
     zeros). A leaf is read into host memory, moved to ``device`` and
     dropped from the host before the next is read.
+
+    ``blocks`` ({path: (offsets, shape)}) asks for a block of a leaf in
+    place of the whole (a rank of a mesh): only the slices that overlap it
+    are read, each into its part of the block.
 
     ``template`` (a tree of tensors or arrays) names keys that must exist
     and the dtypes they take; checkpoint keys outside it keep their own
@@ -486,10 +531,16 @@ def restore(root: str, step=None, template=None, device="cpu"):
             files[fname] = stack.enter_context(open(fp, "rb"))
         for path, info in arrays.items():
             shape, name = tuple(info["shape"]), info["dtype"]
-            leaf = torch.empty(shape, dtype=_torch_dtype(name))
+            want_off, want = (blocks[path] if blocks and path in blocks
+                              else ((0,) * len(shape), shape))
+            want_off, want = tuple(want_off), tuple(want)
+            leaf = torch.empty(want, dtype=_torch_dtype(name))
             crcs = {}
             for fname, key, off, box, e in parts[path]:
-                whole = box == shape
+                cut = _overlap(off, box, want_off, want)
+                if cut is None:
+                    continue
+                whole = box == want and off == want_off
                 dst = leaf if whole else torch.empty(box, dtype=leaf.dtype)
                 info = members[fname].get(key + ".npy")
                 if info is None:
@@ -505,12 +556,26 @@ def restore(root: str, step=None, template=None, device="cpu"):
                         f"replicated slice disagreement for {path} at "
                         f"offset {off} (step {step})")
                 if not whole:
-                    leaf[tuple(slice(o, o + k) for o, k in zip(off, box))] = dst
+                    leaf[cut[1]] = dst[cut[0]]
             dtype = (_torch_dtype(tflat[path].dtype) if path in tflat
                      else leaf.dtype)
             state[path] = leaf.to(device=dev, dtype=dtype)
             del leaf
     return unflatten(state), manifest["step"], manifest.get("meta", {})
+
+
+def _overlap(off, box, want_off, want):
+    """-> (index into the slice, index into the block) of the part of the
+    slice at ``off`` of shape ``box`` inside the block at ``want_off`` of
+    shape ``want``; None where they do not overlap."""
+    src, dst = [], []
+    for o, k, w, n in zip(off, box, want_off, want):
+        lo, hi = max(o, w), min(o + k, w + n)
+        if lo >= hi:
+            return None
+        src.append(slice(lo - o, hi - o))
+        dst.append(slice(lo - w, hi - w))
+    return tuple(src), tuple(dst)
 
 
 def _gc(root: str, keep: int):

@@ -39,15 +39,28 @@ ParamGroup ``tape`` overrides say (``core.tape.TAPE_POLICIES``): native,
 bf16, int8, or not at all ('recompute': the cotangent dies at its norm and
 phase 3 re-derives the unit's weighted gradients with a reweighted-loss
 backward, ``tape_chunks`` chunks per unit).
+
+Mesh lowering: ``bk_clipped_sum(..., mesh=)`` takes the global batch, pads
+it to a multiple of the batch axes' size with masked rows (``pad_batch``)
+and runs phases 1-3 on the calling rank's rows only, with the same kernels:
+the per-sample norms and clip factors stay local, each weighted gradient
+pays ONE all-reduce over the batch axes' group (none where that group has
+one rank), of its f32 partials, cast to the param dtype after the sum as
+the reference casts after its psum, and the aux (losses, per-sample and per-unit norms) is gathered
+once, real rows only. Ranks of one 'model' group hold the same rows and
+compute the same sums: the model axis shards storage (``launch.steps``),
+not compute.
 """
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass
 
 import torch
 
 from repro_torch.core import ghost
+from repro_torch.core.blocks import batch_axes
 from repro_torch.core.noise import path_seed, tape_seed
 from repro_torch.core.policy import (as_policy, norm_aux, resolve_policy,
                                      unit_clip_factors)
@@ -85,6 +98,86 @@ class DPConfig:
 # --------------------------------------------------------------------- utils
 def batch_size_of(batch: dict) -> int:
     return next(iter(batch.values())).shape[0]
+
+
+# ----------------------------------------------------------- mesh lowering
+def _batch_shards(mesh) -> tuple:
+    """-> (the mesh's batch axes, the number of batch shards they make)."""
+    ba = batch_axes(mesh)
+    return ba, math.prod(mesh.shape[a] for a in ba)
+
+
+def batch_shard(mesh, B: int):
+    """-> (batch_axes, n_shards) when ``mesh`` can split B over more than
+    one rank, else None."""
+    if mesh is None:
+        return None
+    ba, n = _batch_shards(mesh)
+    if n <= 1 or B % n:
+        return None
+    return ba, n
+
+
+def pad_batch(batch, mesh, B: int):
+    """-> (batch, mask | None, B_padded): the batch padded to the next
+    multiple of the mesh's batch shards, pad rows repeating the last real
+    sample, and ``mask`` (B_pad,) f32 marking the real ones (it weights the
+    loss sum, so every pad cotangent is zero, and the clip factors)."""
+    if mesh is None:
+        return batch, None, B
+    _, n = _batch_shards(mesh)
+    if n <= 1 or B % n == 0:
+        return batch, None, B
+    B_pad = -(-B // n) * n
+    dev = next(iter(batch.values())).device
+    idx = torch.clamp(torch.arange(B_pad, device=dev), max=B - 1)
+    batch = {k: v.index_select(0, idx) for k, v in batch.items()}
+    mask = (torch.arange(B_pad, device=dev) < B).to(F32)
+    return batch, mask, B_pad
+
+
+@dataclass
+class _Shard:
+    """The calling rank's rows of a batch-sharded BK call: rows
+    ``[index * rows, (index + 1) * rows)`` of the (padded) batch."""
+    mesh: object
+    axes: tuple
+    n: int
+    index: int
+    rows: int
+
+    @classmethod
+    def of(cls, mesh, B: int):
+        shard = batch_shard(mesh, B)
+        if shard is None:
+            return None
+        axes, n = shard
+        index = 0
+        for a in axes:
+            index = index * mesh.shape[a] + mesh.coords[a]
+        return cls(mesh, axes, n, index, B // n)
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        return x[self.index * self.rows:(self.index + 1) * self.rows]
+
+    def reduce(self, g: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's partial ``g`` (one all-reduce)."""
+        return self.mesh.all_reduce(g.contiguous(), self.axes)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``x`` (its leading dim), in batch order."""
+        return torch.cat(self.mesh.all_gather(x, self.axes), dim=-1)
+
+
+def _reducer(shard):
+    """-> red(g, dtype): a weighted grad from its partial ``g``. Under a
+    batch shard the f32 partials are summed (one all-reduce) and the sum is
+    cast to ``dtype``, as the reference's psum runs on the kernels' f32
+    output, so a bf16 grad is rounded once, as on one rank; else the cast
+    alone."""
+    if shard is None:
+        return _cast
+    return lambda g, dtype: shard.reduce(g.to(F32)).to(dtype)
 
 
 def tap_act_structs(apply_fn, params, batch):
@@ -184,27 +277,34 @@ def record_sq_norm(key: str, act, ds, mode: str, use_kernels: bool,
     raise ValueError(f"unknown tap kind in key {key!r}")
 
 
+def _cast(g: torch.Tensor, dtype) -> torch.Tensor:
+    return g.to(dtype)
+
+
 def record_weighted_grad(key: str, act, ds, C, cached, use_kernels: bool,
-                         out_dtype, vocab: int = 0):
-    """Phase-3 weighted gradient G = a^T diag(C) ds for one tap."""
+                         out_dtype, vocab: int = 0, red=_cast):
+    """Phase-3 weighted gradient G = a^T diag(C) ds for one tap: the f32
+    contraction, then ``red(G, out_dtype)`` (the cast, or under a batch
+    shard the all-reduce of the f32 partials and then the cast)."""
     _, kind, _ = parse_key(key)
     if kind == "mm":
         if cached is not None:  # mixopt module-5 reuse: sum_i C_i g_i
             eq = "lbdp,b->ldp" if cached.dim() == 4 else "bdp,b->dp"
-            return torch.einsum(eq, cached, C.to(F32)).to(out_dtype)
+            return red(torch.einsum(eq, cached, C.to(F32)), out_dtype)
         if use_kernels:
-            return clipped_grad(act, C, ds).to(out_dtype)
-        return ghost.weighted_grad_mm(act, C, ds, out_dtype)
+            return red(clipped_grad(act, C, ds), out_dtype)
+        return red(ghost.weighted_grad_mm(act, C, ds, F32), out_dtype)
     if kind == "emb":
         if use_kernels:
-            return emb_clipped_grad(act, C, ds, vocab).to(out_dtype)
-        return ghost.weighted_grad_emb(act, C, ds, vocab, out_dtype)
+            return red(emb_clipped_grad(act, C, ds, vocab), out_dtype)
+        return red(ghost.weighted_grad_emb(act, C, ds, vocab, F32),
+                   out_dtype)
     if kind == "moe":
         if use_kernels:
-            return moe_clipped_grad(act["a"], act["mask"], C,
-                                    ds).to(out_dtype)
-        return ghost.weighted_grad_moe(act["a"], act["mask"], C, ds,
-                                       out_dtype)
+            return red(moe_clipped_grad(act["a"], act["mask"], C, ds),
+                       out_dtype)
+        return red(ghost.weighted_grad_moe(act["a"], act["mask"], C, ds,
+                                           F32), out_dtype)
     raise ValueError(f"unknown tap kind in key {key!r}")
 
 
@@ -307,7 +407,7 @@ def _gen(device, seed: int, path: str) -> torch.Generator:
 
 
 # ------------------------------------------------------------------- BK core
-def bk_clipped_sum(apply_fn, params, batch, cfg, seed: int = 0):
+def bk_clipped_sum(apply_fn, params, batch, cfg, seed: int = 0, mesh=None):
     """Phases 1-3 of BK: the pre-noise clipped gradient SUM (flat dict of
     tensors in the params' dtypes) and the aux dict (loss, per-sample norms,
     per-unit norms and clip factors).
@@ -317,7 +417,13 @@ def bk_clipped_sum(apply_fn, params, batch, cfg, seed: int = 0):
     C_i^(u). Frozen-group params take no grad and come back as zeros. This
     is the accumulation unit for the physical/logical batch split: sum over
     microbatches, then noise once per logical batch. ``seed`` keys the int8
-    store's stochastic rounding."""
+    store's stochastic rounding.
+
+    Under ``mesh`` (``launch.mesh.Mesh``) ``batch`` is the global batch and
+    the calling rank computes its rows of it (padded with masked rows where
+    the batch axes do not divide it); each weighted gradient is all-reduced
+    over the batch axes once, in f32. The aux reports the real rows of the
+    whole batch, gathered once."""
     policy = as_policy(cfg)
     if policy.mode not in BK_MODES:
         raise ValueError(f"mode must be one of {BK_MODES}, got "
@@ -338,26 +444,51 @@ def bk_clipped_sum(apply_fn, params, batch, cfg, seed: int = 0):
 
     int8 = "int8" in (policy.tape_policy, *(g.tape for g in policy.groups))
     device = next(iter(batch.values())).device
+    B_real = batch_size_of(batch)
+    batch, mask, B = pad_batch(batch, mesh, B_real)
+    shard = _Shard.of(mesh, B)
+    if shard is not None:
+        batch = {k: shard.take(v) for k, v in batch.items()}
+        mask = shard.take(mask) if mask is not None else None
     # a profiler range (chip_smoke's profiles read its device time)
     with torch.profiler.record_function("bk_phases_1_3"):
         losses, tape, grads = tapped_backward(
             apply_fn, flat_params, batch, res, psp_active, act_store,
-            _gen(device, seed, "acts") if int8 else None)
+            _gen(device, seed, "acts") if int8 else None, mask)
         with torch.no_grad():
-            return _book_kept_sums(apply_fn, batch, policy, res,
-                                   flat_params, psp_active, tape, losses,
-                                   grads, seed)
+            sums, aux, sq = _book_kept_sums(
+                apply_fn, batch, policy, res, flat_params, psp_active, tape,
+                losses, grads, seed, mask, shard)
+    if shard is None and mask is None:
+        return sums, aux
+    return sums, _global_aux(res, losses, sq, shard, B_real)
+
+
+def _global_aux(res, losses, sq, shard, B_real: int) -> dict:
+    """The aux of the whole batch's real rows from the rank's: its losses
+    and per-unit squared norms gathered in one all-gather, then the norms
+    and clip factors formed as ``norm_aux`` forms them (elementwise, so
+    each row's are bitwise the rank's own)."""
+    rows = torch.stack([losses, *sq])
+    if shard is not None:
+        rows = shard.gather(rows)
+    rows = rows[:, :B_real]
+    sq = list(rows[1:])
+    unit_norms, unit_C = unit_clip_factors(res, sq)
+    return norm_aux(res, rows[0], sq, unit_norms, unit_C)
 
 
 def tapped_backward(apply_fn, flat_params, batch, res, psp_active,
-                    store=None, gen=None):
+                    store=None, gen=None, mask=None):
     """Phase 1: one forward with the vector params ``psp_active`` broadcast
     per sample (leaves that require grad, the psp route) and a tap on every
     active op, then ONE autograd.grad for the tap cotangents and the
     per-sample vector-param grads. Records take their residency form
-    (``store``, ``gen``: :class:`Tape`) as they are recorded. -> (losses
-    (B,), detached; the tape; the grads: the stacked taps' per-layer pieces
-    in sorted-key order, then the psp grads)."""
+    (``store``, ``gen``: :class:`Tape`) as they are recorded; ``mask``
+    (B,) weights the loss sum (a padded batch's pad rows get zero
+    cotangents). -> (losses (B,), detached; the tape; the grads: the
+    stacked taps' per-layer pieces in sorted-key order, then the psp
+    grads)."""
     B = batch_size_of(batch)
     with torch.enable_grad():
         psp0 = {p: flat_params[p].expand(B, *flat_params[p].shape)
@@ -371,17 +502,21 @@ def tapped_backward(apply_fn, flat_params, batch, res, psp_active,
         for key in sorted(tape.outs):
             out = tape.outs[key]
             targets.extend(out if isinstance(out, list) else [out])
+        total = losses.sum() if mask is None else (losses * mask).sum()
         grads = list(torch.autograd.grad(
-            losses.sum(), targets + [psp0[p] for p in psp_active],
+            total, targets + [psp0[p] for p in psp_active],
             allow_unused=True, materialize_grads=True))
     return losses.detach(), tape, grads
 
 
 def _book_kept_sums(apply_fn, batch, policy, res, flat_params, psp_active,
-                    tape, losses, grads, seed):
+                    tape, losses, grads, seed, mask=None, shard=None):
     """Phases 2-3 of :func:`bk_clipped_sum` on the phase-1 records and
     cotangents (``grads``: the stacked taps' per-layer pieces in tape order,
-    then the psp grads)."""
+    then the psp grads). ``mask`` weights the clip factors (pad rows);
+    ``shard`` all-reduces each weighted grad as it is formed: its f32
+    partials, cast to the param dtype after the sum (:func:`_reducer`)."""
+    red = _reducer(shard)
     B, device = losses.shape[0], losses.device
     mode, use_kernels = policy.mode, policy.use_kernels
     active_taps = sorted(tape.outs)
@@ -425,9 +560,9 @@ def _book_kept_sums(apply_fn, batch, policy, res, flat_params, psp_active,
         # record dtype; int8 records are dequantized here
         act = load_record(stored, ds.dtype)
         if key in stream_keys:
-            flat_grads[wpath] = _stream_unit(key, act, ds, res.units[u], sq,
-                                             u, policy, method,
-                                             flat_params[wpath])
+            flat_grads[wpath] = _stream_unit(
+                key, act, ds, res.units[u], sq, u, policy, method,
+                flat_params[wpath], mask, red)
             continue
         pol = tape_pol[key]
         nk, cache[key] = record_sq_norm(key, act, ds, mode, use_kernels,
@@ -443,6 +578,8 @@ def _book_kept_sums(apply_fn, batch, policy, res, flat_params, psp_active,
         u = res.unit_of[p]
         sq[u] = sq[u] + torch.sum(g * g, dim=tuple(range(1, g.dim())))
     unit_norms, unit_C = unit_clip_factors(res, sq)
+    if mask is not None:
+        unit_C = [c * mask for c in unit_C]
 
     # ---- phase 3: weighted gradients of the held taps (records dropped as
     # they are used), then the reweighted backward of the recompute taps
@@ -456,41 +593,51 @@ def _book_kept_sums(apply_fn, batch, policy, res, flat_params, psp_active,
         flat_grads[wpath] = record_weighted_grad(
             key, load_record(stored_act, dtype), load_record(stored_ds, dtype),
             unit_C[res.unit_of[wpath]], cache.pop(key), use_kernels, w.dtype,
-            w.shape[-2] if kind == "emb" else 0)
+            w.shape[-2] if kind == "emb" else 0, red)
     rec = [tap_w(k) for k in active_taps
            if k not in stream_keys and tape_pol[k] == "recompute"]
-    flat_grads.update(_reweighted_grads(apply_fn, batch, flat_params, res,
-                                        rec, unit_C, policy.tape_chunks))
+    for p, g in _reweighted_grads(apply_fn, batch, flat_params, res, rec,
+                                  unit_C, policy.tape_chunks).items():
+        # autograd's weight grad comes in the param dtype; its partials
+        # are still summed in f32
+        flat_grads[p] = red(g, g.dtype)
     for p in psp_active:
         g = g_psp.pop(p)
-        flat_grads[p] = torch.einsum("b...,b->...", g.to(F32),
-                                     unit_C[res.unit_of[p]]).to(
-                                         flat_params[p].dtype)
+        flat_grads[p] = red(torch.einsum("b...,b->...", g.to(F32),
+                                         unit_C[res.unit_of[p]]),
+                            flat_params[p].dtype)
     for p in res.frozen:
         flat_grads[p] = torch.zeros_like(flat_params[p])
-    return flat_grads, norm_aux(res, losses, sq, unit_norms, unit_C)
+    return flat_grads, norm_aux(res, losses, sq, unit_norms, unit_C), sq
 
 
-def _stream_unit(key, act, ds, unit, sq, u, policy, method, w):
+def _stream_unit(key, act, ds, unit, sq, u, policy, method, w, mask=None,
+                 red=_cast):
     """Phases 2+3 of a streamed single-tap unit ``u`` at its tap: adds the
     tap's norm into ``sq[u]`` and returns the weighted gradient. One
     ``fused_clip_grad`` where ``fused_plan`` says so (and the kernels are
-    on); else the composed route, op for op the two-phase flow's."""
+    on); else the composed route, op for op the two-phase flow's. ``mask``
+    weights the clip factors (a padded batch's pad rows); ``red`` as in
+    :func:`record_weighted_grad`."""
     kind = parse_key(key)[1]
     B = sq[u].shape[0]
     a_shape = act["a"].shape if kind == "moe" else act.shape
     if _fused(kind, a_shape, ds.shape, policy, method):
         G, nk = fused_clip_grad(act, ds,
+                                mask if mask is not None else
                                 torch.ones(B, dtype=F32, device=ds.device),
                                 unit.clipping, unit.R, unit.gamma)
         sq[u] = sq[u] + nk
-        return G.to(w.dtype)
+        return red(G, w.dtype)
     nk, cached = record_sq_norm(key, act, ds, policy.mode, policy.use_kernels,
                                 method, allow_cache=True)
     sq[u] = sq[u] + nk
     C = unit.clip_fn()(torch.sqrt(sq[u])).to(F32)
+    if mask is not None:
+        C = C * mask
     return record_weighted_grad(key, act, ds, C, cached, policy.use_kernels,
-                                w.dtype, w.shape[-2] if kind == "emb" else 0)
+                                w.dtype, w.shape[-2] if kind == "emb" else 0,
+                                red)
 
 
 def _reweighted_grads(apply_fn, batch, flat_params, res, wpaths, unit_C,
@@ -523,16 +670,21 @@ def _reweighted_grads(apply_fn, batch, flat_params, res, wpaths, unit_C,
     return out
 
 
-def bk_private_grad(apply_fn, params, batch, rng, cfg, step=None):
+def bk_private_grad(apply_fn, params, batch, rng, cfg, step=None, mesh=None,
+                    pspecs=None):
     """Private gradient via Book-Keeping: clipped sum + noise + 1/B scale.
     ``rng`` is the step's key ((k0, k1), ``core.noise``); ``step`` feeds
     stateful noise mechanisms (the tree raises without it). Returns (grads
-    matching the params tree, aux)."""
+    matching the params tree, aux). Under ``mesh`` the clipped sum is
+    batch-sharded (:func:`bk_clipped_sum`); with ``pspecs`` ({path: spec})
+    each grad is the calling rank's block of the leaf, its noise drawn
+    shard-local."""
     from repro_torch.core.policy import noise_leaf_fn
     policy = as_policy(cfg)
     B = batch_size_of(batch)
     flat_sums, aux = bk_clipped_sum(apply_fn, params, batch, policy,
-                                    seed=tape_seed(rng))
+                                    seed=tape_seed(rng), mesh=mesh)
     res = resolve_policy(policy, flatten(params))
-    leaf = noise_leaf_fn(policy, res, rng, float(B), step, out="inplace")
+    leaf = noise_leaf_fn(policy, res, rng, float(B), step, out="inplace",
+                         mesh=mesh, pspecs=pspecs)
     return unflatten({p: leaf(p, g) for p, g in flat_sums.items()}), aux

@@ -17,8 +17,10 @@ Modes: 'nonprivate' | 'tfprivacy' | 'opacus' | 'fastgradclip' | 'ghostclip'
      | 'bk' | 'bk-mixghost' | 'bk-mixopt'
 
 ``PrivacyEngine(..., target_epsilon=...)`` calibrates sigma by
-``core.accounting.budget_for`` and keeps the budget as ``.budget``. Not
-ported: the mesh arguments (ROADMAP B7).
+``core.accounting.budget_for`` and keeps the budget as ``.budget``.
+``make_grad_fn(..., mesh, pspecs)`` runs the BK modes batch-sharded over a
+``launch.mesh.Mesh`` (``core.bk``), the baselines on the whole batch on
+every rank; with ``pspecs`` every mode returns the rank's blocks.
 """
 from __future__ import annotations
 
@@ -28,7 +30,9 @@ from typing import Callable
 from repro_torch.core import baselines
 from repro_torch.core.accounting import budget_for
 from repro_torch.core.bk import BK_MODES, bk_private_grad, plan_report
+from repro_torch.core.blocks import take_block
 from repro_torch.core.policy import as_policy
+from repro_torch.utils.tree import flatten, unflatten
 
 _BASELINES = {
     "nonprivate": baselines.nonprivate_grad,
@@ -41,21 +45,30 @@ _BASELINES = {
 ALL_MODES = tuple(_BASELINES) + BK_MODES
 
 
-def make_grad_fn(apply_fn: Callable, cfg) -> Callable:
+def make_grad_fn(apply_fn: Callable, cfg, mesh=None,
+                 pspecs=None) -> Callable:
     """-> fn(params, batch, rng, step=None) -> (grads, aux). ``cfg`` is a
     DPConfig or a PrivacyPolicy; ``step`` feeds stateful noise mechanisms
-    (the tree raises without it)."""
+    (the tree raises without it). ``mesh``: the BK modes split the batch
+    over its batch axes (one all-reduce a weighted grad); ``pspecs``
+    ({path: spec}): each grad is the calling rank's block of its leaf."""
     policy = as_policy(cfg)
     if policy.mode in BK_MODES:
-        fn = bk_private_grad
-    elif policy.mode in _BASELINES:
-        fn = _BASELINES[policy.mode]
-    else:
+        def grad(params, batch, rng, step=None):
+            return bk_private_grad(apply_fn, params, batch, rng, policy,
+                                   step, mesh=mesh, pspecs=pspecs)
+        return grad
+    if policy.mode not in _BASELINES:
         raise ValueError(f"unknown mode {policy.mode!r}; options: "
                          f"{ALL_MODES}")
+    fn = _BASELINES[policy.mode]
 
     def grad(params, batch, rng, step=None):
-        return fn(apply_fn, params, batch, rng, policy, step)
+        grads, aux = fn(apply_fn, params, batch, rng, policy, step)
+        if mesh is not None and pspecs is not None:
+            grads = unflatten({p: take_block(g, pspecs[p], mesh)[0]
+                               for p, g in flatten(grads).items()})
+        return grads, aux
 
     return grad
 

@@ -35,8 +35,11 @@ plain version, these functions. The BK train step defers each leaf's noise
 registered, as in the reference: 'gaussian' (independent noise each step,
 keyed by the step's key) and 'tree' (binary-tree aggregation for DP-FTRL:
 node noise keyed by a fixed seed, each step adding the increment N(t) -
-N(t-1), with epoch restarts and completion). Meshes (``sharded_normal``
-with a mesh) are ROADMAP B7.
+N(t-1), with epoch restarts and completion). On a mesh each rank draws
+only its block of a leaf (:func:`sharded_normal`, :func:`add_noise` and the
+mechanisms' ``block``): the block's :func:`geometry` gives each element's
+global linear index, so the block is bitwise that block of the whole
+tensor's draw at any mesh shape.
 
 ``path_seed`` keys the int8 tape store's rounding draws and the synthetic
 batches (``core.bk``, ``data.synthetic``): ``torch.Generator`` draws, which
@@ -50,6 +53,8 @@ from dataclasses import dataclass
 from typing import Mapping
 
 import torch
+
+from repro_torch.core.blocks import local_block, take_block
 
 M32 = 0xFFFFFFFF
 _M64 = (1 << 64) - 1
@@ -275,14 +280,107 @@ def linear_normal(rng, start: int, n: int, trail: int,
     return out
 
 
+@dataclass(frozen=True)
+class Geometry:
+    """Where a dense block of a tensor lies in the tensor's linear order,
+    as the noise kernels take it. ``start``: the linear index of the
+    block's first element; ``trail``: the span of counter word 0
+    (:func:`counter_split` of the whole shape). A contiguous window has no
+    ``dims``; any other block has 4 local dims (leading 1s) and the whole
+    tensor's strides of dims 0..2 (dim 3's is 1): its element (i0, i1, i2,
+    i3) is the tensor's start + i0 s0 + i1 s1 + i2 s2 + i3."""
+    start: int
+    trail: int
+    dims: tuple = ()
+    strides: tuple = ()
+
+    @property
+    def contiguous(self) -> bool:
+        return not self.dims
+
+
+def geometry(shape, offsets=None, full_shape=None) -> Geometry:
+    """The :class:`Geometry` of the block ``shape`` at ``offsets`` of
+    ``full_shape`` (the whole of ``shape`` by default). Dims of 1 are
+    dropped and dims that are one run of the tensor merged, so a block that
+    is a contiguous window (leading dims of 1, then whole dims) gets no
+    dims. Raises ValueError for a block outside the tensor, of another
+    rank, or of more than 4 dims after merging, or with a dim of 2^31 or
+    more (the kernels' limit)."""
+    shape = tuple(int(s) for s in shape)
+    full = tuple(int(s) for s in full_shape) if full_shape is not None \
+        else shape
+    offsets = tuple(int(o) for o in offsets) if offsets is not None \
+        else (0,) * len(full)
+    if len(shape) != len(full) or len(offsets) != len(full):
+        raise ValueError(f"block {shape} at {offsets} does not match the "
+                         f"rank of {full}")
+    if any(o < 0 or o + n > f for o, n, f in zip(offsets, shape, full)):
+        raise ValueError(f"block {shape} at {offsets} lies outside {full}")
+    _, trail, _ = counter_split(full)
+    strides, st = [0] * len(full), 1
+    for d in reversed(range(len(full))):
+        strides[d] = st
+        st *= full[d]
+    start = sum(o * s for o, s in zip(offsets, strides))
+    runs = []                            # (extent, stride), merged
+    for n, s in zip(shape, strides):
+        if n == 1:
+            continue
+        if runs and runs[-1][1] == n * s and runs[-1][0] * n < 1 << 31:
+            runs[-1] = (runs[-1][0] * n, s)
+        else:
+            runs.append((n, s))
+    if not runs or (len(runs) == 1 and runs[0][1] == 1):
+        return Geometry(start, trail)
+    if runs[-1][1] != 1:
+        runs.append((1, 1))
+    if len(runs) > 4 or any(n >= 1 << 31 for n, _ in runs):
+        raise ValueError(f"block {shape} at {offsets} of {full}: the noise "
+                         "kernels take blocks of at most 4 dims once merged, "
+                         "each under 2^31")
+    runs = [(1, 0)] * (4 - len(runs)) + runs
+    return Geometry(start, trail, tuple(n for n, _ in runs),
+                    tuple(s for _, s in runs[:3]))
+
+
+def block_normal(rng, geo: Geometry, device=None) -> torch.Tensor:
+    """:func:`counter_normal`'s values at a block's elements in its dense
+    order (``geo``: :func:`geometry`, with dims): (numel,) f32, computed in
+    chunks of 2^24 elements from each element's global linear index."""
+    if geo.contiguous:
+        raise ValueError("block_normal draws a block with dims; a "
+                         "contiguous window is linear_normal's")
+    n = math.prod(geo.dims)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    n1, n2, n3 = geo.dims[1:]
+    s0, s1, s2 = geo.strides
+    for a in range(0, n, _CHUNK):
+        b = min(n, a + _CHUNK)
+        i = torch.arange(a, b, dtype=torch.int64, device=device)
+        row, col = torch.div(i, n3, rounding_mode="floor"), i % n3
+        q, i2 = torch.div(row, n2, rounding_mode="floor"), row % n2
+        i0, i1 = torch.div(q, n1, rounding_mode="floor"), q % n1
+        c = geo.start + i0 * s0 + i1 * s1 + i2 * s2 + col
+        hi = torch.div(c, geo.trail, rounding_mode="floor")
+        lo = c % geo.trail
+        bits = threefry2x32(int(rng[0]), int(rng[1]), lo & M32, hi & M32)[0]
+        out[a:b] = ndtri(uniform(bits))
+    return out
+
+
 def sharded_normal(rng, shape, dtype=torch.float32, mesh=None, spec=None,
                    device=None) -> torch.Tensor:
-    """N(0,1) draw of a whole tensor. Shard-local generation on a mesh is
-    ROADMAP B7."""
-    if mesh is not None:
-        raise NotImplementedError("sharded_normal on a mesh is not ported "
-                                  "(ROADMAP B7: distributed)")
-    return counter_normal(rng, shape, dtype, device=device)
+    """N(0,1) draw of a tensor of ``shape``: the whole tensor, or on a
+    ``mesh`` (``launch.mesh.Mesh``) with the leaf's ``spec`` the calling
+    rank's block of it (``core.blocks.local_block``: whole where the spec
+    is trivial or does not divide), bitwise that block of the whole draw at
+    any mesh shape."""
+    if mesh is None or spec is None:
+        return counter_normal(rng, shape, dtype, device=device)
+    local, offsets = local_block(shape, spec, mesh)
+    return counter_normal(rng, local, dtype, offsets=offsets,
+                          full_shape=shape, device=device)
 
 
 # ------------------------------------------------------------- the add
@@ -305,11 +403,13 @@ def partial_sigma(sigma: float, n_shards: int) -> float:
 @dataclass(frozen=True)
 class NoisedLeaf:
     """A leaf's phase 4, not yet drawn: (g + alpha * (sum of the hi keys'
-    draws - sum of the lo keys')) / denom over g's linear indices start ..
-    start + g.numel() - 1 of a tensor whose counter word 0 spans ``trail``.
-    What a mechanism's ``add_leaf(..., out="deferred")`` returns for
-    ``Optimizer.update_leaves``, whose ``kernels.noise_update`` draws it
-    inside the optimizer's pass over the leaf."""
+    draws - sum of the lo keys')) / denom, the draws at g's elements of the
+    whole tensor: the linear indices start .. start + g.numel() - 1 of a
+    tensor whose counter word 0 spans ``trail``, or with ``dims`` the
+    block that :class:`Geometry` (start, trail, dims, strides) describes
+    (a rank's shard). What a mechanism's ``add_leaf(..., out="deferred")``
+    returns for ``Optimizer.update_leaves``, whose ``kernels.noise_update``
+    draws it inside the optimizer's pass over the leaf."""
     g: torch.Tensor
     hi_keys: tuple
     lo_keys: tuple
@@ -317,6 +417,12 @@ class NoisedLeaf:
     denom: float
     start: int
     trail: int
+    dims: tuple = ()
+    strides: tuple = ()
+
+    @property
+    def geometry(self) -> Geometry:
+        return Geometry(self.start, self.trail, self.dims, self.strides)
 
 
 # where a noised leaf goes (add_leaf's ``out``): a new tensor, over the sum
@@ -325,29 +431,37 @@ class NoisedLeaf:
 OUTS = ("new", "inplace", "deferred")
 
 
-def _noise(g, hi_keys, lo_keys, alpha, denom, out="new"):
-    from repro_torch.kernels.counter_noise import counter_noise, window
+def _noise(g, hi_keys, lo_keys, alpha, denom, out="new", block=None):
+    """``block`` (offsets, full shape): where g lies in the whole tensor
+    (a rank's shard); g is the whole tensor by default."""
+    from repro_torch.kernels.counter_noise import counter_noise
     if out not in OUTS:
         raise ValueError(f"out must be one of {OUTS}, got {out!r}")
+    offsets, full = block if block is not None else (None, None)
     if out == "deferred":
+        geo = geometry(g.shape, offsets, full)
         return NoisedLeaf(g, tuple(hi_keys), tuple(lo_keys), alpha, denom,
-                          *window(g.shape))
-    return counter_noise(g, hi_keys, lo_keys, alpha, denom,
+                          geo.start, geo.trail, geo.dims, geo.strides)
+    return counter_noise(g, hi_keys, lo_keys, alpha, denom, offsets, full,
                          inplace=out == "inplace")
 
 
 def add_noise(flat_grads: dict, rng, sigma: float, R, denom: float,
               mesh=None, pspecs=None) -> dict:
     """(G + sigma*R*xi) / denom per leaf. sigma==0 -> just G/denom. ``R``
-    may be a float (shared scale) or a {path: scale} mapping."""
-    if mesh is not None:
-        raise NotImplementedError("add_noise on a mesh is not ported "
-                                  "(ROADMAP B7: distributed)")
+    may be a float (shared scale) or a {path: scale} mapping. With a
+    ``mesh`` and ``pspecs`` ({path: spec}) each leaf of ``flat_grads`` is
+    the whole leaf and the result is the calling rank's block of it, its
+    noise drawn shard-local."""
     out = {}
     for path, g in flat_grads.items():
+        block = None
+        if mesh is not None and pspecs is not None:
+            g, block = take_block(g, pspecs[path], mesh)
         if sigma > 0.0:
             out[path] = _noise(g, [_path_rng(rng, path)], [],
-                               sigma * _scale_for(R, path), denom)
+                               sigma * _scale_for(R, path), denom,
+                               block=block)
         else:
             out[path] = g / denom
     return out
@@ -375,13 +489,15 @@ class GaussianMechanism:
                 "switch the noise mechanism mid-release")
 
     def add_leaf(self, path: str, g, rng, sigma: float, scale,
-                 denom: float, step=None, out: str = "new"):
+                 denom: float, step=None, out: str = "new", block=None):
         """One leaf of ``add``; ``out`` (``OUTS``) says where a noised leaf
-        goes: a new tensor, over ``g``, or a :class:`NoisedLeaf`."""
+        goes: a new tensor, over ``g``, or a :class:`NoisedLeaf`;
+        ``block`` (offsets, full shape) where g lies in the whole leaf (a
+        rank's shard; the whole leaf by default)."""
         del step  # per-step independence: the per-call rng is the state
         if sigma > 0.0:
             return _noise(g, [_path_rng(rng, path)], [], sigma * scale,
-                          denom, out)
+                          denom, out, block)
         return g / denom
 
     def add(self, flat_grads: dict, rng, sigma: float, sensitivity,
@@ -490,13 +606,13 @@ class TreeAggregationMechanism:
         return epoch, t, t_hi
 
     def add_leaf(self, path: str, g, rng, sigma: float, scale,
-                 denom: float, step=None, out: str = "new"):
+                 denom: float, step=None, out: str = "new", block=None):
         del rng  # node noise keys off the fixed seed only
         epoch, t, t_hi = self._local_prefix(sigma, step)
         if sigma > 0.0:
             return _noise(g, self.node_keys(path, t_hi, epoch),
                           self.node_keys(path, t - 1, epoch), sigma * scale,
-                          denom, out)
+                          denom, out, block)
         return g / denom
 
     def add(self, flat_grads: dict, rng, sigma: float, sensitivity,

@@ -300,17 +300,21 @@ def norm_aux(res: ResolvedPolicy, losses, sq, unit_norms, unit_C) -> dict:
 
 
 def finalize_noise(policy: PrivacyPolicy, res: ResolvedPolicy,
-                   flat_sums: dict, rng, denom: float, step=None) -> dict:
+                   flat_sums: dict, rng, denom: float, step=None, mesh=None,
+                   pspecs=None) -> dict:
     """Phase 4 over a whole flat dict of clipped sums, for the modes that
     hold every leaf at once (the baselines): :func:`noise_leaf_fn` leaf for
     leaf, so every mode draws the same noise for the same (rng, step,
-    path). Frozen leaves pass through."""
-    leaf = noise_leaf_fn(policy, res, rng, denom, step)
+    path). Frozen leaves pass through. With ``mesh`` and ``pspecs`` each
+    result is the calling rank's block of the leaf."""
+    leaf = noise_leaf_fn(policy, res, rng, denom, step, mesh=mesh,
+                         pspecs=pspecs)
     return {p: leaf(p, g) for p, g in flat_sums.items()}
 
 
 def noise_leaf_fn(policy: PrivacyPolicy, res: ResolvedPolicy, rng,
-                  denom: float, step=None, out: str = "new"):
+                  denom: float, step=None, out: str = "new", mesh=None,
+                  pspecs=None):
     """Per-leaf phase 4: -> fn(path, g_sum) -> private grad leaf.
 
     The policy's noise mechanism (``core.noise``) under the key ``rng``
@@ -322,16 +326,25 @@ def noise_leaf_fn(policy: PrivacyPolicy, res: ResolvedPolicy, rng,
     ``core.noise.NoisedLeaf`` instead: ``Optimizer.update_leaves`` draws it
     inside its one pass over the leaf (``kernels.noise_update``), so only
     one leaf's update is live at a time and no noised copy is written.
-    Frozen leaves pass through."""
+    Frozen leaves pass through.
+
+    With a ``mesh`` and ``pspecs`` ({path: spec}, ``launch.sharding``)
+    ``g_sum`` is the whole leaf and the result is the calling rank's block
+    of it: the block is cut out (dense) and its noise drawn shard-local at
+    the block's counters, bitwise that block of the whole leaf's noise."""
+    from repro_torch.core.blocks import take_block
     from repro_torch.core.noise import _scale_for
     mech = policy.mechanism()
     scales = res.noise_scales() if res.heterogeneous else res.sensitivity
 
     def leaf(path: str, g):
+        block = None
+        if mesh is not None and pspecs is not None:
+            g, block = take_block(g, pspecs[path], mesh)
         if path in res.frozen:
             return g
         return mech.add_leaf(path, g.contiguous(), rng, policy.sigma,
                              _scale_for(scales, path), denom, step=step,
-                             out=out)
+                             out=out, block=block)
 
     return leaf

@@ -70,8 +70,12 @@ SIGNATURES = {
     "dp_wkv6_backward": [_P] * 5 + [_I] + [_P] * 8 + [_I] * 5 + [_P],
     "dp_counter_noise": [_P] * 4 + [_I] + [_U64] * 2 + [_I64, _F, _F, _I,
                                                        _P],
+    "dp_counter_noise_block": [_P] * 4 + [_I, _P, _U64, _I64, _F, _F, _I,
+                                          _P],
     "dp_noise_update": [_P] * 6 + [_I] * 2 + [_U64] * 2 + [_I64] + [_I] * 3
                        + [_P] * 3,
+    "dp_noise_update_block": [_P] * 6 + [_I, _P, _U64, _I64] + [_I] * 3
+                             + [_P] * 3,
     "dp_threefry_bits": [_P, _P, _I64, _P],
     "dp_ndtri_f32": [_P, _P, _I64, _P],
 }

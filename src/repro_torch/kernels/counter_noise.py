@@ -3,7 +3,11 @@
     out = (g + alpha * (sum_hi z(key) - sum_lo z(key))) / denom
 
 with z the counter-based normal of ``core.noise.counter_normal`` at each
-element's linear index. One key is the Gaussian mechanism; the tree
+element's linear index in the whole tensor: g is the whole tensor, a
+contiguous window of it, or (on a mesh) a rank's block of it, whose
+``core.noise.geometry`` the block route of the kernel walks row by row
+(``dp_counter_noise_block``), so a block's draws are bitwise that block of
+the whole tensor's. One key is the Gaussian mechanism; the tree
 mechanism's increment is two key lists (``core.noise``). The keys are
 derived on the host (Python ints, no device work) and travel as kernel
 parameters in a key plan (:func:`key_plan`: each distinct key once, with
@@ -32,33 +36,23 @@ HI, LO = 1, 2          # a plan key's sides: added to the hi sum, the lo sum
 
 def window(shape, offsets=None, full_shape=None) -> tuple:
     """-> (start, trail): the linear index of the block ``shape`` at
-    ``offsets`` in ``full_shape``, and the span of counter word 0. The block
-    must be a contiguous run of the whole tensor's linear order: leading
-    dims of 1, then whole dims."""
-    shape = tuple(int(s) for s in shape)
-    full = tuple(int(s) for s in full_shape) if full_shape is not None \
-        else shape
-    _, trail, _ = noise.counter_split(full)
-    if offsets is None:
-        offsets = (0,) * len(full)
-    offsets = tuple(int(o) for o in offsets)
-    if len(shape) != len(full) or len(offsets) != len(full):
-        raise ValueError(f"block {shape} at {offsets} does not match the "
-                         f"rank of {full}")
-    j = next((d for d, s in enumerate(shape) if s != 1), len(shape))
-    if any(shape[d] != full[d] or offsets[d] for d in range(j + 1,
-                                                             len(full))):
-        raise NotImplementedError(
-            f"counter_noise draws a contiguous window of a tensor; block "
-            f"{shape} at {offsets} of {full} is a shard (ROADMAP B7: "
-            "distributed)")
-    if any(o + s > f for o, s, f in zip(offsets, shape, full)):
-        raise ValueError(f"block {shape} at {offsets} lies outside {full}")
-    start, stride = 0, 1
-    for d in reversed(range(len(full))):
-        start += offsets[d] * stride
-        stride *= full[d]
-    return start, trail
+    ``offsets`` in ``full_shape``, and the span of counter word 0, for a
+    block that is a contiguous run of the whole tensor's linear order
+    (leading dims of 1, then whole dims). Any other block has a
+    ``core.noise.geometry`` with dims, and raises here."""
+    geo = noise.geometry(shape, offsets, full_shape)
+    if not geo.contiguous:
+        raise ValueError(f"block {tuple(shape)} at {offsets} of "
+                         f"{full_shape} is not a contiguous window: "
+                         "its draws take the block route "
+                         "(core.noise.geometry)")
+    return geo.start, geo.trail
+
+
+def geometry_args(geo: noise.Geometry):
+    """A block geometry as the block entries take it: 8 uint64 (start, the
+    strides of dims 0..2, the 4 dims), a ctypes array."""
+    return (ctypes.c_ulonglong * 8)(geo.start, *geo.strides, *geo.dims)
 
 
 def _scalar(x: float, dtype) -> float:
@@ -116,18 +110,23 @@ def plan_args(hi_keys, lo_keys, name: str) -> tuple:
 
 
 def plain(g, hi_keys, lo_keys, alpha: float, denom: float, start: int = 0,
-          trail: int | None = None) -> torch.Tensor:
+          trail: int | None = None, dims: tuple = (),
+          strides: tuple = ()) -> torch.Tensor:
     """The kernel's function in plain torch: each distinct key's draw by
-    ``noise.linear_normal`` (:func:`key_plan`), added to the hi sum, the lo
-    sum or both, each sum in its list's order from 0 in f32, then the
-    reference's arithmetic in the leaf's dtype (0-dim device operands, so
-    the division is a true division on either device)."""
+    ``noise.linear_normal`` (a window from ``start``) or
+    ``noise.block_normal`` (a block: ``dims`` and ``strides`` of its
+    ``core.noise.Geometry``), as :func:`key_plan` walks the keys, added to
+    the hi sum, the lo sum or both, each sum in its list's order from 0 in
+    f32, then the reference's arithmetic in the leaf's dtype (0-dim device
+    operands, so the division is a true division on either device)."""
     n = g.numel()
     trail = trail if trail is not None else noise.counter_split(g.shape)[1]
+    geo = noise.Geometry(start, trail, tuple(dims), tuple(strides))
     a = torch.zeros(n, dtype=torch.float32, device=g.device)
     b = torch.zeros(n, dtype=torch.float32, device=g.device)
     for key, sides in key_plan(hi_keys, lo_keys):
-        z = noise.linear_normal(key, start, n, trail, g.device)
+        z = (noise.linear_normal(key, start, n, trail, g.device)
+             if geo.contiguous else noise.block_normal(key, geo, g.device))
         if sides & HI:
             a = a + z
         if sides & LO:
@@ -143,24 +142,35 @@ def counter_noise(g: torch.Tensor, hi_keys, lo_keys, alpha: float,
                   denom: float, offsets=None, full_shape=None,
                   inplace: bool = False) -> torch.Tensor:
     """(g + alpha * (sum of the hi keys' draws - sum of the lo keys'))
-    / denom, the draws at g's coordinates (``offsets`` of ``full_shape``,
-    a contiguous window; the whole of g by default). f32 or bf16 leaves;
-    ``inplace`` writes the result over g (a CUDA leaf). One launch."""
-    start, trail = window(g.shape, offsets, full_shape)
+    / denom, the draws at g's coordinates: g is the block at ``offsets`` of
+    ``full_shape`` (the whole tensor by default), a contiguous window or
+    any block (``core.noise.geometry``). f32 or bf16 leaves; ``inplace``
+    writes the result over g (a CUDA leaf). One launch: the window's entry,
+    or the block route's."""
+    geo = noise.geometry(g.shape, offsets, full_shape)
     hi_keys, lo_keys = list(hi_keys), list(lo_keys)
     if g.device.type == "cpu":
-        return plain(g, hi_keys, lo_keys, alpha, denom, start, trail)
+        return plain(g, hi_keys, lo_keys, alpha, denom, geo.start, geo.trail,
+                     geo.dims, geo.strides)
     bf16 = build.check_inputs("counter_noise", (g,))
     keys, sides, n_keys = plan_args(hi_keys, lo_keys, "counter_noise")
     out = g if inplace else torch.empty_like(g)
     if g.numel() == 0:
         return out
     lib = build.load()
-    build.check(lib.dp_counter_noise(
-        g.data_ptr(), out.data_ptr(), ctypes.addressof(keys),
-        ctypes.addressof(sides), n_keys, start, trail, g.numel(),
-        _scalar(alpha, g.dtype), _scalar(denom, g.dtype), int(bf16),
-        build.stream_ptr(g)), "counter_noise")
+    tail = (g.numel(), _scalar(alpha, g.dtype), _scalar(denom, g.dtype),
+            int(bf16), build.stream_ptr(g))
+    if geo.contiguous:
+        build.check(lib.dp_counter_noise(
+            g.data_ptr(), out.data_ptr(), ctypes.addressof(keys),
+            ctypes.addressof(sides), n_keys, geo.start, geo.trail, *tail),
+            "counter_noise")
+    else:
+        where = geometry_args(geo)
+        build.check(lib.dp_counter_noise_block(
+            g.data_ptr(), out.data_ptr(), ctypes.addressof(keys),
+            ctypes.addressof(sides), n_keys, ctypes.addressof(where),
+            geo.trail, *tail), "counter_noise")
     counter_noise.launches += 1
     return out
 

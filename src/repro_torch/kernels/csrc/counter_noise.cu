@@ -43,6 +43,21 @@
 // central branch ~1.1, the compacted tail ~2.2, where uncompacted it costs
 // ~5.6. The pass is bound by instruction issue: the division by a
 // power-of-two denom as a product (cn::quotient) saves ~0.4 of it.
+//
+// A rank's block of a leaf under a mesh (dp_counter_noise_block) is rarely
+// one window of the tensor. Its geometry (cn::Block: 4 local dims, the
+// tensor's strides, its first element's linear index) gives each element's
+// global index, so the block is bitwise that block of the whole draw. Each
+// lane carries its run's place as the row's digits and a column, moved on
+// once a thread step by adds and carries (no division in the loop); a run
+// starts from its row's start, three products. Where the rows are a
+// multiple of RUN elements and the runs start at index 0, no run crosses a
+// row and the counters step as a window's (cn::IN_ROWS); else each element
+// tests its column and a crossing run jumps to the next row's start
+// (cn::ROWS). chip_smoke's shard block timing holds the block route against
+// the window's over a (2,2) rank's blocks of qwen2-1.5b's leaves; PERF.md
+// section 6 has the times, and those of a first version that divided a
+// run's row index down to its digits and tested every element's column.
 #include <cuda_bf16.h>
 
 #include "counter_normal.cuh"
@@ -55,19 +70,33 @@ constexpr int WARPS = THREADS / 32;
 // (design_study --only noise times 2, 3 and 4: 3 was 8% faster than 2)
 constexpr int MIN_BLOCKS = 3;
 
-template <typename T>
+// MODE (cn::WINDOW, cn::ROWS, cn::IN_ROWS): the leaf is the contiguous
+// window from ``start`` (the instantiation the one-device paths launch,
+// unchanged), or a block of the tensor (cn::Block, a rank's shard) whose
+// counters are found by its rows, where a lane's run may cross a row's end
+// (ROWS) or never does (IN_ROWS).
+template <typename T, int MODE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     counter_noise_kernel(const T* g, T* out,
                          const __grid_constant__ cn::Keys keys, int n_keys,
                          unsigned long long start, uint32_t trail,
                          long long n, long long head, float alpha,
-                         const cn::Denom denom) {
+                         const cn::Denom denom,
+                         const __grid_constant__ cn::Block blk) {
   constexpr bool BF16 = sizeof(T) == 2;
   __shared__ float queues[WARPS][cn::WARP_RUN];
   float* queue = queues[threadIdx.x / 32];
   const long long runs = (n - head) / cn::RUN;
   const long long warp = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
   const long long warps = (long long)gridDim.x * WARPS;
+  // the block route: the place of the lane's first run, and the step to
+  // its next (found once a thread; a thread step moves them on)
+  constexpr bool BLOCK = MODE != cn::WINDOW;
+  cn::Place at = {}, by = {};
+  if constexpr (BLOCK) {
+    at = cn::place_of(blk, head + (warp * 32 + (threadIdx.x & 31)) * cn::RUN);
+    by = cn::place_of(blk, warps * 32 * cn::RUN);
+  }
   // warp-uniform trip count: every lane draws (warp_xi's ballots); lanes
   // past the last run load and store nothing
   for (long long r0 = warp * 32; r0 < runs; r0 += warps * 32) {
@@ -76,8 +105,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     const bool live = r < runs;
     float v[cn::RUN], xi[cn::RUN];
     if (live) cn::load_run(g + i, v);
-    cn::warp_xi(keys, n_keys, start + (unsigned long long)i, trail, queue,
-                xi);
+    if constexpr (BLOCK) {
+      cn::warp_xi_block<MODE == cn::ROWS>(keys, n_keys, blk, at, trail, queue,
+                                          xi);
+      cn::advance(blk, at, by);
+    } else {
+      cn::warp_xi(keys, n_keys, start + (unsigned long long)i, trail, queue,
+                  xi);
+    }
     if (live) {
 #pragma unroll
       for (int j = 0; j < cn::RUN; ++j)
@@ -90,8 +125,10 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   for (long long k = (long long)blockIdx.x * THREADS + threadIdx.x; k < rest;
        k += (long long)gridDim.x * THREADS) {
     const long long i = k < head ? k : head + runs * cn::RUN + (k - head);
-    const float xi =
-        cn::xi_at(keys, n_keys, start + (unsigned long long)i, trail);
+    const unsigned long long c =
+        BLOCK ? cn::linear_at(blk, cn::place_of(blk, i))
+              : start + (unsigned long long)i;
+    const float xi = cn::xi_at(keys, n_keys, c, trail);
     cn::store_one(out, i, cn::noised<BF16>(cn::load_one(g, i), xi, alpha,
                                            denom));
   }
@@ -121,20 +158,53 @@ int blocks_for(long long n, long long cap) {
   return (int)(b < cap ? b : cap);
 }
 
-template <typename T>
+template <typename T, int MODE>
+int launch_mode(const void* g, void* out, const cn::Keys& k, int n_keys,
+                unsigned long long start, uint32_t trail, long long n,
+                long long head, float alpha, float denom,
+                const cn::Block& blk, cudaStream_t st) {
+  const int blocks =
+      cn::pass_blocks(counter_noise_kernel<T, MODE>, THREADS, n, head);
+  if (blocks <= 0) return (int)cudaErrorInvalidValue;
+  counter_noise_kernel<T, MODE><<<blocks, THREADS, 0, st>>>(
+      (const T*)g, (T*)out, k, n_keys, start, trail, n, head, alpha,
+      cn::denom_of(denom), blk);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool BLOCK>
 int launch(const void* g, void* out, const cn::Keys& k, int n_keys,
            unsigned long long start, uint32_t trail, long long n, float alpha,
-           float denom, cudaStream_t st) {
+           float denom, const cn::Block& blk, cudaStream_t st) {
   const void* ptrs[2] = {g, out};
   const int sizes[2] = {(int)sizeof(T), (int)sizeof(T)};
   const long long head = cn::aligned_head(ptrs, sizes, 2, n);
-  const int blocks =
-      cn::pass_blocks(counter_noise_kernel<T>, THREADS, n, head);
-  if (blocks <= 0) return (int)cudaErrorInvalidValue;
-  counter_noise_kernel<T><<<blocks, THREADS, 0, st>>>(
-      (const T*)g, (T*)out, k, n_keys, start, trail, n, head, alpha,
-      cn::denom_of(denom));
-  return (int)cudaGetLastError();
+  if (!BLOCK)
+    return launch_mode<T, cn::WINDOW>(g, out, k, n_keys, start, trail, n,
+                                      head, alpha, denom, blk, st);
+  if (cn::runs_in_rows(blk, head))
+    return launch_mode<T, cn::IN_ROWS>(g, out, k, n_keys, start, trail, n,
+                                       head, alpha, denom, blk, st);
+  return launch_mode<T, cn::ROWS>(g, out, k, n_keys, start, trail, n, head,
+                                  alpha, denom, blk, st);
+}
+
+template <bool BLOCK>
+int launch_dtype(const void* g, void* out, const uint32_t* keys,
+                 const uint8_t* sides, int n_keys, unsigned long long start,
+                 unsigned long long trail, long long n, float alpha,
+                 float denom, int bf16, const cn::Block& blk, void* stream) {
+  cn::Keys k = {};
+  if (n <= 0 || trail == 0 || trail >= (1ULL << 32) ||
+      !cn::read_plan(keys, sides, n_keys, k))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return bf16 ? launch<__nv_bfloat16, BLOCK>(g, out, k, n_keys, start,
+                                             (uint32_t)trail, n, alpha,
+                                             denom, blk, st)
+              : launch<float, BLOCK>(g, out, k, n_keys, start,
+                                     (uint32_t)trail, n, alpha, denom, blk,
+                                     st);
 }
 
 }  // namespace
@@ -151,15 +221,25 @@ extern "C" int dp_counter_noise(const void* g, void* out,
                                 unsigned long long trail, long long n,
                                 float alpha, float denom, int bf16,
                                 void* stream) {
-  cn::Keys k = {};
-  if (n <= 0 || trail == 0 || trail >= (1ULL << 32) ||
-      !cn::read_plan(keys, sides, n_keys, k))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? launch<__nv_bfloat16>(g, out, k, n_keys, start,
-                                      (uint32_t)trail, n, alpha, denom, st)
-              : launch<float>(g, out, k, n_keys, start, (uint32_t)trail, n,
-                              alpha, denom, st);
+  return launch_dtype<false>(g, out, keys, sides, n_keys, start, trail, n,
+                             alpha, denom, bf16, cn::Block{}, stream);
+}
+
+// The same over a block of the tensor (a rank's shard under a mesh): g and
+// out hold the block's n elements dense; geometry: 8 uint64 on the host,
+// the block's base, the tensor's strides of dims 0..2 and the block's 4
+// dims (cn::Block, cn::read_block); trail as above.
+extern "C" int dp_counter_noise_block(const void* g, void* out,
+                                      const uint32_t* keys,
+                                      const uint8_t* sides, int n_keys,
+                                      const unsigned long long* geometry,
+                                      unsigned long long trail, long long n,
+                                      float alpha, float denom, int bf16,
+                                      void* stream) {
+  cn::Block b = {};
+  if (!cn::read_block(geometry, n, b)) return (int)cudaErrorInvalidValue;
+  return launch_dtype<true>(g, out, keys, sides, n_keys, b.base, trail, n,
+                            alpha, denom, bf16, b, stream);
 }
 
 // in (n, 4) uint32 rows (k0, k1, x0, x1) -> out (n, 2): threefry2x32 blocks.

@@ -36,7 +36,10 @@
 // once.
 //
 // Two ways to draw. ``normal`` gives one value a thread (the check entries,
-// and the few elements of a leaf outside its runs). ``warp_xi`` draws a run
+// and the few elements of a leaf outside its runs). ``warp_xi`` (a
+// contiguous window of the tensor) and ``warp_xi_block`` (a rank's block of
+// it under a mesh: a lane's counters step along the block's rows, and jump
+// to the next row's start where a run crosses one) draw a run
 // of RUN consecutive elements a lane, 32 runs a warp together, for the
 // passes over a leaf (counter_noise.cu, noise_update.cu): each lane steps its
 // counter words from the run's first (one 64-bit division a run, and only
@@ -305,16 +308,151 @@ __device__ __forceinline__ float xi_at(const Keys& keys, int n_keys,
   return __fsub_rn(a, b);
 }
 
-// One key's normals at a lane's RUN counters from (lo, hi), into z. All 32
-// lanes of the warp call it together; queue: the warp's WARP_RUN floats of
-// shared memory. The uniform lies in [2^-25, 1 - 2^-24], so ndtri's p = 0,
-// p = 1 and mcp = 0 cases never arise. (Drawing the RUN threefry blocks
-// first, then the RUN central branches, as independent chains was 12%
-// slower on the card: PERF.md.)
-__device__ __forceinline__ void warp_normals(uint32_t k0, uint32_t k1,
-                                             uint32_t lo, uint32_t hi,
-                                             uint32_t trail, float* queue,
-                                             float (&z)[RUN]) {
+// ------------------------------------------------------ a block's counters
+// A rank's shard of a leaf under a mesh (repro_torch.launch.sharding's
+// local_block) is a dense block of the whole tensor, and seldom one
+// contiguous run of its linear order. Its geometry, as
+// repro_torch.core.noise.geometry gives it after merging the dims that are
+// contiguous in the whole tensor: local dims n[0..3] (leading 1s where it
+// has fewer), the whole tensor's strides s[0..2] of dims 0..2 (dim 3's is
+// 1) and base, the linear index of the block's first element. The block's
+// element (i0, i1, i2, i3), stored dense in that order, is the tensor's
+// element base + i0 s0 + i1 s1 + i2 s2 + i3. A row (n[3] elements) is a
+// contiguous run of both. Host limit: every dim under 2^31 (a digit plus a
+// step's digit and a carry stays in 32 bits).
+struct Block {
+  unsigned long long base;
+  unsigned long long s[3];
+  uint32_t n[4];
+};
+
+// A local element's place: its column (i3) and its row's indices (i0, i1,
+// i2) in the block's leading dims
+struct Place {
+  uint32_t col, i2, i1, i0;
+};
+
+// The place of local element i, or the mixed-radix digits of a count of i
+// elements (a lane's step): divisions, once a thread
+__device__ __forceinline__ Place place_of(const Block& b,
+                                          unsigned long long i) {
+  const unsigned long long row = i / b.n[3];
+  const unsigned long long q = row / b.n[2];
+  Place p;
+  p.col = (uint32_t)(i - row * b.n[3]);
+  p.i2 = (uint32_t)(row - q * b.n[2]);
+  p.i1 = (uint32_t)(q % b.n[1]);
+  p.i0 = (uint32_t)(q / b.n[1]);
+  return p;
+}
+
+// The linear index of the first element of p's row: three products, no
+// division (the place carries its row's digits)
+__device__ __forceinline__ unsigned long long row_start(const Block& b,
+                                                        const Place& p) {
+  return b.base + p.i0 * b.s[0] + p.i1 * b.s[1] + p.i2 * b.s[2];
+}
+
+__device__ __forceinline__ unsigned long long linear_at(const Block& b,
+                                                        const Place& p) {
+  return row_start(b, p) + p.col;
+}
+
+// p moved on by ``by`` (a place_of of a count): digit by digit, each carry
+// at most one (every digit of both is below its dim)
+__device__ __forceinline__ void advance(const Block& b, Place& p,
+                                        const Place& by) {
+  uint32_t c;
+  p.col += by.col;
+  c = p.col >= b.n[3];
+  if (c) p.col -= b.n[3];
+  p.i2 += by.i2 + c;
+  c = p.i2 >= b.n[2];
+  if (c) p.i2 -= b.n[2];
+  p.i1 += by.i1 + c;
+  c = p.i1 >= b.n[1];
+  if (c) p.i1 -= b.n[1];
+  p.i0 += by.i0 + c;
+}
+
+// p on the first element of the next row
+__device__ __forceinline__ void next_row(const Block& b, Place& p) {
+  p.col = 0u;
+  if (++p.i2 == b.n[2]) {
+    p.i2 = 0u;
+    if (++p.i1 == b.n[1]) {
+      p.i1 = 0u;
+      ++p.i0;
+    }
+  }
+}
+
+// The C entries' geometry: 8 uint64 on the host, base, s[0..2], n[0..3],
+// into ``b``; false unless the dims hold n elements within the limits above.
+__host__ inline bool read_block(const unsigned long long* geo, long long n,
+                                Block& b) {
+  b.base = geo[0];
+  unsigned long long count = 1;
+  for (int d = 0; d < 3; ++d) b.s[d] = geo[1 + d];
+  for (int d = 0; d < 4; ++d) {
+    if (geo[4 + d] == 0 || geo[4 + d] >= (1ULL << 31)) return false;
+    b.n[d] = (uint32_t)geo[4 + d];
+    count *= geo[4 + d];
+  }
+  return n > 0 && count == (unsigned long long)n && b.n[0] < (1u << 31) &&
+         b.n[1] < (1u << 31) && b.n[2] < (1u << 31) && b.n[3] < (1u << 31);
+}
+
+// How a pass walks its leaf: a contiguous window, or a block whose runs
+// may cross a row's end (ROWS) or stay in their rows (IN_ROWS: rows a
+// multiple of RUN elements and the runs from index 0, so a run never
+// crosses, and its counters step as a window's)
+constexpr int WINDOW = 0, ROWS = 1, IN_ROWS = 2;
+
+__host__ inline bool runs_in_rows(const Block& b, long long head) {
+  return head == 0 && b.n[3] % RUN == 0;
+}
+
+// How a lane's counter words (lo, hi) step from one element of its run to
+// the next. Linear: the next linear index (a contiguous window).
+struct Linear {
+  uint32_t trail;
+  __device__ __forceinline__ void next(uint32_t& lo, uint32_t& hi) {
+    if (++lo == trail) {
+      lo = 0u;
+      ++hi;
+    }
+  }
+};
+
+// Rows: the next column of the block's row, or the first element of the
+// next row, whose counter words are found anew
+struct Rows {
+  const Block* b;
+  uint32_t trail;
+  Place at;
+  __device__ __forceinline__ void next(uint32_t& lo, uint32_t& hi) {
+    if (++at.col == b->n[3]) {
+      next_row(*b, at);
+      split(row_start(*b, at), trail, lo, hi);
+    } else if (++lo == trail) {
+      lo = 0u;
+      ++hi;
+    }
+  }
+};
+
+// One key's normals at a lane's RUN counters from (lo, hi), stepped by
+// ``step``, into z. All 32 lanes of the warp call it together; queue: the
+// warp's WARP_RUN floats of shared memory. The uniform lies in [2^-25,
+// 1 - 2^-24], so ndtri's p = 0, p = 1 and mcp = 0 cases never arise.
+// (Drawing the RUN threefry blocks first, then the RUN central branches, as
+// independent chains was 12% slower on the card: PERF.md.)
+template <typename Step>
+__device__ __forceinline__ void warp_normals_by(uint32_t k0, uint32_t k1,
+                                                uint32_t lo, uint32_t hi,
+                                                Step step, float* queue,
+                                                float (&z)[RUN]) {
   const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
   bool up[RUN];
   int slot[RUN];
@@ -322,10 +460,7 @@ __device__ __forceinline__ void warp_normals(uint32_t k0, uint32_t k1,
 #pragma unroll
   for (int j = 0; j < RUN; ++j) {
     const float p = uniform(threefry2x32(k0, k1, lo, hi).x);
-    if (++lo == trail) {
-      lo = 0u;
-      ++hi;
-    }
+    step.next(lo, hi);
     up[j] = upper(p);
     const float mcp = up[j] ? __fsub_rn(1.f, p) : p;
     const bool tail = !central(mcp);
@@ -347,27 +482,35 @@ __device__ __forceinline__ void warp_normals(uint32_t k0, uint32_t k1,
   __syncwarp();                           // the queue is free again
 }
 
-// xi at a lane's RUN consecutive linear indices from c (the warp's 32
-// lanes together): xi_at's sums by the plan, each key drawn once by
-// warp_normals (the sides are warp-uniform: no divergence). A plan of one
-// HI key (the Gaussian mechanism) skips the sums: every z is finite and
-// none is -0 (the one zero, at the uniform 1/2, is +0; a negative z comes
-// from the lower half, where p < 1/2), so (0 + z) - 0 is z bit for bit
-// (all 2^24 uniforms: tests/test_torch_noise.py).
-__device__ __forceinline__ void warp_xi(const Keys& keys, int n_keys,
-                                        unsigned long long c, uint32_t trail,
-                                        float* queue, float (&xi)[RUN]) {
-  uint32_t lo, hi;
-  split(c, trail, lo, hi);
+// ... at a contiguous run of linear indices
+__device__ __forceinline__ void warp_normals(uint32_t k0, uint32_t k1,
+                                             uint32_t lo, uint32_t hi,
+                                             uint32_t trail, float* queue,
+                                             float (&z)[RUN]) {
+  warp_normals_by(k0, k1, lo, hi, Linear{trail}, queue, z);
+}
+
+// xi at a lane's RUN elements from counter words (lo, hi), stepped by
+// ``step`` (the warp's 32 lanes together): xi_at's sums by the plan, each
+// key drawn once by warp_normals_by (the sides are warp-uniform: no
+// divergence). A plan of one HI key (the Gaussian mechanism) skips the
+// sums: every z is finite and none is -0 (the one zero, at the uniform 1/2,
+// is +0; a negative z comes from the lower half, where p < 1/2), so (0 + z)
+// - 0 is z bit for bit (all 2^24 uniforms: tests/test_torch_noise.py).
+template <typename Step>
+__device__ __forceinline__ void warp_xi_by(const Keys& keys, int n_keys,
+                                           uint32_t lo, uint32_t hi,
+                                           Step step, float* queue,
+                                           float (&xi)[RUN]) {
   if (n_keys == 1 && keys.side[0] == HI) {
-    warp_normals(keys.k[0], keys.k[1], lo, hi, trail, queue, xi);
+    warp_normals_by(keys.k[0], keys.k[1], lo, hi, step, queue, xi);
     return;
   }
   float a[RUN], b[RUN], z[RUN];
 #pragma unroll
   for (int j = 0; j < RUN; ++j) a[j] = b[j] = 0.f;
   for (int k = 0; k < n_keys; ++k) {
-    warp_normals(keys.k[2 * k], keys.k[2 * k + 1], lo, hi, trail, queue, z);
+    warp_normals_by(keys.k[2 * k], keys.k[2 * k + 1], lo, hi, step, queue, z);
     if (keys.side[k] & HI) {
 #pragma unroll
       for (int j = 0; j < RUN; ++j) a[j] = __fadd_rn(a[j], z[j]);
@@ -379,6 +522,39 @@ __device__ __forceinline__ void warp_xi(const Keys& keys, int n_keys,
   }
 #pragma unroll
   for (int j = 0; j < RUN; ++j) xi[j] = __fsub_rn(a[j], b[j]);
+}
+
+// xi at a lane's RUN consecutive linear indices from c: a contiguous window
+__device__ __forceinline__ void warp_xi(const Keys& keys, int n_keys,
+                                        unsigned long long c, uint32_t trail,
+                                        float* queue, float (&xi)[RUN]) {
+  uint32_t lo, hi;
+  split(c, trail, lo, hi);
+  warp_xi_by(keys, n_keys, lo, hi, Linear{trail}, queue, xi);
+}
+
+// xi at a lane's RUN consecutive elements of a block from place ``at``: the
+// same counters, in the same order, as the whole tensor's draw gives those
+// elements, so the block is bitwise that block of the whole draw. CROSS:
+// a run may cross into the next row (Rows); else every run lies in one row
+// (the host's choice: rows a multiple of RUN and runs from index 0), and
+// its counters step as a window's.
+template <bool CROSS>
+__device__ __forceinline__ void warp_xi_block(const Keys& keys, int n_keys,
+                                              const Block& b, const Place& at,
+                                              uint32_t trail, float* queue,
+                                              float (&xi)[RUN]) {
+  uint32_t lo, hi;
+  split(linear_at(b, at), trail, lo, hi);
+  if constexpr (CROSS) {
+    Rows step;
+    step.b = &b;
+    step.trail = trail;
+    step.at = at;
+    warp_xi_by(keys, n_keys, lo, hi, step, queue, xi);
+  } else {
+    warp_xi_by(keys, n_keys, lo, hi, Linear{trail}, queue, xi);
+  }
 }
 
 // ------------------------------------------------- the noised gradient

@@ -60,6 +60,14 @@
 // plan's sums (cn::warp_xi). What the key plan buys is one draw a distinct
 // key: FTRL's ordinary step at a tree's t = 3 draws 2 keys where the first
 // version drew 3.
+//
+// A rank's block of a leaf under a mesh (dp_noise_update_block): g, p and
+// the state are its dense elements, and only the draw's counters follow
+// the block's geometry, as counter_noise.cu walks them (cn::ROWS,
+// cn::IN_ROWS); the update is elementwise, so a block's p and state are
+// bitwise that block of the whole leaf's. chip_smoke's shard block timing
+// holds it against the window's over a (2,2) rank's blocks of qwen2-1.5b's
+// leaves (PERF.md section 6).
 #include <cuda_bf16.h>
 
 #include "counter_normal.cuh"
@@ -108,12 +116,19 @@ __device__ __forceinline__ void step(float gn, float& m, float& v, float& p,
   p = __fmaf_rn(-h.lr, upd, p);
 }
 
-template <typename G, typename P, int OPT>
+// MODE (cn::WINDOW, cn::ROWS, cn::IN_ROWS): the leaf is the contiguous
+// window from ``start`` (the instantiation the one-device paths launch,
+// unchanged), or a block of the tensor (cn::Block, a rank's shard under a
+// mesh; g, p and the state are its dense elements) whose counters are
+// found by its rows, where a lane's run may cross a row's end (ROWS) or
+// never does (IN_ROWS).
+template <typename G, typename P, int OPT, int MODE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     noise_update_kernel(const G* g, P* p, float* m, float* v, float* t0,
                         const __grid_constant__ cn::Keys keys, int n_keys,
                         int noise, unsigned long long start, uint32_t trail,
-                        long long n, long long head, const Hyper h) {
+                        long long n, long long head, const Hyper h,
+                        const __grid_constant__ cn::Block blk) {
   constexpr bool G_BF16 = sizeof(G) == 2;
   constexpr bool TWO = OPT != SGD;      // a second state: AdamW v, FTRL m
   // FTRL reads p only on a restart step (it becomes the anchor, written to
@@ -125,14 +140,28 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const long long runs = (n - head) / cn::RUN;
   const long long warp = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
   const long long warps = (long long)gridDim.x * WARPS;
+  // the block route: the place of the lane's first run, and the step to
+  // its next (found once a thread; a thread step moves them on)
+  constexpr bool BLOCK = MODE != cn::WINDOW;
+  cn::Place at = {}, by = {};
+  if constexpr (BLOCK) {
+    at = cn::place_of(blk, head + (warp * 32 + (threadIdx.x & 31)) * cn::RUN);
+    by = cn::place_of(blk, warps * 32 * cn::RUN);
+  }
   // warp-uniform trip count and noise flag: every lane draws together
   for (long long r0 = warp * 32; r0 < runs; r0 += warps * 32) {
     const long long r = r0 + (threadIdx.x & 31);
     const long long i = head + r * cn::RUN;
     float xi[cn::RUN];
-    if (noise)
-      cn::warp_xi(keys, n_keys, start + (unsigned long long)i, trail, queue,
-                  xi);
+    if constexpr (BLOCK) {
+      cn::warp_xi_block<MODE == cn::ROWS>(keys, n_keys, blk, at, trail, queue,
+                                          xi);
+      cn::advance(blk, at, by);
+    } else {
+      if (noise)
+        cn::warp_xi(keys, n_keys, start + (unsigned long long)i, trail,
+                    queue, xi);
+    }
     if (r < runs) {
       float gv[cn::RUN], mv[cn::RUN], vv[cn::RUN], pv[cn::RUN];
       cn::load_run(g + i, gv);
@@ -160,10 +189,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
        k += (long long)gridDim.x * THREADS) {
     const long long i = k < head ? k : head + runs * cn::RUN + (k - head);
     float gn = cn::load_one(g, i);
-    if (noise)
-      gn = cn::noised<G_BF16>(
-          gn, cn::xi_at(keys, n_keys, start + (unsigned long long)i, trail),
-          h.alpha, h.dn);
+    if (noise) {
+      const unsigned long long c =
+          BLOCK ? cn::linear_at(blk, cn::place_of(blk, i))
+                : start + (unsigned long long)i;
+      gn = cn::noised<G_BF16>(gn, cn::xi_at(keys, n_keys, c, trail), h.alpha,
+                              h.dn);
+    }
     float mi = m[i], vi = TWO ? v[i] : 0.f;
     float pi = from_t0 ? t0[i] : cn::load_one(p, i);
     if (restart) t0[i] = pi;
@@ -174,38 +206,91 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   }
 }
 
-template <typename G, typename P, int OPT>
-int launch(const void* g, void* p, float* m, float* v, float* t0,
-           const cn::Keys& k, int n_keys, int noise, unsigned long long start,
-           uint32_t trail, long long n, const Hyper& h, cudaStream_t st) {
-  const void* ptrs[5] = {g, p, m, OPT != SGD ? v : m, OPT == FTRL ? t0 : m};
-  const int sizes[5] = {(int)sizeof(G), (int)sizeof(P), 4, 4, 4};
-  const long long head = cn::aligned_head(ptrs, sizes, 5, n);
-  const int blocks =
-      cn::pass_blocks(noise_update_kernel<G, P, OPT>, THREADS, n, head);
+template <typename G, typename P, int OPT, int MODE>
+int launch_mode(const void* g, void* p, float* m, float* v, float* t0,
+                const cn::Keys& k, int n_keys, int noise,
+                unsigned long long start, uint32_t trail, long long n,
+                long long head, const Hyper& h, const cn::Block& blk,
+                cudaStream_t st) {
+  const int blocks = cn::pass_blocks(noise_update_kernel<G, P, OPT, MODE>,
+                                     THREADS, n, head);
   if (blocks <= 0) return (int)cudaErrorInvalidValue;
-  noise_update_kernel<G, P, OPT><<<blocks, THREADS, 0, st>>>(
+  noise_update_kernel<G, P, OPT, MODE><<<blocks, THREADS, 0, st>>>(
       (const G*)g, (P*)p, m, v, t0, k, n_keys, noise, start, trail, n, head,
-      h);
+      h, blk);
   return (int)cudaGetLastError();
 }
 
-template <typename G, typename P>
+template <typename G, typename P, int OPT, bool BLOCK>
+int launch(const void* g, void* p, float* m, float* v, float* t0,
+           const cn::Keys& k, int n_keys, int noise, unsigned long long start,
+           uint32_t trail, long long n, const Hyper& h, const cn::Block& blk,
+           cudaStream_t st) {
+  const void* ptrs[5] = {g, p, m, OPT != SGD ? v : m, OPT == FTRL ? t0 : m};
+  const int sizes[5] = {(int)sizeof(G), (int)sizeof(P), 4, 4, 4};
+  const long long head = cn::aligned_head(ptrs, sizes, 5, n);
+  if (!BLOCK)
+    return launch_mode<G, P, OPT, cn::WINDOW>(g, p, m, v, t0, k, n_keys,
+                                              noise, start, trail, n, head,
+                                              h, blk, st);
+  if (cn::runs_in_rows(blk, head))
+    return launch_mode<G, P, OPT, cn::IN_ROWS>(g, p, m, v, t0, k, n_keys,
+                                               noise, start, trail, n, head,
+                                               h, blk, st);
+  return launch_mode<G, P, OPT, cn::ROWS>(g, p, m, v, t0, k, n_keys, noise,
+                                          start, trail, n, head, h, blk, st);
+}
+
+template <typename G, typename P, bool BLOCK>
 int launch_opt(int opt, const void* g, void* p, float* m, float* v,
                float* t0, const cn::Keys& k, int n_keys, int noise,
                unsigned long long start, uint32_t trail, long long n,
-               const Hyper& h, cudaStream_t st) {
+               const Hyper& h, const cn::Block& blk, cudaStream_t st) {
   switch (opt) {
     case SGD:
-      return launch<G, P, SGD>(g, p, m, v, t0, k, n_keys, noise, start,
-                               trail, n, h, st);
+      return launch<G, P, SGD, BLOCK>(g, p, m, v, t0, k, n_keys, noise,
+                                      start, trail, n, h, blk, st);
     case ADAMW:
-      return launch<G, P, ADAMW>(g, p, m, v, t0, k, n_keys, noise, start,
-                                 trail, n, h, st);
+      return launch<G, P, ADAMW, BLOCK>(g, p, m, v, t0, k, n_keys, noise,
+                                        start, trail, n, h, blk, st);
     default:
-      return launch<G, P, FTRL>(g, p, m, v, t0, k, n_keys, noise, start,
-                                trail, n, h, st);
+      return launch<G, P, FTRL, BLOCK>(g, p, m, v, t0, k, n_keys, noise,
+                                       start, trail, n, h, blk, st);
   }
+}
+
+template <bool BLOCK>
+int launch_all(const void* g, void* p, float* m, float* v,
+               const uint32_t* keys, const uint8_t* sides, int n_keys,
+               int noise, unsigned long long start, unsigned long long trail,
+               long long n, int g_bf16, int p_bf16, int opt,
+               const float* hyper, float* t0, const cn::Block& blk,
+               void* stream) {
+  cn::Keys k = {};
+  if (n <= 0 || n_keys < 0 || n_keys > cn::MAX_KEYS ||
+      (noise && (trail == 0 || trail >= (1ULL << 32) ||
+                 !cn::read_plan(keys, sides, n_keys, k))) ||
+      opt < SGD || opt > FTRL || (opt != SGD && v == nullptr) ||
+      (opt == FTRL && t0 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Hyper h = {hyper[0], hyper[1], hyper[2],  hyper[3],
+                   hyper[4], hyper[5], hyper[6],  hyper[7],
+                   hyper[8], hyper[9], hyper[10], cn::denom_of(hyper[1])};
+  const uint32_t tr = (uint32_t)trail;
+  cudaStream_t st = (cudaStream_t)stream;
+  using bf = __nv_bfloat16;
+  if (g_bf16)
+    return p_bf16 ? launch_opt<bf, bf, BLOCK>(opt, g, p, m, v, t0, k, n_keys,
+                                              noise, start, tr, n, h, blk, st)
+                  : launch_opt<bf, float, BLOCK>(opt, g, p, m, v, t0, k,
+                                                 n_keys, noise, start, tr, n,
+                                                 h, blk, st);
+  return p_bf16 ? launch_opt<float, bf, BLOCK>(opt, g, p, m, v, t0, k,
+                                               n_keys, noise, start, tr, n,
+                                               h, blk, st)
+                : launch_opt<float, float, BLOCK>(opt, g, p, m, v, t0, k,
+                                                  n_keys, noise, start, tr,
+                                                  n, h, blk, st);
 }
 
 }  // namespace
@@ -226,26 +311,25 @@ extern "C" int dp_noise_update(const void* g, void* p, float* m, float* v,
                                unsigned long long trail, long long n,
                                int g_bf16, int p_bf16, int opt,
                                const float* hyper, float* t0, void* stream) {
-  cn::Keys k = {};
-  if (n <= 0 || n_keys < 0 || n_keys > cn::MAX_KEYS ||
-      (noise && (trail == 0 || trail >= (1ULL << 32) ||
-                 !cn::read_plan(keys, sides, n_keys, k))) ||
-      opt < SGD || opt > FTRL || (opt != SGD && v == nullptr) ||
-      (opt == FTRL && t0 == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const Hyper h = {hyper[0], hyper[1], hyper[2],  hyper[3],
-                   hyper[4], hyper[5], hyper[6],  hyper[7],
-                   hyper[8], hyper[9], hyper[10], cn::denom_of(hyper[1])};
-  const uint32_t tr = (uint32_t)trail;
-  cudaStream_t st = (cudaStream_t)stream;
-  using bf = __nv_bfloat16;
-  if (g_bf16)
-    return p_bf16 ? launch_opt<bf, bf>(opt, g, p, m, v, t0, k, n_keys, noise,
-                                       start, tr, n, h, st)
-                  : launch_opt<bf, float>(opt, g, p, m, v, t0, k, n_keys,
-                                          noise, start, tr, n, h, st);
-  return p_bf16 ? launch_opt<float, bf>(opt, g, p, m, v, t0, k, n_keys,
-                                        noise, start, tr, n, h, st)
-                : launch_opt<float, float>(opt, g, p, m, v, t0, k, n_keys,
-                                           noise, start, tr, n, h, st);
+  return launch_all<false>(g, p, m, v, keys, sides, n_keys, noise, start,
+                           trail, n, g_bf16, p_bf16, opt, hyper, t0,
+                           cn::Block{}, stream);
+}
+
+// The same over a block of the tensor (a rank's shard under a mesh): g, p
+// and the state hold the block's n elements dense; the noise is drawn at
+// the block's counters (geometry as dp_counter_noise_block takes it).
+// Always noised: a leaf without noise takes dp_noise_update.
+extern "C" int dp_noise_update_block(const void* g, void* p, float* m,
+                                     float* v, const uint32_t* keys,
+                                     const uint8_t* sides, int n_keys,
+                                     const unsigned long long* geometry,
+                                     unsigned long long trail, long long n,
+                                     int g_bf16, int p_bf16, int opt,
+                                     const float* hyper, float* t0,
+                                     void* stream) {
+  cn::Block b = {};
+  if (!cn::read_block(geometry, n, b)) return (int)cudaErrorInvalidValue;
+  return launch_all<true>(g, p, m, v, keys, sides, n_keys, 1, b.base, trail,
+                          n, g_bf16, p_bf16, opt, hyper, t0, b, stream);
 }

@@ -7,7 +7,9 @@ pass.
 
 ``g`` is a leaf's clipped sum given as a :class:`core.noise.NoisedLeaf`
 (the record a mechanism's ``add_leaf(..., out="deferred")`` returns: the sum,
-its keys, alpha and denom, not yet drawn) or as a tensor taken as it is
+its keys, alpha and denom and where it lies in the whole tensor, not yet
+drawn; a rank's block under a mesh takes the kernel's block route, its
+counters walked along the block's rows) or as a tensor taken as it is
 (frozen leaves, sigma = 0, the baseline modes' materialized trees). The
 state and p are updated in place. The draw is ``counter_noise``'s, bit for
 bit (the record's keys as ``counter_noise.key_plan``: each distinct key
@@ -87,7 +89,7 @@ def gradient(g) -> torch.Tensor:
     ``counter_noise``'s plain version, or the tensor as given."""
     if isinstance(g, noise.NoisedLeaf):
         return cn.plain(g.g, g.hi_keys, g.lo_keys, g.alpha, g.denom,
-                        g.start, g.trail)
+                        g.start, g.trail, g.dims, g.strides)
     return g
 
 
@@ -159,15 +161,24 @@ def noise_update(g, p: torch.Tensor, m: torch.Tensor, v, hp,
         scal = (hp.lr, hp.momentum, 1.0, 0.0, 0.0, 0.0, 1.0, 1.0)
     hyper = (ctypes.c_float * 11)(alpha, denom, *scal,
                                     getattr(hp, "weight_decay", 0.0))
-    build.check(build.load().dp_noise_update(
-        leaf.data_ptr(), p.data_ptr(), m.data_ptr(),
-        v.data_ptr() if opt != OPT[SGD] else 0, ctypes.addressof(keys),
-        ctypes.addressof(sides), n_keys, int(rec is not None), start, trail,
-        p.numel(),
-        int(g_bf16), int(p_bf16), opt, ctypes.addressof(hyper),
-        t0.data_ptr() if opt == OPT[FTRL] else 0, build.stream_ptr(p)),
-        "noise_update")
+    ptrs = (leaf.data_ptr(), p.data_ptr(), m.data_ptr(),
+            v.data_ptr() if opt != OPT[SGD] else 0, ctypes.addressof(keys),
+            ctypes.addressof(sides), n_keys)
+    tail = (p.numel(), int(g_bf16), int(p_bf16), opt,
+            ctypes.addressof(hyper),
+            t0.data_ptr() if opt == OPT[FTRL] else 0, build.stream_ptr(p))
+    if rec is None or not rec.dims:
+        build.check(build.load().dp_noise_update(
+            *ptrs, int(rec is not None), start, trail, *tail),
+            "noise_update")
+    else:
+        # a rank's block: the block route (its geometry, always noised)
+        where = cn.geometry_args(rec.geometry)
+        build.check(build.load().dp_noise_update_block(
+            *ptrs, ctypes.addressof(where), trail, *tail), "noise_update")
+        noise_update.block_launches += 1
     noise_update.launches += 1
 
 
 noise_update.launches = 0
+noise_update.block_launches = 0     # those of the block route

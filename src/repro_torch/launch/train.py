@@ -48,8 +48,30 @@ stalled step) saves the current step and exits 0. ``REPRO_FAULT``
 
 Runs on the CUDA card by default; ``--device cpu`` runs the same engine with
 the kernels' plain PyTorch versions (tests, small configs). Without a card
-the default raises instead of falling back to the CPU. Meshes (``--mesh``)
-and ``--autotune`` are not ported (ROADMAP B7, B9).
+the default raises instead of falling back to the CPU. ``--autotune`` is
+not ported (ROADMAP B9).
+
+A mesh of processes: ``--mesh D,M`` (or ``P,D,M``) lays the world out as
+(data, model) (or (pod, data, model)) and runs the sharded step
+(``launch.steps``: each rank holds its blocks of the params and the
+optimizer state, takes its rows of the global batch, one all-reduce a
+weighted grad, shard-local noise). Rank, world and local rank come from
+the ``torchrun`` environment, or from ``train(..., mesh=, rank=, world=,
+init_method=)`` in processes the caller starts:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 2,2 \
+        --steps 3 --batch 8 --seq 512
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --smoke \
+        --device cpu --mesh 2,1 --steps 2
+
+The result is the one-process run's: within float tolerance where the data
+axis splits the batch, bitwise where it does not (``--mesh 1,M``), and the
+noise is bitwise the one-process noise at every mesh shape. The 'model'
+axis shards storage, not compute. NCCL cannot put two ranks on one card:
+where a host's ranks outnumber its cards they take gloo. Every rank builds the same
+global batch from the seed, records the same ledger and reaches the same
+epsilon; rank 0 logs and writes ``--out``. Checkpoints hold each rank's
+blocks at their offsets and restore at any world size.
 """
 from __future__ import annotations
 
@@ -57,10 +79,12 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.run_state import (check_resume,
                                               config_fingerprint, pack_meta,
@@ -76,12 +100,15 @@ from repro_torch.core.noise import next_pow2, prng_key
 from repro_torch.core.policy import as_policy, with_scope
 from repro_torch.core.tape import TAPE_POLICIES
 from repro_torch.data.pipeline import Pipeline, PipelineConfig
+from repro_torch.launch import sharding as sh
+from repro_torch.launch.mesh import init_distributed, make_mesh, rank_device
 from repro_torch.launch.steps import TrainState, make_train_step
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.optim.schedules import make_schedule
 from repro_torch.runtime.fault_injection import maybe_fault
 from repro_torch.runtime.fault_tolerance import (CheckpointManager,
                                                  Heartbeat, PreemptionGuard)
+from repro_torch.utils.tree import flatten, unflatten
 
 OPTIMIZERS = ("sgd", "adamw", "lamb", "adafactor", "ftrl")
 
@@ -200,9 +227,37 @@ def ftrl_policy(dp, tc: TrainConfig, log=print):
     return pol, restart
 
 
+def _meta_tree(tree) -> dict:
+    """A tree's tensors as meta tensors (shapes and dtypes, no memory)."""
+    return {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in flatten(tree).items()}
+
+
+def _mesh_layout(mesh, opt_name, params_like, opt_like, rank: int):
+    """-> (layout, blocks) of a rank's checkpoint: {path: (offsets, global
+    shape)} of the blocks it writes (the first replica of each), and
+    {path: (offsets, local shape)} of the blocks it reads back."""
+    specs = sh.state_pspecs(opt_name, unflatten(params_like), mesh)
+    layout, blocks = {}, {}
+    for prefix, like, sp in (("params", params_like, specs.params),
+                             ("opt", flatten(opt_like), specs.opt_state)):
+        fs = flatten(sp)
+        for path, v in like.items():
+            local, offsets = sh.local_block(v.shape, fs[path], mesh)
+            key = f"{prefix}/{path}"
+            if sh.holds_unique(fs[path], v.shape, mesh):
+                layout[key] = (offsets, tuple(v.shape))
+            blocks[key] = (offsets, local)
+    if rank == 0:
+        for key, shape in (("step", ()), ("rng", (2,))):
+            layout[key] = ((0,) * len(shape), shape)
+    return layout, blocks
+
+
 def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
           on_step=None, dataset_size: int = 0, target_epsilon: float = 0.0,
-          delta: float = 1e-5, summary_out=None):
+          delta: float = 1e-5, summary_out=None, mesh=None, rank=None,
+          world=None, init_method=None):
     """Run ``tc.steps`` DP steps from a random init (seed ``tc.seed``)
     under ``train_policy(dp, tc)``, sigma calibrated to ``target_epsilon``
     when asked (:func:`calibrate`), DP-FTRL's tree noise under
@@ -220,8 +275,43 @@ def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
     blocks, the write runs on a thread), and on SIGTERM or a stalled step
     saves the current step and returns; the summary then also has
     ``checkpoints`` (each save's bytes, blocking and writer seconds, the
-    restore's seconds). -> (params, losses)."""
+    restore's seconds).
+
+    ``mesh`` ((data, model) or (pod, data, model) sizes) runs the sharded
+    step over the world of processes (``launch.mesh``): ``rank``, ``world``
+    and ``init_method`` join it where the caller started the
+    processes (else the ``torchrun`` environment). Its product must be the
+    world's size. -> (params, losses): the whole params on every rank."""
     dev = resolve_device(device)
+    grid, own_group = None, False
+    if mesh is not None:
+        own_group = not dist.is_initialized()
+        rank, world, local = init_distributed(rank, world, init_method, dev)
+    try:
+        if mesh is not None:
+            if math.prod(mesh) != world:
+                raise ValueError(f"--mesh {','.join(map(str, mesh))} has "
+                                 f"{math.prod(mesh)} places; the world has "
+                                 f"{world} processes")
+            dev = rank_device(dev, local)
+            grid = make_mesh(tuple(mesh), device=dev)
+            if grid.rank != 0:
+                log = _quiet
+            log(f"mesh {grid.shape} over {grid.size} devices")
+        return _train(model_cfg, tc, dp, dev, log, on_step, dataset_size,
+                      target_epsilon, delta, summary_out, grid)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _quiet(*args, **kwargs):
+    """A non-zero rank's log: rank 0 speaks for the mesh."""
+
+
+def _train(model_cfg, tc, dp, dev, log, on_step, dataset_size,
+           target_epsilon, delta, summary_out, grid):
+    """:func:`train` on ``dev``, over the mesh ``grid`` when given."""
     dp = train_policy(dp, tc)
     dp = calibrate(dp, tc, dataset_size, target_epsilon, delta, log)
     dp, ftrl_restart = ftrl_policy(dp, tc, log)
@@ -277,13 +367,26 @@ def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
            if tc.checkpoint_dir else None)
     try:
         params = model.init(tc.seed, dev)
+        params_like, blocks = _meta_tree(params), None
+        if grid is not None:
+            # every rank builds the same whole init from the seed and keeps
+            # its blocks of it
+            specs = sh.state_pspecs(tc.optimizer, params, grid)
+            params = sh.shard_tree(params, specs.params, grid)
         opt_state = opt.init(params)
+        if grid is not None and mgr is not None:
+            mgr.layout, blocks = _mesh_layout(
+                grid, tc.optimizer, params_like,
+                opt.init(unflatten(params_like)), grid.rank)
+            mgr.process_index, mgr.process_count = grid.rank, grid.size
+            mgr.group = grid.io
         rng, start = prng_key(tc.seed + 1), 0
         if mgr is not None:
             state0, step0, meta0 = mgr.resume(
                 template={"params": params, "opt": opt_state,
                           "step": np.asarray(0),
-                          "rng": np.asarray(rng, np.uint32)}, device=dev)
+                          "rng": np.asarray(rng, np.uint32)}, device=dev,
+                blocks=blocks)
             if state0 is not None:
                 # raises on privacy-critical drift; the ledger resumes as
                 # it was saved
@@ -298,8 +401,8 @@ def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
                     f"{mgr.restore_seconds:.3f}s)")
             del state0
         state = TrainState(params, opt_state, start, rng)
-        step_fn = make_train_step(model.apply, params, opt, dp,
-                                  tc.microbatch)
+        step_fn = make_train_step(model.apply, unflatten(params_like), opt,
+                                  dp, tc.microbatch, grid, tc.optimizer)
         del params, opt_state
 
         def snapshot(s: TrainState, step: int) -> dict:
@@ -331,6 +434,8 @@ def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
             # a resumed run's replayed steps are no-ops (idempotent)
             ledger.record_to(step + 1, **ledger_kw)
             stop = guard.should_stop()
+            if grid is not None:         # every rank stops at one step
+                stop = grid.any(stop)
             if mgr is not None:
                 # the snapshot copies before the next step updates in place
                 meta = pack_meta(mech, ledger, pipe, fingerprint)
@@ -360,6 +465,11 @@ def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
         if mgr is not None:
             mgr.close()
 
+    params = state.params
+    if grid is not None:                  # the whole params, on every rank
+        params = sh.gather_tree(
+            params, sh.flat_param_pspecs(unflatten(params_like), grid),
+            {p: tuple(v.shape) for p, v in params_like.items()}, grid)
     epsilon = None
     if policy.mode != "nonprivate" and ledger.recorded_to > 0:
         epsilon = ledger.epsilon(delta)
@@ -372,13 +482,16 @@ def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
             "resumed_from": start,
             "epsilon": epsilon,
             "delta": delta,
-            "params_sha256": params_digest(state.params),
+            "params_sha256": params_digest(params),
             "ledger": ledger.to_json(),
         })
+        if grid is not None:
+            summary_out["mesh"] = {"shape": dict(grid.shape),
+                                   "backend": dist.get_backend()}
         if mgr is not None:
             summary_out["checkpoints"] = {
                 "saves": mgr.saves, "restore_seconds": mgr.restore_seconds}
-    return state.params, losses
+    return params, losses
 
 
 def cli_args(argv=None):
@@ -451,8 +564,20 @@ def cli_args(argv=None):
                     help="write a json run summary (steps done, the step "
                          "it resumed from, epsilon, params sha256, ledger)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--mesh", default="",
+                    help="data,model (or pod,data,model) axis sizes of a "
+                         "mesh over the world of processes (torchrun); "
+                         "'' runs on one device")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    mesh = None
+    if args.mesh:
+        try:
+            mesh = tuple(int(x) for x in args.mesh.split(","))
+        except ValueError:
+            ap.error(f"--mesh wants 'data,model' ints, got {args.mesh!r}")
+        if len(mesh) not in (2, 3) or min(mesh) < 1:
+            ap.error(f"--mesh wants 2 or 3 positive sizes, got {args.mesh!r}")
 
     mc = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.smoke:
@@ -475,16 +600,18 @@ def cli_args(argv=None):
                      keep_checkpoints=args.keep_checkpoints)
     dp = resolve_dp(args.arch, args.policy, args.mode, args.clipping,
                     args.sigma)
+    extra = {"mesh": mesh} if mesh else {}
     return dict(model_cfg=mc, tc=tc, dp=dp, device=args.device,
                 dataset_size=args.dataset_size,
-                target_epsilon=args.epsilon), args.out
+                target_epsilon=args.epsilon, **extra), args.out
 
 
 def main(argv=None):
     kwargs, out_path = cli_args(argv)
     summary = {} if out_path else None
     out = train(**kwargs, summary_out=summary)
-    if out_path:
+    # on a mesh rank 0 writes the summary (every rank holds the same)
+    if out_path and int(os.environ.get("RANK", 0)) == 0:
         with open(out_path, "w") as f:
             json.dump(summary, f, indent=2)
         print(f"summary written to {out_path}")

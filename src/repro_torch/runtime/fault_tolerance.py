@@ -1,5 +1,7 @@
-"""Fault tolerance on one device: preemption, the step watchdog, and
-checkpoint/restart (counterpart of ``repro/runtime/fault_tolerance.py``).
+"""Fault tolerance: preemption, the step watchdog, and checkpoint/restart
+(counterpart of ``repro/runtime/fault_tolerance.py``), on one device or on
+every rank of a mesh (the train loop agrees on a stop across the ranks; a
+:class:`CheckpointManager` of a rank saves its blocks, process 0 commits).
 
 The failure model is (a) SIGTERM preemption with a grace window, (b) a
 hung step, (c) a hard crash. The remedy is checkpoint/restart: the run is
@@ -126,12 +128,22 @@ class CheckpointManager:
     ``saves`` holds a record a save: its step, the seconds the snapshot
     blocked the caller (``snapshot_seconds``), and once written, the
     writer's seconds and the checkpoint's bytes. ``restore_seconds`` is the
-    time ``resume`` took (``latest_step`` and ``restore``)."""
+    time ``resume`` took (``latest_step`` and ``restore``).
+
+    On a mesh each rank holds a manager with its ``process_index``, the
+    world's ``process_count``, a gloo ``group`` the writer threads alone
+    use, and its ``layout`` ({path: (offsets, global shape)} of the blocks
+    it writes, ``checkpoint.shard_snapshot``); every rank saves at the same
+    steps."""
 
     root: str
     every: int = 100
     keep: int = 3
     async_save: bool = True
+    process_index: int = 0
+    process_count: int = 1
+    group: object = None
+    layout: Optional[dict] = None
     saves: list = field(default_factory=list)
     restore_seconds: Optional[float] = None
     _pending: Optional[Future] = field(default=None, repr=False)
@@ -144,7 +156,7 @@ class CheckpointManager:
             return False
         self.wait()           # the writer reads the buffers this refills
         t0 = time.perf_counter()
-        slices = ckpt.shard_snapshot(state, self._buffers)
+        slices = ckpt.shard_snapshot(state, self._buffers, self.layout)
         record = {"step": step, "snapshot_seconds": time.perf_counter() - t0}
         self.saves.append(record)
         if self.async_save and not force:
@@ -159,7 +171,9 @@ class CheckpointManager:
 
     def _write(self, step, slices, meta, record):
         t0 = time.perf_counter()
-        path = ckpt.save(self.root, step, slices, self.keep, meta=meta)
+        path = ckpt.save(self.root, step, slices, self.keep, meta=meta,
+                         process_index=self.process_index,
+                         process_count=self.process_count, group=self.group)
         record.update(writer_seconds=time.perf_counter() - t0,
                       bytes=ckpt.nbytes(path))
 
@@ -168,15 +182,17 @@ class CheckpointManager:
         if pending is not None:
             pending.result()
 
-    def resume(self, template=None, device="cpu"):
+    def resume(self, template=None, device="cpu", blocks=None):
         """-> (state, step, meta) from the latest valid checkpoint, its
-        tensors on ``device``; (None, -1, {}) when there is none."""
+        tensors on ``device`` (``blocks``: the rank's blocks of them,
+        ``checkpoint.restore``); (None, -1, {}) when there is none."""
         self.wait()
         t0 = time.perf_counter()
         step = ckpt.latest_step(self.root)
         if step is None:
             return None, -1, {}
-        out = ckpt.restore(self.root, step, template=template, device=device)
+        out = ckpt.restore(self.root, step, template=template, device=device,
+                           blocks=blocks)
         self.restore_seconds = time.perf_counter() - t0
         return out
 

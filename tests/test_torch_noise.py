@@ -283,13 +283,27 @@ def test_counter_normal_refuses_past_2_64():
 
 
 def test_sharded_normal_on_a_mesh_is_b7():
+    """Without a mesh the whole draw; on a (2, 2) mesh (ROADMAP B7) each
+    rank's draw, and add_noise's leaf, is its block of the whole leaf's,
+    bitwise."""
+    import types
     assert torch.equal(noise.sharded_normal((0, 4), (3, 2)),
                        noise.counter_normal((0, 4), (3, 2)))
-    with pytest.raises(NotImplementedError, match="B7"):
-        noise.sharded_normal((0, 4), (3, 2), mesh=object())
-    with pytest.raises(NotImplementedError, match="B7"):
-        noise.add_noise({"w": torch.zeros(2)}, (0, 1), 1.0, 1.0, 1.0,
-                        mesh=object())
+    whole = noise.counter_normal((0, 4), (4, 6))
+    g = torch.zeros(4, 6)
+    for d in range(2):
+        for m in range(2):
+            mesh = types.SimpleNamespace(shape={"data": 2, "model": 2},
+                                         axis_names=("data", "model"),
+                                         coords={"data": d, "model": m})
+            want = whole[2 * d:2 * d + 2, 3 * m:3 * m + 3]
+            assert torch.equal(noise.sharded_normal(
+                (0, 4), (4, 6), mesh=mesh, spec=("data", "model")), want)
+            out = noise.add_noise({"w": g}, (0, 1), 1.0, 1.0, 1.0,
+                                  mesh=mesh, pspecs={"w": ("data", "model")})
+            key = noise._path_rng((0, 1), "w")
+            assert torch.equal(out["w"], noise.counter_normal(
+                key, (4, 6))[2 * d:2 * d + 2, 3 * m:3 * m + 3])
 
 
 def test_small_helpers_match_jax():
@@ -667,7 +681,8 @@ def test_plan_draws_are_chip_smokes_draws(E, completion):
 
 def test_window_of_a_tensor_past_2_32():
     """A contiguous window of a (8, 2^31) tensor: its draws are that block
-    of counter_normal; a block that is not contiguous is a shard (B7)."""
+    of counter_normal; a block that is not contiguous is a shard, which
+    takes the block route (ROADMAP B7), not a window."""
     full = (8, 2 ** 31)
     assert cn_mod.window((1, 6), (2, 2 ** 31 - 6), full) == \
         (3 * 2 ** 31 - 6, 2 ** 31)
@@ -676,7 +691,7 @@ def test_window_of_a_tensor_past_2_32():
                                offsets=(2, 2 ** 31 - 6), full_shape=full)
     assert torch.equal(got, noise.counter_normal(
         (7, 9), (1, 6), offsets=(2, 2 ** 31 - 6), full_shape=full))
-    with pytest.raises(NotImplementedError, match="B7"):
+    with pytest.raises(ValueError, match="not a contiguous window"):
         cn_mod.window((2, 3), (0, 0), (4, 6))
     with pytest.raises(ValueError, match="outside"):
         cn_mod.window((1, 4), (0, 3), (4, 6))
