@@ -18,9 +18,12 @@ Phases, each printing JSON lines:
             noise_update's kernels (``warp_sass``: none is a failure)
   kernels   each of the fourteen kernels against its plain PyTorch version on
             the card, at the shapes each train path below gives it (bf16;
-            each tap routed as ``core.bk.plan_report`` says, MoE records and
-            masks from the path's own step-0 forward), at the prefill
-            paths' shapes (flash_attention, wkv6; bf16) and at ragged f32
+            each tap routed as ``core.bk.plan_report`` says, one case a
+            layer shape and route, the deepest stack's; MoE records and
+            masks from the path's own step-0 forward; hymba's bcdt, p = 57,
+            which bk-mixopt caches, on grad_norm_direct's and clipped_grad's
+            SIMT routes too), at the prefill paths' shapes
+            (flash_attention, wkv6; bf16) and at ragged f32
             shapes (wkv6 also under strong constant decay, w = 0.1 and
             0.01, and a mixed decay: log-uniform in [1e-6, 1] with exact
             zeros and ones; T not a multiple of its chunk); norms,
@@ -149,13 +152,14 @@ Phases, each printing JSON lines:
                     (dense0_0 + 5 MoE blocks), B=8, T=512
   train_moe_direct  the same with the experts group forced to the direct
                     norm (2 steps)
-  train_long        qwen2-1.5b, full, B=2, T=2048: qkv and o take the direct
-                    norm with the mixopt cache off
+  train_long        qwen2-1.5b at full width, LONG_LAYERS of its 28 layers,
+                    B=2, T=2048: qkv and o take the direct norm with the
+                    mixopt cache off
   train_layer       qwen2-1.5b, full, B=8, T=512, clipping scope 'layer':
                     each mm unit streams through the composed route
                     (ghost_norm, then clipped_grad): none fits the fused
                     budget of ``kernels.dispatch.fused_plan``
-  train_tape        qwen2-1.5b, full, B=2, T=2048, tape 'recompute': no
+  train_tape        train_long's model and shapes, tape 'recompute': no
                     weighted-grad kernel, a reweighted backward per unit
                     (2 steps)
   train_ftrl        qwen2-1.5b, full, B=8, T=512, 4 steps of DP-FTRL
@@ -170,6 +174,18 @@ Phases, each printing JSON lines:
                     through Wkv6Fn (wkv6 and wkv6_backward once a layer),
                     the direct norm on its narrow taps (a flat DPConfig: no
                     registered policy)
+  train_hymba       hymba-1.5b at full width (d 1600, 25 heads GQA kv 5 x
+                    64, ssm_state 16, d_ff 5504, V 32001, 128 meta tokens,
+                    window 1024, bf16), HYMBA_LAYERS of its 32 layers
+                    (global 0, L/2 and L-1), B=4, T=1024 (T + meta = 1152 >
+                    the window): a flat DPConfig (no registered policy);
+                    the kernels ``core.bk.plan_report`` routes its taps to,
+                    the head's ghost_norm and clipped_grad on their SIMT
+                    routes (p = 32001), every other on wgmma; bk-mixopt
+                    caches bcdt (p = 57) and the unstacked fuse_o (no
+                    kernel). Also the bytes autograd saves in one BK
+                    forward, by kind (attention probabilities, SSM chunk
+                    tensors, the rest), and the optimizer state's
             each: the arch's registered policy, bk-mixopt (unless named),
             sigma=1.0, AdamW (train_ftrl: as named), through
             ``repro_torch.launch.train.train`` (losses drained every step);
@@ -184,8 +200,8 @@ Phases, each printing JSON lines:
                 the same phase; its launches a step as train's (none by
                 the noise kernels' block route), its last step profiled
   train_mesh2   two processes sharing the card under gloo (NCCL cannot put
-                two ranks on one device), qwen2-1.5b at full width and 4 of
-                its 28 layers, f32, B=8, T=512, sigma 1, 3 AdamW steps
+                two ranks on one device), qwen2-1.5b at full width and 2 of
+                its 28 layers, f32, B=8, T=512, sigma 1, 2 AdamW steps
                 (MESH2), after the same run in this process (world 1): (a)
                 --mesh 2,1 (4 rows a rank, one all-reduce a weighted grad,
                 a checkpoint every step) within rtol 1e-3 / atol 1e-5 and
@@ -227,9 +243,12 @@ Phases, each printing JSON lines:
                 ``model.prefill``: flash_attention once a layer
   prefill_rwkv  rwkv6-3b, full (32 layers, bf16), B=4, T=4096: wkv6 once a
                 layer
+  prefill_hymba hymba-1.5b, full (32 layers, bf16), B=4, T=3968 (T + meta =
+                4096, so the sliding-window layers take the chunked band):
+                flash_attention once a global layer (3 a prefill)
             each: three prefills (warm-up, timed, profiled); launches per
             prefill; finite last-position logits
-  serve, serve_rwkv
+  serve, serve_rwkv, serve_hymba
             ``launch.serve.generate`` of each model, full: B=4 prompts of
             16 tokens, 16 generated (teacher-forced prompt, greedy decode
             against the cache); decode ms/token, peak memory
@@ -250,7 +269,7 @@ Phases, each printing JSON lines:
             on the card held to the same steps on the CPU (the plain
             versions), params and state at f32 TOL
   parity_rwkv
-            one BK step of a 2-layer, full-width, f32 rwkv6-3b model, B=4,
+            one BK step of a 1-layer, full-width, f32 rwkv6-3b model, B=4,
             T=512, on the card (on the card the recurrence always takes
             wkv6 and wkv6_backward) against the same params and batch on
             the CPU (the plain versions; the recurrence by the JAX
@@ -258,6 +277,14 @@ Phases, each printing JSON lines:
             noised AdamW step as in ``parity``; then bk-mixopt against
             opacus on the card (sigma 0; opacus runs Wkv6Fn under
             vmap(grad))
+  parity_hymba
+            one BK step of a 5-layer (global 0, 2, 4), full-width, f32
+            hymba-1.5b model, B=4, T=1024 (bk-mixopt, sigma 1.0): the
+            kernels on the card against ``use_kernels=False`` on the card
+            and against the CPU (the chunked SSM and banded attention on
+            both), norms at NORM_TOL, sums at f32 TOL; one noised AdamW
+            step as in ``parity``; bk-mixopt against opacus on the card
+            (sigma 0)
   parity_modes
             every mode of ``core.engine.make_grad_fn`` on the card (f32,
             one seed) against opacus: qwen2-1.5b at full width and 2 layers
@@ -273,8 +300,16 @@ Phases, each printing JSON lines:
             the card (kernels) against the same params' prefill on the CPU
             (plain versions), and the teacher-forced decode's logits at the
             last prompt position against the card's prefill
+  parity_prefill_hymba
+            parity_hymba's 5-layer f32 model, B=2, T=1408 (T + meta = 1536:
+            the chunked band, the window biting): the card's prefill
+            against the CPU's, and the teacher-forced decode's logits at
+            every position on the card against the CPU's (decode never
+            prepends the meta tokens, as in the JAX package, so it is not
+            held to the prefill)
 
-Then a ``kernels`` summary line and, last, the ``ok`` line. Any failed check
+Each phase ends with a ``phase_seconds`` line. Then a ``kernels`` summary
+line and, last, the ``ok`` line. Any failed check
 raises, and the script exits non-zero without the ``ok`` line. It needs a
 CUDA card and the ``src/repro_torch`` package beside it. It imports nothing
 of JAX and nothing of the JAX package.
@@ -298,12 +333,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TRAINS = ("train", "train_nonprivate", "train_ghostclip", "train_moe",
           "train_moe_direct", "train_long", "train_layer", "train_tape",
-          "train_ftrl", "train_rwkv", "train_mesh")
-PREFILLS = ("prefill", "prefill_rwkv")
-SERVES = ("serve", "serve_rwkv")
+          "train_ftrl", "train_rwkv", "train_mesh", "train_hymba")
+PREFILLS = ("prefill", "prefill_rwkv", "prefill_hymba")
+SERVES = ("serve", "serve_rwkv", "serve_hymba")
 PARITIES = ("parity", "parity_moe", "parity_long", "parity_layer",
-            "parity_modes", "parity_rwkv")
-SERVE_PARITIES = ("parity_prefill", "parity_prefill_rwkv")
+            "parity_modes", "parity_rwkv", "parity_hymba")
+SERVE_PARITIES = ("parity_prefill", "parity_prefill_rwkv",
+                  "parity_prefill_hymba")
 RESUMES = ("train_resume",)
 MESHES = ("train_mesh2",)
 PHASES = (("card", "build", "kernels") + TRAINS + MESHES + RESUMES + PREFILLS
@@ -344,6 +380,14 @@ MOE_LAYERS = 6      # dense0_0 + 5 MoE blocks: the depth one 80 GB card holds
 # of rwkv6-3b's 32 layers, what one 80 GB card holds at B=8, T=512: 30 and
 # 32 run out of memory (scripts/rwkv_depth_probe.py)
 RWKV_LAYERS = 28
+# of qwen2-1.5b's 28 layers, what train_long and train_tape run at B=2,
+# T=2048 (cut from 28 to keep the whole script in its time)
+LONG_LAYERS = 14
+# of hymba-1.5b's 32 layers, the deepest whose train_hymba step (B=4,
+# T=1024) peaks under 76 GB, its global layers 0, 15 and 29: all 32 peaked
+# at 79.10 GB (NVIDIA H100 80GB HBM3), 35.34 of it the attention's saved
+# f32 probabilities
+HYMBA_LAYERS = 30
 # host seconds of idle margin at each end of device_ms's recorded calls:
 # the profiler keeps only device events whose timestamps, converted to the
 # host clock, fall inside its window, and on the card's machine that
@@ -352,6 +396,8 @@ RWKV_LAYERS = 28
 # after ~90 s of a process). The train and prefill profiles, a whole step
 # long, are left as they were.
 PROFILE_PAD_S = 0.25
+# cuda_ms stops timing a function once its timed runs pass this many ms
+TIMING_BUDGET_MS = 1000.0
 # counter_noise: its normals against the plain version's (the bound the
 # tests hold the plain ndtri to against JAX's; on the card they measured
 # 0), the golden (JAX) normals, and the exhaustive ndtri against float64
@@ -469,8 +515,8 @@ RUNS = {
                                  ghost_norm=9, clipped_grad=9,
                                  emb_ghost_norm=1, emb_clipped_grad=1,
                                  moe_direct_norm=2, moe_clipped_grad=2)),
-    "train_long": dict(arch="qwen2-1.5b", layers=0, batch=2, seq=2048,
-                       steps=3, direct=False, per_step=_per_step(
+    "train_long": dict(arch="qwen2-1.5b", layers=LONG_LAYERS, batch=2,
+                       seq=2048, steps=3, direct=False, per_step=_per_step(
                            grad_norm_direct=2, ghost_norm=3, clipped_grad=5,
                            emb_ghost_norm=1, emb_clipped_grad=1)),
     # every param path its own clip unit, each streamed by the composed
@@ -482,8 +528,8 @@ RUNS = {
                                            emb_ghost_norm=1,
                                            emb_clipped_grad=1)),
     # no cotangent held: norms only, then one reweighted backward per unit
-    "train_tape": dict(arch="qwen2-1.5b", layers=0, batch=2, seq=2048,
-                       steps=2, direct=False, tape="recompute",
+    "train_tape": dict(arch="qwen2-1.5b", layers=LONG_LAYERS, batch=2,
+                       seq=2048, steps=2, direct=False, tape="recompute",
                        per_step=_per_step(grad_norm_direct=2, ghost_norm=3,
                                           emb_ghost_norm=1)),
     # DP-FTRL: sigma from --epsilon 3 over 50000 samples by the tree
@@ -509,6 +555,22 @@ RUNS = {
                            ghost_norm=9, grad_norm_direct=8, clipped_grad=17,
                            emb_ghost_norm=1, emb_clipped_grad=1,
                            wkv6=RWKV_LAYERS, wkv6_backward=RWKV_LAYERS)),
+    # hymba-1.5b (no registered policy: a flat DPConfig), T + 128 meta
+    # tokens = 1152: qkv, xz, up, down and the head ghost (2T^2 < pd),
+    # bcdt (p = 57) and fuse_o direct; bk-mixopt caches bcdt and the three
+    # unstacked fuse_o (no kernel), the two stacked fuse_o launch
+    # grad_norm_direct; clipped_grad on every other mm tap. The head's
+    # ghost_norm and clipped_grad take the SIMT routes (p = 32001 is no
+    # multiple of 8: ``simt``), every other launch wgmma. Its first loss
+    # sits near ln(V) + 1/2 (the head's 1/sqrt(d) init after an rmsnorm)
+    "train_hymba": dict(arch="hymba-1.5b", layers=HYMBA_LAYERS, batch=4,
+                        seq=1024, steps=3, direct=False, loss0_excess=0.5,
+                        simt=dict(ghost_norm=1, clipped_grad=1),
+                        peak_limit=76e9,
+                        per_step=_per_step(
+                            ghost_norm=21, grad_norm_direct=2,
+                            clipped_grad=23, emb_ghost_norm=1,
+                            emb_clipped_grad=1)),
     # train through the mesh path: --mesh 1,1, a world of one process under
     # NCCL (the sharded step's gathers, all-reduces and block noise all of
     # one rank); its params' sha256 must equal a no-mesh run's
@@ -519,10 +581,11 @@ RUNS = {
                            emb_clipped_grad=1)),
 }
 # two processes sharing the card under gloo (NCCL cannot put two ranks on
-# one device): qwen2-1.5b at full width, 4 of its 28 layers, f32, sigma 1,
-# 3 AdamW steps (``phase_train_mesh2``): (a) --mesh 2,1 (B=8, 4 a rank, a
-# checkpoint every step), (b) --mesh 1,2, each against world 1
-MESH2 = dict(arch="qwen2-1.5b", layers=4, batch=8, seq=512, steps=3,
+# one device): qwen2-1.5b at full width, 2 of its 28 layers, f32, sigma 1,
+# 2 AdamW steps (cut from 4 layers and 3 steps to keep the whole
+# script in its time) (``phase_train_mesh2``): (a) --mesh 2,1 (B=8, 4 a
+# rank, a checkpoint every step), (b) --mesh 1,2, each against world 1
+MESH2 = dict(arch="qwen2-1.5b", layers=2, batch=8, seq=512, steps=2,
              dtype="float32", cases={"a": (2, 1), "b": (1, 2)})
 MESH2_TOL = dict(rtol=1e-3, atol=1e-5)     # tests/test_sharded_step.py:80
 # fused_clip_grad's gate-edge cases (name, L, d, p; bf16, B=8, T=512): the
@@ -563,7 +626,20 @@ SERVING = {"prefill": dict(arch="qwen2-1.5b", batch=4, seq=4096,
            "parity_prefill": dict(arch="qwen2-1.5b", batch=2, seq=100,
                                   kernel="flash_attention"),
            "parity_prefill_rwkv": dict(arch="rwkv6-3b", batch=2, seq=100,
-                                       kernel="wkv6")}
+                                       kernel="wkv6"),
+           # the global layers take flash_attention (3 a prefill), the
+           # sliding-window layers banded_attention (torch ops)
+           "prefill_hymba": dict(arch="hymba-1.5b", batch=4, seq=3968,
+                                 kernel="flash_attention", per_prefill=3),
+           "serve_hymba": dict(arch="hymba-1.5b", batch=4, prompt=16,
+                               gen=16),
+           # decode: the prompt tokens teacher-forced through decode on
+           # the card and on the CPU (the CPU's decode reads every weight a
+           # token)
+           "parity_prefill_hymba": dict(arch="hymba-1.5b", batch=2,
+                                        seq=1408, layers=5, decode=64,
+                                        kernel="flash_attention",
+                                        per_prefill=3)}
 # train paths that share one model, seed and batch (so one set of records)
 PATH_GROUPS = (("train", "train_layer"), ("train_moe", "train_moe_direct"),
                ("train_long", "train_tape"))
@@ -651,15 +727,18 @@ def reset_counts(ws):
                 setattr(w, count, 0)
 
 
-def check_routes(name, ws, want_wgmma: bool):
+def check_routes(name, ws, want_wgmma: bool, simt=None):
     """-> {kernel: wgmma or chunked launches}; raises unless every launch of
-    each wgmma kernel took the wgmma route (``want_wgmma``: bf16 paths) or
-    none did (f32 paths: the SIMT route), and every launch of a kernel with
-    a chunked route took it (f32 and bf16 alike)."""
+    each wgmma kernel took the wgmma route (``want_wgmma``: bf16 paths,
+    but for ``simt`` {kernel: launches}, the bf16 taps of unaligned width)
+    or none did (f32 paths: the SIMT route), and every launch of a kernel
+    with a chunked route took it (f32 and bf16 alike)."""
     got = {k: ws[k].wgmma_launches for k in WGMMA}
     got.update({k: ws[k].chunked_launches for k in CHUNKED})
     for k in (*WGMMA, *CHUNKED):
         want = ws[k].launches if want_wgmma or k in CHUNKED else 0
+        if want_wgmma and k in (simt or {}):
+            want -= simt[k]
         if got[k] != want:
             route = "chunked" if k in CHUNKED else "wgmma"
             raise AssertionError(f"{name}: {got[k]} of {ws[k].launches} "
@@ -696,6 +775,17 @@ def train_config(name):
                        tape=run.get("tape", ""))
 
 
+def cut_depth(cfg, layers: int):
+    """``cfg`` cut to ``layers`` layers (0: as it is); a hybrid config
+    keeps its first, middle and last layers global."""
+    if not layers or layers == cfg.n_layers:
+        return cfg
+    if cfg.family == "hybrid":
+        return cfg.with_(n_layers=layers,
+                         full_attn_layers=(0, layers // 2, layers - 1))
+    return cfg.with_(n_layers=layers)
+
+
 def run_config(name, flags=True):
     """-> (ModelConfig, PrivacyPolicy) of a train path: the policy ``train``
     runs, or with ``flags=False`` the one it is handed (before its
@@ -703,9 +793,7 @@ def run_config(name, flags=True):
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.train import resolve_dp, train_policy
     run = RUNS[name]
-    cfg = get_config(run["arch"])
-    if run["layers"]:
-        cfg = cfg.with_(n_layers=run["layers"])
+    cfg = cut_depth(get_config(run["arch"]), run["layers"])
     # sigma 1.0, or 0 where the path calibrates it from its epsilon
     dp = resolve_dp(cfg.name, "auto", run.get("mode", "bk-mixopt"),
                     "automatic", 0.0 if run.get("epsilon") else 1.0,
@@ -718,13 +806,15 @@ def run_config(name, flags=True):
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
+    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events; a
+    call slow enough that the runs so far exceed TIMING_BUDGET_MS (a plain
+    version on a whole train path's tensors) ends the runs early."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    while len(times) < reps and sum(times) < TIMING_BUDGET_MS:
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -1380,6 +1470,13 @@ def phase_kernels(only_wgmma=False, only_noise=False):
                     "lbtd,lbtp->lbdp", a, ds).float().square().sum((0, 2, 3)))
                 wgmma_case(*args, NORM_TOL, NORM_TOL, nbytes, ops, forms,
                            f64_rel_err=direct_vs_f64(a, ds))
+            elif dtype == torch.bfloat16:
+                # a bf16 tap of unaligned width (hymba's bcdt): the same
+                # instantiated bf16 einsum beside the ghost one
+                norm_case(*args, nbytes, ops, dname, dict(
+                    library, instantiated_bf16=lambda: torch.einsum(
+                        "lbtd,lbtp->lbdp", a, ds).float().square().sum(
+                            (0, 2, 3))))
             else:
                 norm_case(*args, nbytes, ops, dname, library)
         if "clipped_grad" in kernels:
@@ -1767,6 +1864,33 @@ def phase_kernels(only_wgmma=False, only_noise=False):
                           device=dev).float() * (2 * fill)
         return (torch.arange(Cap, device=dev).float() < n).float()
 
+    def hymba_cases():
+        """train_hymba's taps as the engine routes them (the head's SIMT
+        routes at p = 32001 among them), then the routes bk-mixopt takes
+        in no run at hymba's odd width, bcdt's p = 57 (it caches the
+        per-sample grads): grad_norm_direct and clipped_grad on their SIMT
+        routes (bf16, unaligned) at the stacked swa_a tap's shapes; and
+        prefill_hymba's global layers' flash_attention."""
+        group_cases(("train_hymba",))
+        run = RUNS["train_hymba"]
+        h_cfg = run_config("train_hymba")[0]
+        Bh, Th = run["batch"], run["seq"] + h_cfg.meta_tokens
+        L = h_cfg.full_attn_layers[1] - 1
+        p = 2 * h_cfg.ssm_state + h_cfg.ssm_heads
+        for k in (gd, cg):
+            if k.route(bf16, h_cfg.d_model, p) != "simt":
+                raise AssertionError(f"{k.__name__}: bcdt (p = {p}) is not "
+                                     "on the SIMT route")
+        mm_case(f"train_hymba swa_a/ssm/bcdt L={L} B={Bh} T={Th} "
+                f"d={h_cfg.d_model} p={p} bf16 (cached by bk-mixopt)", L, Bh,
+                Th, h_cfg.d_model, p, bf16,
+                {"grad_norm_direct": "hymba_bcdt",
+                 "clipped_grad": "hymba_bcdt"})
+        hp = SERVING["prefill_hymba"]
+        Tp = hp["seq"] + h_cfg.meta_tokens
+        flash_case("prefill_hymba", hp["batch"], Tp, Tp, h_cfg.n_heads,
+                   h_cfg.n_kv_heads, h_cfg.hd, True, bf16)
+
     def wgmma_shapes():
         """The wgmma routes at one tile and at ragged bf16 shapes: widths
         multiples of 8 but of no tile, T / C not a multiple of any tile
@@ -1883,8 +2007,8 @@ def phase_kernels(only_wgmma=False, only_noise=False):
                    q_cfg.n_heads, q_cfg.n_kv_heads, q_cfg.hd, True, bf16)
         # train_long's qkv tap, random records: grad_norm_direct's row shape
         p_qkv = q_cfg.hd * (q_cfg.n_heads + 2 * q_cfg.n_kv_heads)
-        mm_case(f"train_long qkv L={q_cfg.n_layers} B=2 T=2048 d={d} "
-                f"p={p_qkv} bf16", q_cfg.n_layers, 2, 2048, d, p_qkv, bf16,
+        mm_case(f"train_long qkv L={LONG_LAYERS} B=2 T=2048 d={d} "
+                f"p={p_qkv} bf16", LONG_LAYERS, 2, 2048, d, p_qkv, bf16,
                 {"grad_norm_direct": "train_long"})
         wkv_shapes()
         return summary
@@ -1894,16 +2018,28 @@ def phase_kernels(only_wgmma=False, only_noise=False):
         it."""
         cfg, batch, taps, records = path_taps(paths, dev)
         B, T = RUNS[paths[0]]["batch"], RUNS[paths[0]]["seq"]
+        seen = set()
+        # taps of one layer shape and route, stacked or not (hymba's global
+        # blocks and its two sliding-window segments; deepseek-moe's
+        # dense0_0 attention beside the MoE blocks'): one case, the deepest
+        # stack's
+        taps = sorted(taps, key=lambda t: -t[2][0] if len(t[2]) == 4 else -1)
         for key, kind, a_shape, ds_shape, kernels in taps:
             if not kernels:
                 continue            # the mixopt cache (an einsum), no kernel
+            same = (kind, tuple(a_shape[-3:]), ds_shape[-1],
+                    tuple(sorted(kernels.items())))
+            if kind != "moe" and same in seen:
+                continue
+            seen.add(same)
             where = f"{paths[0]} {parse_key(key)[0]}"
             if kind == "mm":
                 L = a_shape[0] if len(a_shape) == 4 else 1
-                d, p = a_shape[-1], ds_shape[-1]
+                # the record's T: the batch's T plus any meta tokens
+                Tr, d, p = a_shape[-2], a_shape[-1], ds_shape[-1]
                 # every clip function on the smallest unit, o
-                mm_case(f"{where} L={L} B={B} T={T} d={d} p={p} bf16", L, B,
-                        T, d, p, torch.bfloat16, kernels,
+                mm_case(f"{where} L={L} B={B} T={Tr} d={d} p={p} bf16", L, B,
+                        Tr, d, p, torch.bfloat16, kernels,
                         fc.CLIPS if key.endswith("/o#mm.s") else
                         ("automatic",))
             elif kind == "emb":
@@ -1918,8 +2054,17 @@ def phase_kernels(only_wgmma=False, only_noise=False):
                          kernels)
         del records
 
+    clock = {"t": time.perf_counter()}
+
+    def part(name):
+        """The seconds of the kernels phase's part ``name``."""
+        now = time.perf_counter()
+        emit(phase="kernels_seconds", part=name, seconds=now - clock["t"])
+        clock["t"] = now
+
     for paths in PATH_GROUPS:
         group_cases(paths)
+        part(paths[0])
 
     # ---- fused_clip_grad where a driven path launches it: the smoke-width
     # case of parity_layer (f32), whose every mm unit fits fused_plan's
@@ -1935,6 +2080,7 @@ def phase_kernels(only_wgmma=False, only_noise=False):
                     {"fused_clip_grad": "parity_layer"},
                     fc.CLIPS if key.endswith("/o#mm.s") else ("automatic",))
     fused_edges()
+    part("fused")
 
     # ---- ragged: T / C not a multiple of any tile, odd d / p / V, stacked,
     # f32; some ids outside [0, V) (dropped by both versions); masked slots.
@@ -1953,10 +2099,14 @@ def phase_kernels(only_wgmma=False, only_noise=False):
                  rnd(2, 3, 5, 7, d, dtype=torch.float32), mask, p, moe_all)
     emb_edges(dict.fromkeys(("emb_ghost_norm", "emb_clipped_grad"),
                             "ragged"))
+    part("ragged")
     # train_rwkv's taps after fused_clip_grad's cases: its profiled
     # one-kernel-a-call check loses device events as the process ages (the
     # profiler's clock drifts: scripts/profiler_window.py)
     group_cases(("train_rwkv",))
+    part("train_rwkv")
+    hymba_cases()
+    part("train_hymba")
 
     flash_case("prefill", fp["batch"], fp["seq"], fp["seq"], q_cfg.n_heads,
                q_cfg.n_kv_heads, q_cfg.hd, True, torch.bfloat16)
@@ -1965,11 +2115,17 @@ def phase_kernels(only_wgmma=False, only_noise=False):
             for causal in (True, False):
                 flash_case("ragged", 2, 509, 509, H, 2, h, causal,
                            torch.float32)
+    part("flash")
     wgmma_shapes()
+    part("wgmma")
     wkv_shapes()
+    part("wkv")
     counter_noise_checks(record, rnd)
+    part("counter_noise")
     noise_update_checks(record, rnd)
+    part("noise_update")
     shard_block_checks(rnd)
+    part("shard_blocks")
     return summary
 
 
@@ -2418,8 +2574,9 @@ def counter_noise_checks(record, rnd):
         ms_k = ms_p = None
         if timed:
             ms_k = cuda_ms(call, reps=5)
+            # warm: the plain version ran just above
             ms_p = cuda_ms(lambda: cn.plain(g, hi, lo, alpha, denom),
-                           reps=1, warmup=1)
+                           reps=1, warmup=0)
             extra["composed_ms"] = cuda_ms(lambda: (g + alpha * torch.randn(
                 shape, generator=gen, device=dev).to(dtype)) / denom,
                 reps=5)
@@ -2653,7 +2810,7 @@ def noise_update_checks(record, rnd):
             q = fresh()
             ms_k = cuda_ms(lambda: nu.noise_update(rec, *q, hp), reps=5)
             q = fresh()
-            ms_p = cuda_ms(lambda: nu.plain(rec, *q, hp), reps=1, warmup=1)
+            ms_p = cuda_ms(lambda: nu.plain(rec, *q, hp), reps=1, warmup=0)
             del q
             gn = nu.gradient(rec) if noisy else g
             lib = [pk.clone(), gn.clone(), mk.clone(), vk.clone()]
@@ -2790,7 +2947,7 @@ def noise_update_checks(record, rnd):
             ms_k = cuda_ms(lambda: launch(q), reps=5)
             q = fresh()
             ms_p = cuda_ms(lambda: nu.plain(rec, q[0], q[1], q[2], hp,
-                                            t0=q[3]), reps=1, warmup=1)
+                                            t0=q[3]), reps=1, warmup=0)
             del q
         n = g.numel()
         es_g, es_p = g.element_size(), pk.element_size()
@@ -2950,6 +3107,71 @@ def bk_norm_counts(name) -> dict:
     return counts
 
 
+def saved_by_kind(cfg, params, run, peak: int) -> dict:
+    """The bytes autograd saves in one BK forward of a train path's model
+    (phase 1 up to its backward: the vector params per sample, a tap on
+    every op, as ``core.bk.tapped_backward`` runs it), each storage counted
+    once, by the function that saved it: ``_attend`` (the attention's f32
+    probabilities and their operands), ``ssd`` (the SSM's chunk tensors)
+    and the rest; beside the params' bytes and AdamW's f32 moments (two a
+    param) and the train step's ``peak``."""
+    import torch
+    from repro_torch.core.tape import Tape
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.configs.registry import build
+    from repro_torch.models import attention, ssm
+    from repro_torch.utils.tree import flatten, unflatten
+
+    kind, seen = ["rest"], {}
+
+    def tagged(fn, name, module):
+        def run_tagged(*a, **kw):
+            kind.append(name)
+            try:
+                return fn(*a, **kw)
+            finally:
+                kind.pop()
+        setattr(module, fn.__name__, run_tagged)
+
+    def pack(t):
+        st = t.untyped_storage()
+        seen.setdefault(st.data_ptr(), (kind[-1], st.nbytes()))
+        # the storage stays saved, but not the tensor: a node holding its
+        # own output (and so itself) would be a cycle through C++ that
+        # the garbage collector cannot see
+        return t.detach()
+
+    flat = {k: v.detach() for k, v in flatten(params).items()}
+    B = run["batch"]
+    batch = make_batch(cfg, B, run["seq"], 0, 0, "cuda")
+    psp = {k: v.expand(B, *v.shape).clone().requires_grad_()
+           for k, v in flat.items() if not k.endswith("/w")}
+    attend, ssd = attention._attend, ssm.ssd
+    tagged(attend, "attention", attention)
+    tagged(ssd, "ssm_chunks", ssm)
+    before = torch.cuda.memory_allocated()
+    try:
+        with torch.enable_grad(), \
+                torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            losses = build(cfg).apply(
+                unflatten({**flat, **psp}), batch,
+                Tape(active=lambda k: True, per_sample=psp))
+        after = torch.cuda.memory_allocated()
+    finally:
+        attention._attend, ssm.ssd = attend, ssd
+    del losses, psp, batch
+    torch.cuda.empty_cache()
+    by_kind = {}
+    for k, n in seen.values():
+        by_kind[k] = by_kind.get(k, 0) + n
+    n_params = sum(v.numel() for v in flat.values())
+    return {"saved_bytes_by_kind": by_kind,
+            "forward_allocated_bytes": after - before,
+            "params_bytes": sum(v.numel() * v.element_size()
+                                for v in flat.values()),
+            "adamw_moments_bytes": 8 * n_params, "peak_bytes": peak}
+
+
 def phase_train(name, stats: dict):
     """One train path through the train entry point -> launch totals.
     The last step runs under torch.profiler. ``stats[name]`` receives its
@@ -3002,7 +3224,8 @@ def phase_train(name, stats: dict):
     torch.cuda.synchronize()
     totals = {k: w.launches for k, w in ws.items()}
     block = ws["noise_update"].block_launches
-    wgmma = check_routes(name, ws, True)
+    wgmma = check_routes(name, ws, True, {
+        k: n * tc.steps for k, n in run.get("simt", {}).items()})
     peak = torch.cuda.max_memory_allocated()
     for s in per_step:
         emit(phase=name, step=s["step"], loss=s["loss"],
@@ -3017,6 +3240,8 @@ def phase_train(name, stats: dict):
     want = dict(run["per_step"], noise_update=len(flat),
                 counter_noise=0 if dp.mode in BK_MODES + ("nonprivate",)
                 else len(resolve_policy(ran, flat).unit_of))
+    memory = (saved_by_kind(cfg, params, run, peak)
+              if cfg.family == "hybrid" else None)
     del params, flat
     emit(phase=name, arch=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.param_dtype,
@@ -3031,7 +3256,8 @@ def phase_train(name, stats: dict):
          ledger=summary["ledger"], driver_log=[
              m for m in logs if not m.startswith("step ")],
          losses=losses, max_memory_allocated=peak,
-         allocated_at_start=floor, launches=totals, wgmma_launches=wgmma)
+         allocated_at_start=floor, launches=totals, wgmma_launches=wgmma,
+         **({"memory": memory} if memory else {}))
     profile = _profile_summary(prof["p"], prof["ms"])
     emit(phase=f"{name}_profile", step=tc.steps - 1, **profile)
     stats[name] = {"step_seconds": per_step[-2]["seconds"],
@@ -3043,6 +3269,9 @@ def phase_train(name, stats: dict):
                    "phase4_ms": profile["by_range_ms"]["phase4_update"]}
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{name}: non-finite loss: {losses}")
+    if peak >= run.get("peak_limit", math.inf):
+        raise AssertionError(f"{name}: peak {peak} bytes at {cfg.n_layers} "
+                             f"layers, want under {run['peak_limit']:.0f}")
     loss0 = math.log(cfg.vocab) + run.get("loss0_excess", 0.0)
     if abs(losses[0] - loss0) > 0.5:
         raise AssertionError(f"{name}: step-0 loss {losses[0]} is not near "
@@ -3335,7 +3564,7 @@ def phase_train_mesh2(name):
             step = ckpt.latest_step(str(root / "ck"))
             manifest = json.loads((root / "ck" / f"step_{step:010d}"
                                    / ckpt.MANIFEST).read_text())
-            state, step, meta = ckpt.restore(str(root / "ck"))
+            state, step, meta = ckpt.restore(str(root / "ck"), device="cpu")
             entries = [e for f in manifest["files"].values()
                        for e in f["entries"].values()]
             eps = PrivacyLedger.from_json(meta["ledger"]).epsilon(1e-5)
@@ -3540,9 +3769,7 @@ def _serving_model(name, layers=0, dtype=""):
     """-> (cfg, model, params on the card from seed 0) of a serving path,
     cut to ``layers`` and cast to ``dtype`` where given."""
     from repro_torch.configs.registry import build, get_config
-    cfg = get_config(SERVING[name]["arch"])
-    if layers:
-        cfg = cfg.with_(n_layers=layers)
+    cfg = cut_depth(get_config(SERVING[name]["arch"]), layers)
     if dtype:
         cfg = cfg.with_(param_dtype=dtype)
     model = build(cfg)
@@ -3600,7 +3827,8 @@ def phase_prefill(name):
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{name}: logits {tuple(logits.shape)} are not "
                              f"finite (B, vocab) = {(B, cfg.vocab)}")
-    want = _per_step(**{run["kernel"]: cfg.n_layers})
+    want = _per_step(**{run["kernel"]: run.get("per_prefill",
+                                                cfg.n_layers)})
     for i, got in enumerate(per_call):
         if got != want:
             raise AssertionError(f"{name} prefill {i}: launches {got}, want "
@@ -3656,7 +3884,8 @@ def phase_serve_parity(name):
     run = SERVING[name]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, model, params = _serving_model(name, layers=2, dtype="float32")
+    cfg, model, params = _serving_model(name, layers=run.get("layers", 2),
+                                        dtype="float32")
     tokens = _tokens(cfg.vocab, run["batch"], run["seq"])
     ws = wrappers()
     reset_counts(ws)
@@ -3667,25 +3896,37 @@ def phase_serve_parity(name):
     cpu = unflatten({k: v.cpu() for k, v in flatten(params).items()})
     before = {k: w.launches for k, w in ws.items()}
     want = model.prefill(cpu, tokens.cpu())
-    _, steps = generate(model, params, tokens, 0, return_logits=True)
+    decoded = tokens[:, :run.get("decode", tokens.shape[1])]
+    _, steps = generate(model, params, decoded, 0, return_logits=True)
     torch.cuda.synchronize()
     plain_launched = {k: w.launches - before[k] for k, w in ws.items()
                       if w.launches > before[k]}
     tol = TOL["float32"]
     cmp_cpu = compare(got.cpu(), want, tol)
-    cmp_dec = compare(steps[:, -1], got, tol)
+    if cfg.meta_tokens:
+        # decode prepends no meta tokens (the JAX package's), so it is held
+        # to the CPU's decode at every step, not to the prefill
+        cpu_steps = generate(model, cpu, decoded.cpu(), 0,
+                             return_logits=True)[1]
+        cmp_dec = compare(steps.cpu(), cpu_steps, tol)
+        del cpu_steps
+    else:
+        cmp_dec = compare(steps[:, -1], got, tol)
     emit(phase=name, arch=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab, dtype="float32",
          batch=run["batch"], seq=run["seq"],
          allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-         prefill_vs_cpu=cmp_cpu, decode_vs_prefill=cmp_dec,
+         prefill_vs_cpu=cmp_cpu,
+         **{"decode_vs_cpu" if cfg.meta_tokens else "decode_vs_prefill":
+            cmp_dec}, decoded_tokens=decoded.shape[1],
          launched={k: n for k, n in launched.items() if n},
          launched_cpu_and_decode=plain_launched)
     if not (cmp_cpu["ok"] and cmp_dec["ok"]):
         raise AssertionError(f"{name}: card prefill vs CPU {cmp_cpu}, decode "
-                             f"vs prefill {cmp_dec}")
+                             f"{cmp_dec}")
     check_routes(name, ws, False)     # f32: the SIMT routes
-    if launched != _per_step(**{run["kernel"]: cfg.n_layers}) or \
+    if launched != _per_step(**{run["kernel"]: run.get("per_prefill",
+                                                       cfg.n_layers)}) or \
             plain_launched:
         raise AssertionError(f"{name}: launches {launched} in the card "
                              f"prefill, {plain_launched} on the CPU and in "
@@ -3851,22 +4092,42 @@ def update_parity(name, params, sums, policy, B):
     torch.cuda.empty_cache()
 
 
-# parity_rwkv: the 2-layer, full-width, f32 rwkv6-3b step at train_rwkv's
-# T and a smaller B (the CPU side runs the same step)
-RWKV_PARITY = dict(layers=2, batch=4)
+# one BK step of a family's small, full-width, f32 model on the card against
+# the CPU: its train path (policy, T), depth, batch, the kernels its kernel
+# run must launch (``per_layer``: once a layer), the kernel opacus must
+# launch under vmap(grad) (None: any), and whether the card also runs the
+# step with ``use_kernels=False``. parity_rwkv at train_rwkv's T, 1 layer
+# (cut from 2 to keep the whole script in its time);
+# parity_hymba at 5 layers (global 0, 2, 4: one layer a sliding-window
+# segment, whose fuse_o bk-mixopt then caches: no grad_norm_direct)
+FAMILY_PARITY = {
+    "parity_rwkv": dict(path="train_rwkv", layers=1, batch=4,
+                        want=("wkv6", "wkv6_backward", "ghost_norm",
+                              "clipped_grad", "emb_ghost_norm",
+                              "emb_clipped_grad"),
+                        per_layer=("wkv6", "wkv6_backward"),
+                        opacus="wkv6_backward", vs_plain=False),
+    "parity_hymba": dict(path="train_hymba", layers=5, batch=4,
+                         want=("ghost_norm", "clipped_grad", "emb_ghost_norm",
+                               "emb_clipped_grad"),
+                         per_layer=(), opacus=None, vs_plain=True),
+}
 
 
-def phase_parity_rwkv(name):
-    """One BK step of a 2-layer, full-width, f32 rwkv6-3b model (bk-mixopt,
-    sigma 1.0, as train_rwkv's policy; B=4, T=512) on the card, the kernels
-    launched (on the card the recurrence always takes wkv6 and
-    wkv6_backward), against the same params and batch on the CPU (the
-    plain versions; the recurrence by the JAX package's route, autograd of
-    wkv6_chunked): per-sample norms at NORM_TOL, sums at f32 TOL. Then one
-    noised AdamW step over the card's sums against its plain version
+def phase_parity_family(name):
+    """One BK step of a small, full-width, f32 model of a family
+    (``FAMILY_PARITY``; bk-mixopt, sigma 1.0, as its train path's policy,
+    at its train path's T) on the card, the kernels launched, against the
+    same params and batch on the CPU (the plain versions: rwkv6's
+    recurrence by the JAX package's route, autograd of wkv6_chunked;
+    hymba's chunked SSM and banded attention, the same torch ops as on the
+    card), and where ``vs_plain`` against ``use_kernels=False`` on the
+    card: per-sample norms at NORM_TOL, sums at f32 TOL. On the card
+    rwkv6's recurrence always takes wkv6 and wkv6_backward. Then one noised
+    AdamW step over the card's sums against its plain version
     (``update_parity``), and bk-mixopt against opacus on the card at sigma
-    0 (norms at NORM_TOL, grads at f32 TOL; opacus runs Wkv6Fn under
-    vmap(grad)). -> {} (these launches do not count as a path's)."""
+    0 (norms at NORM_TOL, grads at f32 TOL; rwkv6's opacus runs Wkv6Fn
+    under vmap(grad)). -> {} (these launches do not count as a path's)."""
     import torch
     from repro_torch.configs.registry import build
     from repro_torch.core.bk import bk_clipped_sum
@@ -3876,12 +4137,13 @@ def phase_parity_rwkv(name):
     from repro_torch.data.synthetic import make_batch
     from repro_torch.utils.tree import flatten, unflatten
 
+    fam = FAMILY_PARITY[name]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, dp = run_config("train_rwkv")
+    cfg, dp = run_config(fam["path"])
     dp = as_policy(dp)               # a flat DPConfig: its one-unit policy
-    small = cfg.with_(n_layers=RWKV_PARITY["layers"], param_dtype="float32")
-    B, T = RWKV_PARITY["batch"], RUNS["train_rwkv"]["seq"]
+    small = cut_depth(cfg, fam["layers"]).with_(param_dtype="float32")
+    B, T = fam["batch"], RUNS[fam["path"]]["seq"]
     model = build(small)
     params = model.init(seed=1, device="cuda")
     batch = make_batch(small, B, T, seed=1, device="cuda")
@@ -3893,39 +4155,53 @@ def phase_parity_rwkv(name):
     card_s = time.perf_counter() - t0
     launched = {k: w.launches for k, w in ws.items() if w.launches}
     check_routes(name, ws, False)             # f32: the SIMT routes
+    refs = {}
+    if fam["vs_plain"]:
+        reset_counts(ws)
+        t0 = time.perf_counter()
+        refs["card use_kernels=False"] = bk_clipped_sum(
+            model.apply, params, batch,
+            dataclasses.replace(dp, use_kernels=False))
+        torch.cuda.synchronize()
+        refs["card use_kernels=False"] += (time.perf_counter() - t0,)
+        if any(w.launches for w in ws.values()):
+            raise AssertionError(f"{name}: use_kernels=False launched "
+                                 f"{ {k: w.launches for k, w in ws.items()} }")
     cpu_params = unflatten({k: v.cpu() for k, v in flatten(params).items()})
     t0 = time.perf_counter()
-    sp, ap = bk_clipped_sum(model.apply, cpu_params,
-                            {k: v.cpu() for k, v in batch.items()}, dp)
-    cpu_s = time.perf_counter() - t0
+    refs["card vs CPU"] = bk_clipped_sum(
+        model.apply, cpu_params, {k: v.cpu() for k, v in batch.items()}, dp)
+    refs["card vs CPU"] += (time.perf_counter() - t0,)
+    del cpu_params
     rtol, atol = TOL["float32"]
-    worst, bad = 0.0, []
-    pairs = [(f"sum:{k}", sk[k].cpu(), sp[k], TOL["float32"])
-             for k in sorted(sk)]
-    pairs.append(("per_sample_norms", ak["per_sample_norms"].cpu(),
-                  ap["per_sample_norms"], NORM_TOL))
-    for key, g, w, tol in pairs:
-        cmp = compare(g, w, tol)
-        worst = max(worst, cmp["max_abs_err"])
-        if not cmp["ok"]:
-            bad.append(key)
-    emit(phase=name, case="card vs CPU", arch=small.name,
-         layers=small.n_layers, d_model=small.d_model, vocab=small.vocab,
-         dtype="float32", batch=B, seq=T, mode=dp.mode, sigma=dp.sigma,
-         rtol=rtol, atol=atol, norm_tol=NORM_TOL, compared=len(pairs),
-         max_abs_err=worst, failed=bad, launched=launched,
-         card_seconds=card_s, cpu_seconds=cpu_s)
-    # at 2 layers bk-mixopt caches the narrow taps' per-sample grads (no
-    # grad_norm_direct; train_rwkv's depth launches it)
-    want = ("wkv6", "wkv6_backward", "ghost_norm", "clipped_grad",
-            "emb_ghost_norm", "emb_clipped_grad")
-    if bad or launched.get("wkv6") != small.n_layers or \
-            launched.get("wkv6_backward") != small.n_layers or \
-            not all(launched.get(k) for k in want):
-        raise AssertionError(f"{name}: the card's step disagrees with the "
-                             f"CPU's on {bad}, or launched {launched} (want "
-                             f"{want}, the recurrence's once a layer)")
-    del sp, ap, cpu_params
+    failed = []
+    for case, (sp, ap, ref_s) in refs.items():
+        worst, bad = 0.0, []
+        pairs = [(f"sum:{k}", sk[k], sp[k], TOL["float32"])
+                 for k in sorted(sk)]
+        pairs.append(("per_sample_norms", ak["per_sample_norms"],
+                      ap["per_sample_norms"], NORM_TOL))
+        for key, g, w, tol in pairs:
+            cmp = compare(g.cpu(), w.cpu(), tol)
+            worst = max(worst, cmp["max_abs_err"])
+            if not cmp["ok"]:
+                bad.append(key)
+        emit(phase=name, case=case, arch=small.name,
+             layers=small.n_layers, d_model=small.d_model, vocab=small.vocab,
+             dtype="float32", batch=B, seq=T, mode=dp.mode, sigma=dp.sigma,
+             rtol=rtol, atol=atol, norm_tol=NORM_TOL, compared=len(pairs),
+             max_abs_err=worst, failed=bad, launched=launched,
+             card_seconds=card_s, reference_seconds=ref_s)
+        failed += [f"{case}: {k}" for k in bad]
+    per_layer_bad = [k for k in fam["per_layer"]
+                     if launched.get(k) != small.n_layers]
+    if failed or per_layer_bad or \
+            not all(launched.get(k) for k in fam["want"]):
+        raise AssertionError(f"{name}: the card's step disagrees on "
+                             f"{failed}, or launched {launched} (want "
+                             f"{fam['want']}, {fam['per_layer']} once a "
+                             f"layer)")
+    del refs
     update_parity(name, params, sk, dp, B)
     del sk, ak
     # bk-mixopt against opacus on the card, sigma 0
@@ -3942,6 +4218,7 @@ def phase_parity_rwkv(name):
             "launched": {k: w.launches for k, w in ws.items() if w.launches},
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "allocated_at_start": floor})
+        del grads
     (ref, ref_aux, ref_stats), (got, aux, stats) = out["opacus"], \
         out["bk-mixopt"]
     worst, bad = 0.0, []
@@ -3955,11 +4232,11 @@ def phase_parity_rwkv(name):
     emit(phase=name, case="bk-mixopt vs opacus", sigma=0.0,
          grads_max_abs_err=worst, rtol=rtol, atol=atol, norms=norms,
          failed=bad, opacus=ref_stats, bk_mixopt=stats)
-    if bad or not norms["ok"] or \
-            not ref_stats["launched"].get("wkv6_backward"):
+    if bad or not norms["ok"] or (
+            fam["opacus"] and not ref_stats["launched"].get(fam["opacus"])):
         raise AssertionError(f"{name}: bk-mixopt disagrees with opacus on "
                              f"{bad}, norms {norms}, or opacus launched "
-                             f"{ref_stats['launched']} (want wkv6_backward "
+                             f"{ref_stats['launched']} (want {fam['opacus']} "
                              f"under vmap)")
     del model, params, batch, out, ref, got
     torch.cuda.empty_cache()
@@ -4237,14 +4514,23 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     t0 = time.perf_counter()
+    timer = {"t": t0}
+
+    def lap(name):
+        now = time.perf_counter()
+        emit(phase="phase_seconds", name=name, seconds=now - timer["t"])
+        timer["t"] = now
+
     phase_card()
     if {"build", "kernels", "wgmma", "noise"} & set(phases):
         phase_build()
+        lap("build")
     if "wgmma" in phases:
         phase_kernels(only_wgmma=True)
     if "noise" in phases:
         phase_kernels(only_noise=True)
     summary = phase_kernels() if "kernels" in phases else None
+    lap("kernels")
     launches, train_stats = {}, {}
     for name in TRAINS + PREFILLS:
         if name in phases:
@@ -4252,28 +4538,35 @@ def main(argv=None) -> int:
                       else phase_prefill(name))
             for k, n in totals.items():
                 launches[k] = launches.get(k, 0) + n
+            lap(name)
     for name in MESHES:
         if name in phases:
             phase_train_mesh2(name)
+            lap(name)
     for name in RESUMES:
         if name in phases:
             for k, n in phase_train_resume(name).items():
                 launches[k] = launches.get(k, 0) + n
+            lap(name)
     if all(p in train_stats for p in ("train", "train_nonprivate",
                                       "train_ghostclip")):
         emit(**paper_ratios(train_stats))
     for name in SERVES:
         if name in phases:
             phase_serve(name)
+            lap(name)
     for name in PARITIES:
         if name in phases:
-            run = {"parity_modes": phase_parity_modes,
-                   "parity_rwkv": phase_parity_rwkv}.get(name, phase_parity)
+            run = (phase_parity_modes if name == "parity_modes" else
+                   phase_parity_family if name in FAMILY_PARITY else
+                   phase_parity)
             for k, n in run(name).items():
                 launches[k] = launches.get(k, 0) + n
+            lap(name)
     for name in SERVE_PARITIES:
         if name in phases:
             phase_serve_parity(name)
+            lap(name)
     if summary is not None:
         kernels = []
         for name, s in summary.items():

@@ -464,7 +464,7 @@ def _read_member(f, info: zipfile.ZipInfo, key: str, name: str,
     return crc
 
 
-def restore(root: str, step=None, template=None, device="cpu",
+def restore(root: str, step=None, template=None, device="cuda",
             blocks: Optional[dict] = None):
     """Load a checkpoint -> (state, step, meta), every leaf a tensor on
     ``device``.

@@ -4,7 +4,9 @@ Field names and defaults follow ``repro.configs.base`` so a config reads the
 same in both packages. The port's transformer block is the qwen2 / llama
 block (RMSNorm, SwiGLU, rope, GQA), with a DeepSeekMoE feed-forward in the
 ``moe`` family; the ``ssm`` family is RWKV6 (``models.rwkv6``, layernorm
-and its squared-ReLU channel mix). Activations follow ``param_dtype``."""
+and its squared-ReLU channel mix); the ``hybrid`` family is Hymba
+(``models.hymba``: attention and Mamba-style SSM heads side by side,
+sliding-window layers, meta tokens). Activations follow ``param_dtype``."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -13,7 +15,7 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"        # dense | moe | ssm
+    family: str = "dense"        # dense | moe | ssm | hybrid
     n_layers: int = 2
     d_model: int = 64
     n_heads: int = 4
@@ -37,8 +39,13 @@ class ModelConfig:
     capacity_factor: float = 2.0
     renorm_topk: bool = True
 
-    # SSM
-    ssm_chunk: int = 32          # wkv chunked-scan length (CPU route)
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_chunk: int = 32          # wkv / ssm chunked-scan length
+    window: int = 0              # sliding window for local attn layers
+    full_attn_layers: tuple = () # hybrid: layer indices with global attention
+    meta_tokens: int = 0         # Hymba learnable prefix tokens
 
     @property
     def hd(self) -> int:

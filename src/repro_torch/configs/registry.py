@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, plus named
 PrivacyPolicy presets. The port registers qwen2-1.5b (dense),
-deepseek-moe-16b (moe) and rwkv6-3b (ssm)."""
+deepseek-moe-16b (moe), rwkv6-3b (ssm) and hymba-1.5b (hybrid)."""
 from __future__ import annotations
 
 import dataclasses
@@ -64,6 +64,9 @@ def build(cfg: ModelConfig):
     if cfg.family == "ssm":
         from repro_torch.models.rwkv6 import Rwkv6LM
         return Rwkv6LM(cfg)
+    if cfg.family == "hybrid":
+        from repro_torch.models.hymba import HymbaLM
+        return HymbaLM(cfg)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 B8)")
 
@@ -79,9 +82,12 @@ def smoke_config(name: str) -> ModelConfig:
                   n_shared=min(1, cfg.n_shared))
     if cfg.family == "ssm":
         kw.update(d_model=128, n_heads=2, head_dim=64)  # rwkv head size 64
+    if cfg.family == "hybrid":
+        kw.update(n_layers=5, ssm_heads=4, ssm_state=4, window=8,
+                  full_attn_layers=(0, 2, 4), meta_tokens=4)
     return cfg.with_(**kw)
 
 
 # import arch modules so registration runs
-for _m in ("qwen2_1_5b", "deepseek_moe_16b", "rwkv6_3b"):
+for _m in ("qwen2_1_5b", "deepseek_moe_16b", "rwkv6_3b", "hymba_1_5b"):
     importlib.import_module(f"repro_torch.configs.{_m}")

@@ -98,7 +98,7 @@ class Mesh:
     reads, as the JAX package reads ``jax.sharding.Mesh.shape``);
     ``coords`` the calling rank's index on each axis."""
 
-    def __init__(self, shape, axis_names, device="cpu"):
+    def __init__(self, shape, axis_names, device="cuda"):
         shape = tuple(int(n) for n in shape)
         if len(shape) != len(axis_names) or min(shape, default=1) < 1:
             raise ValueError(f"mesh {shape} over axes {tuple(axis_names)}")
@@ -212,7 +212,7 @@ class Mesh:
         return f"Mesh({self.shape}, rank {self.rank} at {self.coords})"
 
 
-def make_mesh(shape, axis_names=None, device="cpu") -> Mesh:
+def make_mesh(shape, axis_names=None, device="cuda") -> Mesh:
     """A mesh of the whole world: ``shape`` (data, model) or (pod, data,
     model) unless ``axis_names`` says otherwise."""
     if axis_names is None:

@@ -1,7 +1,8 @@
 """Attention math (param-free; projections live in the blocks).
 
-GQA, the causal mask and q-chunking, in plain PyTorch ops, and one-step
-decode against a KV cache. The
+GQA, the causal and sliding-window masks, q-chunking, banded attention
+(each query chunk against its window's key band), in plain PyTorch ops,
+and one-step decode against a KV cache. The
 softmax statistics are float32 and masked with NEG_INF = -1e30 (not -inf),
 as the JAX package's ``_attend`` has them; the normalized probabilities are
 cast back to the model dtype before the PV product.
@@ -14,9 +15,12 @@ F32 = torch.float32
 NEG_INF = -1e30
 
 
-def _mask(q_pos, k_pos):
-    """Causal: q_pos (Tq,), k_pos (Tk,) -> bool (Tq, Tk)."""
-    return q_pos[:, None] >= k_pos[None, :]
+def _mask(q_pos, k_pos, window: int = 0):
+    """Causal: q_pos (Tq,), k_pos (Tk,) -> bool (Tq, Tk); ``window`` > 0
+    also drops keys ``window`` or more positions behind the query."""
+    d = q_pos[:, None] - k_pos[None, :]
+    m = d >= 0
+    return m & (d < window) if window > 0 else m
 
 
 def _attend(q, k, v, mask):
@@ -51,12 +55,40 @@ def multihead_attention(q, k, v, *, chunk=0):
     return _attend(qg, k, v, _mask(q_pos, k_pos)).reshape(B, T, H, h)
 
 
-def decode_attention(q, k_cache, v_cache, pos: int):
+def banded_attention(q, k, v, *, window: int, chunk: int = 0):
+    """Causal sliding-window attention: each query chunk reads only the
+    (window + chunk)-wide key band that ends at the chunk, O(T * window)
+    instead of O(T^2)-then-mask. q (B,T,H,h), k/v (B,T,K,h) -> (B,T,H,h).
+    Where the chunk does not divide T (or is T), one masked product over
+    all of T, as the JAX package routes it."""
+    B, T, H, h = q.shape
+    K = k.shape[2]
+    G = H // K
+    chunk = chunk or min(T, max(128, window // 2))
+    pos = torch.arange(T, device=q.device)
+    if T % chunk or T <= chunk:
+        return _attend(q.reshape(B, T, K, G, h), k, v,
+                       _mask(pos, pos, window)).reshape(B, T, H, h)
+    band = min(window + chunk, T)
+    qg = q.reshape(B, T, K, G, h)
+    outs = []
+    for c in range(0, T, chunk):
+        start = max(0, c + chunk - band)
+        outs.append(_attend(qg[:, c:c + chunk], k[:, start:start + band],
+                            v[:, start:start + band],
+                            _mask(pos[c:c + chunk],
+                                  pos[start:start + band], window)))
+    return torch.cat(outs, dim=1).reshape(B, T, H, h)
+
+
+def decode_attention(q, k_cache, v_cache, pos: int, window: int = 0):
     """One-step decode. q (B,1,H,h); caches (B,S,K,h); ``pos`` the index of
-    the current token (cache[pos] holds its k/v) -> (B,1,H,h)."""
+    the current token (cache[pos] holds its k/v); ``window`` > 0 reads only
+    the last ``window`` positions -> (B,1,H,h)."""
     B, _, H, h = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
-    valid = torch.arange(S, device=q.device)[None, :] <= pos     # (1, S)
+    d = pos - torch.arange(S, device=q.device)[None, :]          # (1, S)
+    valid = (d >= 0) & (d < window) if window > 0 else d >= 0
     return _attend(q.reshape(B, 1, K, H // K, h), k_cache, v_cache,
                    valid).reshape(B, 1, H, h)
 

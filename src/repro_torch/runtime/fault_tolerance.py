@@ -182,7 +182,7 @@ class CheckpointManager:
         if pending is not None:
             pending.result()
 
-    def resume(self, template=None, device="cpu", blocks=None):
+    def resume(self, template=None, device="cuda", blocks=None):
         """-> (state, step, meta) from the latest valid checkpoint, its
         tensors on ``device`` (``blocks``: the rank's blocks of them,
         ``checkpoint.restore``); (None, -1, {}) when there is none."""

@@ -78,7 +78,7 @@ def test_multi_process_sliced_save_roundtrip(tmp_path):
     f1, i1, m1 = ckpt.write_shard_file(tmp, 1, [bot])
     ckpt.commit(str(tmp_path), 3, tmp, {f0: i0, f1: i1}, {**m0, **m1},
                 meta={"k": 1}, process_count=2)
-    state, got_step, meta = ckpt.restore(str(tmp_path))
+    state, got_step, meta = ckpt.restore(str(tmp_path), device="cpu")
     assert got_step == 3 and meta == {"k": 1}
     assert torch.equal(state["params"]["w"], a)
     assert int(state["step"]) == 3 and state["step"].dtype == torch.int64
@@ -96,7 +96,7 @@ def test_restore_rejects_incomplete_coverage(tmp_path):
     _, _, m1 = ckpt.write_shard_file(tmp, 1, [bot])
     ckpt.commit(str(tmp_path), 1, tmp, {f0: i0}, {**m0, **m1})
     with pytest.raises(IOError, match="coverage"):
-        ckpt.restore(str(tmp_path), step=1)
+        ckpt.restore(str(tmp_path), step=1, device="cpu")
     with pytest.raises(IOError, match="coverage"):
         rckpt.restore(str(tmp_path), step=1)
 
@@ -113,7 +113,7 @@ def test_restore_rejects_crc_mismatch(tmp_path):
     with open(mpath, "w") as f:
         json.dump(manifest, f)
     with pytest.raises(IOError, match="checksum"):
-        ckpt.restore(str(tmp_path), step=2)
+        ckpt.restore(str(tmp_path), step=2, device="cpu")
     with pytest.raises(IOError, match="checksum"):
         rckpt.restore(str(tmp_path), step=2)
 
@@ -130,7 +130,7 @@ def test_restore_rejects_a_corrupt_payload_byte(tmp_path):
     open(fp, "wb").write(bytes(blob))
     assert ckpt.latest_step(str(tmp_path)) == 1
     with pytest.raises(IOError, match="checksum"):
-        ckpt.restore(str(tmp_path))
+        ckpt.restore(str(tmp_path), device="cpu")
     with pytest.raises(zipfile.BadZipFile, match="CRC"):
         rckpt.restore(str(tmp_path))
 
@@ -146,7 +146,7 @@ def test_restore_refuses_a_compressed_member(tmp_path):
         for n, data in members.items():
             z.writestr(n, data)
     with pytest.raises(IOError, match="compressed"):
-        ckpt.restore(str(tmp_path), step=1)
+        ckpt.restore(str(tmp_path), step=1, device="cpu")
 
 
 def test_restore_rejects_replica_disagreement(tmp_path):
@@ -161,7 +161,7 @@ def test_restore_rejects_replica_disagreement(tmp_path):
     ckpt.commit(str(tmp_path), 4, tmp, {f0: i0, f1: i1}, {**m0, **m1},
                 process_count=2)
     with pytest.raises(IOError, match="disagreement"):
-        ckpt.restore(str(tmp_path), step=4)
+        ckpt.restore(str(tmp_path), step=4, device="cpu")
     with pytest.raises(IOError, match="disagreement"):
         rckpt.restore(str(tmp_path), step=4)
 
@@ -179,7 +179,7 @@ def test_agreeing_replicas_and_a_2x2_grid_restore(tmp_path):
     f1, i1, m1 = ckpt.write_shard_file(tmp, 1, parts[2:])
     ckpt.commit(str(tmp_path), 0, tmp, {f0: i0, f1: i1}, {**m0, **m1},
                 process_count=2)
-    state, _, _ = ckpt.restore(str(tmp_path))
+    state, _, _ = ckpt.restore(str(tmp_path), device="cpu")
     assert torch.equal(state["w"], a)
     ref, _, _ = rckpt.restore(str(tmp_path))
     np.testing.assert_array_equal(ref["w"], a.numpy())
@@ -191,7 +191,7 @@ def test_restore_rejects_a_slice_outside_its_array(tmp_path):
                           a[2:].clone())
     ckpt.save(str(tmp_path), 6, [top, bot, out])
     with pytest.raises(IOError, match="outside"):
-        ckpt.restore(str(tmp_path))
+        ckpt.restore(str(tmp_path), device="cpu")
 
 
 @pytest.mark.parametrize("shape,boxes,want", [
@@ -220,14 +220,17 @@ def test_template_subset_and_missing_key(tmp_path):
     ckpt.save(str(tmp_path), 5, {"a": torch.ones(3),
                                  "extra": torch.zeros(2)})
     state, _, _ = ckpt.restore(
-        str(tmp_path), template={"a": torch.zeros(3, dtype=torch.float64)})
+        str(tmp_path), template={"a": torch.zeros(3, dtype=torch.float64)},
+        device="cpu")
     assert state["a"].dtype == torch.float64       # the template's dtype
     assert state["extra"].dtype == torch.float32   # passes through
     state, _, _ = ckpt.restore(str(tmp_path),
-                               template={"a": np.zeros(3, np.float16)})
+                               template={"a": np.zeros(3, np.float16)},
+                               device="cpu")
     assert state["a"].dtype == torch.float16
     with pytest.raises(IOError, match="lacks template keys"):
-        ckpt.restore(str(tmp_path), template={"missing": torch.zeros(1)})
+        ckpt.restore(str(tmp_path), template={"missing": torch.zeros(1)},
+                     device="cpu")
 
 
 # ------------------------------------------- discovery and atomic commits
@@ -238,7 +241,7 @@ def test_checkpoint_roundtrip_keep_k_and_latest(tmp_path):
                                      "step": np.asarray(s)}, keep=2)
     assert ckpt.steps(str(tmp_path)) == [4, 5]
     assert ckpt.latest_step(str(tmp_path)) == 5
-    restored, step, meta = ckpt.restore(str(tmp_path))
+    restored, step, meta = ckpt.restore(str(tmp_path), device="cpu")
     assert step == 5 and meta == {} and int(restored["step"]) == 5
     _assert_same(flatten(restored["params"]), flatten(params))
 
@@ -278,7 +281,7 @@ def test_torn_and_staged_directories_are_never_listed(tmp_path):
     assert ckpt.steps(root) == [1, 2, 3, 4]
     assert ckpt.latest_step(root) == 1 == rckpt.latest_step(root)
     with pytest.raises(IOError, match="format"):
-        ckpt.restore(root, step=3)
+        ckpt.restore(root, step=3, device="cpu")
 
 
 def test_pre_commit_staging_dir_is_replaced(tmp_path):
@@ -298,7 +301,7 @@ def test_reads_in_chunks(tmp_path, monkeypatch):
     monkeypatch.setattr(ckpt, "READ_CHUNK", 1000)
     w = torch.randn(37, 101)
     ckpt.save(str(tmp_path), 0, {"w": w, "b": torch.randn(10).bfloat16()})
-    state, _, _ = ckpt.restore(str(tmp_path))
+    state, _, _ = ckpt.restore(str(tmp_path), device="cpu")
     assert torch.equal(state["w"], w)
 
 
@@ -383,7 +386,8 @@ def test_port_reads_the_references_checkpoint(tmp_path, param_dtype):
                 "opt": make_optimizer("adamw", lambda s: 1e-3).init(params),
                 "step": np.asarray(0),
                 "rng": np.asarray(prng_key(0), np.uint32)}
-    got, step, meta = ckpt.restore(str(tmp_path), template=template)
+    got, step, meta = ckpt.restore(str(tmp_path), template=template,
+                                   device="cpu")
     assert step == 5 and meta == {"k": [1, 2]}
     flat = flatten(got)
     want = {k: np.asarray(v) for k, v in jflatten(jstate).items()}
@@ -427,7 +431,7 @@ def test_bf16_members_and_manifest_equal_the_reference_writers(tmp_path):
             assert zp.read(name) == zr.read(name), name
         assert b"'descr': '<V2'" in zp.read("params/w@0x0.npy")
     for d in (pdir, rdir):
-        got, _, _ = ckpt.restore(os.path.dirname(d))
+        got, _, _ = ckpt.restore(os.path.dirname(d), device="cpu")
         assert got["params"]["w"].dtype == torch.bfloat16
         _assert_same(flatten(got), flatten(port))
 
@@ -445,7 +449,7 @@ def test_reference_restore_raises_on_bf16_and_the_ports_does_not(tmp_path):
     for d in ("ref", "port"):
         with pytest.raises(ValueError, match="No cast function"):
             rckpt.restore(str(tmp_path / d))
-        got, step, _ = ckpt.restore(str(tmp_path / d))
+        got, step, _ = ckpt.restore(str(tmp_path / d), device="cpu")
         assert step == 5
         assert got["params"]["embed"]["w"].dtype == torch.bfloat16
 
@@ -481,7 +485,7 @@ def test_optimizer_state_roundtrip(tmp_path, opt_name):
     fresh, _ = _opt_inputs()
     template = {"params": fresh, "opt": opt.init(fresh),
                 "step": np.asarray(0)}
-    got, step, _ = ckpt.restore(str(tmp_path), template=template)
+    got, step, _ = ckpt.restore(str(tmp_path), template=template, device="cpu")
     assert step == 1 and int(got["step"]) == 1
     want = flatten({"params": params, "opt": state})
     _assert_same(flatten({"params": got["params"], "opt": got["opt"]}), want)

@@ -144,7 +144,7 @@ def test_manager_async_wait_ordering(tmp_path):
     assert mgr.maybe_save(1, _state(1.0))  # joins save(0) first
     mgr.wait()
     assert ckpt.steps(str(tmp_path)) == [0, 1]
-    state, step, _ = mgr.resume()
+    state, step, _ = mgr.resume(device="cpu")
     assert step == 1
     torch.testing.assert_close(state["params"]["w"], torch.full((4, 4), 1.0),
                                rtol=0, atol=0)
@@ -169,7 +169,7 @@ def test_manager_snapshot_copies_before_the_next_step(tmp_path):
     mgr.wait()
     assert mgr._buffers["params/w"] is buffer        # reused, not realloc'd
     for step, want in ((0, 0.0), (1, 1.0)):
-        got, _, _ = ckpt.restore(str(tmp_path), step)
+        got, _, _ = ckpt.restore(str(tmp_path), step, device="cpu")
         assert torch.equal(got["params"]["w"], torch.full((256, 256), want))
     mgr.close()
     assert mgr._buffers == {}
@@ -191,12 +191,12 @@ def test_manager_meta_roundtrip(tmp_path):
     mgr = CheckpointManager(str(tmp_path), every=1, async_save=False)
     meta = {"run_state_version": 1, "ledger": {"recorded_to": 5}}
     mgr.maybe_save(4, _state(2.0), meta=meta)
-    _, step, got = mgr.resume()
+    _, step, got = mgr.resume(device="cpu")
     assert step == 4 and got == meta
 
 
 def test_manager_resume_empty(tmp_path):
-    state, step, meta = CheckpointManager(str(tmp_path)).resume()
+    state, step, meta = CheckpointManager(str(tmp_path)).resume(device="cpu")
     assert state is None and step == -1 and meta == {}
 
 

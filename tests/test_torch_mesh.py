@@ -349,7 +349,7 @@ def test_mesh_checkpoint_restores_in_one_process(world4, tmp_path):
     entries = [e for fi in manifest["files"].values()
                for e in fi["entries"].values()]
     assert any(any(o > 0 for o in e["offset"]) for e in entries)
-    state, step, meta = ckpt.restore(root)
+    state, step, meta = ckpt.restore(root, device="cpu")
     assert step == 3
     assert params_digest(state["params"]) == saved["params_sha256"]
     threads = torch.get_num_threads()
