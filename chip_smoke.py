@@ -162,7 +162,8 @@ Phases, each printing JSON lines:
   train_tape        train_long's model and shapes, tape 'recompute': no
                     weighted-grad kernel, a reweighted backward per unit
                     (2 steps)
-  train_ftrl        qwen2-1.5b, full, B=8, T=512, 4 steps of DP-FTRL
+  train_ftrl        qwen2-1.5b at full width, LONG_LAYERS of its 28 layers,
+                    B=8, T=512, 4 steps of DP-FTRL
                     (--optimizer ftrl --ftrl-momentum 0.9 --restart-every 2
                     --tree-completion --epsilon 3 --dataset-size 50000):
                     sigma from the tree accountant, the ledger's epsilon at
@@ -186,6 +187,17 @@ Phases, each printing JSON lines:
                     kernel). Also the bytes autograd saves in one BK
                     forward, by kind (attention probabilities, SSM chunk
                     tensors, the rest), and the optimizer state's
+  train_whisper     whisper-small at full width and depth (12 encoder + 12
+                    decoder layers, d 768, 12 heads x 64, d_ff 3072 GELU,
+                    LayerNorm, V 51865, bf16), B=8, Tf=1500 frames (--seq),
+                    Td=448 tokens: a flat DPConfig (no registered policy);
+                    the encoder's four stacked taps and the cross keys and
+                    values (xattn/kv, recorded at Tf) take grad_norm_direct,
+                    the frontend bk-mixopt's cache, the decoder's six taps
+                    and the head ghost_norm; the head's ghost_norm and
+                    clipped_grad on their SIMT routes (p = 51865), every
+                    other launch on wgmma; the saved bytes by kind as
+                    train_hymba's
             each: the arch's registered policy, bk-mixopt (unless named),
             sigma=1.0, AdamW (train_ftrl: as named), through
             ``repro_torch.launch.train.train`` (losses drained every step);
@@ -194,7 +206,8 @@ Phases, each printing JSON lines:
             the BK paths and under 'nonprivate'); the last step runs under
             torch.profiler, whose summary gives the device time of the
             ``bk_phases_1_3`` and ``phase4_update`` ranges
-  train_mesh    ``train`` through the mesh path: --mesh 1,1, a world of one
+  train_mesh    ``train`` through the mesh path at LONG_LAYERS of its 28
+                layers: --mesh 1,1, a world of one
                 process under NCCL (B=8, T=512, sigma 1, 3 AdamW steps);
                 its params' sha256 and epsilon equal a no-mesh run's in
                 the same phase; its launches a step as train's (none by
@@ -221,7 +234,8 @@ Phases, each printing JSON lines:
                 step seconds. No multi-card number: one card
   train_resume  checkpoint and restart through ``launch.train``'s command
                 line (``RESUME_CASES``): (a) qwen2-1.5b at full width and
-                depth, registered policy, bk-mixopt, AdamW, B=8, T=512,
+                LONG_LAYERS of its 28 layers (``--layers``), registered
+                policy, bk-mixopt, AdamW, B=8, T=512,
                 sigma 1.0, 4 steps; (b) DP-FTRL at the smoke width (f32,
                 restarts every 4, 8 steps). Each: the run without a
                 checkpoint directory in this process, then with
@@ -246,12 +260,19 @@ Phases, each printing JSON lines:
   prefill_hymba hymba-1.5b, full (32 layers, bf16), B=4, T=3968 (T + meta =
                 4096, so the sliding-window layers take the chunked band):
                 flash_attention once a global layer (3 a prefill)
+  prefill_whisper whisper-small, full (12 + 12 layers, bf16), B=4, 1500
+                frames and 448 tokens: flash_attention 3 times a layer (the
+                encoder's bidirectional 1500 x 1500, the decoder's causal
+                448, the cross-attention's bidirectional 448 x 1500: 36 a
+                prefill, all wgmma); frames + tokens a second
             each: three prefills (warm-up, timed, profiled); launches per
             prefill; finite last-position logits
-  serve, serve_rwkv, serve_hymba
+  serve, serve_rwkv, serve_hymba, serve_whisper
             ``launch.serve.generate`` of each model, full: B=4 prompts of
             16 tokens, 16 generated (teacher-forced prompt, greedy decode
-            against the cache); decode ms/token, peak memory
+            against the cache); decode ms/token, peak memory; whisper first
+            encodes 1500 frames into the cross caches (``prefill_cross``:
+            12 flash_attention launches, wgmma) and decodes against them
   parity, parity_moe, parity_long, parity_layer
             one BK step of a 2-layer, full-width, f32 model of each path
             with the kernels and with ``use_kernels=False`` (parity_long
@@ -285,6 +306,13 @@ Phases, each printing JSON lines:
             both), norms at NORM_TOL, sums at f32 TOL; one noised AdamW
             step as in ``parity``; bk-mixopt against opacus on the card
             (sigma 0)
+  parity_whisper
+            one BK step of a 2 + 2-layer, full-width, f32 whisper-small
+            model, B=2, Tf=1500, Td=448 (bk-mixopt, sigma 1.0: the
+            encoder's taps and xattn/kv direct, cached at 2 layers; the
+            decoder's and the head ghost), as parity_hymba: against
+            ``use_kernels=False`` on the card and against the CPU, one
+            noised AdamW step, bk-mixopt against opacus on the card
   parity_modes
             every mode of ``core.engine.make_grad_fn`` on the card (f32,
             one seed) against opacus: qwen2-1.5b at full width and 2 layers
@@ -307,6 +335,11 @@ Phases, each printing JSON lines:
             every position on the card against the CPU's (decode never
             prepends the meta tokens, as in the JAX package, so it is not
             held to the prefill)
+  parity_prefill_whisper
+            a 2 + 2-layer, full-width, f32 whisper-small, B=2, 1500 frames,
+            448 tokens: the card's prefill, ``prefill_cross``'s caches and
+            the decode teacher-forced over all 448 positions against the
+            CPU's, and the last decode step against the card's prefill
 
 Each phase ends with a ``phase_seconds`` line. Then a ``kernels`` summary
 line and, last, the ``ok`` line. Any failed check
@@ -333,13 +366,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TRAINS = ("train", "train_nonprivate", "train_ghostclip", "train_moe",
           "train_moe_direct", "train_long", "train_layer", "train_tape",
-          "train_ftrl", "train_rwkv", "train_mesh", "train_hymba")
-PREFILLS = ("prefill", "prefill_rwkv", "prefill_hymba")
-SERVES = ("serve", "serve_rwkv", "serve_hymba")
+          "train_ftrl", "train_rwkv", "train_mesh", "train_hymba",
+          "train_whisper")
+PREFILLS = ("prefill", "prefill_rwkv", "prefill_hymba", "prefill_whisper")
+SERVES = ("serve", "serve_rwkv", "serve_hymba", "serve_whisper")
 PARITIES = ("parity", "parity_moe", "parity_long", "parity_layer",
-            "parity_modes", "parity_rwkv", "parity_hymba")
+            "parity_modes", "parity_rwkv", "parity_hymba", "parity_whisper")
 SERVE_PARITIES = ("parity_prefill", "parity_prefill_rwkv",
-                  "parity_prefill_hymba")
+                  "parity_prefill_hymba", "parity_prefill_whisper")
 RESUMES = ("train_resume",)
 MESHES = ("train_mesh2",)
 PHASES = (("card", "build", "kernels") + TRAINS + MESHES + RESUMES + PREFILLS
@@ -381,7 +415,8 @@ MOE_LAYERS = 6      # dense0_0 + 5 MoE blocks: the depth one 80 GB card holds
 # 32 run out of memory (scripts/rwkv_depth_probe.py)
 RWKV_LAYERS = 28
 # of qwen2-1.5b's 28 layers, what train_long and train_tape run at B=2,
-# T=2048 (cut from 28 to keep the whole script in its time)
+# T=2048, and train_ftrl, train_mesh and train_resume's full case at B=8,
+# T=512 (cut from 28 to keep the whole script in its time)
 LONG_LAYERS = 14
 # of hymba-1.5b's 32 layers, the deepest whose train_hymba step (B=4,
 # T=1024) peaks under 76 GB, its global layers 0, 15 and 29: all 32 peaked
@@ -536,7 +571,8 @@ RUNS = {
     # accountant; restarts every 2 steps with completion (steps 1 and 3
     # complete a tree, step 2 restarts it and the anchor); train's kernels,
     # and one FTRL noise_update a leaf
-    "train_ftrl": dict(arch="qwen2-1.5b", layers=0, batch=8, seq=512,
+    "train_ftrl": dict(arch="qwen2-1.5b", layers=LONG_LAYERS, batch=8,
+                       seq=512,
                        steps=4, direct=False, optimizer="ftrl",
                        ftrl_momentum=0.9, restart_every=2,
                        tree_completion=True, epsilon=3.0,
@@ -571,10 +607,28 @@ RUNS = {
                             ghost_norm=21, grad_norm_direct=2,
                             clipped_grad=23, emb_ghost_norm=1,
                             emb_clipped_grad=1)),
+    # whisper-small at full depth (12 encoder + 12 decoder layers; a flat
+    # DPConfig: no registered policy), --seq as frames: Tf = 1500, Td =
+    # decoder_len = 448. Every encoder tap and xattn/kv take the direct
+    # norm (2 Tf^2 = 4.5 M > pd), stacked over 12 layers past the mixopt
+    # cache's 2^24: grad_norm_direct 5; the frontend (B d p = 4.7 M) is
+    # cached (no kernel); the decoder's six taps and the head ghost (7);
+    # clipped_grad on every mm tap but the frontend (12). The head's
+    # ghost_norm and clipped_grad take the SIMT routes (p = 51865), every
+    # other launch wgmma. Its first loss sits near ln(V) + 1/2 (the head's
+    # 1/sqrt(d) init after a layernorm)
+    "train_whisper": dict(arch="whisper-small", layers=0, batch=8, seq=1500,
+                          steps=3, direct=False, loss0_excess=0.5,
+                          simt=dict(ghost_norm=1, clipped_grad=1),
+                          per_step=_per_step(
+                              ghost_norm=7, grad_norm_direct=5,
+                              clipped_grad=12, emb_ghost_norm=1,
+                              emb_clipped_grad=1)),
     # train through the mesh path: --mesh 1,1, a world of one process under
     # NCCL (the sharded step's gathers, all-reduces and block noise all of
     # one rank); its params' sha256 must equal a no-mesh run's
-    "train_mesh": dict(arch="qwen2-1.5b", layers=0, batch=8, seq=512,
+    "train_mesh": dict(arch="qwen2-1.5b", layers=LONG_LAYERS, batch=8,
+                       seq=512,
                        steps=3, direct=False, mesh=(1, 1),
                        per_step=_per_step(
                            ghost_norm=5, clipped_grad=5, emb_ghost_norm=1,
@@ -639,18 +693,36 @@ SERVING = {"prefill": dict(arch="qwen2-1.5b", batch=4, seq=4096,
            "parity_prefill_hymba": dict(arch="hymba-1.5b", batch=2,
                                         seq=1408, layers=5, decode=64,
                                         kernel="flash_attention",
-                                        per_prefill=3)}
+                                        per_prefill=3),
+           # whisper: ``frames`` of audio and ``seq`` = decoder_len tokens;
+           # a prefill runs flash_attention 3 times a layer (the encoder's
+           # bidirectional 1500 x 1500, the decoder's causal 448 and the
+           # cross-attention's bidirectional 448 x 1500), prefill_cross
+           # once an encoder layer
+           "prefill_whisper": dict(arch="whisper-small", batch=4, seq=448,
+                                   frames=1500, kernel="flash_attention",
+                                   per_prefill=36),
+           "serve_whisper": dict(arch="whisper-small", batch=4, prompt=16,
+                                 gen=16, frames=1500),
+           # the card's prefill, cross caches and decode (teacher-forced
+           # over every decoder position) against the CPU's, f32
+           "parity_prefill_whisper": dict(arch="whisper-small", batch=2,
+                                          seq=448, frames=1500, layers=2,
+                                          kernel="flash_attention",
+                                          per_prefill=6)}
 # train paths that share one model, seed and batch (so one set of records)
 PATH_GROUPS = (("train", "train_layer"), ("train_moe", "train_moe_direct"),
                ("train_long", "train_tape"))
 # train_resume's cases: a train command line (``launch.train``'s flags),
 # the checkpoint period and the step whose top kills the checkpointing run.
-# full: qwen2-1.5b at full width and depth, its registered policy,
+# full: qwen2-1.5b at full width and LONG_LAYERS of its 28 layers (cut
+# from 28 to keep the whole script in its time), its registered policy,
 # bk-mixopt, AdamW, sigma 1.0 (train's run, 4 steps); ftrl_smoke: DP-FTRL
 # across a tree and anchor restart at the smoke width, f32 (the argv of
 # tests/test_elastic_restart.py)
 RESUME_CASES = {
-    "full": dict(argv=["--arch", "qwen2-1.5b", "--steps", "4", "--batch", "8",
+    "full": dict(argv=["--arch", "qwen2-1.5b", "--layers", str(LONG_LAYERS),
+                       "--steps", "4", "--batch", "8",
                        "--seq", "512", "--sigma", "1.0", "--optimizer",
                        "adamw", "--ckpt-every", "2", "--keep-checkpoints",
                        "1"], kill=3),
@@ -775,22 +847,11 @@ def train_config(name):
                        tape=run.get("tape", ""))
 
 
-def cut_depth(cfg, layers: int):
-    """``cfg`` cut to ``layers`` layers (0: as it is); a hybrid config
-    keeps its first, middle and last layers global."""
-    if not layers or layers == cfg.n_layers:
-        return cfg
-    if cfg.family == "hybrid":
-        return cfg.with_(n_layers=layers,
-                         full_attn_layers=(0, layers // 2, layers - 1))
-    return cfg.with_(n_layers=layers)
-
-
 def run_config(name, flags=True):
     """-> (ModelConfig, PrivacyPolicy) of a train path: the policy ``train``
     runs, or with ``flags=False`` the one it is handed (before its
     TrainConfig's scope and tape flags)."""
-    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.registry import cut_depth, get_config
     from repro_torch.launch.train import resolve_dp, train_policy
     run = RUNS[name]
     cfg = cut_depth(get_config(run["arch"]), run["layers"])
@@ -1891,12 +1952,29 @@ def phase_kernels(only_wgmma=False, only_noise=False):
         flash_case("prefill_hymba", hp["batch"], Tp, Tp, h_cfg.n_heads,
                    h_cfg.n_kv_heads, h_cfg.hd, True, bf16)
 
+    def whisper_cases():
+        """train_whisper's taps as the engine routes them (the encoder's
+        direct norm on its 12-layer stacks at T = 1500, the head's SIMT
+        routes at p = 51865 among them), then prefill_whisper's three
+        flash_attention shapes: the encoder's bidirectional Tf x Tf, the
+        decoder's causal Td x Td and the cross-attention's bidirectional
+        Td x Tf."""
+        group_cases(("train_whisper",))
+        wp = SERVING["prefill_whisper"]
+        w_cfg = get_config(wp["arch"])
+        Bw, Tf, Td = wp["batch"], wp["frames"], wp["seq"]
+        for T, S, causal in ((Tf, Tf, False), (Td, Td, True),
+                             (Td, Tf, False)):
+            flash_case("prefill_whisper", Bw, T, S, w_cfg.n_heads,
+                       w_cfg.n_kv_heads, w_cfg.hd, causal, bf16)
+
     def wgmma_shapes():
         """The wgmma routes at one tile and at ragged bf16 shapes: widths
         multiples of 8 but of no tile, T / C not a multiple of any tile
         (MoE: a random 0/1 mask with an all-zero expert and a sample with no
         kept slot); flash with h 64 and 128, G 1 and 6, causal and
-        bidirectional."""
+        bidirectional, and bidirectional with T != S (cross-attention's
+        case: fewer queries than keys and more)."""
         mm_case("tile L=1 B=1 T=64 d=128 p=128 bf16", 1, 1, 64, 128, 128,
                 bf16, dict.fromkeys(("clipped_grad", "grad_norm_direct"),
                                     "ragged"))
@@ -1930,6 +2008,8 @@ def phase_kernels(only_wgmma=False, only_noise=False):
             for H in (2, 12):                   # G = 1 and 6 over K = 2
                 for causal in (True, False):
                     flash_case("ragged", 2, 509, 509, H, 2, h, causal, bf16)
+        for T, S in ((509, 1500), (1500, 509)):
+            flash_case("ragged", 2, T, S, 12, 2, 64, False, bf16)
         # rwkv6-3b's narrow mm taps (train_rwkv: the direct norm, then
         # clipped_grad), two layers of random records at its B and T
         rt = RUNS["train_rwkv"]
@@ -2017,7 +2097,7 @@ def phase_kernels(only_wgmma=False, only_noise=False):
         """The train paths' shapes, each tap routed as the engine routes
         it."""
         cfg, batch, taps, records = path_taps(paths, dev)
-        B, T = RUNS[paths[0]]["batch"], RUNS[paths[0]]["seq"]
+        B = RUNS[paths[0]]["batch"]
         seen = set()
         # taps of one layer shape and route, stacked or not (hymba's global
         # blocks and its two sliding-window segments; deepseek-moe's
@@ -2035,7 +2115,8 @@ def phase_kernels(only_wgmma=False, only_noise=False):
             where = f"{paths[0]} {parse_key(key)[0]}"
             if kind == "mm":
                 L = a_shape[0] if len(a_shape) == 4 else 1
-                # the record's T: the batch's T plus any meta tokens
+                # the record's T: the batch's T plus any meta tokens (or
+                # whisper's decoder tokens, or its frames)
                 Tr, d, p = a_shape[-2], a_shape[-1], ds_shape[-1]
                 # every clip function on the smallest unit, o
                 mm_case(f"{where} L={L} B={B} T={Tr} d={d} p={p} bf16", L, B,
@@ -2043,7 +2124,8 @@ def phase_kernels(only_wgmma=False, only_noise=False):
                         fc.CLIPS if key.endswith("/o#mm.s") else
                         ("automatic",))
             elif kind == "emb":
-                emb_case(f"{where} B={B} T={T} d={ds_shape[-1]} "
+                emb_case(f"{where} B={B} T={batch['tokens'].shape[1]} "
+                         f"d={ds_shape[-1]} "
                          f"V={cfg.vocab} bf16", batch["tokens"], ds_shape[-1],
                          cfg.vocab, torch.bfloat16, kernels)
             else:
@@ -2107,6 +2189,8 @@ def phase_kernels(only_wgmma=False, only_noise=False):
     part("train_rwkv")
     hymba_cases()
     part("train_hymba")
+    whisper_cases()
+    part("train_whisper")
 
     flash_case("prefill", fp["batch"], fp["seq"], fp["seq"], q_cfg.n_heads,
                q_cfg.n_kv_heads, q_cfg.hd, True, torch.bfloat16)
@@ -2115,6 +2199,8 @@ def phase_kernels(only_wgmma=False, only_noise=False):
             for causal in (True, False):
                 flash_case("ragged", 2, 509, 509, H, 2, h, causal,
                            torch.float32)
+    for T, S in ((509, 1500), (1500, 509)):     # cross-attention's T != S
+        flash_case("ragged", 2, T, S, 12, 2, 64, False, torch.float32)
     part("flash")
     wgmma_shapes()
     part("wgmma")
@@ -3241,7 +3327,7 @@ def phase_train(name, stats: dict):
                 counter_noise=0 if dp.mode in BK_MODES + ("nonprivate",)
                 else len(resolve_policy(ran, flat).unit_of))
     memory = (saved_by_kind(cfg, params, run, peak)
-              if cfg.family == "hybrid" else None)
+              if cfg.family in ("hybrid", "encdec") else None)
     del params, flat
     emit(phase=name, arch=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.param_dtype,
@@ -3768,7 +3854,7 @@ def paper_ratios(stats: dict) -> dict:
 def _serving_model(name, layers=0, dtype=""):
     """-> (cfg, model, params on the card from seed 0) of a serving path,
     cut to ``layers`` and cast to ``dtype`` where given."""
-    from repro_torch.configs.registry import build, get_config
+    from repro_torch.configs.registry import build, cut_depth, get_config
     cfg = cut_depth(get_config(SERVING[name]["arch"]), layers)
     if dtype:
         cfg = cfg.with_(param_dtype=dtype)
@@ -3785,15 +3871,25 @@ def _tokens(vocab, B, T):
                          dtype=torch.int32)
 
 
+def _frames(cfg, B, Tf):
+    """(B, Tf, frame_dim) f32 frames of audio on the card: ``make_batch``'s
+    from seed 1."""
+    from repro_torch.data.synthetic import make_batch
+    return make_batch(cfg, B, Tf, seed=1, device="cuda")["frames"]
+
+
 def phase_prefill(name):
     """Three prefills of a full model through ``model.prefill`` (warm-up,
     timed, profiled) -> launch totals. Each prefill launches its kernel
-    once a layer and no other kernel."""
+    once a layer (``per_prefill`` where given) and no other kernel. An
+    encoder-decoder model's prefill also takes ``frames`` of audio."""
     import torch
     run = SERVING[name]
     cfg, model, params = _serving_model(name)
     B, T = run["batch"], run["seq"]
     tokens = _tokens(cfg.vocab, B, T)
+    inputs = ((_frames(cfg, B, run["frames"]), tokens) if "frames" in run
+              else (tokens,))
     ws = wrappers()
     fresh_peak()
     reset_counts(ws)                  # counts from here on are the path's
@@ -3806,7 +3902,7 @@ def phase_prefill(name):
         if i == 2:
             prof.start()
         t0 = time.perf_counter()
-        logits = model.prefill(params, tokens)
+        logits = model.prefill(params, *inputs)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         if i == 2:
@@ -3819,6 +3915,9 @@ def phase_prefill(name):
          d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.param_dtype,
          batch=B, seq=T, prefill_seconds=seconds, wgmma_launches=wgmma,
          tokens_per_s=B * T / seconds[1], max_memory_allocated=peak,
+         **({"frames": run["frames"], "frames_and_tokens_per_s":
+             B * (run["frames"] + T) / seconds[1]} if "frames" in run
+            else {}),
          launches_per_prefill={k: n for k, n in per_call[-1].items() if n},
          logits_shape=list(logits.shape))
     emit(phase=f"{name}_profile", call=2,
@@ -3833,35 +3932,56 @@ def phase_prefill(name):
         if got != want:
             raise AssertionError(f"{name} prefill {i}: launches {got}, want "
                                  f"{want}")
-    del params, logits
+    del params, logits, inputs
     torch.cuda.empty_cache()
     return totals
 
 
 def phase_serve(name):
     """``launch.serve.generate`` of a full model, twice (the second timed):
-    B prompts teacher-forced through decode_step, then greedy tokens."""
+    B prompts teacher-forced through decode_step, then greedy tokens. With
+    ``frames`` (whisper) each run first encodes the audio into the cross
+    caches (``prefill_cross``: flash_attention once an encoder layer, on
+    its wgmma route) and decodes against them."""
     import torch
     from repro_torch.launch.serve import generate
     run = SERVING[name]
     cfg, model, params = _serving_model(name)
     B, Tp, gen_len = run["batch"], run["prompt"], run["gen"]
+    steps = Tp + gen_len
     prompts = _tokens(cfg.vocab, B, Tp)
+    frames = _frames(cfg, B, run["frames"]) if "frames" in run else None
     ws = wrappers()
     fresh_peak()
     reset_counts(ws)
-    seconds = []
+    seconds, cross = [], []
     for _ in range(2):
+        cache = None
+        if frames is not None:
+            n0 = ws["flash_attention"].launches
+            t0 = time.perf_counter()
+            cache = model.prefill_cross(params, frames, model.init_cache(
+                B, steps, Tf=run["frames"], device="cuda"))
+            torch.cuda.synchronize()
+            cross.append({"seconds": time.perf_counter() - t0, "launches":
+                          ws["flash_attention"].launches - n0})
         t0 = time.perf_counter()
-        out = generate(model, params, prompts, gen_len)
+        out = generate(model, params, prompts, gen_len, cache=cache)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-    steps = Tp + gen_len
+    if frames is not None:
+        check_routes(name, ws, True)
+        if any(c["launches"] != cfg.encoder_layers for c in cross):
+            raise AssertionError(f"{name}: prefill_cross launched {cross}, "
+                                 f"want flash_attention x "
+                                 f"{cfg.encoder_layers}")
     emit(phase=name, arch=cfg.name, layers=cfg.n_layers, dtype=cfg.param_dtype,
          batch=B, prompt=Tp, gen=gen_len, generate_seconds=seconds,
          decode_ms_per_token=seconds[1] / steps * 1e3,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches={k: w.launches for k, w in ws.items() if w.launches},
+         **({"frames": run["frames"], "prefill_cross": cross}
+            if cross else {}),
          sample=out[0].tolist())
     if tuple(out.shape) != (B, steps) or not torch.equal(out[:, :Tp],
                                                          prompts):
@@ -3933,6 +4053,87 @@ def phase_serve_parity(name):
                              f"decode; want {run['kernel']} x "
                              f"{cfg.n_layers} and none")
     del params, cpu, steps
+    torch.cuda.empty_cache()
+
+
+def phase_serve_parity_encdec(name):
+    """An encoder-decoder model (whisper), 2 + 2 layers, full width, f32:
+    on the card and on the CPU (the plain versions) from the same params,
+    frames and tokens, (a) the prefill over ``seq`` = decoder_len tokens,
+    (b) ``prefill_cross``'s caches, (c) the decode teacher-forced over every
+    decoder position against those caches, each step's logits; on the card
+    also (d) the last decode step against the prefill. The card's prefill
+    launches flash_attention ``per_prefill`` times (SIMT: f32),
+    prefill_cross once an encoder layer, decode none."""
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.utils.tree import flatten, unflatten
+    run = SERVING[name]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, model, params = _serving_model(name, layers=run["layers"],
+                                        dtype="float32")
+    B, Td, Tf = run["batch"], run["seq"], run["frames"]
+    tokens, frames = _tokens(cfg.vocab, B, Td), _frames(cfg, B, Tf)
+    ws = wrappers()
+    reset_counts(ws)
+    launched = {}
+    got = model.prefill(params, frames, tokens)
+    torch.cuda.synchronize()
+    launched["prefill"] = {k: w.launches for k, w in ws.items()
+                           if w.launches}
+    check_routes(name, ws, False)     # f32: the SIMT routes
+    reset_counts(ws)
+    cache = model.prefill_cross(params, frames, model.init_cache(
+        B, Td, Tf=Tf, device="cuda"))
+    torch.cuda.synchronize()
+    launched["prefill_cross"] = {k: w.launches for k, w in ws.items()
+                                 if w.launches}
+    check_routes(name, ws, False)     # f32: the SIMT routes
+    reset_counts(ws)
+    cross = {k: cache[k].cpu() for k in ("xk", "xv")}
+    t0 = time.perf_counter()
+    _, steps = generate(model, params, tokens, 0, return_logits=True,
+                        cache=cache)
+    torch.cuda.synchronize()
+    card_decode_s = time.perf_counter() - t0
+    cpu = unflatten({k: v.cpu() for k, v in flatten(params).items()})
+    want = model.prefill(cpu, frames.cpu(), tokens.cpu())
+    cpu_cache = model.prefill_cross(cpu, frames.cpu(), model.init_cache(
+        B, Td, Tf=Tf, device="cpu"))
+    cmp_cross = {k: compare(cross[k], cpu_cache[k], TOL["float32"])
+                 for k in cross}
+    t0 = time.perf_counter()
+    cpu_steps = generate(model, cpu, tokens.cpu(), 0, return_logits=True,
+                         cache=cpu_cache)[1]
+    cpu_decode_s = time.perf_counter() - t0
+    launched["decode_and_cpu"] = {k: w.launches for k, w in ws.items()
+                                  if w.launches}
+    tol = TOL["float32"]
+    cmp_cpu = compare(got.cpu(), want, tol)
+    cmp_dec = compare(steps.cpu(), cpu_steps, tol)
+    cmp_last = compare(steps[:, -1], got, tol)
+    emit(phase=name, arch=cfg.name, layers=cfg.n_layers,
+         encoder_layers=cfg.encoder_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab, dtype="float32", batch=B, seq=Td, frames=Tf,
+         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         prefill_vs_cpu=cmp_cpu, cross_caches_vs_cpu=cmp_cross,
+         decode_vs_cpu=cmp_dec, decode_vs_prefill=cmp_last,
+         decoded_tokens=Td, card_decode_seconds=card_decode_s,
+         cpu_decode_seconds=cpu_decode_s, launched=launched)
+    ok = cmp_cpu["ok"] and cmp_dec["ok"] and cmp_last["ok"] and all(
+        c["ok"] for c in cmp_cross.values())
+    if not ok:
+        raise AssertionError(f"{name}: prefill vs CPU {cmp_cpu}, cross "
+                             f"caches {cmp_cross}, decode vs CPU {cmp_dec}, "
+                             f"decode vs prefill {cmp_last}")
+    want_launched = {"prefill": {run["kernel"]: run["per_prefill"]},
+                     "prefill_cross": {run["kernel"]: cfg.encoder_layers},
+                     "decode_and_cpu": {}}
+    if launched != want_launched:
+        raise AssertionError(f"{name}: launches {launched}, want "
+                             f"{want_launched}")
+    del params, cpu, steps, cpu_steps, cache, cpu_cache
     torch.cuda.empty_cache()
 
 
@@ -4111,6 +4312,13 @@ FAMILY_PARITY = {
                          want=("ghost_norm", "clipped_grad", "emb_ghost_norm",
                                "emb_clipped_grad"),
                          per_layer=(), opacus=None, vs_plain=True),
+    # whisper at 2 + 2 layers, Tf = 1500, Td = 448: the encoder's taps and
+    # xattn/kv take the direct norm, which bk-mixopt caches at 2 layers (no
+    # grad_norm_direct launch); the decoder's and the head the ghost norm
+    "parity_whisper": dict(path="train_whisper", layers=2, batch=2,
+                           want=("ghost_norm", "clipped_grad",
+                                 "emb_ghost_norm", "emb_clipped_grad"),
+                           per_layer=(), opacus=None, vs_plain=True),
 }
 
 
@@ -4129,7 +4337,7 @@ def phase_parity_family(name):
     0 (norms at NORM_TOL, grads at f32 TOL; rwkv6's opacus runs Wkv6Fn
     under vmap(grad)). -> {} (these launches do not count as a path's)."""
     import torch
-    from repro_torch.configs.registry import build
+    from repro_torch.configs.registry import build, cut_depth
     from repro_torch.core.bk import bk_clipped_sum
     from repro_torch.core.engine import make_grad_fn
     from repro_torch.core.noise import prng_key
@@ -4565,7 +4773,8 @@ def main(argv=None) -> int:
             lap(name)
     for name in SERVE_PARITIES:
         if name in phases:
-            phase_serve_parity(name)
+            (phase_serve_parity_encdec if "frames" in SERVING[name]
+             else phase_serve_parity)(name)
             lap(name)
     if summary is not None:
         kernels = []

@@ -6,7 +6,10 @@ block (RMSNorm, SwiGLU, rope, GQA), with a DeepSeekMoE feed-forward in the
 ``moe`` family; the ``ssm`` family is RWKV6 (``models.rwkv6``, layernorm
 and its squared-ReLU channel mix); the ``hybrid`` family is Hymba
 (``models.hymba``: attention and Mamba-style SSM heads side by side,
-sliding-window layers, meta tokens). Activations follow ``param_dtype``."""
+sliding-window layers, meta tokens); the ``encdec`` family is Whisper
+(``models.whisper``: a bidirectional encoder over frame embeddings, a
+decoder with causal self-attention and cross-attention, LayerNorm + GELU).
+Activations follow ``param_dtype``."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -15,7 +18,7 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"        # dense | moe | ssm | hybrid
+    family: str = "dense"        # dense | moe | ssm | hybrid | encdec
     n_layers: int = 2
     d_model: int = 64
     n_heads: int = 4
@@ -24,8 +27,10 @@ class ModelConfig:
     vocab: int = 256
     head_dim: int = 0            # 0 -> d_model // n_heads
     qkv_bias: bool = False
-    norm: str = "rmsnorm"        # rmsnorm (transformer) | layernorm (rwkv6)
-    act: str = "swiglu"          # swiglu (transformer) | relu_sq (rwkv6)
+    norm: str = "rmsnorm"        # rmsnorm (transformer) | layernorm (rwkv6,
+                                 # whisper)
+    act: str = "swiglu"          # swiglu (transformer) | relu_sq (rwkv6) |
+                                 # gelu (whisper)
     rope_theta: float = 10000.0
     attn_chunk: int = 0          # q-chunked attention block (0 = full)
     param_dtype: str = "float32"
@@ -46,6 +51,11 @@ class ModelConfig:
     window: int = 0              # sliding window for local attn layers
     full_attn_layers: tuple = () # hybrid: layer indices with global attention
     meta_tokens: int = 0         # Hymba learnable prefix tokens
+
+    # enc-dec (whisper)
+    encoder_layers: int = 0
+    decoder_len: int = 448
+    frame_dim: int = 0           # stub frontend embedding dim (0 -> d_model)
 
     @property
     def hd(self) -> int:

@@ -1,6 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, plus named
 PrivacyPolicy presets. The port registers qwen2-1.5b (dense),
-deepseek-moe-16b (moe), rwkv6-3b (ssm) and hymba-1.5b (hybrid)."""
+deepseek-moe-16b (moe), rwkv6-3b (ssm), hymba-1.5b (hybrid) and
+whisper-small (encdec)."""
 from __future__ import annotations
 
 import dataclasses
@@ -67,8 +68,25 @@ def build(cfg: ModelConfig):
     if cfg.family == "hybrid":
         from repro_torch.models.hymba import HymbaLM
         return HymbaLM(cfg)
+    if cfg.family == "encdec":
+        from repro_torch.models.whisper import WhisperLM
+        return WhisperLM(cfg)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 B8)")
+
+
+def cut_depth(cfg: ModelConfig, layers: int) -> ModelConfig:
+    """``cfg`` at full width cut to ``layers`` layers (0: as it is): a
+    hybrid config keeps its first, middle and last layers global, an
+    encoder-decoder config cuts both stacks."""
+    if not layers or layers == cfg.n_layers:
+        return cfg
+    if cfg.family == "hybrid":
+        return cfg.with_(n_layers=layers,
+                         full_attn_layers=(0, layers // 2, layers - 1))
+    if cfg.family == "encdec":
+        return cfg.with_(n_layers=layers, encoder_layers=layers)
+    return cfg.with_(n_layers=layers)
 
 
 def smoke_config(name: str) -> ModelConfig:
@@ -85,9 +103,13 @@ def smoke_config(name: str) -> ModelConfig:
     if cfg.family == "hybrid":
         kw.update(n_layers=5, ssm_heads=4, ssm_state=4, window=8,
                   full_attn_layers=(0, 2, 4), meta_tokens=4)
+    if cfg.family == "encdec":
+        kw.update(encoder_layers=2, decoder_len=16, frame_dim=24,
+                  n_kv_heads=4)
     return cfg.with_(**kw)
 
 
 # import arch modules so registration runs
-for _m in ("qwen2_1_5b", "deepseek_moe_16b", "rwkv6_3b", "hymba_1_5b"):
+for _m in ("whisper_small", "qwen2_1_5b", "deepseek_moe_16b", "rwkv6_3b",
+           "hymba_1_5b"):
     importlib.import_module(f"repro_torch.configs.{_m}")

@@ -5,8 +5,9 @@ State is (seed, step), nothing else: ``batch(step)`` is a pure function, so
 a restart resumes bit-exactly from any step. ``poisson_q > 0`` is the
 fixed-capacity Poisson subsampling the RDP accountant assumes: each step
 draws an inclusion mask ~ Bernoulli(q) over the physical batch and hands it
-to the loss as a 0/1 ``mask``. Tokens and mask equal the reference's
-bitwise: the mask's uniforms are ``data.synthetic.uniform`` under
+to the loss as a 0/1 ``mask`` over the tokens (the decoder's, in the
+encdec family). Tokens and mask equal the reference's bitwise: the mask's
+uniforms are ``data.synthetic.uniform`` under
 ``fold_in(fold_in(prng_key(seed), step), 0xD1CE)``.
 """
 from __future__ import annotations
@@ -38,9 +39,18 @@ class Pipeline:
         self.device = torch.device(device)
 
     def spec(self) -> dict:
-        """The batch's shapes and dtypes, as meta tensors."""
-        return {"tokens": torch.empty((self.cfg.batch, self.cfg.seq_len),
-                                      dtype=torch.int32, device="meta")}
+        """The batch's shapes and dtypes, as meta tensors (encdec: seq_len
+        counts the encoder's audio frames; the decoder's tokens are
+        ``decoder_len`` long)."""
+        B, T, mc = self.cfg.batch, self.cfg.seq_len, self.model_cfg
+        if mc.family == "encdec":
+            return {"frames": torch.empty(
+                        (B, T, mc.frame_dim or mc.d_model),
+                        dtype=torch.float32, device="meta"),
+                    "tokens": torch.empty((B, mc.decoder_len),
+                                          dtype=torch.int32, device="meta")}
+        return {"tokens": torch.empty((B, T), dtype=torch.int32,
+                                      device="meta")}
 
     def state_dict(self) -> dict:
         """The generative config a resumed run must continue (the cursor

@@ -14,6 +14,11 @@ optimizer, with the privacy ledger, one step at a time.
         --steps 2 --clipping-scope layer --tape recompute
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --steps 2 --mode ghostclip      # or nonprivate, opacus, ...
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch whisper-small --smoke --device cpu --steps 2 --seq 48
+
+``--seq`` is the length of a sample: its tokens, or for whisper
+(``encdec``) its audio frames (the decoder reads ``decoder_len`` tokens).
 
 ``--epsilon`` calibrates sigma to the (epsilon, delta=1e-5) budget of the
 run over ``--dataset-size`` samples (``core.accounting.budget_for``: the
@@ -90,8 +95,8 @@ from repro_torch.checkpoint.run_state import (check_resume,
                                               config_fingerprint, pack_meta,
                                               params_digest)
 from repro_torch.configs.base import TrainConfig
-from repro_torch.configs.registry import (build, get_config, get_policy,
-                                          has_policy, list_archs,
+from repro_torch.configs.registry import (build, cut_depth, get_config,
+                                          get_policy, has_policy, list_archs,
                                           list_policies, smoke_config)
 from repro_torch.core.accounting import PrivacyLedger, budget_for
 from repro_torch.core.bk import DPConfig
@@ -503,6 +508,9 @@ def cli_args(argv=None):
     ap.add_argument("--arch", choices=list_archs(), default="qwen2-1.5b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config, float32")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="the arch at full width cut to this many layers "
+                         "(0: all; configs.registry.cut_depth)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--microbatch", type=int, default=0)
@@ -579,7 +587,8 @@ def cli_args(argv=None):
         if len(mesh) not in (2, 3) or min(mesh) < 1:
             ap.error(f"--mesh wants 2 or 3 positive sizes, got {args.mesh!r}")
 
-    mc = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    mc = cut_depth(smoke_config(args.arch) if args.smoke
+                   else get_config(args.arch), args.layers)
     if args.smoke:
         mc = mc.with_(param_dtype="float32")
     tc = TrainConfig(global_batch=args.batch, microbatch=args.microbatch,

@@ -1,6 +1,7 @@
 """Attention math (param-free; projections live in the blocks).
 
-GQA, the causal and sliding-window masks, q-chunking, banded attention
+GQA, the causal, bidirectional and sliding-window masks (bidirectional
+with Tk != Tq: cross-attention), q-chunking, banded attention
 (each query chunk against its window's key band), in plain PyTorch ops,
 and one-step decode against a KV cache. The
 softmax statistics are float32 and masked with NEG_INF = -1e30 (not -inf),
@@ -15,11 +16,12 @@ F32 = torch.float32
 NEG_INF = -1e30
 
 
-def _mask(q_pos, k_pos, window: int = 0):
-    """Causal: q_pos (Tq,), k_pos (Tk,) -> bool (Tq, Tk); ``window`` > 0
-    also drops keys ``window`` or more positions behind the query."""
+def _mask(q_pos, k_pos, window: int = 0, causal: bool = True):
+    """q_pos (Tq,), k_pos (Tk,) -> bool (Tq, Tk): causal, or every key
+    (``causal=False``); ``window`` > 0 also drops keys ``window`` or more
+    positions behind the query."""
     d = q_pos[:, None] - k_pos[None, :]
-    m = d >= 0
+    m = d >= 0 if causal else torch.ones_like(d, dtype=torch.bool)
     return m & (d < window) if window > 0 else m
 
 
@@ -36,9 +38,10 @@ def _attend(q, k, v, mask):
     return out.to(v.dtype)
 
 
-def multihead_attention(q, k, v, *, chunk=0):
-    """Causal attention. q (B,Tq,H,h), k/v (B,Tk,K,h) with H = K*G (GQA)
-    -> (B,Tq,H,h). ``chunk`` > 0 runs the queries in chunks of that size."""
+def multihead_attention(q, k, v, *, causal=True, chunk=0):
+    """Causal (or, ``causal=False``, bidirectional) attention. q
+    (B,Tq,H,h), k/v (B,Tk,K,h) with H = K*G (GQA) -> (B,Tq,H,h). ``chunk``
+    > 0 runs the queries in chunks of that size."""
     B, T, H, h = q.shape
     Tk, K = k.shape[1], k.shape[2]
     G = H // K
@@ -48,11 +51,12 @@ def multihead_attention(q, k, v, *, chunk=0):
 
     if chunk and T % chunk == 0 and T > chunk:
         outs = [_attend(qg[:, c:c + chunk], k, v,
-                        _mask(q_pos[c:c + chunk], k_pos))
+                        _mask(q_pos[c:c + chunk], k_pos, causal=causal))
                 for c in range(0, T, chunk)]
         return torch.cat(outs, dim=1).reshape(B, T, H, h)
 
-    return _attend(qg, k, v, _mask(q_pos, k_pos)).reshape(B, T, H, h)
+    return _attend(qg, k, v, _mask(q_pos, k_pos, causal=causal)).reshape(
+        B, T, H, h)
 
 
 def banded_attention(q, k, v, *, window: int, chunk: int = 0):

@@ -36,18 +36,24 @@ def attn_init(gen, cfg: ModelConfig, dt, layers=()):
 
 
 def _qkv(p, tape, x, cfg: ModelConfig, cos, sin, positions=None):
+    """-> q (B,T,H,h), k, v (B,T,K,h); roped unless ``cos`` is None
+    (whisper's blocks: positions are added to the embeddings)."""
     B, T = x.shape[0], x.shape[1]
     H, K, h = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     qkv = L.linear(tape, "qkv", p["qkv"], x)
     q, k, v = torch.split(qkv, [H * h, K * h, K * h], dim=-1)
-    q = L.apply_rope(q.reshape(B, T, H, h), cos, sin, positions)
-    k = L.apply_rope(k.reshape(B, T, K, h), cos, sin, positions)
+    q, k = q.reshape(B, T, H, h), k.reshape(B, T, K, h)
+    if cos is not None:
+        q = L.apply_rope(q, cos, sin, positions)
+        k = L.apply_rope(k, cos, sin, positions)
     return q, k, v.reshape(B, T, K, h)
 
 
-def _flash(q, k, v):
-    """Prefill's attention: the causal flash_attention kernel."""
-    return flash_attention(q, k, v.contiguous())
+def _flash(q, k, v, causal=True):
+    """Prefill's attention: the flash_attention kernel (causal, or
+    bidirectional with ``causal=False``)."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal)
 
 
 def attn_apply(p, tape, x, cfg: ModelConfig, cos, sin, attend=None):
@@ -74,14 +80,23 @@ def attn_decode(p, tape, x, cfg: ModelConfig, cos, sin, cache, pos: int):
 
 # ------------------------------------------------------------------------ mlp
 def mlp_init(gen, cfg: ModelConfig, dt, layers=(), d_ff=0):
+    """SwiGLU's up is d -> 2 d_ff (gate and up), GELU's d -> d_ff."""
     d, ff = cfg.d_model, d_ff or cfg.d_ff
-    return {"up": L.linear_init(gen, d, 2 * ff, dt, layers=layers),
+    mult = 2 if cfg.act == "swiglu" else 1
+    return {"up": L.linear_init(gen, d, mult * ff, dt, layers=layers),
             "down": L.linear_init(gen, ff, d, dt, layers=layers)}
 
 
-def mlp_apply(p, tape, x):
-    g, u = torch.chunk(L.linear(tape, "up", p["up"], x), 2, dim=-1)
-    return L.linear(tape, "down", p["down"], torch.nn.functional.silu(g) * u)
+def mlp_apply(p, tape, x, act: str = "swiglu"):
+    """``act``: 'swiglu', or 'gelu' (tanh form: ``jax.nn.gelu``'s
+    default)."""
+    u = L.linear(tape, "up", p["up"], x)
+    if act == "swiglu":
+        g, u = torch.chunk(u, 2, dim=-1)
+        h = torch.nn.functional.silu(g) * u
+    else:
+        h = torch.nn.functional.gelu(u, approximate="tanh")
+    return L.linear(tape, "down", p["down"], h)
 
 
 # --------------------------------------------------------------- dense block

@@ -443,6 +443,43 @@ def test_flash_attention_ragged_matches_ref(B, T, S, H, K, h, causal):
         **FLASH_TOL["float32"])
 
 
+# whisper's bidirectional attentions at small size: cross-attention (Td
+# queries over Tf keys), one decode query over Tf keys, and the encoder's
+# self-attention at a T of no block multiple
+CROSS_SHAPES = [(3, 16, 48, 4, 4, 8), (2, 1, 48, 4, 4, 8),
+                (2, 45, 150, 12, 12, 64), (1, 37, 37, 4, 4, 16)]
+
+
+@pytest.mark.parametrize("B,T,S,H,K,h", CROSS_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_bidirectional_cross_matches_ref(B, T, S, H, K, h,
+                                                         dtype):
+    """The plain version (what a CPU tensor runs) with causal=False at
+    T != S against the JAX package's ``flash_attention_ref``."""
+    (jq, tq), (jk, tk), (jv, tv) = _flash_inputs(B, T, S, H, K, h, dtype)
+    got = flash_attention(tq, tk, tv, causal=False)
+    assert got.shape == (B, T, H, h) and got.dtype == tq.dtype
+    np.testing.assert_allclose(
+        _f32(got), _f32(ref.flash_attention_ref(jq, jk, jv, causal=False)),
+        **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("B,T,S,H,K,h", CROSS_SHAPES)
+@pytest.mark.parametrize("chunk", [0, 8])
+def test_multihead_attention_bidirectional_matches_jax(B, T, S, H, K, h,
+                                                       chunk):
+    """``multihead_attention(causal=False)`` (training's encoder and
+    cross-attention) against the JAX package's, unchunked and with the
+    queries in chunks where the chunk divides T."""
+    from repro.models.attention import multihead_attention as jmha
+    from repro_torch.models.attention import multihead_attention as tmha
+    (jq, tq), (jk, tk), (jv, tv) = _flash_inputs(B, T, S, H, K, h,
+                                                 "float32")
+    want = jmha(jq, jk, jv, causal=False, chunk=chunk)
+    got = tmha(tq, tk, tv, causal=False, chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def _wkv_inputs(B, T, H, h, w=None):
     """r, k, v standard normal, w uniform in [0.5, 0.999] (the JAX kernel
     test's range) or the constant ``w``, u normal * 0.5 -> [(jax, torch)]."""

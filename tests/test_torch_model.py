@@ -122,6 +122,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
         " 'repro_torch.')]\n"
+        "assert 'repro_torch.models.whisper' in mods, mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "sys.path.insert(0, sys.argv[1]); import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"

@@ -218,3 +218,24 @@ def test_four_ftrl_steps_match_the_reference_pieces(monkeypatch):
     got = params_to_numpy(params)
     for k, v in jflatten(jp).items():
         np.testing.assert_allclose(got[k], np.asarray(v), err_msg=k, **TOL)
+
+
+@pytest.mark.parametrize("arch,layers,want", [
+    ("qwen2-1.5b", 14, dict(n_layers=14)),
+    ("hymba-1.5b", 5, dict(n_layers=5, full_attn_layers=(0, 2, 4))),
+    ("whisper-small", 2, dict(n_layers=2, encoder_layers=2)),
+    ("rwkv6-3b", 0, dict(n_layers=32))])
+def test_layers_flag_cuts_depth_at_full_width(arch, layers, want):
+    """``--layers N`` hands ``train`` the arch at full width cut to N layers
+    (``configs.registry.cut_depth``; 0 keeps every layer): a hybrid keeps
+    its first, middle and last layers global, an encoder-decoder cuts both
+    stacks."""
+    from repro_torch.configs.registry import cut_depth, get_config
+    kwargs, _ = ttrain.cli_args(["--arch", arch, "--layers", str(layers),
+                                 "--device", "cpu"])
+    full = get_config(arch)
+    cfg = kwargs["model_cfg"]
+    assert cfg == cut_depth(full, layers)
+    assert cfg.d_model == full.d_model and cfg.vocab == full.vocab
+    for k, v in want.items():
+        assert getattr(cfg, k) == v, k
