@@ -108,5 +108,5 @@ def params_digest(params) -> str:
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
         h.update(path.encode())
-        h.update(t.numpy().tobytes())
+        h.update(t.numpy().reshape(-1))      # the buffer itself, no copy
     return h.hexdigest()

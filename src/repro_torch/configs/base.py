@@ -1,15 +1,19 @@
 """Model / training configuration dataclasses (the subset the port runs).
 
 Field names and defaults follow ``repro.configs.base`` so a config reads the
-same in both packages. The port's transformer block is the qwen2 / llama
-block (RMSNorm, SwiGLU, rope, GQA), with a DeepSeekMoE feed-forward in the
-``moe`` family; the ``ssm`` family is RWKV6 (``models.rwkv6``, layernorm
-and its squared-ReLU channel mix); the ``hybrid`` family is Hymba
+same in both packages. The port's transformer block is the qwen2 / qwen2.5
+/ qwen3 / llama3 block (RMSNorm, SwiGLU, rope, GQA, optional QKV bias and
+qk-norm), with a DeepSeekMoE feed-forward in the ``moe`` family
+(deepseek-moe, moonshot); the ``ssm`` family is RWKV6 (``models.rwkv6``,
+layernorm and its squared-ReLU channel mix); the ``hybrid`` family is Hymba
 (``models.hymba``: attention and Mamba-style SSM heads side by side,
 sliding-window layers, meta tokens); the ``encdec`` family is Whisper
 (``models.whisper``: a bidirectional encoder over frame embeddings, a
 decoder with causal self-attention and cross-attention, LayerNorm + GELU).
-Activations follow ``param_dtype``."""
+Activations follow ``param_dtype``. ``remat`` recomputes each block of the
+transformer's, rwkv6's and hymba's stacks in the backward
+(``core.tape.Tape.block``), where the reference wraps its scanned blocks
+in ``jax.checkpoint``."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -27,12 +31,17 @@ class ModelConfig:
     vocab: int = 256
     head_dim: int = 0            # 0 -> d_model // n_heads
     qkv_bias: bool = False
+    qk_norm: bool = False        # RMSNorm over each q and k head (qwen3)
     norm: str = "rmsnorm"        # rmsnorm (transformer) | layernorm (rwkv6,
                                  # whisper)
     act: str = "swiglu"          # swiglu (transformer) | relu_sq (rwkv6) |
                                  # gelu (whisper)
     rope_theta: float = 10000.0
     attn_chunk: int = 0          # q-chunked attention block (0 = full)
+    # recompute each block of a stacked loop in the backward instead of
+    # keeping its saved tensors (the reference's jax.checkpoint per scanned
+    # block); whisper's blocks ignore it, as the reference's do
+    remat: bool = False
     param_dtype: str = "float32"
 
     # MoE

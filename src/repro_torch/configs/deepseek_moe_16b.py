@@ -13,7 +13,7 @@ def deepseek_moe_16b() -> ModelConfig:
         n_heads=16, n_kv_heads=16, head_dim=128, d_ff=10944, vocab=102400,
         n_experts=64, top_k=6, n_shared=2, moe_d_ff=1408, first_k_dense=1,
         capacity_factor=1.25, renorm_topk=False, rope_theta=10000.0,
-        param_dtype="bfloat16", attn_chunk=512)
+        param_dtype="bfloat16", attn_chunk=512, remat=True)
 
 
 @register_policy("deepseek-moe-16b")

@@ -12,4 +12,4 @@ def hymba_1_5b() -> ModelConfig:
         n_heads=25, n_kv_heads=5, head_dim=64, d_ff=5504, vocab=32001,
         ssm_heads=25, ssm_state=16, window=1024, full_attn_layers=(0, 15, 31),
         meta_tokens=128, rope_theta=10000.0, norm="rmsnorm", act="swiglu",
-        param_dtype="bfloat16", attn_chunk=512)
+        param_dtype="bfloat16", attn_chunk=512, remat=True)

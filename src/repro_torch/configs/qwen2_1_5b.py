@@ -11,7 +11,8 @@ def qwen2_1_5b() -> ModelConfig:
         name="qwen2-1.5b", family="dense", n_layers=28, d_model=1536,
         n_heads=12, n_kv_heads=2, head_dim=128, d_ff=8960, vocab=151936,
         qkv_bias=True, rope_theta=1000000.0, param_dtype="bfloat16",
-        attn_chunk=512)
+        attn_chunk=512,
+        remat=True)
 
 
 @register_policy("qwen2-1.5b")

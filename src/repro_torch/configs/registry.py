@@ -1,7 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, plus named
-PrivacyPolicy presets. The port registers qwen2-1.5b (dense),
-deepseek-moe-16b (moe), rwkv6-3b (ssm), hymba-1.5b (hybrid) and
-whisper-small (encdec)."""
+PrivacyPolicy presets. The port registers every config of the JAX package
+but internvl2-26b (vlm): qwen2-1.5b, qwen2.5-3b, qwen3-14b and llama3-405b
+(dense), deepseek-moe-16b and moonshot-v1-16b-a3b (moe), rwkv6-3b (ssm),
+hymba-1.5b (hybrid) and whisper-small (encdec); policies for qwen2-1.5b
+and deepseek-moe-16b, as the JAX package registers them."""
 from __future__ import annotations
 
 import dataclasses
@@ -111,5 +113,6 @@ def smoke_config(name: str) -> ModelConfig:
 
 # import arch modules so registration runs
 for _m in ("whisper_small", "qwen2_1_5b", "deepseek_moe_16b", "rwkv6_3b",
-           "hymba_1_5b"):
+           "hymba_1_5b", "qwen3_14b", "qwen2_5_3b", "llama3_405b",
+           "moonshot_v1_16b_a3b"):
     importlib.import_module(f"repro_torch.configs.{_m}")

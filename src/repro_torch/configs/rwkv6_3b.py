@@ -9,4 +9,5 @@ def rwkv6_3b() -> ModelConfig:
     return ModelConfig(
         name="rwkv6-3b", family="ssm", n_layers=32, d_model=2560,
         n_heads=40, n_kv_heads=40, head_dim=64, d_ff=8960, vocab=65536,
-        norm="layernorm", act="relu_sq", param_dtype="bfloat16")
+        norm="layernorm", act="relu_sq", param_dtype="bfloat16",
+        remat=True)

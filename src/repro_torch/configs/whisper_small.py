@@ -11,4 +11,5 @@ def whisper_small() -> ModelConfig:
         name="whisper-small", family="encdec", n_layers=12, d_model=768,
         n_heads=12, n_kv_heads=12, head_dim=64, d_ff=3072, vocab=51865,
         encoder_layers=12, decoder_len=448, frame_dim=768,
-        norm="layernorm", act="gelu", param_dtype="bfloat16", attn_chunk=512)
+        norm="layernorm", act="gelu", param_dtype="bfloat16", attn_chunk=512,
+        remat=True)

@@ -180,21 +180,27 @@ def _reducer(shard):
     return lambda g, dtype: shard.reduce(g.to(F32)).to(dtype)
 
 
-def tap_act_structs(apply_fn, params, batch):
-    """-> ({tap key: (shape, dtype)}, {record key: (shape, dtype)}) from one
-    forward on the meta device: shapes only, no compute, no memory."""
+def _meta_tape(apply_fn, params, batch) -> Tape:
+    """The tape of one forward on the meta device, every tap active."""
     meta = lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta")
     p_meta = unflatten({k: meta(v) for k, v in flatten(params).items()})
     b_meta = {k: meta(v) for k, v in batch.items()}
     tape = Tape(active=lambda key: True)
     with torch.no_grad():
         apply_fn(p_meta, b_meta, tape)
+    return tape
+
+
+def tap_act_structs(apply_fn, params, batch):
+    """-> ({tap key: (shape, dtype)}, {record key: (shape, dtype)}) from one
+    forward on the meta device: shapes only, no compute, no memory."""
+    tape = _meta_tape(apply_fn, params, batch)
     return ({k: _struct(v) for k, v in tape.outs.items()},
             {k: _struct(v) for k, v in tape.acts.items()})
 
 
 def _struct(x):
-    """A tap output or record -> (shape, dtype); a stacked tap's per-layer
+    """A tap target or record -> (shape, dtype); a stacked tap's per-layer
     list gets its (L, ...) shape, a dict record one struct per entry."""
     if isinstance(x, list):
         return (torch.Size((len(x), *x[0].shape)), x[0].dtype)
@@ -354,9 +360,13 @@ def plan_report(apply_fn, params, batch, cfg) -> dict:
 
     'grad' is 'fused_clip_grad', 'cache' (bk-mixopt's instantiated
     per-sample grads), 'reweighted_backward' (a 'recompute' tap), the
-    weighted-grad kernel's name, or 'plain' when ``use_kernels`` is off."""
+    weighted-grad kernel's name, or 'plain' when ``use_kernels`` is off;
+    'remat': whether the tap's block is rematerialized (``Tape.block``), so
+    that its forward, every kernel it launches, runs twice a step."""
     policy = as_policy(cfg)
-    taps, acts = tap_act_structs(apply_fn, params, batch)
+    tape = _meta_tape(apply_fn, params, batch)
+    taps = {k: _struct(v) for k, v in tape.outs.items()}
+    acts = {k: _struct(v) for k, v in tape.acts.items()}
     res = resolve_policy(policy, flatten(params))
     active = sorted(k for k in taps if tap_w(k) not in res.frozen)
     tape_pol = resolve_tape(policy, res, {k: taps[k] for k in active}, acts)
@@ -388,6 +398,7 @@ def plan_report(apply_fn, params, batch, cfg) -> dict:
         plans["grad"] = grad
         plans["tape"] = dispatch.tape_plan(kind, a_shape, ds_shape, store,
                                            itemsize=ds_dtype.itemsize)
+        plans["remat"] = key in tape.remat
         report[key] = plans
     return report
 
@@ -501,7 +512,8 @@ def tapped_backward(apply_fn, flat_params, batch, res, psp_active,
         targets = []
         for key in sorted(tape.outs):
             out = tape.outs[key]
-            targets.extend(out if isinstance(out, list) else [out])
+            targets.extend(t.edge for t in
+                           (out if isinstance(out, list) else [out]))
         total = losses.sum() if mask is None else (losses * mask).sum()
         grads = list(torch.autograd.grad(
             total, targets + [psp0[p] for p in psp_active],

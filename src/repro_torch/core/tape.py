@@ -20,6 +20,22 @@ blocks the JAX package runs under ``lax.scan``; a Python loop here).
 The parameter owned by a tapped op lives at ``<path>/w``; all other
 parameter leaves are handled by the per-sample-parameter (psp) route.
 
+Targets: a tap's output is held as its autograd edge (``Target``: the
+edge, the output's shape and dtype), never as the tensor, so nothing keeps
+an output alive that autograd itself does not save; ``autograd.grad``
+takes the edges as its inputs, and what reaches an edge is bitwise what
+would reach the tensor.
+
+Rematerialization: :meth:`Tape.block` runs one block of a stacked loop,
+under ``torch.utils.checkpoint`` (non-reentrant) where the config asks for
+``remat``: the block's saved tensors are dropped after its forward and
+recomputed by running it again in the backward. During that recompute
+:meth:`Tape.record` does nothing (no record, no target, no draw of the
+int8 store), so one step's ``acts`` and ``outs`` are the same with remat on
+or off. ``torch.func`` transforms refuse checkpoint's saved-tensor hooks:
+under one (the opacus baseline's ``vmap(grad)``) a block runs without
+checkpoint, the same values at the memory of remat off.
+
 Tape residency: a record can be held in a smaller form between the BK
 phases (``TAPE_POLICIES``). Activations take their stored form at record
 time, inside :meth:`Tape.record`, so the stacked (L, ...) copy is built
@@ -27,9 +43,12 @@ from the stored per-layer pieces and the native stack never exists.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.autograd.graph import GradientEdge, get_gradient_edge
+from torch.utils.checkpoint import checkpoint
 
 
 def parse_key(key: str):
@@ -55,13 +74,28 @@ def _layer_slice(path: str, v, l: int, per_sample) -> dict:
     return v[:, l] if path in per_sample else v[l]
 
 
+class Target(NamedTuple):
+    """An active tap's differentiation target: the autograd edge of its
+    output (``autograd.grad`` takes it as an input) and the output's shape
+    and dtype."""
+    edge: GradientEdge
+    shape: torch.Size
+    dtype: torch.dtype
+
+
+def under_functorch() -> bool:
+    """Whether a ``torch.func`` transform (vmap, grad, ...) is running."""
+    return torch._C._functorch.peek_interpreter_stack() is not None
+
+
 class Tape:
     """Collects activation records and tap outputs during a forward pass.
 
     ``active`` is None for an untapped run (records are still collected, for
     structure), or a predicate over tap keys: the outputs of active taps are
-    kept as differentiation targets in ``outs`` (a tensor, or a per-layer
-    list for stacked keys). A key absent from ``active`` is a frozen-group op.
+    kept as differentiation targets in ``outs`` (a :class:`Target`, or a
+    per-layer list of them for stacked keys). A key absent from ``active``
+    is a frozen-group op.
     ``per_sample`` names the param paths that carry a leading batch axis
     (the psp route), so stacked blocks slice them per layer correctly.
     ``store(key)``, when given, names the residency store of each record
@@ -79,8 +113,13 @@ class Tape:
         self.gen = gen
         self.acts: dict = {}
         self.outs: dict = {}
+        # keys recorded inside a block run with remat: their forward runs
+        # again in the backward (``core.bk.plan_report``'s 'remat')
+        self.remat: set = set()
         self._prefix: list = []
         self._stack: Optional[dict] = None   # key -> per-layer acts
+        self._replay = False      # a remat block's recompute is running
+        self._remat = False       # a remat block's forward is running
 
     @classmethod
     def null(cls) -> "Tape":
@@ -141,13 +180,49 @@ class Tape:
         (B, L, ...) and are sliced on their second axis."""
         return _layer_slice(name, params, l, self.per_sample)
 
+    # ----------------------------------------------------------------- blocks
+    class _Flag:
+        """Sets a tape flag while entered; reusable (checkpoint enters a
+        block's recompute context once a backward that reaches it, more
+        than once under ``retain_graph``)."""
+        def __init__(self, tape, name):
+            self.tape, self.name = tape, name
+
+        def __enter__(self):
+            setattr(self.tape, self.name, True)
+
+        def __exit__(self, *exc):
+            setattr(self.tape, self.name, False)
+
+    def block(self, fn, *args, remat: bool = False):
+        """One block of a stacked loop: ``fn(*args)``. With ``remat`` and
+        grad enabled, outside a ``torch.func`` transform, under
+        ``torch.utils.checkpoint`` (non-reentrant): the saved tensors of
+        ``fn`` are recomputed in the backward by calling it again on
+        ``args``, while :meth:`record` does nothing. Pass the block's
+        layer params (per-sample slices too) in ``args``, so that their
+        grads flow through the recompute."""
+        if not remat:
+            return fn(*args)
+        with Tape._Flag(self, "_remat"):
+            if not torch.is_grad_enabled() or under_functorch():
+                return fn(*args)
+            # no block draws random numbers: no RNG state to stash
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False,
+                              context_fn=lambda: (contextlib.nullcontext(),
+                                                  Tape._Flag(self,
+                                                             "_replay")))
+
     # ------------------------------------------------------------------- taps
     def record(self, name: str, kind: str, s: torch.Tensor, act) -> torch.Tensor:
         """Tap site: keeps ``act`` as the record and ``s`` as the
         differentiation target when the key is active; returns s."""
-        if not self.collect:
+        if not self.collect or self._replay:
             return s
         key = self.key(name, kind)
+        if self._remat:
+            self.remat.add(key)
         # records are read, never differentiated
         act = ({k: v.detach() for k, v in act.items()}
                if isinstance(act, dict) else act.detach())
@@ -164,10 +239,11 @@ class Tape:
                 # e.g. the embedding gather of a weight that takes no grad:
                 # a fresh leaf, made a target
                 s.requires_grad_()
+            target = Target(get_gradient_edge(s), s.shape, s.dtype)
             if self._stack is not None:
-                self.outs.setdefault(key, []).append(s)
+                self.outs.setdefault(key, []).append(target)
             else:
-                self.outs[key] = s
+                self.outs[key] = target
         return s
 
 

@@ -41,7 +41,18 @@ def sass_text(lib: str) -> str:
                           text=True, timeout=300, check=True).stdout
 
 
-def threefry_sass(out: str) -> dict:
+def sass_functions(out: str) -> dict:
+    """``cuobjdump -sass`` output -> {function name: its SASS lines}, in
+    one split of the text (the library's SASS runs to millions of lines;
+    the checks read a few functions of it)."""
+    funcs = {}
+    for part in out.split("Function :")[1:]:
+        name, _, body = part.partition("\n")
+        funcs.setdefault(name.strip(), []).extend(body.splitlines())
+    return funcs
+
+
+def threefry_sass(out) -> dict:
     """The instructions of one threefry2x32 block, counted in the SASS of
     ``threefry_bits_kernel`` (``dp_threefry_bits``: one block a thread,
     straight-line code): those after its last load and before its first
@@ -49,15 +60,12 @@ def threefry_sass(out: str) -> dict:
     pipe that issues them (SASS_ALU, IMAD on the FMA pipe, the rest).
     ``draw_ops``, the bound's integer operations a draw: the busier of the
     two integer pipes, or half the instructions where issue (two a clock
-    for one integer result a lane) binds."""
-    ops, inside = [], False
-    for ln in out.splitlines():
-        if "Function :" in ln:
-            inside = "threefry_bits_kernel" in ln
-        elif inside:
-            m = SASS_OP.match(ln)
-            if m:
-                ops.append(m.group(1))
+    for one integer result a lane) binds. ``out``: the SASS text, or its
+    :func:`sass_functions`."""
+    funcs = sass_functions(out) if isinstance(out, str) else out
+    ops = [m.group(1) for name, body in funcs.items()
+           if "threefry_bits_kernel" in name for ln in body
+           for m in [SASS_OP.match(ln)] if m]
     loads = [i for i, op in enumerate(ops) if op.startswith("LDG")]
     stores = [i for i, op in enumerate(ops) if op.startswith("STG")]
     if not loads or not stores or stores[0] < loads[-1]:

@@ -262,7 +262,7 @@ def _mesh_layout(mesh, opt_name, params_like, opt_like, rank: int):
 def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
           on_step=None, dataset_size: int = 0, target_epsilon: float = 0.0,
           delta: float = 1e-5, summary_out=None, mesh=None, rank=None,
-          world=None, init_method=None):
+          world=None, init_method=None, digest: bool = True):
     """Run ``tc.steps`` DP steps from a random init (seed ``tc.seed``)
     under ``train_policy(dp, tc)``, sigma calibrated to ``target_epsilon``
     when asked (:func:`calibrate`), DP-FTRL's tree noise under
@@ -271,7 +271,9 @@ def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
     ``tc.log_every`` steps; ``on_step(step, loss, seconds)``, when given, is
     called after every step, which then drains its loss: the seconds cover
     the step up to its loss on the host (and the blocking part of a save
-    at that step). ``summary_out`` (a dict) receives the run's summary.
+    at that step). ``summary_out`` (a dict) receives the run's summary,
+    with the params' sha256 unless ``digest`` is off (it hashes every
+    param's bytes on the host: seconds for a model of tens of GB).
 
     With ``tc.checkpoint_dir`` set, the run first resumes from the newest
     valid checkpoint there (params, optimizer state, the base key, the
@@ -304,7 +306,7 @@ def train(model_cfg, tc: TrainConfig, dp, device="cuda", log=print,
                 log = _quiet
             log(f"mesh {grid.shape} over {grid.size} devices")
         return _train(model_cfg, tc, dp, dev, log, on_step, dataset_size,
-                      target_epsilon, delta, summary_out, grid)
+                      target_epsilon, delta, summary_out, grid, digest)
     finally:
         if own_group:
             dist.destroy_process_group()
@@ -315,7 +317,7 @@ def _quiet(*args, **kwargs):
 
 
 def _train(model_cfg, tc, dp, dev, log, on_step, dataset_size,
-           target_epsilon, delta, summary_out, grid):
+           target_epsilon, delta, summary_out, grid, digest=True):
     """:func:`train` on ``dev``, over the mesh ``grid`` when given."""
     dp = train_policy(dp, tc)
     dp = calibrate(dp, tc, dataset_size, target_epsilon, delta, log)
@@ -487,9 +489,10 @@ def _train(model_cfg, tc, dp, dev, log, on_step, dataset_size,
             "resumed_from": start,
             "epsilon": epsilon,
             "delta": delta,
-            "params_sha256": params_digest(params),
             "ledger": ledger.to_json(),
         })
+        if digest:
+            summary_out["params_sha256"] = params_digest(params)
         if grid is not None:
             summary_out["mesh"] = {"shape": dict(grid.shape),
                                    "backend": dist.get_backend()}

@@ -7,8 +7,10 @@ Layer layout as the paper's: sliding-window attention everywhere except
 three global layers (first, middle, last), so the params are the segments
 g0 | swa_a | g_mid | swa_b | g_last, the two sliding-window segments
 stacked (L, ...) as the JAX package scans them (a Python loop over layer
-slices here, each under its own ``tape.stacked`` scope). Params are the
-JAX package's flat keys and layouts.
+slices here, each under its own ``tape.stacked`` scope, each block
+rematerialized under ``cfg.remat``: ``Tape.block``; the global layers are
+not, as in the reference). Params are the JAX package's flat keys and
+layouts.
 
 ``apply`` (the BK step's forward, per-sample losses): the meta tokens
 ``meta/m`` (128, d) have no tap, so BK broadcasts them per sample (the psp
@@ -136,9 +138,11 @@ class HymbaLM:
             if name in self.depth:
                 with tape.stacked(name):
                     for l in range(self.depth[name]):
-                        x = block_apply(tape.layer_params(name, params[name],
-                                                          l), tape, x, cfg,
-                                        cos, sin, cfg.window)
+                        x = tape.block(block_apply,
+                                       tape.layer_params(name, params[name],
+                                                         l), tape, x, cfg,
+                                       cos, sin, cfg.window,
+                                       remat=cfg.remat)
             else:
                 with tape.scope(name):
                     x = block_apply(params[name], tape, x, cfg, cos, sin, 0,

@@ -11,10 +11,13 @@ JAX package's flat keys, blocks stacked (L, ...); its ``lax.scan`` over the
 blocks is a Python loop over layer slices here.
 
 ``apply`` (the BK step's forward, per-sample losses) runs the blocks under
-``tape.stacked("blocks")``, as the JAX package scans them: the taps tm_w1,
-tm_w2_{0..4}, wa, wb, r, k, v, g, o (att) and key, value, receptance (ffn),
-with embed and head; every vector (maa_*, w0, u, lnx_g/b, the layernorms)
-takes the psp route, so u reaches the recurrence per sample, (B,H,h).
+``tape.stacked("blocks")``, as the JAX package scans them, each
+rematerialized under ``cfg.remat`` (``Tape.block``; so on the card a step
+runs the wkv6 forward twice a layer, its recompute included): the taps
+tm_w1, tm_w2_{0..4}, wa, wb, r, k, v, g, o (att) and key, value,
+receptance (ffn), with embed and head; every vector (maa_*, w0, u, lnx_g/b,
+the layernorms) takes the psp route, so u reaches the recurrence per
+sample, (B,H,h).
 On the card the recurrence runs through the wkv6 kernels: under grad
 ``kernels.wkv6.Wkv6Fn`` (the chunked forward, whose chunk states it saves,
 and the ``wkv6_backward`` kernel), else the forward kernel alone
@@ -277,8 +280,10 @@ class Rwkv6LM:
         x = L.layernorm(params["ln_in"], x)
         with tape.stacked("blocks"):
             for l in range(cfg.n_layers):
-                x = block_apply(tape.layer_params("blocks", params["blocks"],
-                                                  l), tape, x, cfg)
+                x = tape.block(block_apply,
+                               tape.layer_params("blocks", params["blocks"],
+                                                 l), tape, x, cfg,
+                               remat=cfg.remat)
         x = L.layernorm(params["final_norm"], x)
         logits = L.linear(tape, "head", params["head"], x)
         mask = batch.get("mask")

@@ -1,11 +1,13 @@
-"""Decoder-only transformer, dense and MoE: the qwen2 / llama block
-(RMSNorm, GQA attention with rope and optional QKV bias, SwiGLU MLP), with
-the DeepSeekMoE feed-forward (``models.moe``) in the ``moe`` family. Block
-params are stacked (L, ...) under ``blocks`` as in the JAX package; its
-``lax.scan`` over blocks is a Python loop over layer slices here, and the
-tape stacks the records to (L, B, T, .) under ``.s`` keys. The MoE family's
-``first_k_dense`` leading dense layers are unstacked, at ``dense0_{i}``.
-Rematerialization (the JAX config's ``remat``) is not ported.
+"""Decoder-only transformer, dense and MoE: the qwen2 / qwen3 / llama block
+(RMSNorm, GQA attention with rope, optional QKV bias and qk-norm, SwiGLU
+MLP), with the DeepSeekMoE feed-forward (``models.moe``) in the ``moe``
+family. Block params are stacked (L, ...) under ``blocks`` as in the JAX
+package; its ``lax.scan`` over blocks is a Python loop over layer slices
+here, and the tape stacks the records to (L, B, T, .) under ``.s`` keys.
+The MoE family's ``first_k_dense`` leading dense layers are unstacked, at
+``dense0_{i}``. With ``cfg.remat`` each stacked block is rematerialized
+(``Tape.block``), where the reference wraps its scanned block in
+``jax.checkpoint``; the unstacked ones are not, as there.
 
 Serving: ``prefill`` runs the trunk with its attention through the
 ``flash_attention`` kernel (training's ``apply`` keeps
@@ -30,19 +32,27 @@ from repro_torch.models.attention import (decode_attention,
 # ------------------------------------------------------------------ attention
 def attn_init(gen, cfg: ModelConfig, dt, layers=()):
     d, H, K, h = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    return {"qkv": L.linear_init(gen, d, (H + 2 * K) * h, dt,
-                                 bias=cfg.qkv_bias, layers=layers),
-            "o": L.linear_init(gen, H * h, d, dt, layers=layers)}
+    p = {"qkv": L.linear_init(gen, d, (H + 2 * K) * h, dt,
+                              bias=cfg.qkv_bias, layers=layers),
+         "o": L.linear_init(gen, H * h, d, dt, layers=layers)}
+    if cfg.qk_norm:
+        p["qn"] = L.rmsnorm_init(gen, h, dt, layers)
+        p["kn"] = L.rmsnorm_init(gen, h, dt, layers)
+    return p
 
 
 def _qkv(p, tape, x, cfg: ModelConfig, cos, sin, positions=None):
-    """-> q (B,T,H,h), k, v (B,T,K,h); roped unless ``cos`` is None
-    (whisper's blocks: positions are added to the embeddings)."""
+    """-> q (B,T,H,h), k, v (B,T,K,h); q and k RMS-normed over each head
+    under ``cfg.qk_norm`` (a per-sample scale is (B, h): ``L.align`` makes
+    it (B,1,1,h)), then roped unless ``cos`` is None (whisper's blocks:
+    positions are added to the embeddings)."""
     B, T = x.shape[0], x.shape[1]
     H, K, h = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     qkv = L.linear(tape, "qkv", p["qkv"], x)
     q, k, v = torch.split(qkv, [H * h, K * h, K * h], dim=-1)
     q, k = q.reshape(B, T, H, h), k.reshape(B, T, K, h)
+    if cfg.qk_norm:
+        q, k = L.rmsnorm(p["qn"], q), L.rmsnorm(p["kn"], k)
     if cos is not None:
         q = L.apply_rope(q, cos, sin, positions)
         k = L.apply_rope(k, cos, sin, positions)
@@ -174,8 +184,8 @@ class TransformerLM:
         with tape.stacked("blocks"):
             for l in range(cfg.n_layers - cfg.first_k_dense):
                 p_l = tape.layer_params("blocks", params["blocks"], l)
-                x = dense_block_apply(p_l, tape, x, cfg, cos, sin,
-                                      use_moe=self.use_moe, attend=attend)
+                x = tape.block(dense_block_apply, p_l, tape, x, cfg, cos,
+                               sin, self.use_moe, attend, remat=cfg.remat)
         return L.rmsnorm(params["final_norm"], x)
 
     def apply(self, params, batch, tape: Tape):

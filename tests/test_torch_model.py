@@ -41,17 +41,29 @@ def _tokens(B, T, vocab=64, seed=0):
                                                 ).astype(np.int32)
 
 
-def test_configs_match_the_jax_registry():
+@pytest.mark.parametrize("arch", [
+    "qwen2-1.5b", "qwen2.5-3b", "qwen3-14b", "llama3-405b",
+    "deepseek-moe-16b", "moonshot-v1-16b-a3b", "rwkv6-3b", "hymba-1.5b",
+    "whisper-small"])
+def test_configs_match_the_jax_registry(arch):
+    """Every arch the port registers, field for field the JAX package's
+    (its smoke reduction too); the port registers no other."""
     from repro.configs.registry import get_config as jget
-    from repro_torch.configs.registry import get_config
-    j, t = jget("qwen2-1.5b"), get_config("qwen2-1.5b")
-    for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
-              "d_ff", "vocab", "qkv_bias", "rope_theta", "param_dtype",
-              "attn_chunk"):
+    from repro_torch.configs.registry import get_config, list_archs
+    assert arch in list_archs() and len(list_archs()) == 9
+    j, t = jget(arch), get_config(arch)
+    fields = ("name", "family", "n_layers", "d_model", "n_heads",
+              "n_kv_heads", "head_dim", "d_ff", "vocab", "qkv_bias",
+              "qk_norm", "norm", "act", "rope_theta", "param_dtype",
+              "attn_chunk", "remat", "n_experts", "top_k", "n_shared",
+              "moe_d_ff", "first_k_dense", "capacity_factor", "renorm_topk",
+              "ssm_state", "ssm_heads", "ssm_chunk", "window",
+              "full_attn_layers", "meta_tokens", "encoder_layers",
+              "decoder_len", "frame_dim")
+    for f in fields:
         assert getattr(t, f) == getattr(j, f), f
-    js, ts = jsmoke("qwen2-1.5b"), smoke_config("qwen2-1.5b")
-    for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
-              "d_ff", "vocab"):
+    js, ts = jsmoke(arch), smoke_config(arch)
+    for f in fields:
         assert getattr(ts, f) == getattr(js, f), f
 
 
@@ -101,16 +113,22 @@ def test_tap_and_record_structure_matches_jax(T):
 
 def test_stacked_records_hold_each_layers_input():
     """Layer l's record sits at [l] of the stacked (L,B,T,d) record: the
-    down projection's input is silu(gate) * up of the same layer's up tap."""
+    down projection's input is silu(gate) * up of the same layer's up tap
+    (its output from its own record and weight). Each layer's target is
+    the up output's autograd edge, with its shape and dtype."""
+    from repro_torch.core.tape import Target
     _, _, tm, tp, _ = _models()
     tape = Tape(active=lambda key: True)
     tm.apply(tp, {"tokens": torch.from_numpy(_tokens(2, 16))}, tape)
     down_in = tape.acts["blocks/mlp/down#mm.s"]
+    up_in = tape.acts["blocks/mlp/up#mm.s"]
     ups = tape.outs["blocks/mlp/up#mm.s"]
     assert down_in.shape == (2, 2, 16, 48) and len(ups) == 2
-    for l, s in enumerate(ups):
-        assert s.requires_grad
-        g, u = torch.chunk(s.detach(), 2, dim=-1)
+    for l, t in enumerate(ups):
+        assert isinstance(t, Target) and t.edge.node is not None
+        assert (tuple(t.shape), t.dtype) == ((2, 16, 96), torch.float32)
+        s = up_in[l] @ tp["blocks"]["mlp"]["up"]["w"][l]
+        g, u = torch.chunk(s, 2, dim=-1)
         torch.testing.assert_close(down_in[l],
                                    torch.nn.functional.silu(g) * u)
     assert tape.acts["embed#emb"].dtype == torch.int32
