@@ -231,7 +231,20 @@ Phases, each printing JSON lines:
             kernels phase checks each tap at their shapes, timing the
             kernel alone, then the index width: emb_clipped_grad's and the
             head's clipped_grad outputs at train_llama3's 2,101,346,304
-            elements against their plain versions on the last 2^20)
+            elements and at train_internvl2's shapes against their plain
+            versions on the last 2^20)
+  train_internvl2   internvl2-26b (the vlm family) at full width (d 6144, 48
+                    heads / 8 kv x 128, d_ff 16384, V 92553, 1024 patch
+                    embeddings of width 3200, bf16), INTERNVL2_LAYERS of its
+                    48 layers (the depth one card holds), B=8, 512 text
+                    tokens after the 1024 patches, AdamW, 3 steps: a flat
+                    DPConfig; the projector (T = 1024), qkv, o, up, down and
+                    the head (T = 1536) ghost and to clipped_grad, the
+                    head's pair on its SIMT routes (p = 92553), every other
+                    launch wgmma; the profile's ``port_kernels_ms`` gives
+                    the SIMT pair's device ms (T9); the kernels phase times
+                    the head's SIMT kernels beside their einsums (path
+                    ``internvl2_head``)
             each: the arch's registered policy, bk-mixopt (unless named),
             sigma=1.0, AdamW (unless named), remat as its registered config
             sets it (every one but whisper's blocks remat), through
@@ -241,6 +254,21 @@ Phases, each printing JSON lines:
             the BK paths and under 'nonprivate'); the last step runs under
             torch.profiler, whose summary gives the device time of the
             ``bk_phases_1_3`` and ``phase4_update`` ranges
+  train_cnn     a CNN defined in this script (tests/test_conv_dp.py's
+                TinyCNN pattern with one more strided conv: 7x7/2 3 -> 64
+                with a bias, 3x3/2 64 -> 128, 3x3/2 128 -> 256, ReLUs,
+                global average pool, 256 -> 1000 with a bias; ResNet-18's
+                stem widths), B=32 images of 224 x 224 x 3, bf16, AdamW,
+                sigma 1.0, through ``launch.steps.make_train_step``: 3
+                steps of bk-mixopt (its cache takes the three convs' small
+                per-sample grads: the head's ghost_norm and clipped_grad
+                alone), then 3 of bk-mixghost (each conv's
+                grad_norm_direct and clipped_grad, c1's on their SIMT
+                routes at d = 147, c2's and c3's on wgmma); each step's
+                launches held to ``plan_report``'s, the first loss near
+                ln(1000); the last step of each profiled. The kernels phase
+                checks every conv tap (bf16 at B=32, f32 at parity_cnn's
+                B=4: their ghost, direct and weighted-grad kernels)
   train_mesh    ``train`` through the mesh path at LONG_LAYERS of its 28
                 layers: --mesh 1,1, a world of one
                 process under NCCL (B=8, T=512, sigma 1, 3 AdamW steps);
@@ -300,6 +328,10 @@ Phases, each printing JSON lines:
                 encoder's bidirectional 1500 x 1500, the decoder's causal
                 448, the cross-attention's bidirectional 448 x 1500: 36 a
                 prefill, all wgmma); frames + tokens a second
+  prefill_internvl2 internvl2-26b, full (48 layers, bf16), B=2, 1024 patches
+                (projected) and 1024 prompt tokens: flash_attention once a
+                layer at T = 2048 (48 / 8 heads, h 128, wgmma); patches +
+                tokens a second
             each: three prefills (warm-up, timed, profiled); launches per
             prefill; finite last-position logits
   serve, serve_rwkv, serve_hymba, serve_whisper
@@ -355,8 +387,25 @@ Phases, each printing JSON lines:
             ``use_kernels=False`` on the card and against the CPU, one
             noised AdamW step, bk-mixopt against opacus on the card (opacus
             runs the blocks without checkpoint); then its prefill, B=2,
-            T=64, card against CPU, and 64 decode steps teacher-forced on
+            T=16, card against CPU, and 16 decode steps teacher-forced on
             the card against the CPU's, the last against the card's prefill
+  parity_internvl2
+            one BK step of a 2-layer, full-width, f32 internvl2-26b, B=2,
+            64 tokens after 128 of its 1024 patches (the CPU's step at full
+            width in the time; bk-mixopt, sigma 1.0: the projector's tap
+            and its bias on the psp route, the head over the patch
+            positions), as parity_hymba: against ``use_kernels=False`` on
+            the card and against the CPU, one noised AdamW step, bk-mixopt
+            against opacus on the card
+  parity_cnn
+            train_cnn's CNN in f32, B=4, sigma 0: bk, bk-mixopt,
+            bk-mixghost and ghostclip on the card (the kernels: the convs'
+            ghost norm at T = 112^2 under 'bk', their direct norm under
+            bk-mixghost) against opacus on the card (vmap(grad) through
+            the im2col unfold), against the same mode with
+            ``use_kernels=False`` on the card and on the CPU: norms at
+            NORM_TOL, grads at f32 TOL; then one noised AdamW step over
+            bk-mixopt's sums (sigma 1.0) against its plain version
   parity_modes
             every mode of ``core.engine.make_grad_fn`` on the card (f32,
             one seed) against opacus: qwen2-1.5b at full width and 2 layers
@@ -384,6 +433,11 @@ Phases, each printing JSON lines:
             448 tokens: the card's prefill, ``prefill_cross``'s caches and
             the decode teacher-forced over all 448 positions against the
             CPU's, and the last decode step against the card's prefill
+  parity_prefill_internvl2
+            parity_internvl2's model (2 layers, f32, 128 patches), B=2, 64
+            tokens: the card's prefill with the patches against the CPU's,
+            then 16 dense decode steps (no patches, as the reference's
+            generate) teacher-forced on the card against the CPU's
 
 Each phase ends with a ``phase_seconds`` line. Then a ``kernels`` summary
 line and, last, the ``ok`` line. Any failed check
@@ -412,18 +466,22 @@ TRAINS = ("train", "train_nonprivate", "train_ghostclip", "train_moe",
           "train_moe_direct", "train_long", "train_layer", "train_tape",
           "train_ftrl", "train_rwkv", "train_mesh", "train_hymba",
           "train_whisper", "train_qwen25", "train_qwen3", "train_llama3",
-          "train_moonshot")
-PREFILLS = ("prefill", "prefill_rwkv", "prefill_hymba", "prefill_whisper")
+          "train_moonshot", "train_internvl2")
+# the CNN's train path (not a registered arch: its own step loop)
+CNN_TRAINS = ("train_cnn",)
+PREFILLS = ("prefill", "prefill_rwkv", "prefill_hymba", "prefill_whisper",
+            "prefill_internvl2")
 SERVES = ("serve", "serve_rwkv", "serve_hymba", "serve_whisper")
 PARITIES = ("parity", "parity_moe", "parity_long", "parity_layer",
             "parity_modes", "parity_rwkv", "parity_hymba", "parity_whisper",
-            "parity_qwen3")
+            "parity_qwen3", "parity_internvl2", "parity_cnn")
 SERVE_PARITIES = ("parity_prefill", "parity_prefill_rwkv",
-                  "parity_prefill_hymba", "parity_prefill_whisper")
+                  "parity_prefill_hymba", "parity_prefill_whisper",
+                  "parity_prefill_internvl2")
 RESUMES = ("train_resume",)
 MESHES = ("train_mesh2",)
-PHASES = (("card", "build", "kernels") + TRAINS + MESHES + RESUMES + PREFILLS
-          + SERVES + PARITIES + SERVE_PARITIES)
+PHASES = (("card", "build", "kernels") + TRAINS + CNN_TRAINS + MESHES
+          + RESUMES + PREFILLS + SERVES + PARITIES + SERVE_PARITIES)
 EXTRA_PHASES = ("wgmma", "noise")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s by
@@ -447,6 +505,16 @@ NORM_TOL = (1e-4, 1e-6)
 # entry cancels to near zero (cuBLAS's f32 einsum vs the SIMT kernel: 7.8e-4
 # at the head tap, PR 14's run), which a bare atol of 1e-4 cannot hold.
 SIMT_GRAD_TOL = (1e-3, 1e-4)
+# a weighted grad of f32 records summed over more rows (B T) than this
+# carries rounding past f32 TOL's bare atol on unit-variance records, in any
+# order of summation: at parity_cnn's first conv (B T = 50176, d = 147, p =
+# 64) the plain version (a cuBLAS f32 einsum) is 2.2e-3 and the SIMT kernel
+# 3.6e-4 from a float64 evaluation (the case's line, NVIDIA H100 80GB HBM3
+# at 700 W). Past it the kernels phase holds clipped_grad to the
+# float64 evaluation: no farther from it than the plain version is, plus
+# TOL's atol (both distances in the case's line). Every case before these
+# sums 4096 rows or fewer, and keeps its gate.
+F32_SUM_ROWS = 4096
 # flash_attention: f32 as tests/test_kernels.py:78; bf16 as TOL (the output
 # is rounded to bf16 by both versions). wkv6: ragged as
 # tests/test_kernels.py:93; at T=4096 (bf16 inputs, f32 recurrence) 1e-3
@@ -463,8 +531,10 @@ MOE_LAYERS = 6      # dense0_0 + 5 MoE blocks: the depth one 80 GB card holds
 RWKV_LAYERS = 32
 # of qwen2-1.5b's 28 layers, what train_long and train_tape run at B=2,
 # T=2048, and train_ftrl, train_mesh and train_resume's full case at B=8,
-# T=512 (cut from 28 to keep the whole script in its time)
-LONG_LAYERS = 14
+# T=512 (cut from 28 to 14, then to 7 for the internvl2 and CNN phases, to
+# keep the whole script in its time; at 7 layers qkv and o still take the
+# direct norm, uncached)
+LONG_LAYERS = 7
 # hymba-1.5b at all its 32 layers (global 0, 15 and 31), B=4, T=1024: with
 # remat 27.58 GB (scripts/depth_probe.py, NVIDIA H100 80GB HBM3 at 700 W);
 # without it 32 layers peaked at 79.10 GB, 35.34 of it the attention's
@@ -479,6 +549,10 @@ HYMBA_LAYERS = 32
 QWEN3_LAYERS = 11
 LLAMA3_LAYERS = 1
 MOONSHOT_LAYERS = 8
+# internvl2-26b at B=8, T=512 text tokens + 1024 patches (1536 positions)
+# under AdamW with remat: the deepest cut of its 48 layers one card holds
+# (scripts/depth_probe.py internvl2-26b:N)
+INTERNVL2_LAYERS = 8
 # host seconds of idle margin at each end of device_ms's recorded calls:
 # the profiler keeps only device events whose timestamps, converted to the
 # host clock, fall inside its window, and on the card's machine that
@@ -713,6 +787,19 @@ RUNS = {
                                ghost_norm=9, clipped_grad=9, emb_ghost_norm=1,
                                emb_clipped_grad=1, moe_ghost_norm=2,
                                moe_clipped_grad=2)),
+    # internvl2-26b (the vlm family; a flat DPConfig: no registered policy)
+    # at INTERNVL2_LAYERS of 48, B=8, 512 text tokens after 1024 patches:
+    # the projector (T = 1024, 3200 -> 6144), qkv, o, up, down (T = 1536)
+    # and the head (over all 1536 positions, as the reference's) ghost
+    # (2T^2 < pd), each to clipped_grad; the emb kernels over the text. The
+    # head's ghost_norm and clipped_grad take the SIMT routes (p = 92553 is
+    # no multiple of 8: ``simt``), every other launch wgmma
+    "train_internvl2": dict(arch="internvl2-26b", layers=INTERNVL2_LAYERS,
+                            batch=8, seq=512, steps=3, direct=False,
+                            simt=dict(ghost_norm=1, clipped_grad=1),
+                            per_step=_per_step(
+                                ghost_norm=6, clipped_grad=6,
+                                emb_ghost_norm=1, emb_clipped_grad=1)),
     # train through the mesh path: --mesh 1,1, a world of one process under
     # NCCL (the sharded step's gathers, all-reduces and block noise all of
     # one rank); its params' sha256 must equal a no-mesh run's
@@ -758,10 +845,12 @@ ROW_PATH = {"ghost_norm": "train", "clipped_grad": "train",
 # the cases whose plain, SIMT and library versions (and an embedding case's
 # profiled device times) the kernels phase times beside the kernel: those at
 # the kernel's ROW_PATH and on these paths (the unaligned bf16 heads and
-# taps of T9, whisper's shapes); every other case times the kernel alone,
+# taps of T9: hymba's, whisper's and internvl2's head; whisper's shapes;
+# internvl2's prefill attention); every other case times the kernel alone,
 # its checks unchanged
 TIMED_PATHS = ("train_hymba", "hymba_bcdt", "train_whisper",
-               "prefill_hymba", "prefill_whisper")
+               "prefill_hymba", "prefill_whisper", "internvl2_head",
+               "prefill_internvl2")
 # the train path whose profiled step gives a kernel's device time a step in
 # the summary line (the path that launches it on train's leaves)
 STEP_DEVICE = {"counter_noise": "train_ghostclip", "noise_update": "train"}
@@ -808,11 +897,25 @@ SERVING = {"prefill": dict(arch="qwen2-1.5b", batch=4, seq=4096,
                                           per_prefill=6),
            # parity_qwen3's serving half: qwen3-14b, 2 layers, f32 (qk
            # norm, GQA 40/8, h 128): the card's prefill against the CPU's,
-           # 64 decode steps teacher-forced on the card against the CPU's,
-           # the last one against the card's prefill
-           "parity_qwen3": dict(arch="qwen3-14b", batch=2, seq=64,
-                                layers=2, decode=64,
-                                kernel="flash_attention")}
+           # 16 decode steps teacher-forced on the card against the CPU's,
+           # the last one against the card's prefill (T and the decode 64
+           # until the internvl2 phases: the CPU's decode reads every weight
+           # a step)
+           "parity_qwen3": dict(arch="qwen3-14b", batch=2, seq=16,
+                                layers=2, decode=16,
+                                kernel="flash_attention"),
+           # internvl2-26b at all 48 layers (bf16): B=2, 1024 patches and
+           # 1024 prompt tokens, flash_attention at T = 2048 once a layer
+           "prefill_internvl2": dict(arch="internvl2-26b", batch=2,
+                                     seq=1024, kernel="flash_attention"),
+           # 2 layers, f32, 128 of the 1024 patches and 64 tokens (the
+           # CPU's prefill at full width in the time): the card's prefill
+           # with patches against the CPU's, then 16 dense decode steps
+           # (no patches, as the reference's generate) card against CPU
+           "parity_prefill_internvl2": dict(arch="internvl2-26b", batch=2,
+                                            seq=64, layers=2,
+                                            patch_tokens=128, decode=16,
+                                            kernel="flash_attention")}
 # train paths that share one model, seed and batch (so one set of records)
 PATH_GROUPS = (("train", "train_layer"), ("train_moe", "train_moe_direct"),
                ("train_long", "train_tape"))
@@ -1282,17 +1385,31 @@ def phase_kernels(only_wgmma=False, only_noise=False):
             dtype).float()
 
     def record(name, path, case, got, want, tol, ms_k, ms_p, nbytes, ops,
-               dname, ms_lib=None, again=None, timed=True, **extra):
+               dname, ms_lib=None, again=None, timed=True, exact=None,
+               **extra):
+        """``exact``: a float64 evaluation, the gate in place of the plain
+        version where f32 TOL's bare atol holds for no f32 sum (see
+        F32_SUM_ROWS): the kernel no farther from it than the plain version
+        is, plus TOL's atol."""
         cmp = compare(got, want, tol)
         b_ms, b_by = bound(nbytes, ops, dname)
+        ok = cmp["ok"]
+        if exact is not None:
+            k_err = float((got.double() - exact).abs().max())
+            p_err = float((want.double() - exact).abs().max())
+            ok = k_err <= p_err + tol[1]
+            extra.update(gate="float64", gate_ok=ok, vs_f64_max_abs_err=k_err,
+                         plain_vs_f64_max_abs_err=p_err)
         if again is not None:       # a norm run twice: bitwise equal?
             extra["bitwise_repeat"] = bool(torch.equal(got, again))
         emit(phase="kernels", kernel=name, path=path, case=case, **cmp,
              **extra, kernel_ms=ms_k, plain_ms=ms_p, library_ms=ms_lib,
              bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops)
-        if not cmp["ok"]:
+        if not ok:
             raise AssertionError(f"{name} [{case}] disagrees with its plain "
-                                 f"version: {cmp}")
+                                 f"version: {cmp}" + (
+                                     "" if exact is None else
+                                     f", float64: {extra}"))
         if again is not None and not extra["bitwise_repeat"]:
             raise AssertionError(f"{name} [{case}] differs run to run")
         if path == ROW_PATH[name] and timed:
@@ -1353,9 +1470,11 @@ def phase_kernels(only_wgmma=False, only_noise=False):
                ops, dname, ms_lib, again, **extra)
 
     def grad_case(name, path, case, fn, plain, args, nbytes, ops, dname,
-                  library=None, **extra):
+                  library=None, exact=None, **extra):
         got = fn(*args)
         want = plain(*args)
+        if exact is not None:
+            extra["exact"] = exact()
         r, w = reps(path, name)
         ms_k = cuda_ms(lambda: fn(*args), min(r, 5), 1)
         ms_p = opt_ms(name, path, lambda: plain(*args), 3, 1)
@@ -1663,8 +1782,15 @@ def phase_kernels(only_wgmma=False, only_noise=False):
             if cg.route(dtype, d, p) == "wgmma":
                 wgmma_grad_case(path, case, a, C, ds, nbytes, ops, lib)
             else:
+                # an f32 sum over more rows than F32_SUM_ROWS: held to a
+                # float64 evaluation beside the plain version
                 grad_case("clipped_grad", path, case, cg.clipped_grad,
-                          cg.plain, (a, C, ds), nbytes, ops, dname, lib)
+                          cg.plain, (a, C, ds), nbytes, ops, dname, lib,
+                          exact=(lambda: torch.einsum(
+                              "lbtd,b,lbtp->ldp", a.double(), C.double(),
+                              ds.double()))
+                          if dtype == torch.float32
+                          and Bc * Tc > F32_SUM_ROWS else None)
         if "fused_clip_grad" in kernels:
             fused_case(kernels["fused_clip_grad"], case, a, ds, dname, clips)
         del a, ds, library
@@ -2089,25 +2215,28 @@ def phase_kernels(only_wgmma=False, only_noise=False):
             flash_case("prefill_whisper", Bw, T, S, w_cfg.n_heads,
                        w_cfg.n_kv_heads, w_cfg.hd, causal, bf16)
 
-    def index_width_cases():
-        """llama3-405b's embedding and head leaves hold V d = 2,101,346,304
-        elements (97.9% of INT32_MAX): emb_clipped_grad's and the head's
-        clipped_grad outputs at train_llama3's shapes (bf16) held to their
-        plain versions on their last 2^20 elements, where an index that a
-        32-bit product wrapped would land: the ids give every sample the
-        last 64 rows of the embedding, and the head's plain version runs on
-        the last rows of d that the tail covers."""
-        cfg = run_config("train_llama3")[0]
-        run = RUNS["train_llama3"]
+    def index_width_cases(path):
+        """The widest leaves' 32-bit index width: emb_clipped_grad's and the
+        head's clipped_grad outputs at a path's shapes (bf16; llama3-405b's
+        embedding and head hold V d = 2,101,346,304 elements, 97.9% of
+        INT32_MAX; internvl2-26b's head record B T p = 1,137,291,264 over
+        its 1536 positions) held to their plain versions on their last 2^20
+        elements, where an index that a 32-bit product wrapped would land:
+        the ids give every sample the embedding's last rows that the tail
+        covers, and the head's plain version runs on the last rows of d
+        that the tail covers."""
+        cfg = run_config(path)[0]
+        run = RUNS[path]
         Bl, Tl, d, V = run["batch"], run["seq"], cfg.d_model, cfg.vocab
+        Th = Tl + cfg.patch_tokens           # the head runs over the patches
         tail = 1 << 20
         C = clip_factors(Bl, bf16)
 
         def check(kernel, case, got, want):
             got, want = got.reshape(-1)[-tail:], want.reshape(-1)[-tail:]
             cmp = compare(got, want, TOL["bfloat16"])
-            emit(phase="kernels", kernel=kernel, path="train_llama3",
-                 case=case, check="index_width", elements=V * d,
+            emit(phase="kernels", kernel=kernel, path=path, case=case,
+                 check="index_width", elements=V * d,
                  of_int32_max=V * d / (2 ** 31 - 1), tail=tail,
                  tail_nonzero=int((want != 0).sum()), **cmp)
             if not cmp["ok"] or not bool((want != 0).any()):
@@ -2128,13 +2257,58 @@ def phase_kernels(only_wgmma=False, only_noise=False):
               eg.plain(ids - (V - rows), C, ds, rows))
         del ds
         torch.cuda.empty_cache()
-        a, g = rnd(1, Bl, Tl, d), rnd(1, Bl, Tl, V)
+        a, g = rnd(1, Bl, Th, d), rnd(1, Bl, Th, V)
         cols = -(-tail // V)                     # the head's last rows of d
-        check("clipped_grad", f"head L=1 B={Bl} T={Tl} d={d} p={V} bf16",
-              cg.clipped_grad(a, C, g),
+        check("clipped_grad", f"head L=1 B={Bl} T={Th} d={d} p={V} bf16 "
+              f"(B T p = {Bl * Th * V})", cg.clipped_grad(a, C, g),
               cg.plain(a[..., -cols:].contiguous(), C, g))
         del a, g
         torch.cuda.empty_cache()
+
+    def internvl2_cases():
+        """train_internvl2's taps as the engine routes them (the head's
+        SIMT routes at p = 92553 timed beside the einsum: path
+        ``internvl2_head``), then prefill_internvl2's flash_attention (48 /
+        8 heads, h 128, T = 1024 patches + 1024 tokens)."""
+        group_cases(("train_internvl2",), {"head#mm": "internvl2_head"})
+        ip = SERVING["prefill_internvl2"]
+        i_cfg = get_config(ip["arch"])
+        Ti = ip["seq"] + i_cfg.patch_tokens
+        flash_case("prefill_internvl2", ip["batch"], Ti, Ti, i_cfg.n_heads,
+                   i_cfg.n_kv_heads, i_cfg.hd, True, bf16)
+
+    def cnn_cases():
+        """The CNN's taps at train_cnn's shapes (B=32, bf16) and
+        parity_cnn's (B=4, f32), each with the kernels its modes route it
+        to (``plan_report``): the convs' grad_norm_direct (c1 on SIMT at d
+        = 147) and clipped_grad under bk-mixghost (bk-mixopt caches them);
+        under 'bk' (parity_cnn, and ghostclip's norms) their ghost_norm; the
+        head ghost_norm and clipped_grad (T = 1)."""
+        from repro_torch.core.bk import DPConfig, plan_report, tap_act_structs
+        for path, B, dtype, modes in (
+                ("train_cnn", CNN_TRAIN["batch"], bf16, CNN_TRAIN["modes"]),
+                ("parity_cnn", CNN_PARITY["batch"], torch.float32,
+                 CNN_PARITY["modes"])):
+            params = cnn_init(0, dev, dtype)
+            batch = cnn_batch(B, 0, dev)
+            outs, acts = tap_act_structs(cnn_apply, params, batch)
+            kernels = {key: {} for key in acts}
+            for mode in modes:
+                report = plan_report(cnn_apply, params, batch, DPConfig(
+                    mode="bk" if mode == "ghostclip" else mode))
+                for key, plans in report.items():
+                    if plans["grad"] == "cache":
+                        continue
+                    kernels[key][NORM_KERNEL[
+                        "mm", plans["norm"].method]] = path
+                    if mode != "ghostclip":
+                        kernels[key][plans["grad"]] = path
+            del params, batch
+            for key in sorted(acts):
+                (_, Tc, d), p = acts[key][0], outs[key][0][-1]
+                dname = "bf16" if dtype == bf16 else "f32"
+                mm_case(f"{path} {parse_key(key)[0]} L=1 B={B} T={Tc} d={d} "
+                        f"p={p} {dname}", 1, B, Tc, d, p, dtype, kernels[key])
 
     def wgmma_shapes():
         """The wgmma routes at one tile and at ragged bf16 shapes: widths
@@ -2261,9 +2435,10 @@ def phase_kernels(only_wgmma=False, only_noise=False):
         wkv_shapes()
         return summary
 
-    def group_cases(paths):
+    def group_cases(paths, relabel=None):
         """The train paths' shapes, each tap routed as the engine routes
-        it."""
+        it; ``relabel`` {tap key: path}: that tap's cases under another
+        path name (a TIMED_PATHS one)."""
         cfg, batch, taps, records = path_taps(paths, dev)
         B = RUNS[paths[0]]["batch"]
         seen = set()
@@ -2281,6 +2456,8 @@ def phase_kernels(only_wgmma=False, only_noise=False):
                 continue
             seen.add(same)
             where = f"{paths[0]} {parse_key(key)[0]}"
+            if key in (relabel or {}):
+                kernels = dict.fromkeys(kernels, relabel[key])
             if kind == "mm":
                 L = a_shape[0] if len(a_shape) == 4 else 1
                 # the record's T: the batch's T plus any meta tokens (or
@@ -2365,7 +2542,12 @@ def phase_kernels(only_wgmma=False, only_noise=False):
                  "train_moonshot"):
         group_cases((name,))
         part(name)
-    index_width_cases()
+    internvl2_cases()
+    part("train_internvl2")
+    cnn_cases()
+    part("train_cnn")
+    for path in ("train_llama3", "train_internvl2"):
+        index_width_cases(path)
     part("index_width")
 
     flash_case("prefill", fp["batch"], fp["seq"], fp["seq"], q_cfg.n_heads,
@@ -3301,7 +3483,9 @@ def _range_device_ms(prof) -> dict:
 def _profile_summary(prof, window_ms: float) -> dict:
     """Device time of one profiled step, by kernel, by kind and by range
     (``_range_device_ms``; the ranges' own annotations on the device
-    timeline are not kernels and are left out of the sums)."""
+    timeline are not kernels and are left out of the sums); the port's
+    kernels each by name (``port_kernels_ms``: a SIMT kernel's name has no
+    ``wgmma``)."""
     from torch.autograd import DeviceType
     by_name, ranges = {}, _range_device_ms(prof)
     for e in prof.events():
@@ -3323,6 +3507,7 @@ def _profile_summary(prof, window_ms: float) -> dict:
         "wkv6_out", "wkv6_bwd", "wkv6_bwd_sum"))
     kinds = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
     noise_ms = update_ms = 0.0
+    port = {}
     for name, ms in by_name.items():
         low = name.lower()
         kind = ("port_kernels" if any(k in name for k in ours) else
@@ -3330,6 +3515,8 @@ def _profile_summary(prof, window_ms: float) -> dict:
                                                  "sm90_", "cublas"))
                 else "other")
         kinds[kind] += ms
+        if kind == "port_kernels":
+            port[name[:60]] = port.get(name[:60], 0.0) + ms
         if "counter_noise_kernel" in name:
             noise_ms += ms
         if "noise_update_kernel" in name:
@@ -3339,6 +3526,7 @@ def _profile_summary(prof, window_ms: float) -> dict:
     return {"window_ms": window_ms, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / window_ms),
             "by_kind_ms": kinds, "by_range_ms": ranges,
+            "port_kernels_ms": port,
             "counter_noise_ms": noise_ms, "noise_update_ms": update_ms,
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
 
@@ -4129,6 +4317,263 @@ def phase_train_resume(name):
     return totals
 
 
+# ---- the CNN of train_cnn and parity_cnn: tests/test_conv_dp.py's TinyCNN
+# pattern (conv -> ReLU -> strided conv -> ReLU -> global average pool ->
+# linear) with one more strided conv, at ResNet-18's stem widths on 224 x
+# 224 x 3 images (the case of that test's hybrid decision): each conv an
+# im2col tap (``models.layers.conv2d``), SAME padding. Not a registered
+# arch: the script drives it through ``launch.steps.make_train_step`` and
+# ``core.engine.make_grad_fn``, the entry points any user model takes.
+# (name, k, stride, c_in, c_out, bias): c1 T = 112^2, d = 147; c2 T = 56^2,
+# d = 576; c3 T = 28^2, d = 1152; the head 256 -> 1000 (T = 1)
+CNN_CONVS = (("c1", 7, 2, 3, 64, True), ("c2", 3, 2, 64, 128, False),
+             ("c3", 3, 2, 128, 256, False))
+CNN_IMAGE, CNN_CLASSES = 224, 1000
+# train_cnn: B=32, bf16, AdamW, sigma 1.0, ``steps`` a mode (the last
+# profiled): bk-mixopt, whose cache takes the three convs' small per-sample
+# grads (L B d p <= 2^24: no kernel), then bk-mixghost, where they launch
+# grad_norm_direct (c1 on its SIMT route at d = 147, c2 and c3 on wgmma)
+# and clipped_grad; the head ghost in both
+CNN_TRAIN = dict(batch=32, steps=3, modes=("bk-mixopt", "bk-mixghost"))
+# parity_cnn: f32, B=4, every BK mode and ghostclip against opacus, the
+# card's use_kernels=False and the CPU
+CNN_PARITY = dict(batch=4, modes=("bk", "bk-mixopt", "bk-mixghost",
+                                  "ghostclip"))
+
+
+def cnn_init(seed: int, device, dtype):
+    """The CNN's params from ``seed`` (a torch.Generator on ``device``)."""
+    import torch
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = {name: L.conv2d_init(gen, k, k, c_in, c_out, dtype, bias)
+              for name, k, _, c_in, c_out, bias in CNN_CONVS}
+    params["head"] = L.linear_init(gen, CNN_CONVS[-1][4], CNN_CLASSES, dtype,
+                                   bias=True)
+    return params
+
+
+def cnn_apply(params, batch, tape):
+    """batch {'x': (B, 224, 224, 3) f32 images, 'y': (B,) labels} ->
+    per-sample cross-entropy (B,)."""
+    import torch
+    from repro_torch.models import layers as L
+    x = batch["x"].to(params["head"]["w"].dtype)
+    for name, k, stride, *_ in CNN_CONVS:
+        x = torch.relu(L.conv2d(tape, name, params[name], x, k, k, stride))
+    x = x.mean(dim=(1, 2))[:, None, :]                   # (B, 1, 256)
+    logits = L.linear(tape, "head", params["head"], x)[:, 0].float()
+    gold = torch.gather(logits, -1, batch["y"][:, None].long())[:, 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def cnn_batch(B: int, seed: int, device="cuda") -> dict:
+    """Standard normal images and uniform labels from ``seed``."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return {"x": torch.randn(B, CNN_IMAGE, CNN_IMAGE, 3, generator=gen,
+                             device=device),
+            "y": torch.randint(0, CNN_CLASSES, (B,), generator=gen,
+                               device=device)}
+
+
+def plan_counts(report) -> dict:
+    """Each kernel's launches a step under a ``core.bk.plan_report``: a
+    norm kernel a tap whose grads are not cached, and its weighted-grad
+    kernel."""
+    from repro_torch.core.tape import parse_key
+    counts = _per_step()
+    for key, plans in report.items():
+        if plans["grad"] != "cache":
+            counts[NORM_KERNEL[parse_key(key)[1],
+                               plans["norm"].method]] += 1
+        if plans["grad"] in counts:
+            counts[plans["grad"]] += 1
+    return counts
+
+
+def cnn_routes(report, params, batch) -> dict:
+    """{tap: {kernel: route}} of the CNN's kernel launches (bf16: wgmma
+    where d and p are multiples of 8, else SIMT) and the simt launches a
+    step by kernel (``check_routes``' ``simt``)."""
+    from repro_torch.core.bk import tap_act_structs
+    from repro_torch.kernels import clipped_grad as cg
+    from repro_torch.kernels import ghost_norm as gn
+    from repro_torch.kernels import grad_norm_direct as gd
+    outs, acts = tap_act_structs(cnn_apply, params, batch)
+    mods = {"ghost_norm": gn, "grad_norm_direct": gd, "clipped_grad": cg}
+    routes, simt = {}, {}
+    for key, plans in report.items():
+        (shape, dtype), p = acts[key], outs[key][0][-1]
+        kernels = [] if plans["grad"] == "cache" else [
+            NORM_KERNEL["mm", plans["norm"].method], plans["grad"]]
+        routes[key] = {k: mods[k].route(dtype, shape[-1], p)
+                       for k in kernels}
+        for k, r in routes[key].items():
+            if r == "simt":
+                simt[k] = simt.get(k, 0) + 1
+    return routes, simt
+
+
+def phase_train_cnn(name):
+    """The CNN at B=32, bf16: ``CNN_TRAIN['steps']`` AdamW steps under each
+    mode of CNN_TRAIN through ``launch.steps.make_train_step`` (sigma 1.0,
+    automatic clipping; new images every step), the last step profiled ->
+    launch totals. Each step's launches are held to ``plan_report``'s plan
+    (and one noise_update a leaf), every launch to its route (c1's SIMT
+    kernels at d = 147, the rest wgmma); the first loss near ln(1000)."""
+    import torch
+    from repro_torch.core.bk import DPConfig, plan_report
+    from repro_torch.core.noise import prng_key
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.utils.tree import flatten
+
+    B, steps = CNN_TRAIN["batch"], CNN_TRAIN["steps"]
+    ws = wrappers()
+    totals = _per_step()
+    for mode in CNN_TRAIN["modes"]:
+        dp = DPConfig(mode=mode, sigma=1.0)
+        params = cnn_init(0, "cuda", torch.bfloat16)
+        report = plan_report(cnn_apply, params, cnn_batch(B, 0), dp)
+        routes, simt = cnn_routes(report, params, cnn_batch(B, 0))
+        want = dict(plan_counts(report), noise_update=len(flatten(params)))
+        opt = make_optimizer("adamw", lambda s: 3e-4)
+        state = TrainState(params, opt.init(params), 0, prng_key(1))
+        step_fn = make_train_step(cnn_apply, params, opt, dp)
+        del params
+        floor = fresh_peak()
+        reset_counts(ws)
+        per_step, losses = [], []
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        for step in range(steps):
+            batch = cnn_batch(B, step)
+            before = {k: w.launches for k, w in ws.items()}
+            torch.cuda.synchronize()
+            if step == steps - 1:
+                prof.start()
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, batch)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if step == steps - 1:
+                prof.stop()
+            per_step.append({"step": step, "loss": losses[-1],
+                             "seconds": seconds, "launches": {
+                                 k: w.launches - before[k]
+                                 for k, w in ws.items()}})
+        peak = torch.cuda.max_memory_allocated()
+        wgmma = check_routes(f"{name} {mode}", ws, True,
+                             {k: n * steps for k, n in simt.items()})
+        profile = _profile_summary(prof, per_step[-1]["seconds"] * 1e3)
+        for s in per_step:
+            emit(phase=name, mode=mode, step=s["step"], loss=s["loss"],
+                 step_seconds=s["seconds"], launches=s["launches"])
+        emit(phase=name, mode=mode, batch=B, image=CNN_IMAGE,
+             dtype="bfloat16", optimizer="adamw", sigma=dp.sigma,
+             steps=steps, losses=losses, plan={
+                 k: {"norm": v["norm"].method, "grad": v["grad"]}
+                 for k, v in report.items()}, routes=routes,
+             max_memory_allocated=peak, allocated_at_start=floor,
+             wgmma_launches=wgmma, launches_a_step=want)
+        emit(phase=f"{name}_profile", mode=mode, step=steps - 1, **profile)
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name} [{mode}]: non-finite loss: "
+                                 f"{losses}")
+        if abs(losses[0] - math.log(CNN_CLASSES)) > 0.5:
+            raise AssertionError(f"{name} [{mode}]: step-0 loss {losses[0]} "
+                                 f"is not near ln({CNN_CLASSES})")
+        for s in per_step:
+            if s["launches"] != want:
+                raise AssertionError(f"{name} [{mode}] step {s['step']}: "
+                                     f"launched {s['launches']}, want "
+                                     f"{want}")
+        for k, n in want.items():
+            totals[k] += n * steps
+        del state, step_fn, opt
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase_parity_cnn(name):
+    """The CNN in f32 at B=4 on the card, sigma 0: every mode of CNN_PARITY
+    (the kernels) against opacus on the card (vmap(grad) through the im2col
+    unfold), against the same mode with ``use_kernels=False`` on the card
+    and on the CPU: per-sample norms at NORM_TOL, grads at f32 TOL; each
+    kernel run's launches on the SIMT routes (f32), none in the plain runs.
+    Then bk-mixopt's clipped sums at sigma 1.0 into one noised AdamW step
+    against its plain version (``update_parity``). -> {} (these launches do
+    not count as a path's)."""
+    import torch
+    from repro_torch.core.bk import DPConfig, bk_clipped_sum
+    from repro_torch.core.engine import make_grad_fn
+    from repro_torch.core.noise import prng_key
+    from repro_torch.core.policy import as_policy
+    from repro_torch.utils.tree import flatten, unflatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B = CNN_PARITY["batch"]
+    params = cnn_init(1, "cuda", torch.float32)
+    batch = cnn_batch(B, 1)
+    cpu_params = unflatten({k: v.cpu() for k, v in flatten(params).items()})
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    ws = wrappers()
+
+    def run(mode, use=True, dev="cuda"):
+        reset_counts(ws)
+        t0 = time.perf_counter()
+        grads, aux = make_grad_fn(cnn_apply, DPConfig(
+            mode=mode, use_kernels=use))(
+                *((params, batch) if dev == "cuda" else
+                  (cpu_params, cpu_batch)), prng_key(7))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        launched = {k: w.launches for k, w in ws.items() if w.launches}
+        return ({k: v.to("cuda") for k, v in flatten(grads).items()},
+                aux["per_sample_norms"].to("cuda"), launched,
+                time.perf_counter() - t0)
+
+    ref, ref_norms, _, ref_s = run("opacus")
+    rtol, atol = TOL["float32"]
+    for mode in CNN_PARITY["modes"]:
+        got, norms, launched, card_s = run(mode)
+        check_routes(f"{name} {mode}", ws, False)      # f32: SIMT routes
+        if not launched:
+            raise AssertionError(f"{name} [{mode}]: no kernel launched")
+        for case, (want, want_norms, plain_launched, s) in (
+                ("vs opacus", (ref, ref_norms, {}, ref_s)),
+                ("vs card use_kernels=False", run(mode, use=False)),
+                ("vs CPU", run(mode, dev="cpu"))):
+            worst, bad = 0.0, []
+            for k in sorted(want):
+                cmp = compare(got[k], want[k], (rtol, atol))
+                worst = max(worst, cmp["max_abs_err"])
+                if not cmp["ok"]:
+                    bad.append(k)
+            cmp_n = compare(norms, want_norms, NORM_TOL)
+            emit(phase=name, mode=mode, case=case, batch=B, image=CNN_IMAGE,
+                 dtype="float32", grads_max_abs_err=worst, rtol=rtol,
+                 atol=atol, norms=cmp_n, failed=bad, launched=launched,
+                 reference_launched=plain_launched, card_seconds=card_s,
+                 reference_seconds=s)
+            if bad or not cmp_n["ok"] or plain_launched:
+                raise AssertionError(f"{name} [{mode} {case}]: disagrees on "
+                                     f"{bad}, norms {cmp_n}, or the plain "
+                                     f"run launched {plain_launched}")
+    policy = as_policy(DPConfig(mode="bk-mixopt", sigma=1.0))
+    sums, _ = bk_clipped_sum(cnn_apply, params, batch, policy)
+    update_parity(name, params, sums, policy, B)
+    del params, batch, cpu_params, ref, sums
+    torch.cuda.empty_cache()
+    return {}
+
+
 def paper_ratios(stats: dict) -> dict:
     """The paper's two comparisons at qwen2-1.5b's full width and depth:
     bk-mixopt (``train``) over standard training (``train_nonprivate``),
@@ -4152,6 +4597,8 @@ def _serving_model(name, layers=0, dtype=""):
     cfg = cut_depth(get_config(SERVING[name]["arch"]), layers)
     if dtype:
         cfg = cfg.with_(param_dtype=dtype)
+    if SERVING[name].get("patch_tokens"):
+        cfg = cfg.with_(patch_tokens=SERVING[name]["patch_tokens"])
     model = build(cfg)
     return cfg, model, model.init(0, "cuda")
 
@@ -4172,18 +4619,29 @@ def _frames(cfg, B, Tf):
     return make_batch(cfg, B, Tf, seed=1, device="cuda")["frames"]
 
 
+def _patches(cfg, B):
+    """(B, patch_tokens, vit_dim) f32 patch embeddings on the card:
+    ``make_batch``'s from seed 1, or None outside the vlm family."""
+    from repro_torch.data.synthetic import make_batch
+    if cfg.family != "vlm":
+        return None
+    return make_batch(cfg, B, 1, seed=1, device="cuda")["patches"]
+
+
 def phase_prefill(name):
     """Three prefills of a full model through ``model.prefill`` (warm-up,
     timed, profiled) -> launch totals. Each prefill launches its kernel
     once a layer (``per_prefill`` where given) and no other kernel. An
-    encoder-decoder model's prefill also takes ``frames`` of audio."""
+    encoder-decoder model's prefill also takes ``frames`` of audio, a vlm's
+    its patches (before the tokens)."""
     import torch
     run = SERVING[name]
     cfg, model, params = _serving_model(name)
     B, T = run["batch"], run["seq"]
     tokens = _tokens(cfg.vocab, B, T)
+    patches = _patches(cfg, B)
     inputs = ((_frames(cfg, B, run["frames"]), tokens) if "frames" in run
-              else (tokens,))
+              else (tokens,) if patches is None else (tokens, patches))
     ws = wrappers()
     fresh_peak()
     reset_counts(ws)                  # counts from here on are the path's
@@ -4212,6 +4670,9 @@ def phase_prefill(name):
          **({"frames": run["frames"], "frames_and_tokens_per_s":
              B * (run["frames"] + T) / seconds[1]} if "frames" in run
             else {}),
+         **({"patches": cfg.patch_tokens, "patches_and_tokens_per_s":
+             B * (cfg.patch_tokens + T) / seconds[1]}
+            if patches is not None else {}),
          launches_per_prefill={k: n for k, n in per_call[-1].items() if n},
          logits_shape=list(logits.shape))
     emit(phase=f"{name}_profile", call=2,
@@ -4289,11 +4750,11 @@ def phase_serve(name):
 
 def phase_serve_parity(name):
     """A 2-layer, full-width, f32 model: the prefill on the card (kernels)
-    against the same params' prefill on the CPU (plain versions); the
-    teacher-forced decode's logits at the last prompt position against the
-    card's prefill (the gate of ``generate``; not where meta tokens are
-    prepended); with ``decode`` steps, each step's logits against the CPU's
-    decode."""
+    against the same params' prefill on the CPU (plain versions), a vlm's
+    with its patches; the teacher-forced decode's logits at the last prompt
+    position against the card's prefill (the gate of ``generate``; not
+    where meta tokens or patches are prepended); with ``decode`` steps,
+    each step's logits against the CPU's decode."""
     import torch
     from repro_torch.launch.serve import generate
     from repro_torch.utils.tree import flatten, unflatten
@@ -4303,6 +4764,8 @@ def phase_serve_parity(name):
     cfg, model, params = _serving_model(name, layers=run.get("layers", 2),
                                         dtype="float32")
     tokens = _tokens(cfg.vocab, run["batch"], run["seq"])
+    patches = _patches(cfg, run["batch"])
+    extra = () if patches is None else (patches,)
     ws = wrappers()
     reset_counts(ws)
     clock = {"t": time.perf_counter()}
@@ -4314,13 +4777,13 @@ def phase_serve_parity(name):
         clock["t"] = now
 
     before = {k: w.launches for k, w in ws.items()}
-    got = model.prefill(params, tokens)
+    got = model.prefill(params, tokens, *extra)
     torch.cuda.synchronize()
     took("card_prefill")
     launched = {k: w.launches - before[k] for k, w in ws.items()}
     cpu = unflatten({k: v.cpu() for k, v in flatten(params).items()})
     before = {k: w.launches for k, w in ws.items()}
-    want = model.prefill(cpu, tokens.cpu())
+    want = model.prefill(cpu, tokens.cpu(), *(t.cpu() for t in extra))
     took("cpu_prefill")
     decoded = tokens[:, :run.get("decode", tokens.shape[1])]
     _, steps = generate(model, params, decoded, 0, return_logits=True)
@@ -4340,11 +4803,13 @@ def phase_serve_parity(name):
         took("cpu_decode")
         cmps["decode_vs_cpu"] = compare(steps.cpu(), cpu_steps, tol)
         del cpu_steps
-    if not cfg.meta_tokens and decoded.shape[1] == tokens.shape[1]:
+    if not (cfg.meta_tokens or extra) and \
+            decoded.shape[1] == tokens.shape[1]:
         cmps["decode_vs_prefill"] = compare(steps[:, -1], got, tol)
     emit(phase=name, arch=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab, dtype="float32",
          batch=run["batch"], seq=run["seq"],
+         patches=cfg.patch_tokens if extra else 0,
          allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          prefill_vs_cpu=cmp_cpu, **cmps, decoded_tokens=decoded.shape[1],
          launched={k: n for k, n in launched.items() if n},
@@ -4360,7 +4825,7 @@ def phase_serve_parity(name):
                              f"prefill, {plain_launched} on the CPU and in "
                              f"decode; want {run['kernel']} x "
                              f"{cfg.n_layers} and none")
-    del params, cpu, steps
+    del params, cpu, steps, extra
     torch.cuda.empty_cache()
 
 
@@ -4637,6 +5102,15 @@ FAMILY_PARITY = {
                          want=("ghost_norm", "clipped_grad", "emb_ghost_norm",
                                "emb_clipped_grad"),
                          per_layer={}, opacus=None, vs_plain=True),
+    # internvl2-26b at 2 layers, B=2, 64 tokens after 128 of its 1024
+    # patches (the CPU's step at full width, V 92553 and d 6144, in the
+    # time): the projector's tap and its bias on the psp route, the head
+    # over the patch positions too; every tap ghost
+    "parity_internvl2": dict(path="train_internvl2", layers=2, batch=2,
+                             seq=64, patch_tokens=128,
+                             want=("ghost_norm", "clipped_grad",
+                                   "emb_ghost_norm", "emb_clipped_grad"),
+                             per_layer={}, opacus=None, vs_plain=True),
 }
 
 
@@ -4669,6 +5143,8 @@ def phase_parity_family(name):
     cfg, dp = run_config(fam["path"])
     dp = as_policy(dp)               # a flat DPConfig: its one-unit policy
     small = cut_depth(cfg, fam["layers"]).with_(param_dtype="float32")
+    if "patch_tokens" in fam:
+        small = small.with_(patch_tokens=fam["patch_tokens"])
     B, T = fam["batch"], fam.get("seq", RUNS[fam["path"]]["seq"])
     model = build(small)
     params = model.init(seed=1, device="cuda")
@@ -4716,6 +5192,7 @@ def phase_parity_family(name):
         emit(phase=name, case=case, arch=small.name,
              layers=small.n_layers, d_model=small.d_model, vocab=small.vocab,
              dtype="float32", batch=B, seq=T, mode=dp.mode, sigma=dp.sigma,
+             patches=small.patch_tokens,
              rtol=rtol, atol=atol, norm_tol=NORM_TOL, compared=len(pairs),
              max_abs_err=worst, failed=bad, launched=launched,
              card_seconds=card_s, reference_seconds=ref_s)
@@ -5070,6 +5547,11 @@ def main(argv=None) -> int:
             for k, n in totals.items():
                 launches[k] = launches.get(k, 0) + n
             lap(name)
+    for name in CNN_TRAINS:
+        if name in phases:
+            for k, n in phase_train_cnn(name).items():
+                launches[k] = launches.get(k, 0) + n
+            lap(name)
     for name in MESHES:
         if name in phases:
             phase_train_mesh2(name)
@@ -5089,6 +5571,7 @@ def main(argv=None) -> int:
     for name in PARITIES:
         if name in phases:
             run = (phase_parity_modes if name == "parity_modes" else
+                   phase_parity_cnn if name == "parity_cnn" else
                    phase_parity_family if name in FAMILY_PARITY else
                    phase_parity)
             for k, n in run(name).items():
@@ -5138,7 +5621,8 @@ def main(argv=None) -> int:
                     "simt_source": CSRC + {**WGMMA, **CHUNKED}[name][0]}
                    if name in WGMMA or name in CHUNKED else {})})
         emit(kernels=kernels)
-        if all(p in phases for p in TRAINS + PREFILLS + tuple(PARITY_SMOKE)):
+        if all(p in phases for p in TRAINS + CNN_TRAINS + PREFILLS
+               + tuple(PARITY_SMOKE)):
             idle = [k["name"] for k in kernels if not k["launches"]]
             if idle:
                 raise AssertionError(f"kernels never launched on the train, "

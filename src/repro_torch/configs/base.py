@@ -9,11 +9,13 @@ layernorm and its squared-ReLU channel mix); the ``hybrid`` family is Hymba
 (``models.hymba``: attention and Mamba-style SSM heads side by side,
 sliding-window layers, meta tokens); the ``encdec`` family is Whisper
 (``models.whisper``: a bidirectional encoder over frame embeddings, a
-decoder with causal self-attention and cross-attention, LayerNorm + GELU).
-Activations follow ``param_dtype``. ``remat`` recomputes each block of the
-transformer's, rwkv6's and hymba's stacks in the backward
-(``core.tape.Tape.block``), where the reference wraps its scanned blocks
-in ``jax.checkpoint``."""
+decoder with causal self-attention and cross-attention, LayerNorm + GELU);
+the ``vlm`` family is InternVL2 (the transformer with ``patch_tokens``
+precomputed ViT patch embeddings of width ``vit_dim`` projected by a tapped
+linear and put before the tokens). Activations follow ``param_dtype``.
+``remat`` recomputes each block of the transformer's, rwkv6's and hymba's
+stacks in the backward (``core.tape.Tape.block``), where the reference
+wraps its scanned blocks in ``jax.checkpoint``."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -22,7 +24,7 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"        # dense | moe | ssm | hybrid | encdec
+    family: str = "dense"        # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int = 2
     d_model: int = 64
     n_heads: int = 4
@@ -65,6 +67,10 @@ class ModelConfig:
     encoder_layers: int = 0
     decoder_len: int = 448
     frame_dim: int = 0           # stub frontend embedding dim (0 -> d_model)
+
+    # vlm (internvl2): precomputed patch embeddings, projected and prefixed
+    patch_tokens: int = 0
+    vit_dim: int = 0
 
     @property
     def hd(self) -> int:

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, plus named
-PrivacyPolicy presets. The port registers every config of the JAX package
-but internvl2-26b (vlm): qwen2-1.5b, qwen2.5-3b, qwen3-14b and llama3-405b
-(dense), deepseek-moe-16b and moonshot-v1-16b-a3b (moe), rwkv6-3b (ssm),
-hymba-1.5b (hybrid) and whisper-small (encdec); policies for qwen2-1.5b
+PrivacyPolicy presets. The port registers every config of the JAX package:
+qwen2-1.5b, qwen2.5-3b, qwen3-14b and llama3-405b (dense), deepseek-moe-16b
+and moonshot-v1-16b-a3b (moe), rwkv6-3b (ssm), hymba-1.5b (hybrid),
+whisper-small (encdec) and internvl2-26b (vlm); policies for qwen2-1.5b
 and deepseek-moe-16b, as the JAX package registers them."""
 from __future__ import annotations
 
@@ -61,7 +61,7 @@ def list_archs():
 
 
 def build(cfg: ModelConfig):
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models.transformer import TransformerLM
         return TransformerLM(cfg)
     if cfg.family == "ssm":
@@ -73,8 +73,7 @@ def build(cfg: ModelConfig):
     if cfg.family == "encdec":
         from repro_torch.models.whisper import WhisperLM
         return WhisperLM(cfg)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 B8)")
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def cut_depth(cfg: ModelConfig, layers: int) -> ModelConfig:
@@ -108,11 +107,13 @@ def smoke_config(name: str) -> ModelConfig:
     if cfg.family == "encdec":
         kw.update(encoder_layers=2, decoder_len=16, frame_dim=24,
                   n_kv_heads=4)
+    if cfg.family == "vlm":
+        kw.update(patch_tokens=4, vit_dim=16)
     return cfg.with_(**kw)
 
 
 # import arch modules so registration runs
 for _m in ("whisper_small", "qwen2_1_5b", "deepseek_moe_16b", "rwkv6_3b",
            "hymba_1_5b", "qwen3_14b", "qwen2_5_3b", "llama3_405b",
-           "moonshot_v1_16b_a3b"):
+           "moonshot_v1_16b_a3b", "internvl2_26b"):
     importlib.import_module(f"repro_torch.configs.{_m}")

@@ -6,8 +6,9 @@ a restart resumes bit-exactly from any step. ``poisson_q > 0`` is the
 fixed-capacity Poisson subsampling the RDP accountant assumes: each step
 draws an inclusion mask ~ Bernoulli(q) over the physical batch and hands it
 to the loss as a 0/1 ``mask`` over the tokens (the decoder's, in the
-encdec family). Tokens and mask equal the reference's bitwise: the mask's
-uniforms are ``data.synthetic.uniform`` under
+encdec family; the text's, not the patches', in the vlm family). Tokens,
+patches and mask equal the reference's bitwise: the mask's uniforms are
+``data.synthetic.uniform`` under
 ``fold_in(fold_in(prng_key(seed), step), 0xD1CE)``.
 """
 from __future__ import annotations
@@ -41,7 +42,8 @@ class Pipeline:
     def spec(self) -> dict:
         """The batch's shapes and dtypes, as meta tensors (encdec: seq_len
         counts the encoder's audio frames; the decoder's tokens are
-        ``decoder_len`` long)."""
+        ``decoder_len`` long; vlm: ``patch_tokens`` patches beside the
+        tokens)."""
         B, T, mc = self.cfg.batch, self.cfg.seq_len, self.model_cfg
         if mc.family == "encdec":
             return {"frames": torch.empty(
@@ -49,8 +51,12 @@ class Pipeline:
                         dtype=torch.float32, device="meta"),
                     "tokens": torch.empty((B, mc.decoder_len),
                                           dtype=torch.int32, device="meta")}
-        return {"tokens": torch.empty((B, T), dtype=torch.int32,
+        spec = {"tokens": torch.empty((B, T), dtype=torch.int32,
                                       device="meta")}
+        if mc.family == "vlm":
+            spec["patches"] = torch.empty((B, mc.patch_tokens, mc.vit_dim),
+                                          dtype=torch.float32, device="meta")
+        return spec
 
     def state_dict(self) -> dict:
         """The generative config a resumed run must continue (the cursor

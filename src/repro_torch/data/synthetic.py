@@ -13,11 +13,12 @@ the bits of element i are ``y0 ^ y1`` of the block on counter (i >> 32,
 i & 0xFFFFFFFF); :func:`uniform` keeps their top 23 bits as the mantissa of
 a float in [1, 2), minus 1; :func:`randint` is JAX's two-word modulus;
 :func:`normal` is ``sqrt(2) * erfinv`` of JAX's uniform on
-[nextafter(-1, 0), 1), erfinv by XLA's f32 polynomial (:func:`erfinv`).
-The tokens equal the reference's ``make_batch`` bitwise; the encdec
-family's frames take the same uniforms bitwise and lie within 3 f32 ulps
-of its normals (XLA's ``log1p`` is not correctly rounded; torch's
-``erfinv`` alone would be ~90 ulps off).
+[nextafter(-1, 0), 1), erfinv by XLA's f32 polynomial (:func:`erfinv`)
+over XLA's CPU ``log1p`` (:func:`log1p`: Cephes' rational and log, which
+are not correctly rounded) and a correctly rounded square root. The tokens,
+the encdec family's frames and the vlm family's patches equal the
+reference's ``make_batch`` bitwise (torch's own ``erfinv`` would be ~90
+ulps off, its ``log1p`` 3).
 """
 from __future__ import annotations
 
@@ -63,12 +64,69 @@ _ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
                  0.00943887047, 1.00167406, 2.83297682)
 
 
+# XLA's f32 log1p on the CPU: below |x| < sqrt(2) - 1 Cephes' rational
+# x - x^2/2 + x^3 P(x)/Q(x), else log(1 + x) by Cephes' f32 log: the
+# mantissa m in [sqrt(1/2), sqrt(2)) - 1 and exponent e, a degree-8
+# polynomial in m, e ln 2 in two parts (Q1 + Q2 = ln 2)
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """f32 a * b + c with one rounding (the product exact in float64); a
+    Python float operand is first rounded to f32, as XLA's constants are."""
+    a, b, c = (torch.as_tensor(t, dtype=torch.float32).double()
+               if isinstance(t, float) else t.double() for t in (a, b, c))
+    return (a * b + c).float()
+
+
+def _log(v: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 log of v > 0 (normal) on the CPU."""
+    m, e = torch.frexp(v)
+    e = e.float()
+    low = m < 0.707106781186547524
+    e = e - low.float()
+    m = (m - 1.0) + torch.where(low, m, 0.0)
+    x2 = m * m
+    x3 = x2 * m
+    P = _LOG_P
+    y, y1, y2 = (_fma(m, P[i], P[i + 1]) for i in (0, 3, 6))
+    y, y1, y2 = (_fma(t, m, P[i]) for t, i in ((y, 2), (y1, 5), (y2, 8)))
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, _LOG_Q1 * e)
+    return ((m - x2 * 0.5) + y) + _LOG_Q2 * e
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``log1p`` on the CPU (each Horner step of its rational a
+    fused multiply-add), bitwise on the inputs ``erfinv`` gives it."""
+    num = torch.zeros_like(x)
+    den = torch.zeros_like(x)
+    for a, b in zip(_LOG1P_NUM, _LOG1P_DEN):
+        num, den = _fma(num, x, a), _fma(den, x, b)
+    x2 = x * x
+    small = x + (-0.5 * x2 + (x * x2) * (num / den))
+    return torch.where(x.abs() < 0.41421356237309504880, small,
+                       _log(1.0 + x))
+
+
 def erfinv(x: torch.Tensor) -> torch.Tensor:
     """XLA's f32 ``erf_inv`` of x in (-1, 1): each Horner step one fused
     multiply-add (the product exact in float64, one rounding to f32)."""
-    w = (-torch.log1p(-(x * x).double())).float()
+    w = -log1p(-(x * x))
     small = w < 5.0
-    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+    # the square root correctly rounded (torch's f32 one on the CPU is not)
+    w = torch.where(small, w - 2.5,
+                    torch.sqrt(w.double()).float() - 3.0).double()
     p = torch.zeros_like(w)
     for a, b in zip(_ERFINV_SMALL, _ERFINV_LARGE):
         p = (torch.where(small, a, b) + p * w).float().double()
@@ -116,14 +174,20 @@ def make_batch(cfg: ModelConfig, B: int, T: int, seed: int = 0,
                step: int = 0, device="cuda") -> dict:
     """The reference's batch for this family on ``device`` for (seed,
     step): {'tokens': (B, T) int32}; for ``encdec`` T counts audio frames,
-    {'frames': (B, T, frame_dim) f32, 'tokens': (B, decoder_len) int32}.
-    The reference draws its inputs in the sorted order of their names, the
-    i-th from the i-th of three keys: frames from the first, tokens then
-    from the second."""
+    {'frames': (B, T, frame_dim) f32, 'tokens': (B, decoder_len) int32};
+    for ``vlm`` {'patches': (B, patch_tokens, vit_dim) f32, 'tokens': (B, T)
+    int32}. The reference draws its inputs in the sorted order of their
+    names, the i-th from the i-th of three keys: frames or patches from the
+    first, tokens then from the second (so a vlm batch's tokens are not the
+    dense batch's at the same seed)."""
     ks = split(fold_in(prng_key(seed), step), 3)
     if cfg.family == "encdec":
         return {"frames": normal(ks[0], (B, T, cfg.frame_dim or cfg.d_model),
                                  device),
                 "tokens": structured_tokens(ks[1], B, cfg.decoder_len,
                                             cfg.vocab, device)}
+    if cfg.family == "vlm":
+        return {"patches": normal(ks[0], (B, cfg.patch_tokens, cfg.vit_dim),
+                                  device),
+                "tokens": structured_tokens(ks[1], B, T, cfg.vocab, device)}
     return {"tokens": structured_tokens(ks[0], B, T, cfg.vocab, device)}

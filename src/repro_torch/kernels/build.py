@@ -37,7 +37,8 @@ SIGNATURES = {
     "dp_ghost_norm_wgmma_split": [_I] * 5,
     "dp_ghost_norm_wgmma_nparts": [_I] * 5,
     "dp_ghost_norm_wgmma": [_P] * 4 + [_I] * 5 + [_P],
-    "dp_clipped_grad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dp_clipped_grad_split": [_I] * 5,
+    "dp_clipped_grad": [_P] * 5 + [_I] * 7 + [_P],
     "dp_clipped_grad_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "dp_emb_norm_nparts": [_I],
     "dp_emb_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

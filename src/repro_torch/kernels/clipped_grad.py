@@ -7,9 +7,11 @@ Replaces the TPU kernel ``repro/kernels/clipped_grad.py::clipped_grad``.
 Two kernels, chosen by :func:`route`: bf16 records whose d and p are
 multiples of 8 (every mm tap of the train paths) take
 ``csrc/clipped_grad_wgmma.cu`` (tensor cores, TMA-fed); f32 records and
-unaligned widths take ``csrc/clipped_grad.cu`` (f32 SIMT cores). Each source
-says what bounds it on the H100. Both apply C in f32 (no weighted copy of
-ds) and write every output tile once, with no atomics.
+unaligned widths take ``csrc/clipped_grad.cu`` (f32 SIMT cores; its rows
+split into parts, summed in a second pass, where the output's tiles are too
+few to fill the card). Each source says what bounds it on the H100. Both
+apply C in f32 (no weighted copy of ds) and sum in a fixed order, with no
+atomics.
 """
 from __future__ import annotations
 
@@ -69,9 +71,15 @@ def clipped_grad(a: torch.Tensor, C: torch.Tensor, ds: torch.Tensor,
             L, B, T, d, p, build.stream_ptr(a)), "clipped_grad (wgmma)")
         clipped_grad.wgmma_launches += 1
     else:
+        # the (b, t) rows in parts where the tiles are too few to fill the
+        # card, each part's tile to a scratch slice, summed in order
+        splits = lib.dp_clipped_grad_split(L, B, T, d, p)
+        parts = (torch.empty(splits, L, d, p, dtype=torch.float32,
+                             device=a.device) if splits > 1 else out)
         build.check(lib.dp_clipped_grad(
-            a4.data_ptr(), C.data_ptr(), d4.data_ptr(), out.data_ptr(),
-            L, B, T, d, p, int(bf16), build.stream_ptr(a)), "clipped_grad")
+            a4.data_ptr(), C.data_ptr(), d4.data_ptr(), parts.data_ptr(),
+            out.data_ptr(), L, B, T, d, p, int(bf16), splits,
+            build.stream_ptr(a)), "clipped_grad")
     clipped_grad.launches += 1
     return out if a.dim() == 4 else out[0]
 

@@ -1,9 +1,9 @@
 """Tap-aware layer library (plain PyTorch, no nn.Module state).
 
-Params are nested dicts of tensors. Generalized-linear ops (linear /
-embedding) route through the Tape; every other parameter (bias, norm scale)
-may arrive with a leading per-sample batch axis when the DP engine is
-differentiating it — layers align such params with ``align``.
+Params are nested dicts of tensors. Generalized-linear ops (linear,
+embedding, the im2col convs) route through the Tape; every other parameter
+(bias, norm scale) may arrive with a leading per-sample batch axis when the
+DP engine is differentiating it — layers align such params with ``align``.
 """
 from __future__ import annotations
 
@@ -16,8 +16,12 @@ F32 = torch.float32
 
 # ---------------------------------------------------------------------- init
 def normal_init(gen: torch.Generator, shape, dtype, stddev: float):
-    return (torch.randn(tuple(shape), generator=gen, device=gen.device,
-                        dtype=F32) * stddev).to(dtype)
+    """N(0, stddev^2) drawn in f32, scaled in place (one f32 copy of the
+    leaf at a time: internvl2's (48, 6144, 32768) up leaf is 38.7 GB of
+    f32), then cast."""
+    t = torch.randn(tuple(shape), generator=gen, device=gen.device,
+                    dtype=F32)
+    return t.mul_(stddev).to(dtype)
 
 
 def zeros_init(gen: torch.Generator, shape, dtype):
@@ -69,6 +73,59 @@ def embedding(tape, name, p, ids):
     """ids (B, T) int32 -> (B, T, d); the ghost-norm record is the ids."""
     s = torch.nn.functional.embedding(ids, p["w"])
     return tape.record(name, "emb", s, ids)
+
+
+# -------------------------------------------------------------- convolutions
+def conv2d_init(gen, kh, kw, c_in, c_out, dtype, bias=False):
+    """w (kh*kw*c_in, c_out), fan-in 1/sqrt(kh*kw*c_in); its rows in the
+    patch features' order, channel-major (c, i, j)."""
+    p = {"w": normal_init(gen, (kh * kw * c_in, c_out), dtype,
+                          1.0 / math.sqrt(kh * kw * c_in))}
+    if bias:
+        p["b"] = zeros_init(gen, (c_out,), dtype)
+    return p
+
+
+def _same_pads(n: int, k: int, s: int) -> tuple:
+    """JAX's SAME padding of one spatial dim: total max((ceil(n/s) - 1) s +
+    k - n, 0), the smaller half before."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(tape, name, p, x, kh, kw, stride=1, padding="SAME"):
+    """NHWC conv as an im2col generalized-linear op: the patches (B, H'*W',
+    kh*kw*C), features channel-major as ``conv_general_dilated_patches``
+    orders them, are the record of the tapped product, so the ghost and
+    direct norms apply to convs unchanged (T = H'*W'). ``padding``: 'SAME'
+    (JAX's, asymmetric where the total is odd), 'VALID', or ((lo, hi),
+    (lo, hi)). x (B,H,W,C) -> (B,H',W',c_out)."""
+    B, H, W, _ = x.shape
+    if padding == "SAME":
+        pads = (_same_pads(H, kh, stride), _same_pads(W, kw, stride))
+    elif padding == "VALID":
+        pads = ((0, 0), (0, 0))
+    else:
+        pads = tuple(tuple(int(v) for v in pair) for pair in padding)
+    (hlo, hhi), (wlo, whi) = pads
+    x = torch.nn.functional.pad(x, (0, 0, wlo, whi, hlo, hhi))
+    # (B, H', W', C, kh, kw): each patch's features in (c, i, j) order
+    patches = x.unfold(1, kh, stride).unfold(2, kw, stride)
+    Ho, Wo = patches.shape[1], patches.shape[2]
+    a = patches.reshape(B, Ho * Wo, -1)
+    s = tape.record(name, "mm", torch.matmul(a, p["w"]), a)
+    if "b" in p:
+        s = s + align(p["b"], s)
+    return s.reshape(B, Ho, Wo, -1)
+
+
+def conv1d_init(gen, k, c_in, c_out, dtype, bias=False):
+    return conv2d_init(gen, 1, k, c_in, c_out, dtype, bias)
+
+
+def conv1d(tape, name, p, x, k, stride=1, padding="SAME"):
+    """x (B,T,C) -> (B,T',c_out) through the conv2d path."""
+    return conv2d(tape, name, p, x[:, None], 1, k, stride, padding)[:, 0]
 
 
 # --------------------------------------------------------------------- norms

@@ -9,10 +9,19 @@ The MoE family's ``first_k_dense`` leading dense layers are unstacked, at
 (``Tape.block``), where the reference wraps its scanned block in
 ``jax.checkpoint``; the unstacked ones are not, as there.
 
+The ``vlm`` family (InternVL2) projects the batch's ``patches`` (B, Np,
+vit_dim) by a tapped linear with a bias, ``projector``, puts them before the
+token embeddings and runs the trunk over all Np + T positions (rope over 0
+.. Np + T - 1). The head runs over every position, the patches' too, as the
+reference's does, so the head tap's record holds them; the logits are then
+cut to the text before the loss.
+
 Serving: ``prefill`` runs the trunk with its attention through the
 ``flash_attention`` kernel (training's ``apply`` keeps
-``multihead_attention``, as in the JAX package); ``decode_step`` runs one
-token against the KV cache of ``init_cache``, which it updates in place.
+``multihead_attention``, as in the JAX package), the patches first where
+given; ``decode_step`` runs one token against the KV cache of
+``init_cache``, which it updates in place (no patches: the reference's
+``generate`` passes none).
 """
 from __future__ import annotations
 
@@ -143,7 +152,7 @@ def dense_block_decode(p, tape, x, cfg: ModelConfig, cos, sin, cache,
 
 # ------------------------------------------------------------------ LM model
 class TransformerLM:
-    """Decoder-only LM (dense and moe families)."""
+    """Decoder-only LM (dense, moe and vlm families)."""
 
     def __init__(self, cfg: ModelConfig):
         if (cfg.norm, cfg.act) != ("rmsnorm", "swiglu"):
@@ -172,7 +181,20 @@ class TransformerLM:
         params["blocks"] = dense_block_init(
             gen, cfg, dt, layers=(cfg.n_layers - cfg.first_k_dense,),
             use_moe=self.use_moe)
+        if cfg.family == "vlm":
+            params["projector"] = L.linear_init(gen, cfg.vit_dim, cfg.d_model,
+                                                dt, bias=True)
         return params
+
+    def _embed(self, params, tape: Tape, tokens, patches):
+        """Token embeddings, after the projected patches where given ->
+        (x, the number of patch positions)."""
+        x = L.embedding(tape, "embed", params["embed"], tokens)
+        if patches is None:
+            return x, 0
+        pp = L.linear(tape, "projector", params["projector"],
+                      patches.to(x.dtype))
+        return torch.cat([pp, x], dim=1), pp.shape[1]
 
     def _trunk(self, params, tape: Tape, x, attend=None):
         cfg = self.cfg
@@ -189,11 +211,14 @@ class TransformerLM:
         return L.rmsnorm(params["final_norm"], x)
 
     def apply(self, params, batch, tape: Tape):
-        """batch {'tokens': (B,T) int32 [, 'mask']} -> per-sample losses (B,)."""
+        """batch {'tokens': (B,T) int32 [, 'patches': (B,Np,vit_dim),
+        'mask']} -> per-sample losses (B,)."""
         tokens = batch["tokens"]
-        x = L.embedding(tape, "embed", params["embed"], tokens)
+        x, n_prefix = self._embed(params, tape, tokens,
+                                  batch["patches"] if self.cfg.family == "vlm"
+                                  else None)
         x = self._trunk(params, tape, x)
-        logits = L.linear(tape, "head", params["head"], x)
+        logits = L.linear(tape, "head", params["head"], x)[:, n_prefix:]
         labels = tokens[:, 1:]
         mask = batch.get("mask")
         mask = mask[:, 1:] if mask is not None else None
@@ -201,11 +226,12 @@ class TransformerLM:
 
     # --------------------------------------------------------------- serving
     @torch.no_grad()
-    def prefill(self, params, tokens):
-        """Serving prefill: tokens (B,T) -> last-position logits (B,V), the
-        attention through the flash_attention kernel."""
+    def prefill(self, params, tokens, patches=None):
+        """Serving prefill: tokens (B,T) [after patches (B,Np,vit_dim)] ->
+        last-position logits (B,V), the attention through the
+        flash_attention kernel."""
         tape = Tape.null()
-        x = L.embedding(tape, "embed", params["embed"], tokens)
+        x, _ = self._embed(params, tape, tokens, patches)
         x = self._trunk(params, tape, x, attend=_flash)
         return L.linear(tape, "head", params["head"], x[:, -1:, :])[:, 0]
 

@@ -6,7 +6,7 @@ records, BK norms and clipped sums (its qk-norm scales on the psp route, a
 clipped sums (``renorm_topk``); ``cut_depth`` of each new config; and each
 full-width train path of chip_smoke.py planned on meta tensors, its launches
 a step as the script asserts them on the card (rwkv6's wkv6 twice a layer:
-its blocks remat)."""
+its blocks remat; internvl2-26b's batch with its patches)."""
 import functools
 import importlib.util
 from pathlib import Path
@@ -30,6 +30,7 @@ from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.core.bk import (DPConfig, bk_clipped_sum, plan_report,
                                  tap_act_structs)
 from repro_torch.core.tape import Tape
+from repro_torch.data.pipeline import Pipeline, PipelineConfig
 from repro_torch.models import layers as L
 
 B = 3
@@ -156,7 +157,7 @@ def test_qk_norm_takes_a_per_sample_scale():
 
 @pytest.mark.parametrize("arch,layers", [
     ("qwen2.5-3b", 36), ("qwen3-14b", 11), ("llama3-405b", 1),
-    ("moonshot-v1-16b-a3b", 8)])
+    ("moonshot-v1-16b-a3b", 8), ("internvl2-26b", 8)])
 def test_cut_depth_of_the_new_configs(arch, layers):
     cfg = get_config(arch)
     cut = cut_depth(cfg, layers)
@@ -166,6 +167,8 @@ def test_cut_depth_of_the_new_configs(arch, layers):
     assert cut_depth(cfg, 0) is cfg
     if cfg.family == "moe":
         assert cut.first_k_dense == 1
+    if cfg.family == "vlm":
+        assert (cut.patch_tokens, cut.vit_dim) == (1024, 3200)
 
 
 def _chip_smoke():
@@ -178,13 +181,15 @@ def _chip_smoke():
 
 @pytest.mark.parametrize("path", ["train_qwen25", "train_qwen3",
                                   "train_llama3", "train_moonshot",
-                                  "train_rwkv", "train_hymba"])
+                                  "train_rwkv", "train_hymba",
+                                  "train_internvl2"])
 def test_full_width_plans_are_chip_smokes(path, monkeypatch):
     """Each path at full width and its depth (meta tensors, no compute):
     the kernels ``plan_report`` routes a step to are the launch counts
     chip_smoke.py asserts on the card, every tap of a stacked block marked
     'remat' (so rwkv6's wkv6 forward runs twice a layer, its backward
-    once), and none of an unstacked one."""
+    once), and none of an unstacked one. The meta batch is the pipeline's
+    spec: the vlm's carries its patches."""
     cs = _chip_smoke()
     meta = lambda gen, shape, dtype, *a: torch.empty(tuple(shape),
                                                      dtype=dtype,
@@ -194,8 +199,8 @@ def test_full_width_plans_are_chip_smokes(path, monkeypatch):
     run = cs.RUNS[path]
     cfg, dp = cs.run_config(path)
     model = build(cfg)
-    batch = {"tokens": torch.empty(run["batch"], run["seq"],
-                                   dtype=torch.int32, device="meta")}
+    batch = Pipeline(cfg, PipelineConfig(run["batch"], run["seq"]),
+                     "cpu").spec()
     report = plan_report(model.apply, model.init(0, "cpu"), batch, dp)
     counts = dict.fromkeys(run["per_step"], 0)
     for key, plans in report.items():

@@ -44,13 +44,13 @@ def _tokens(B, T, vocab=64, seed=0):
 @pytest.mark.parametrize("arch", [
     "qwen2-1.5b", "qwen2.5-3b", "qwen3-14b", "llama3-405b",
     "deepseek-moe-16b", "moonshot-v1-16b-a3b", "rwkv6-3b", "hymba-1.5b",
-    "whisper-small"])
+    "whisper-small", "internvl2-26b"])
 def test_configs_match_the_jax_registry(arch):
     """Every arch the port registers, field for field the JAX package's
     (its smoke reduction too); the port registers no other."""
     from repro.configs.registry import get_config as jget
     from repro_torch.configs.registry import get_config, list_archs
-    assert arch in list_archs() and len(list_archs()) == 9
+    assert arch in list_archs() and len(list_archs()) == 10
     j, t = jget(arch), get_config(arch)
     fields = ("name", "family", "n_layers", "d_model", "n_heads",
               "n_kv_heads", "head_dim", "d_ff", "vocab", "qkv_bias",
@@ -59,7 +59,7 @@ def test_configs_match_the_jax_registry(arch):
               "moe_d_ff", "first_k_dense", "capacity_factor", "renorm_topk",
               "ssm_state", "ssm_heads", "ssm_chunk", "window",
               "full_attn_layers", "meta_tokens", "encoder_layers",
-              "decoder_len", "frame_dim")
+              "decoder_len", "frame_dim", "patch_tokens", "vit_dim")
     for f in fields:
         assert getattr(t, f) == getattr(j, f), f
     js, ts = jsmoke(arch), smoke_config(arch)
@@ -141,6 +141,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
         " 'repro_torch.')]\n"
         "assert 'repro_torch.models.whisper' in mods, mods\n"
+        "assert 'repro_torch.configs.internvl2_26b' in mods, mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "sys.path.insert(0, sys.argv[1]); import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"

@@ -3,8 +3,8 @@ at smoke size (2 encoder + 2 decoder layers, d 32, 4 heads x 8, decoder_len
 16, frame_dim 24): the same params (converted key by key) and numpy inputs
 -> the same per-sample losses (f32 and bf16), BK norms, clipped sums and
 plan under bk-mixopt (the reference without its Pallas kernels), prefill
-logits, cross caches and decode logits; the batch (tokens bitwise, frames
-within 3 f32 ulps); the port's opacus against its bk-mixopt; the CLIs. One
+logits, cross caches and decode logits; the batch (tokens and frames
+bitwise); the port's opacus against its bk-mixopt; the CLIs. One
 module-scoped fixture holds the reference's model, params and jitted
 functions."""
 import json
@@ -49,10 +49,6 @@ TOL = dict(rtol=1e-3, atol=1e-4)           # tests/test_kernel_parity.py:15
 TOL_BF16 = dict(rtol=5e-2, atol=2e-2)      # tests/test_kernel_parity.py:18
 OPACUS_NORM_TOL = dict(rtol=2e-4, atol=1e-5)   # tests/test_arch_smoke.py:97
 OPACUS_TOL = dict(rtol=2e-3, atol=2e-5)        # tests/test_arch_smoke.py:100
-# the frames: the same uniforms bitwise, erfinv by XLA's polynomial; XLA's
-# log1p is not correctly rounded, so they are not bitwise (measured: 3 ulps,
-# relative 2.4e-7 at most)
-FRAMES_TOL = dict(rtol=1e-6, atol=0)
 
 
 class Ref:
@@ -146,9 +142,9 @@ def test_params_round_trip_the_reference_keys(ref):
 
 @pytest.mark.parametrize("Tf,seed,step", [(48, 0, 0), (1500, 1, 5)])
 def test_make_batch_matches_jax(Tf, seed, step):
-    """Frames (B, Tf, frame_dim) and tokens (B, decoder_len): the tokens
-    from the second key (the reference walks its inputs sorted), bitwise;
-    the frames within FRAMES_TOL."""
+    """Frames (B, Tf, frame_dim) and tokens (B, decoder_len), bitwise: the
+    tokens from the second key (the reference walks its inputs sorted), the
+    frames by XLA's erfinv over its CPU log1p."""
     want = jmake_batch(jsmoke(ARCH), 2, Tf, seed, step)
     got = make_batch(smoke_config(ARCH), 2, Tf, seed, step, "cpu")
     assert sorted(got) == ["frames", "tokens"]
@@ -158,8 +154,8 @@ def test_make_batch_matches_jax(Tf, seed, step):
     np.testing.assert_array_equal(got["tokens"].numpy(),
                                   np.asarray(want["tokens"]))
     assert tuple(got["frames"].shape) == (2, Tf, 24)
-    np.testing.assert_allclose(got["frames"].numpy(),
-                               np.asarray(want["frames"]), **FRAMES_TOL)
+    np.testing.assert_array_equal(got["frames"].numpy(),
+                                  np.asarray(want["frames"]))
 
 
 def test_pipeline_spec_and_poisson_mask_match_jax():
