@@ -438,6 +438,26 @@ Phases, each printing JSON lines:
             tokens: the card's prefill with the patches against the CPU's,
             then 16 dense decode steps (no patches, as the reference's
             generate) teacher-forced on the card against the CPU's
+  dryrun    the dry-run planner (``launch.steps.plan_cell`` on the meta
+            device, ``CellPlan.plan``) held against the card on two cells
+            the port runs: (a) the rank's work of qwen2-1.5b's train_4k
+            (TRAIN_MICROBATCH 32 over 16 data ranks: B=2, T=4096; full
+            width, all 28 layers where the plan's peak fits the card, else
+            the deepest that does) and (b) hymba-1.5b's long_500k (B=1, S =
+            524288, full-length caches on all 32 layers), three decode
+            steps at positions S - 3 .. S - 1. Each cell's operands built
+            for real (``CellPlan.make_args``) and the plan's ``fn`` run on
+            them: planned argument_bytes equal to the bytes held exactly,
+            the planned peak within DRYRUN_PEAK_TOL of the measured one
+            (``max_memory_allocated`` past what was allocated before the
+            operands), cell (a)'s launches and routes a step equal to the
+            plan's; every workspace size the kernels asked the library for
+            equal to ``kernels.meta``'s rule (fused_clip_grad's modelled
+            plan printed beside the card's); loss and logits finite
+  examples  the four examples' twins (``examples/*_torch.py``) on the card
+            at smoke size: quickstart, DP-LoRA (BK against opacus on the
+            adapters, zero base grads), the GPT2-class train driver
+            (checkpoints under ``build/``) and greedy decode
 
 Each phase ends with a ``phase_seconds`` line. Then a ``kernels`` summary
 line and, last, the ``ok`` line. Any failed check
@@ -480,8 +500,9 @@ SERVE_PARITIES = ("parity_prefill", "parity_prefill_rwkv",
                   "parity_prefill_internvl2")
 RESUMES = ("train_resume",)
 MESHES = ("train_mesh2",)
+PLANS = ("dryrun", "examples")
 PHASES = (("card", "build", "kernels") + TRAINS + CNN_TRAINS + MESHES
-          + RESUMES + PREFILLS + SERVES + PARITIES + SERVE_PARITIES)
+          + RESUMES + PREFILLS + SERVES + PARITIES + SERVE_PARITIES + PLANS)
 EXTRA_PHASES = ("wgmma", "noise")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s by
@@ -4590,6 +4611,263 @@ def paper_ratios(stats: dict) -> dict:
     return out
 
 
+# the dry-run phase: its cells, and how far the planned peak may sit from
+# max_memory_allocated (both count the caching allocator's 512-byte blocks)
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_CARD_BYTES = 79e9     # the most a cell's planned peak may take
+# the library's size entries (the workspace rules kernels.meta writes out)
+SIZE_ENTRIES = ("dp_ghost_norm_nparts", "dp_ghost_norm_wgmma_split",
+                "dp_ghost_norm_wgmma_nparts", "dp_clipped_grad_split",
+                "dp_emb_norm_nparts", "dp_emb_grad_smem_bytes",
+                "dp_emb_grad_scratch_ints", "dp_grad_norm_direct_nparts",
+                "dp_grad_norm_direct_wgmma_nparts",
+                "dp_moe_ghost_norm_wgmma_nparts", "dp_moe_direct_norm_nparts",
+                "dp_moe_direct_norm_wgmma_nparts", "dp_wkv6_chunked_nparts",
+                "dp_wkv6_backward_nparts")
+FUSED_SIZES = ("dp_fused_clip_nparts", "dp_fused_clip_scratch_bytes")
+# widths and depths the size rules are also asked at (train paths' taps,
+# the head, an unaligned tap, MoE capacities, fused units)
+SIZE_CASES = ((28, 8, 512, 1536, 1536), (28, 8, 512, 1536, 8960),
+              (1, 8, 512, 1536, 151936), (1, 2, 4096, 1536, 151936),
+              (28, 2, 4096, 1536, 256), (32, 8, 1152, 1600, 57),
+              (1, 8, 1152, 1600, 32001), (26, 8, 64, 2048, 1408),
+              (4, 8, 512, 256, 256), (1, 2, 64, 64, 64), (28, 2, 1536, 16, 64))
+
+
+class _SizeSpy:
+    """Records each size entry the library is asked (name, args) -> the
+    card's answer, over the real library's functions (restored on exit)."""
+
+    def __init__(self):
+        from repro_torch.kernels import build
+        self.lib, self.asked, self.saved = build.load(), {}, {}
+
+    def __enter__(self):
+        for name in SIZE_ENTRIES + FUSED_SIZES:
+            fn = getattr(self.lib, name)
+            self.saved[name] = fn
+
+            def spy(*args, _fn=fn, _name=name):
+                out = _fn(*args)
+                self.asked[_name, args] = out
+                return out
+            setattr(self.lib, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.lib, name, fn)
+
+
+def size_checks(asked: dict) -> dict:
+    """Every size the card's library gave (``asked``, and SIZE_CASES for
+    each rule) against ``kernels.meta.LIB``'s: raises on an exact rule
+    that differs; fused_clip_grad's plan is a model of the card's
+    occupancy, printed beside it."""
+    from repro_torch.kernels import build, meta
+    lib = build.load()
+    cases = dict(asked)
+    for L, B, T, d, p in SIZE_CASES:
+        for name, args in (
+                ("dp_ghost_norm_nparts", (T,)),
+                ("dp_ghost_norm_wgmma_split", (L, B, T, d, p)),
+                ("dp_ghost_norm_wgmma_nparts", (L, B, T, d, p)),
+                ("dp_clipped_grad_split", (L, B, T, d, p)),
+                ("dp_emb_norm_nparts", (T,)),
+                ("dp_emb_grad_smem_bytes", (p,)),
+                ("dp_emb_grad_scratch_ints", (p,)),
+                ("dp_grad_norm_direct_nparts", (d, p)),
+                ("dp_grad_norm_direct_wgmma_nparts", (d,)),
+                ("dp_moe_ghost_norm_wgmma_nparts", (T,)),
+                ("dp_moe_direct_norm_nparts", (d, p)),
+                ("dp_moe_direct_norm_wgmma_nparts", (d,)),
+                ("dp_wkv6_chunked_nparts", (T, min(128, d))),
+                ("dp_wkv6_backward_nparts", (min(64, d),))):
+            cases.setdefault((name, args), getattr(lib, name)(*args))
+        for wgmma in (0, 1):
+            if wgmma and (d % 8 or p % 8):
+                continue
+            for name in FUSED_SIZES:
+                args = (L, B, T, d, p, 1, wgmma)
+                cases.setdefault((name, args), getattr(lib, name)(*args))
+    bad, fused = [], []
+    for (name, args), got in sorted(cases.items()):
+        want = getattr(meta.LIB, name)(*args)
+        if name in FUSED_SIZES:
+            fused.append({"entry": name, "args": list(args), "card": got,
+                          "model": want})
+        elif got != want:
+            bad.append({"entry": name, "args": list(args), "card": got,
+                        "rule": want})
+    out = {"asked_on_path": len(asked), "checked": len(cases) - len(fused),
+           "fused_model_agrees": sum(f["card"] == f["model"] for f in fused),
+           "fused_cases": len(fused),
+           "fused_disagree": [f for f in fused if f["card"] != f["model"]]}
+    emit(phase="dryrun_sizes", **out, mismatches=bad)
+    if bad:
+        raise AssertionError(f"dryrun: kernels.meta's size rules differ from "
+                             f"the library's at {bad[:4]}")
+    return out
+
+
+def _cell_on_card(name, plan, planned, run):
+    """Build ``plan``'s operands on the card, run ``run(fn, args)`` ->
+    (measured dict, the run's result). The peak counts from what was
+    allocated before the operands (``fresh_peak``)."""
+    import torch
+    from repro_torch.launch.steps import _storages
+    floor = fresh_peak()
+    args = plan.make_args("cuda", 0)
+    torch.cuda.synchronize()
+    held = sum(_storages(args).values())
+    at_rest = torch.cuda.memory_allocated() - floor
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run(plan.fn, args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - floor
+    mem = planned["memory"]
+    measured = {"held_bytes": held, "allocated_at_rest": at_rest,
+                "max_memory_allocated": peak, "seconds": seconds}
+    emit(phase="dryrun", cell=name, arch=plan.arch, shape=plan.shape,
+         note=plan.note, planned=mem, measured=measured,
+         peak_ratio=mem["peak_bytes"] / peak,
+         planned_flops=planned["cost"]["flops"],
+         planned_collectives=planned["collectives"]["total"])
+    if mem["argument_bytes"] != held:
+        raise AssertionError(f"dryrun {name}: planned argument_bytes "
+                             f"{mem['argument_bytes']} != {held} held")
+    if abs(mem["peak_bytes"] - peak) > DRYRUN_PEAK_TOL * peak:
+        raise AssertionError(f"dryrun {name}: planned peak "
+                             f"{mem['peak_bytes']} is not within "
+                             f"{DRYRUN_PEAK_TOL:.0%} of the measured {peak}")
+    del args
+    return measured, out
+
+
+def phase_dryrun(name):
+    """The planner against the card (see the module's docstring) -> the
+    launch totals of the cells' runs on the card."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_plan_mesh
+    from repro_torch.launch.steps import TRAIN_MICROBATCH, plan_cell
+
+    ws = wrappers()
+    totals = dict.fromkeys(ws, 0)
+    mesh = make_plan_mesh((1, 1))
+    # (a) one data rank's train_4k work: 32 rows over 16 ranks
+    rows = TRAIN_MICROBATCH["qwen2-1.5b"] // 16
+    shape = ShapeConfig("train_4k", 4096, rows, "train")
+    layers = get_config("qwen2-1.5b").n_layers
+    t0 = time.perf_counter()
+    while True:
+        plan = plan_cell("qwen2-1.5b", shape, mesh,
+                         cfg_patch={"n_layers": layers})
+        planned = plan.plan()
+        if planned["memory"]["peak_bytes"] <= DRYRUN_CARD_BYTES or \
+                layers == 1:
+            break
+        layers -= 1
+    plan_s = time.perf_counter() - t0
+    emit(phase="dryrun_plan", cell="qwen2_train_4k_rank", layers=layers,
+         plan_seconds=plan_s, kernels=planned["kernels"])
+
+    def train_step(fn, args):
+        reset_counts(ws)
+        new_state, loss = fn(*args)
+        return loss
+    with _SizeSpy() as spy:
+        measured, loss = _cell_on_card("qwen2_train_4k_rank", plan, planned,
+                                       train_step)
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"dryrun: the train step's loss {loss} is not "
+                             "finite")
+    got = {k: w.launches for k, w in ws.items() if w.launches}
+    routes = {k: w.wgmma_launches for k, w in ws.items()
+              if getattr(w, "wgmma_launches", 0)}
+    want = planned["kernels"]["launches"]
+    want_routes = {}
+    for entry, n in planned["kernels"]["entries"].items():
+        if entry.endswith("_wgmma"):
+            k = {"dp_emb_norm": "emb_ghost_norm"}.get(entry[3:-6],
+                                                      entry[3:-6])
+            want_routes[k] = want_routes.get(k, 0) + n
+    emit(phase="dryrun_launches", cell="qwen2_train_4k_rank", card=got,
+         plan=want, card_wgmma=routes, plan_wgmma=want_routes)
+    if got != want or routes != want_routes:
+        raise AssertionError(f"dryrun: the card launched {got} (wgmma "
+                             f"{routes}), the plan {want} (wgmma "
+                             f"{want_routes})")
+    for k, w in ws.items():
+        totals[k] += w.launches
+    asked = dict(spy.asked)
+    del loss
+    torch.cuda.empty_cache()
+
+    # (b) hymba-1.5b's long_500k: three decode steps near S
+    t0 = time.perf_counter()
+    plan = plan_cell("hymba-1.5b", "long_500k", mesh)
+    planned = plan.plan()
+    emit(phase="dryrun_plan", cell="hymba_long_500k",
+         plan_seconds=time.perf_counter() - t0, kernels=planned["kernels"])
+
+    def decode(fn, args):
+        params, cache, tokens, pos = args
+        reset_counts(ws)
+        for i in (2, 1, 0):
+            logits, cache = fn(params, cache, tokens, pos - i)
+            tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+        return logits
+    with _SizeSpy() as spy:
+        measured, logits = _cell_on_card("hymba_long_500k", plan, planned,
+                                         decode)
+    cfg = get_config("hymba-1.5b")
+    if tuple(logits.shape) != (1, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"dryrun: long_500k logits "
+                             f"{tuple(logits.shape)} are not finite (1, "
+                             f"{cfg.vocab})")
+    for k, w in ws.items():
+        totals[k] += w.launches
+    asked.update(spy.asked)
+    del logits
+    torch.cuda.empty_cache()
+    size_checks(asked)
+    return {k: n for k, n in totals.items() if n}
+
+
+def phase_examples(name):
+    """The four examples' twins on the card -> launch totals."""
+    import importlib.util
+    ws = wrappers()
+    reset_counts(ws)
+    out = {}
+    for ex, argv in (("quickstart_torch", ["--steps", "5"]),
+                     ("finetune_lora_dp_torch", ["--steps", "10"]),
+                     ("train_dp_lm_torch", ["--smoke", "--steps", "20",
+                                            "--ckpt-dir", str(
+                                                ROOT / "build" /
+                                                "examples_dp_lm")]),
+                     ("serve_decode_torch", ["hymba-1.5b"])):
+        spec = importlib.util.spec_from_file_location(
+            ex, ROOT / "examples" / f"{ex}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        res = mod.main(["--device", "cuda", *argv])
+        out[ex] = {"seconds": time.perf_counter() - t0,
+                   **({"losses": [res[0], res[-1]]}
+                      if isinstance(res, list) else
+                      {"shape": list(res.shape)})}
+    shutil.rmtree(ROOT / "build" / "examples_dp_lm", ignore_errors=True)
+    totals = {k: w.launches for k, w in ws.items() if w.launches}
+    emit(phase=name, examples=out, launches=totals)
+    return totals
+
+
 def _serving_model(name, layers=0, dtype=""):
     """-> (cfg, model, params on the card from seed 0) of a serving path,
     cut to ``layers`` and cast to ``dtype`` where given."""
@@ -5581,6 +5859,12 @@ def main(argv=None) -> int:
         if name in phases:
             (phase_serve_parity_encdec if "frames" in SERVING[name]
              else phase_serve_parity)(name)
+            lap(name)
+    for name in PLANS:
+        if name in phases:
+            run = phase_dryrun if name == "dryrun" else phase_examples
+            for k, n in run(name).items():
+                launches[k] = launches.get(k, 0) + n
             lap(name)
     if summary is not None:
         kernels = []

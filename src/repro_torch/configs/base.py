@@ -114,3 +114,27 @@ class TrainConfig:
     # "" keeps the policy's scopes; flat | group | layer re-scopes every
     # trainable group (core.policy.with_scope)
     clipping_scope: str = ""
+    # the reference's measured kernel autotune at startup: "auto" (on the
+    # card), "on" or "off". A stated no-op here: the port's kernels take
+    # their tiles and grids from the card's occupancy at launch, so the
+    # driver logs that 0 cells are tuned (launch.train.AUTOTUNE_NOTE)
+    autotune: str = "auto"
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the dry-run grid (``launch.steps.plan_cell``):
+    sequence length, global batch, and the step it feeds."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+
+# the JAX package's grid, cell for cell
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -67,6 +67,7 @@ from repro_torch.core.policy import (as_policy, norm_aux, resolve_policy,
 from repro_torch.core.tape import (Tape, load_record, parse_key,
                                    store_record, tap_w)
 from repro_torch.kernels import dispatch
+from repro_torch.kernels import meta as meta_kernels
 from repro_torch.kernels.clipped_grad import clipped_grad
 from repro_torch.kernels.emb_grad import emb_clipped_grad
 from repro_torch.kernels.emb_norm import emb_ghost_norm
@@ -181,12 +182,13 @@ def _reducer(shard):
 
 
 def _meta_tape(apply_fn, params, batch) -> Tape:
-    """The tape of one forward on the meta device, every tap active."""
+    """The tape of one forward on the meta device, every tap active (its
+    kernels taken on their meta path, ``kernels.meta``)."""
     meta = lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta")
     p_meta = unflatten({k: meta(v) for k, v in flatten(params).items()})
     b_meta = {k: meta(v) for k, v in batch.items()}
     tape = Tape(active=lambda key: True)
-    with torch.no_grad():
+    with torch.no_grad(), meta_kernels.recording():
         apply_fn(p_meta, b_meta, tape)
     return tape
 
@@ -411,7 +413,10 @@ def _fused(kind, a_shape, ds_shape, policy, method) -> bool:
 
 
 def _gen(device, seed: int, path: str) -> torch.Generator:
-    """The int8 store's rounding draws for one path (``noise.path_seed``)."""
+    """The int8 store's rounding draws for one path (``noise.path_seed``);
+    None on the meta device, which draws nothing."""
+    if torch.device(device).type == "meta":
+        return None
     gen = torch.Generator(device=device)
     gen.manual_seed(path_seed(seed, 0, path))
     return gen

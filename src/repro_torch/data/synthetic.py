@@ -170,6 +170,24 @@ def structured_tokens(key, B: int, T: int, vocab: int, device,
     return torch.where(keep_run, runs, rare).to(torch.int32)
 
 
+def batch_spec(cfg: ModelConfig, B: int, T: int, dtype="float32") -> dict:
+    """A batch's shapes and dtypes, as meta tensors (no memory): {'tokens':
+    (B, T) int32}; ``vlm`` adds 'patches' (B, patch_tokens, vit_dim);
+    ``encdec`` reads T as audio frames, {'frames': (B, T, frame_dim),
+    'tokens': (B, decoder_len) int32}; the float inputs in ``dtype`` (the
+    reference's ``batch_spec``; :func:`make_batch` draws them in f32)."""
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+    fdt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if cfg.family == "encdec":
+        return {"frames": meta((B, T, cfg.frame_dim), fdt),
+                "tokens": meta((B, cfg.decoder_len), torch.int32)}
+    spec = {"tokens": meta((B, T), torch.int32)}
+    if cfg.family == "vlm":
+        spec["patches"] = meta((B, cfg.patch_tokens, cfg.vit_dim), fdt)
+    return spec
+
+
 def make_batch(cfg: ModelConfig, B: int, T: int, seed: int = 0,
                step: int = 0, device="cuda") -> dict:
     """The reference's batch for this family on ``device`` for (seed,

@@ -10,6 +10,8 @@ counterpart, ``counter_noise`` (phase 4's draw and add). Each module holds
 the wrappers (validate their operands, allocate the outputs, launch on the
 current stream, count their launches in ``<wrapper>.launches``) and the
 plain PyTorch versions beside them. A wrapper runs the plain version for CPU tensors only; for a
-CUDA tensor it launches its kernel or raises. ``build`` compiles and loads
-the library.
+CUDA tensor it launches its kernel or raises; for meta tensors while a
+plan records (``meta.recording``, ``launch.steps.plan_cell``) it takes the
+CUDA tensor's path, allocations and route included, against ``meta.LIB``,
+which launches nothing and records; other meta tensors it refuses. ``build`` compiles and loads the library.
 """

@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import meta
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = "arch=compute_90a,code=sm_90a"
@@ -160,17 +162,39 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
+def planning(t) -> bool:
+    """Whether ``t`` is a meta tensor of a plan (``kernels.meta.recording``
+    active): the only meta tensors a wrapper takes."""
+    return t.is_meta and meta.planning()
+
+
+def lib_for(t) -> ctypes.CDLL:
+    """The library a launch on ``t``'s device goes to: the built one, or
+    for a plan's meta tensors the planner's stand-in (``kernels.meta.LIB``:
+    the C entries' size rules, launches that record)."""
+    return meta.LIB if planning(t) else load()
+
+
+def counted(lib) -> int:
+    """1 where ``lib`` launches kernels (a wrapper's ``launches`` count the
+    card's launches), 0 for the planner's stand-in. (An identity test: an
+    attribute looked up on a ``ctypes.CDLL`` is a symbol lookup, and this
+    runs at every launch.)"""
+    return 0 if lib is meta.LIB else 1
+
+
 def check_inputs(name: str, floats, ints=(), f32=()) -> bool:
     """Validate a kernel's operands before their pointers go to C: all on
-    one CUDA device and contiguous; ``floats`` (the records) share one
+    one CUDA device (or all on the meta device while a plan records,
+    ``kernels.meta.recording``) and contiguous; ``floats`` (the records) share one
     dtype, float32 or bfloat16; ``ints`` are int32; ``f32`` (clip factors,
     slot masks) are float32 whatever the records are. -> True when the
     floats are bfloat16. (Plain loops over cheap tensor attributes: this
     runs before every launch, and a sub-millisecond kernel's time on the
     card includes it.)"""
-    index = floats[0].get_device()
+    index, meta = floats[0].get_device(), planning(floats[0])
     for t in (*floats, *ints, *f32):
-        if not t.is_cuda or t.get_device() != index:
+        if not (t.is_cuda or meta and t.is_meta) or t.get_device() != index:
             raise ValueError(f"{name}: operands must share one CUDA device, "
                              f"got {t.device} and {floats[0].device}")
         if not t.is_contiguous():
@@ -194,5 +218,8 @@ def check_inputs(name: str, floats, ints=(), f32=()) -> bool:
 
 def stream_ptr(t) -> int:
     """The current CUDA stream of ``t``'s device, as an int for ctypes (the
-    raw handle, without building a ``torch.cuda.Stream`` object)."""
+    raw handle, without building a ``torch.cuda.Stream`` object); 0 on the
+    meta device."""
+    if t.is_meta:
+        return 0
     return torch._C._cuda_getCurrentRawStream(t.get_device())

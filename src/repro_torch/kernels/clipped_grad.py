@@ -57,7 +57,7 @@ def clipped_grad(a: torch.Tensor, C: torch.Tensor, ds: torch.Tensor,
     if kernel not in ROUTES:
         raise ValueError(f"clipped_grad: kernel {kernel!r} not in {ROUTES}")
     out = torch.empty(L, d, p, dtype=torch.float32, device=a.device)
-    lib = build.load()
+    lib = build.lib_for(a)
     if kernel == "wgmma":
         if route(a4.dtype, d, p) != "wgmma":
             raise ValueError(f"clipped_grad: the wgmma kernel takes bf16 "
@@ -69,7 +69,7 @@ def clipped_grad(a: torch.Tensor, C: torch.Tensor, ds: torch.Tensor,
         build.check(lib.dp_clipped_grad_wgmma(
             a4.data_ptr(), C.data_ptr(), d4.data_ptr(), out.data_ptr(),
             L, B, T, d, p, build.stream_ptr(a)), "clipped_grad (wgmma)")
-        clipped_grad.wgmma_launches += 1
+        clipped_grad.wgmma_launches += build.counted(lib)
     else:
         # the (b, t) rows in parts where the tiles are too few to fill the
         # card, each part's tile to a scratch slice, summed in order
@@ -80,7 +80,7 @@ def clipped_grad(a: torch.Tensor, C: torch.Tensor, ds: torch.Tensor,
             a4.data_ptr(), C.data_ptr(), d4.data_ptr(), parts.data_ptr(),
             out.data_ptr(), L, B, T, d, p, int(bf16), splits,
             build.stream_ptr(a)), "clipped_grad")
-    clipped_grad.launches += 1
+    clipped_grad.launches += build.counted(lib)
     return out if a.dim() == 4 else out[0]
 
 

@@ -157,7 +157,7 @@ def counter_noise(g: torch.Tensor, hi_keys, lo_keys, alpha: float,
     out = g if inplace else torch.empty_like(g)
     if g.numel() == 0:
         return out
-    lib = build.load()
+    lib = build.lib_for(g)
     tail = (g.numel(), _scalar(alpha, g.dtype), _scalar(denom, g.dtype),
             int(bf16), build.stream_ptr(g))
     if geo.contiguous:
@@ -171,7 +171,7 @@ def counter_noise(g: torch.Tensor, hi_keys, lo_keys, alpha: float,
             g.data_ptr(), out.data_ptr(), ctypes.addressof(keys),
             ctypes.addressof(sides), n_keys, ctypes.addressof(where),
             geo.trail, *tail), "counter_noise")
-    counter_noise.launches += 1
+    counter_noise.launches += build.counted(lib)
     return out
 
 

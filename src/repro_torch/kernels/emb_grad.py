@@ -39,6 +39,11 @@ _SCRATCH: dict = {}
 
 
 def _scratch(ids: torch.Tensor, stream: int, n: int) -> torch.Tensor:
+    """The kept buffer of at least ``n`` int32 (on the meta device a new
+    one a call: a plan's step allocates it, as the card's first call
+    does)."""
+    if build.planning(ids):      # a plan's: a new one a call
+        return torch.empty(n, dtype=torch.int32, device=ids.device)
     key = (ids.get_device(), stream)
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < n:
@@ -84,7 +89,7 @@ def emb_clipped_grad(ids: torch.Tensor, C: torch.Tensor, ds: torch.Tensor,
         C = C.to(torch.float32).contiguous()
     bf16 = build.check_inputs("emb_clipped_grad", (ds,), (ids,), (C,))
     L, B, T, d, shape = _geometry(ids.shape, ds.shape, C.shape, vocab)
-    lib = build.load()
+    lib = build.lib_for(ds)
     smem, scratch_ints = _sizes(lib, vocab)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"emb_clipped_grad: a bitmap of vocab={vocab} rows "
@@ -96,7 +101,7 @@ def emb_clipped_grad(ids: torch.Tensor, C: torch.Tensor, ds: torch.Tensor,
                                 scratch.data_ptr(), out.data_ptr(), L, B, T,
                                 d, vocab, int(bf16), stream),
                 "emb_clipped_grad")
-    emb_clipped_grad.launches += 1
+    emb_clipped_grad.launches += build.counted(lib)
     return out
 
 

@@ -32,7 +32,7 @@ def emb_ghost_norm(ids: torch.Tensor, ds: torch.Tensor) -> torch.Tensor:
                          f"{tuple(ds.shape)} disagree")
     L = ids.shape[0] if ids.dim() == 3 else 1
     B, T = ids.shape[-2:]
-    lib = build.load()
+    lib = build.lib_for(ds)
     partial = torch.empty(B, L * lib.dp_emb_norm_nparts(T),
                           dtype=torch.float32, device=ds.device)
     out = torch.empty(B, dtype=torch.float32, device=ds.device)
@@ -40,7 +40,7 @@ def emb_ghost_norm(ids: torch.Tensor, ds: torch.Tensor) -> torch.Tensor:
                                 partial.data_ptr(), out.data_ptr(), L, B, T,
                                 ds.shape[-1], int(bf16),
                                 build.stream_ptr(ds)), "emb_ghost_norm")
-    emb_ghost_norm.launches += 1
+    emb_ghost_norm.launches += build.counted(lib)
     return out
 
 

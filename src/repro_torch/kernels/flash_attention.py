@@ -79,7 +79,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kernel not in ROUTES:
         raise ValueError(f"flash_attention: kernel {kernel!r} not in {ROUTES}")
     out = torch.empty_like(q)
-    lib = build.load()
+    lib = build.lib_for(q)
     if kernel == "wgmma":
         if route(q.dtype, h) != "wgmma":
             raise ValueError(f"flash_attention: the wgmma kernel takes bf16 "
@@ -88,13 +88,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T,
             S, H, K, h, int(causal), build.stream_ptr(q)),
             "flash_attention (wgmma)")
-        flash_attention.wgmma_launches += 1
+        flash_attention.wgmma_launches += build.counted(lib)
     else:
         build.check(lib.dp_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T,
             S, H, K, h, int(causal), int(bf16), build.stream_ptr(q)),
             "flash_attention")
-    flash_attention.launches += 1
+    flash_attention.launches += build.counted(lib)
     return out
 
 

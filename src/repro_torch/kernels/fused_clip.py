@@ -188,7 +188,7 @@ def fused_clip_grad(a: torch.Tensor, ds: torch.Tensor, w: torch.Tensor,
         if any(t.data_ptr() % 16 for t in (a4, d4)):
             raise ValueError("fused_clip_grad: TMA operands must be 16-byte "
                              "aligned")
-    lib = build.load()
+    lib = build.lib_for(a)
     nparts = lib.dp_fused_clip_nparts(L, B, T, d, p, int(bf16),
                                       int(wgmma))
     if nparts < 0:
@@ -215,9 +215,9 @@ def fused_clip_grad(a: torch.Tensor, ds: torch.Tensor, w: torch.Tensor,
         d, p, int(bf16), int(wgmma),
         CLIPS.index(clipping), float(R), float(gamma), build.stream_ptr(a)),
         "fused_clip_grad (wgmma)" if wgmma else "fused_clip_grad")
-    if wgmma:
-        fused_clip_grad.wgmma_launches += 1
-    fused_clip_grad.launches += 1
+    if build.counted(lib):
+        fused_clip_grad.wgmma_launches += wgmma
+        fused_clip_grad.launches += 1
     return (G if a.dim() == 4 else G[0]), sq
 
 

@@ -51,7 +51,7 @@ def ghost_norm(a: torch.Tensor, ds: torch.Tensor,
     kernel = kernel or route(a4.dtype, d, p)
     if kernel not in ROUTES:
         raise ValueError(f"ghost_norm: kernel {kernel!r} not in {ROUTES}")
-    lib = build.load()
+    lib = build.lib_for(a)
     out = torch.empty(B, dtype=torch.float32, device=a.device)
     if kernel == "wgmma":
         if route(a4.dtype, d, p) != "wgmma":
@@ -67,7 +67,7 @@ def ghost_norm(a: torch.Tensor, ds: torch.Tensor,
         build.check(lib.dp_ghost_norm_wgmma(
             a4.data_ptr(), d4.data_ptr(), partial.data_ptr(), out.data_ptr(),
             L, B, T, d, p, build.stream_ptr(a)), "ghost_norm (wgmma)")
-        ghost_norm.wgmma_launches += 1
+        ghost_norm.wgmma_launches += build.counted(lib)
     else:
         partial = torch.empty(B, L * lib.dp_ghost_norm_nparts(T),
                               dtype=torch.float32, device=a.device)
@@ -75,7 +75,7 @@ def ghost_norm(a: torch.Tensor, ds: torch.Tensor,
                                       partial.data_ptr(), out.data_ptr(),
                                       L, B, T, d, p, int(bf16),
                                       build.stream_ptr(a)), "ghost_norm")
-    ghost_norm.launches += 1
+    ghost_norm.launches += build.counted(lib)
     return out
 
 

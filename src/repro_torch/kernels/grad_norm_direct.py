@@ -49,7 +49,7 @@ def grad_norm_direct(a: torch.Tensor, ds: torch.Tensor,
                          f"records with d, p multiples of 8 and 16-byte "
                          f"aligned bases, got {a4.dtype}, d={d}, p={p}, "
                          f"aligned={aligned}")
-    lib = build.load()
+    lib = build.lib_for(a)
     out = torch.empty(B, dtype=torch.float32, device=a.device)
     if kernel == "wgmma":
         partial = torch.empty(B, L * lib.dp_grad_norm_direct_wgmma_nparts(d),
@@ -57,7 +57,7 @@ def grad_norm_direct(a: torch.Tensor, ds: torch.Tensor,
         build.check(lib.dp_grad_norm_direct_wgmma(
             a4.data_ptr(), d4.data_ptr(), partial.data_ptr(), out.data_ptr(),
             L, B, T, d, p, build.stream_ptr(a)), "grad_norm_direct (wgmma)")
-        grad_norm_direct.wgmma_launches += 1
+        grad_norm_direct.wgmma_launches += build.counted(lib)
     else:
         partial = torch.empty(B, L * lib.dp_grad_norm_direct_nparts(d, p),
                               dtype=torch.float32, device=a.device)
@@ -65,7 +65,7 @@ def grad_norm_direct(a: torch.Tensor, ds: torch.Tensor,
             a4.data_ptr(), d4.data_ptr(), partial.data_ptr(), out.data_ptr(),
             L, B, T, d, p, int(bf16), build.stream_ptr(a)),
             "grad_norm_direct")
-    grad_norm_direct.launches += 1
+    grad_norm_direct.launches += build.counted(lib)
     return out
 
 

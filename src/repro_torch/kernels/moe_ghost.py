@@ -92,7 +92,7 @@ def moe_ghost_norm(a: torch.Tensor, mask: torch.Tensor, ds: torch.Tensor,
     a5, m5, d5, _, bf16, (L, B, E, Cap, d, p) = _operands(
         "moe_ghost_norm", a, mask, ds)
     kernel = _route("moe_ghost_norm", kernel, a5, d5, d, p)
-    lib = build.load()
+    lib = build.lib_for(a)
     out = torch.empty(B, dtype=F32, device=a.device)
     args = (a5.data_ptr(), m5.data_ptr(), d5.data_ptr())
     if kernel == "wgmma":
@@ -102,13 +102,13 @@ def moe_ghost_norm(a: torch.Tensor, mask: torch.Tensor, ds: torch.Tensor,
         build.check(lib.dp_moe_ghost_norm_wgmma(
             *args, partial.data_ptr(), out.data_ptr(), L, B, E, Cap, d, p,
             build.stream_ptr(a)), "moe_ghost_norm (wgmma)")
-        moe_ghost_norm.wgmma_launches += 1
+        moe_ghost_norm.wgmma_launches += build.counted(lib)
     else:
         partial = torch.empty(B, L * E, dtype=F32, device=a.device)
         build.check(lib.dp_moe_ghost_norm(
             *args, partial.data_ptr(), out.data_ptr(), L, B, E, Cap, d, p,
             int(bf16), build.stream_ptr(a)), "moe_ghost_norm")
-    moe_ghost_norm.launches += 1
+    moe_ghost_norm.launches += build.counted(lib)
     return out
 
 
@@ -153,7 +153,7 @@ def moe_direct_norm(a: torch.Tensor, mask: torch.Tensor, ds: torch.Tensor,
     a5, m5, d5, _, bf16, (L, B, E, Cap, d, p) = _operands(
         "moe_direct_norm", a, mask, ds)
     kernel = _route("moe_direct_norm", kernel, a5, d5, d, p)
-    lib = build.load()
+    lib = build.lib_for(a)
     out = torch.empty(B, dtype=F32, device=a.device)
     args = (a5.data_ptr(), m5.data_ptr(), d5.data_ptr())
     if kernel == "wgmma":
@@ -164,14 +164,14 @@ def moe_direct_norm(a: torch.Tensor, mask: torch.Tensor, ds: torch.Tensor,
         build.check(lib.dp_moe_direct_norm_wgmma(
             *args, flags.data_ptr(), partial.data_ptr(), out.data_ptr(), L,
             B, E, Cap, d, p, build.stream_ptr(a)), "moe_direct_norm (wgmma)")
-        moe_direct_norm.wgmma_launches += 1
+        moe_direct_norm.wgmma_launches += build.counted(lib)
     else:
         partial = torch.empty(B, L * lib.dp_moe_direct_norm_nparts(d, p),
                               dtype=F32, device=a.device)
         build.check(lib.dp_moe_direct_norm(
             *args, partial.data_ptr(), out.data_ptr(), L, B, E, Cap, d, p,
             int(bf16), build.stream_ptr(a)), "moe_direct_norm")
-    moe_direct_norm.launches += 1
+    moe_direct_norm.launches += build.counted(lib)
     return out
 
 
@@ -194,17 +194,17 @@ def moe_clipped_grad(a: torch.Tensor, mask: torch.Tensor, C: torch.Tensor,
     out = torch.empty(L, E, d, p, dtype=F32, device=a.device)
     args = (a5.data_ptr(), m5.data_ptr(), C.data_ptr(), d5.data_ptr())
     dims = (out.data_ptr(), L, B, E, Cap, d, p)
-    lib = build.load()
+    lib = build.lib_for(a)
     if kernel == "wgmma":
         flags = _slot_flags(a5)
         build.check(lib.dp_moe_clipped_grad_wgmma(
             *args, flags.data_ptr(), *dims, build.stream_ptr(a)),
             "moe_clipped_grad (wgmma)")
-        moe_clipped_grad.wgmma_launches += 1
+        moe_clipped_grad.wgmma_launches += build.counted(lib)
     else:
         build.check(lib.dp_moe_clipped_grad(
             *args, *dims, int(bf16), build.stream_ptr(a)), "moe_clipped_grad")
-    moe_clipped_grad.launches += 1
+    moe_clipped_grad.launches += build.counted(lib)
     return out if a.dim() == 5 else out[0]
 
 

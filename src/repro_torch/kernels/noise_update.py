@@ -167,17 +167,18 @@ def noise_update(g, p: torch.Tensor, m: torch.Tensor, v, hp,
     tail = (p.numel(), int(g_bf16), int(p_bf16), opt,
             ctypes.addressof(hyper),
             t0.data_ptr() if opt == OPT[FTRL] else 0, build.stream_ptr(p))
+    lib = build.lib_for(p)
     if rec is None or not rec.dims:
-        build.check(build.load().dp_noise_update(
+        build.check(lib.dp_noise_update(
             *ptrs, int(rec is not None), start, trail, *tail),
             "noise_update")
     else:
         # a rank's block: the block route (its geometry, always noised)
         where = cn.geometry_args(rec.geometry)
-        build.check(build.load().dp_noise_update_block(
+        build.check(lib.dp_noise_update_block(
             *ptrs, ctypes.addressof(where), trail, *tail), "noise_update")
-        noise_update.block_launches += 1
-    noise_update.launches += 1
+        noise_update.block_launches += build.counted(lib)
+    noise_update.launches += build.counted(lib)
 
 
 noise_update.launches = 0

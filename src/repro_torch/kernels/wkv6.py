@@ -103,7 +103,7 @@ def _forward(r, k, v, w, u, kernel: str | None = None):
     state = None
     if T == 0:
         return out, state
-    lib = build.load()
+    lib = build.lib_for(r)
     args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u32.data_ptr(), ub)
     if kernel == "chunked":
@@ -112,11 +112,11 @@ def _forward(r, k, v, w, u, kernel: str | None = None):
         build.check(lib.dp_wkv6_chunked(
             *args, state.data_ptr(), out.data_ptr(), B, T, H, h, int(bf16),
             build.stream_ptr(r)), "wkv6 (chunked)")
-        wkv6.chunked_launches += 1
+        wkv6.chunked_launches += build.counted(lib)
     else:
         build.check(lib.dp_wkv6(*args, out.data_ptr(), B, T, H, h, int(bf16),
                                 build.stream_ptr(r)), "wkv6")
-    wkv6.launches += 1
+    wkv6.launches += build.counted(lib)
     return out, state
 
 
@@ -164,7 +164,7 @@ def wkv6_backward(do, r, k, v, w, u, state):
     du = torch.empty(B, H, h, dtype=F32, device=dev)
     if T == 0:
         return (*grads, du.zero_())
-    lib = build.load()
+    lib = build.lib_for(r)
     parts = lib.dp_wkv6_backward_nparts(h) - 1
     part = torch.empty(parts * (3 * B * T * H * h + B * H * h), dtype=F32,
                        device=dev)
@@ -173,7 +173,7 @@ def wkv6_backward(do, r, k, v, w, u, state):
         u32.data_ptr(), ub, do.data_ptr(), state.data_ptr(),
         *(g.data_ptr() for g in grads), du.data_ptr(), part.data_ptr(), B, T,
         H, h, int(bf16), build.stream_ptr(r)), "wkv6_backward")
-    wkv6_backward.launches += 1
+    wkv6_backward.launches += build.counted(lib)
     return (*grads, du)
 
 

@@ -212,17 +212,81 @@ class Mesh:
         return f"Mesh({self.shape}, rank {self.rank} at {self.coords})"
 
 
+def _axes(shape) -> tuple:
+    return ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+
+
 def make_mesh(shape, axis_names=None, device="cuda") -> Mesh:
     """A mesh of the whole world: ``shape`` (data, model) or (pod, data,
     model) unless ``axis_names`` says otherwise."""
-    if axis_names is None:
-        axis_names = ("data", "model") if len(shape) == 2 else \
-            ("pod", "data", "model")
-    return Mesh(shape, axis_names, device)
+    return Mesh(shape, axis_names or _axes(shape), device)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+class PlanMesh(Mesh):
+    """A mesh with no process world, on the meta device: the planner's
+    (``launch.steps.plan_cell``) stand-in for one rank of a mesh of any
+    shape, as the JAX package plans on fake host devices. Its
+    collectives launch nothing: each returns meta tensors of the shapes a
+    real world gives and adds its bytes a rank (the result's, as the
+    reference counts an HLO collective's) to :attr:`traffic`, by kind and
+    by axes."""
+
+    def __init__(self, shape, axis_names, rank: int = 0):
+        shape = tuple(int(n) for n in shape)
+        if len(shape) != len(axis_names) or min(shape, default=1) < 1:
+            raise ValueError(f"mesh {shape} over axes {tuple(axis_names)}")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, shape))
+        self.size = math.prod(shape)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} of a mesh of {self.size}")
+        self.rank = int(rank)
+        self.device = torch.device("meta")
+        self.coords = self.coords_of(self.rank)
+        self.device_mesh = self.control = self.io = None
+        self._groups = {}
+        self.traffic = {}
+
+    def _add(self, kind: str, axes, nbytes: int) -> None:
+        for key in (kind, f"{kind}@{','.join(self._order(axes))}"):
+            self.traffic[key] = self.traffic.get(key, 0) + int(nbytes)
+
+    def group(self, axes):
+        raise RuntimeError("a planning mesh has no process groups")
+
+    def all_reduce(self, t: torch.Tensor, axes) -> torch.Tensor:
+        if self.axis_size(axes) > 1:
+            self._add("all_reduce", axes, t.numel() * t.element_size())
+        return t
+
+    def all_gather(self, t: torch.Tensor, axes) -> list:
+        n = self.axis_size(axes)
+        if n <= 1:
+            return [t]
+        self._add("all_gather", axes, n * t.numel() * t.element_size())
+        return [torch.empty_like(t) for _ in range(n)]
+
+    def any(self, flag: bool) -> bool:
+        return bool(flag)
+
+    def __repr__(self) -> str:
+        return f"PlanMesh({self.shape}, rank {self.rank} at {self.coords})"
+
+
+def make_plan_mesh(shape, axis_names=None, rank: int = 0) -> PlanMesh:
+    """A :class:`PlanMesh` of ``shape`` ((data, model) or (pod, data,
+    model) unless ``axis_names`` says otherwise), seen from ``rank``."""
+    return PlanMesh(shape, axis_names or _axes(shape), rank)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda",
+                         plan: bool = False) -> Mesh:
+    """The reference's production mesh: (16, 16), or (2, 16, 16) with
+    ``multi_pod``; over the world of processes, or with ``plan`` a
+    :class:`PlanMesh` seen from rank 0 (the dry-run's)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
+    if plan:
+        return make_plan_mesh(shape)
     return make_mesh(shape, device=device)
 
 

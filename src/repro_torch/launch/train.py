@@ -53,8 +53,11 @@ stalled step) saves the current step and exits 0. ``REPRO_FAULT``
 
 Runs on the CUDA card by default; ``--device cpu`` runs the same engine with
 the kernels' plain PyTorch versions (tests, small configs). Without a card
-the default raises instead of falling back to the CPU. ``--autotune`` is
-not ported (ROADMAP B9).
+the default raises instead of falling back to the CPU. ``--autotune
+auto|on|off`` (the reference's choices; auto: on the card) is a stated
+no-op: the port's kernels take their tiles and grids from the card's
+occupancy at launch, so there is nothing to measure, and the driver logs
+:data:`AUTOTUNE_NOTE` (0 cells tuned) where the reference would tune.
 
 A mesh of processes: ``--mesh D,M`` (or ``P,D,M``) lays the world out as
 (data, model) (or (pod, data, model)) and runs the sharded step
@@ -116,6 +119,9 @@ from repro_torch.runtime.fault_tolerance import (CheckpointManager,
 from repro_torch.utils.tree import flatten, unflatten
 
 OPTIMIZERS = ("sgd", "adamw", "lamb", "adafactor", "ftrl")
+AUTOTUNE_NOTE = ("autotune: 0 kernel cells tuned: the port's kernels take "
+                 "their tiles and grids from the card's occupancy at launch "
+                 "(kernels/csrc), with no block sizes to measure")
 
 
 def resolve_device(device) -> torch.device:
@@ -319,6 +325,11 @@ def _quiet(*args, **kwargs):
 def _train(model_cfg, tc, dp, dev, log, on_step, dataset_size,
            target_epsilon, delta, summary_out, grid, digest=True):
     """:func:`train` on ``dev``, over the mesh ``grid`` when given."""
+    if tc.autotune not in ("auto", "on", "off"):
+        raise ValueError(f"autotune must be auto, on or off, got "
+                         f"{tc.autotune!r}")
+    if tc.autotune == "on" or (tc.autotune == "auto" and dev.type == "cuda"):
+        log(AUTOTUNE_NOTE)
     dp = train_policy(dp, tc)
     dp = calibrate(dp, tc, dataset_size, target_epsilon, delta, log)
     dp, ftrl_restart = ftrl_policy(dp, tc, log)
@@ -545,6 +556,12 @@ def cli_args(argv=None):
                     help="PrivacyPolicy preset name; 'auto' = the arch's "
                          f"registered preset (known: {list_policies()}), "
                          "'' = flat DPConfig")
+    ap.add_argument("--autotune", choices=["auto", "on", "off"],
+                    default="auto",
+                    help="the reference's measured kernel-block autotune "
+                         "(auto = on the card): logs that 0 cells are "
+                         "tuned, the port's kernels size their launches "
+                         "from the card's occupancy")
     ap.add_argument("--tape", default="", choices=("",) + TAPE_POLICIES,
                     help="tape residency of the book-kept tap state between "
                          "BK phases 2-3: hold native, compressed (bf16, "
@@ -607,6 +624,7 @@ def cli_args(argv=None):
                      log_every=args.log_every, tape=args.tape,
                      tape_chunks=args.tape_chunks,
                      clipping_scope=args.clipping_scope,
+                     autotune=args.autotune,
                      checkpoint_dir=args.ckpt_dir,
                      checkpoint_every=args.ckpt_every,
                      keep_checkpoints=args.keep_checkpoints)

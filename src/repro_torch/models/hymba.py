@@ -116,8 +116,7 @@ class HymbaLM:
         """Random params from ``seed`` (a torch.Generator on ``device``), in
         the JAX package's flat keys and layouts."""
         cfg = self.cfg
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
+        gen = L.generator(seed, device)
         dt = getattr(torch, cfg.param_dtype)
         params = {"embed": L.embedding_init(gen, cfg.vocab, cfg.d_model, dt)}
         for name in SEGMENTS:

@@ -15,10 +15,28 @@ F32 = torch.float32
 
 
 # ---------------------------------------------------------------------- init
+class _MetaGen:
+    """The generator of an init on the meta device (which has none): the
+    params come out as shapes and dtypes alone, the planner's structs."""
+    device = torch.device("meta")
+
+
+def generator(seed: int, device):
+    """The init's ``torch.Generator`` on ``device`` seeded with ``seed``;
+    on the meta device a stand-in that draws nothing."""
+    if torch.device(device).type == "meta":
+        return _MetaGen()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def normal_init(gen: torch.Generator, shape, dtype, stddev: float):
     """N(0, stddev^2) drawn in f32, scaled in place (one f32 copy of the
     leaf at a time: internvl2's (48, 6144, 32768) up leaf is 38.7 GB of
-    f32), then cast."""
+    f32), then cast. On the meta device: the leaf's shape and dtype."""
+    if isinstance(gen, _MetaGen):
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     t = torch.randn(tuple(shape), generator=gen, device=gen.device,
                     dtype=F32)
     return t.mul_(stddev).to(dtype)

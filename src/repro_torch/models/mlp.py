@@ -30,8 +30,7 @@ class MLP:
         """Random params from ``seed`` (a torch.Generator on ``device``)."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
+        gen = L.generator(seed, device)
         params, d = {}, cfg.d_in
         for i in range(cfg.depth):
             params[f"l{i}"] = L.linear_init(gen, d, cfg.width, dt,

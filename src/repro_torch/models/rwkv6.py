@@ -192,10 +192,8 @@ def _wkv(r, k, v, w, u, cfg: ModelConfig):
     """(B,T,H,h) -> (B,T,H,h) f32. On the card the wkv6 kernels: under grad
     ``Wkv6Fn`` (the forward, its saved chunk states, the backward kernel),
     else the forward alone. On the CPU the JAX package's route,
-    differentiated by autograd. On the meta device (shape planning,
-    ``core.bk.tap_act_structs``) its shape alone."""
-    if r.device.type == "meta":
-        return r.new_empty(r.shape, dtype=F32)
+    differentiated by autograd. On the meta device (a plan) the card's
+    route, against the kernels' meta stand-in."""
     if r.device.type != "cpu":
         if torch.is_grad_enabled():
             return Wkv6Fn.apply(r, k, v, w, u)[0]
@@ -261,8 +259,7 @@ class Rwkv6LM:
         """Random params from ``seed`` (a torch.Generator on ``device``), in
         the JAX package's flat keys and layouts."""
         cfg = self.cfg
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
+        gen = L.generator(seed, device)
         dt = getattr(torch, cfg.param_dtype)
         d = cfg.d_model
         return {"embed": L.embedding_init(gen, cfg.vocab, d, dt),

@@ -1,6 +1,7 @@
 """Decoder-only transformer, dense and MoE: the qwen2 / qwen3 / llama block
 (RMSNorm, GQA attention with rope, optional QKV bias and qk-norm, SwiGLU
-MLP), with the DeepSeekMoE feed-forward (``models.moe``) in the ``moe``
+MLP; LayerNorm and a GELU MLP where the config says so, as the JAX
+package's GPT2-class example runs), with the DeepSeekMoE feed-forward (``models.moe``) in the ``moe``
 family. Block params are stacked (L, ...) under ``blocks`` as in the JAX
 package; its ``lax.scan`` over blocks is a Python loop over layer slices
 here, and the tape stacks the records to (L, B, T, .) under ``.s`` keys.
@@ -36,6 +37,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models.attention import (decode_attention,
                                           multihead_attention, update_cache)
+
+NORMS = {"rmsnorm": (L.rmsnorm_init, L.rmsnorm),
+         "layernorm": (L.layernorm_init, L.layernorm)}
 
 
 # ------------------------------------------------------------------ attention
@@ -120,33 +124,37 @@ def mlp_apply(p, tape, x, act: str = "swiglu"):
 
 # --------------------------------------------------------------- dense block
 def dense_block_init(gen, cfg: ModelConfig, dt, layers=(), use_moe=False):
-    return {"ln1": L.rmsnorm_init(gen, cfg.d_model, dt, layers),
+    ninit = NORMS[cfg.norm][0]
+    return {"ln1": ninit(gen, cfg.d_model, dt, layers),
             "attn": attn_init(gen, cfg, dt, layers),
-            "ln2": L.rmsnorm_init(gen, cfg.d_model, dt, layers),
+            "ln2": ninit(gen, cfg.d_model, dt, layers),
             "mlp": (M.moe_init(gen, cfg, dt, layers) if use_moe
                     else mlp_init(gen, cfg, dt, layers))}
 
 
 def _ffn(p, tape, h, cfg: ModelConfig, use_moe):
-    return M.moe_apply(p, tape, h, cfg) if use_moe else mlp_apply(p, tape, h)
+    return (M.moe_apply(p, tape, h, cfg) if use_moe
+            else mlp_apply(p, tape, h, cfg.act))
 
 
 def dense_block_apply(p, tape, x, cfg: ModelConfig, cos, sin, use_moe=False,
                       attend=None):
+    norm = NORMS[cfg.norm][1]
     with tape.scope("attn"):
-        x = x + attn_apply(p["attn"], tape, L.rmsnorm(p["ln1"], x), cfg, cos,
+        x = x + attn_apply(p["attn"], tape, norm(p["ln1"], x), cfg, cos,
                            sin, attend)
     with tape.scope("mlp"):
-        x = x + _ffn(p["mlp"], tape, L.rmsnorm(p["ln2"], x), cfg, use_moe)
+        x = x + _ffn(p["mlp"], tape, norm(p["ln2"], x), cfg, use_moe)
     return x
 
 
 def dense_block_decode(p, tape, x, cfg: ModelConfig, cos, sin, cache,
                        pos: int, use_moe=False):
-    a, cache = attn_decode(p["attn"], tape, L.rmsnorm(p["ln1"], x), cfg, cos,
+    norm = NORMS[cfg.norm][1]
+    a, cache = attn_decode(p["attn"], tape, norm(p["ln1"], x), cfg, cos,
                            sin, cache, pos)
     x = x + a
-    return x + _ffn(p["mlp"], tape, L.rmsnorm(p["ln2"], x), cfg,
+    return x + _ffn(p["mlp"], tape, norm(p["ln2"], x), cfg,
                     use_moe), cache
 
 
@@ -155,10 +163,11 @@ class TransformerLM:
     """Decoder-only LM (dense, moe and vlm families)."""
 
     def __init__(self, cfg: ModelConfig):
-        if (cfg.norm, cfg.act) != ("rmsnorm", "swiglu"):
+        if cfg.norm not in NORMS or cfg.act not in ("swiglu", "gelu"):
             raise NotImplementedError(
-                f"the port's transformer block is RMSNorm + SwiGLU, got "
-                f"norm={cfg.norm!r} act={cfg.act!r}")
+                f"the port's transformer block takes norm {sorted(NORMS)} "
+                f"and act swiglu or gelu, got norm={cfg.norm!r} "
+                f"act={cfg.act!r}")
         self.cfg = cfg
         self.use_moe = cfg.family == "moe"
 
@@ -166,12 +175,11 @@ class TransformerLM:
         """Random params from ``seed`` (a torch.Generator on ``device``), in
         the JAX package's flat keys and layouts."""
         cfg = self.cfg
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
+        gen = L.generator(seed, device)
         dt = getattr(torch, cfg.param_dtype)
         params = {
             "embed": L.embedding_init(gen, cfg.vocab, cfg.d_model, dt),
-            "final_norm": L.rmsnorm_init(gen, cfg.d_model, dt),
+            "final_norm": NORMS[cfg.norm][0](gen, cfg.d_model, dt),
             # mu-P-style small readout, as the JAX package initializes it
             "head": L.linear_init(gen, cfg.d_model, cfg.vocab, dt,
                                   scale=0.1 / math.sqrt(cfg.d_model)),
@@ -208,7 +216,7 @@ class TransformerLM:
                 p_l = tape.layer_params("blocks", params["blocks"], l)
                 x = tape.block(dense_block_apply, p_l, tape, x, cfg, cos,
                                sin, self.use_moe, attend, remat=cfg.remat)
-        return L.rmsnorm(params["final_norm"], x)
+        return NORMS[cfg.norm][1](params["final_norm"], x)
 
     def apply(self, params, batch, tape: Tape):
         """batch {'tokens': (B,T) int32 [, 'patches': (B,Np,vit_dim),
@@ -271,5 +279,5 @@ class TransformerLM:
                                       {"k": blocks["k"][l],
                                        "v": blocks["v"][l]}, pos,
                                       use_moe=self.use_moe)
-        x = L.rmsnorm(params["final_norm"], x)
+        x = NORMS[cfg.norm][1](params["final_norm"], x)
         return L.linear(tape, "head", params["head"], x)[:, 0], cache

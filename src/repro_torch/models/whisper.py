@@ -142,8 +142,7 @@ class WhisperLM:
         """Random params from ``seed`` (a torch.Generator on ``device``), in
         the JAX package's flat keys and layouts."""
         cfg = self.cfg
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
+        gen = L.generator(seed, device)
         dt = getattr(torch, cfg.param_dtype)
         d = cfg.d_model
         return {

@@ -3,7 +3,9 @@ qwen3-14b, llama3-405b, moonshot-v1-16b-a3b) and qk-norm, at smoke size,
 f32, against the JAX package: qwen3-14b's per-sample losses, taps and
 records, BK norms and clipped sums (its qk-norm scales on the psp route, a
 (B, h) scale a sample), prefill and decode logits; moonshot's losses and
-clipped sums (``renorm_topk``); ``cut_depth`` of each new config; and each
+clipped sums (``renorm_topk``); the same for the GPT2-class block
+(LayerNorm, GELU MLP) of the examples' gpt2-100m; ``cut_depth`` of each new
+config; and each
 full-width train path of chip_smoke.py planned on meta tensors, its launches
 a step as the script asserts them on the card (rwkv6's wkv6 twice a layer:
 its blocks remat; internvl2-26b's batch with its patches)."""
@@ -17,13 +19,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import ModelConfig as JModelConfig
 from repro.configs.registry import build as jbuild
 from repro.configs.registry import smoke_config as jsmoke
 from repro.core.bk import DPConfig as JDPConfig
 from repro.core.bk import bk_clipped_sum as jbk_clipped_sum
 from repro.core.bk import tap_act_structs as jtap_act_structs
 from repro.core.tape import Tape as JTape
+from repro.utils.tree import flatten as jflatten
 from repro.utils.tree import unflatten as junflatten
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import (build, cut_depth, get_config,
                                           smoke_config)
 from repro_torch.convert import params_from_jax, params_to_numpy
@@ -38,24 +43,43 @@ TOL = dict(rtol=1e-3, atol=1e-4)           # tests/test_kernel_parity.py:15
 ROOT = Path(__file__).resolve().parents[1]
 
 
+# examples/train_dp_lm.py's gpt2-100m (LayerNorm, GELU MLP; no registry
+# entry in either package) at that example's --smoke reduction
+GPT2 = dict(name="gpt2-100m", family="dense", n_layers=2, d_model=64,
+            n_heads=4, n_kv_heads=4, head_dim=16, d_ff=128, vocab=512,
+            norm="layernorm", act="gelu")
+
+
+def _configs(arch):
+    """(the JAX package's, the port's) smoke config of ``arch``, f32."""
+    if arch == "gpt2-100m":
+        j, t = JModelConfig(**GPT2), ModelConfig(**GPT2)
+    else:
+        j, t = jsmoke(arch), smoke_config(arch)
+    return (j.with_(dtype="float32", param_dtype="float32"),
+            t.with_(param_dtype="float32"))
+
+
 @functools.lru_cache(maxsize=None)
 def _numpy_params(arch):
     """The port's smoke params from seed 0, every vector scale moved off 1
-    (so that qk-norm's scales act), as flat numpy in the JAX package's keys
-    and layouts."""
-    flat = params_to_numpy(build(smoke_config(arch).with_(
-        param_dtype="float32")).init(0, "cpu"))
+    (so that qk-norm's scales act), every LayerNorm shift off 0 and the
+    readout scaled up 100 times (the init's small readout puts every loss
+    within 1e-3 of log V, blind to the features), as flat numpy in the JAX
+    package's keys and layouts."""
+    flat = params_to_numpy(build(_configs(arch)[1]).init(0, "cpu"))
     rng = np.random.default_rng(1)
+    moved = ("/g", "ln1/b", "ln2/b", "final_norm/b")
+    flat["head/w"] = flat["head/w"] * 100.0
     return {k: (v + 0.2 * rng.standard_normal(v.shape).astype(np.float32)
-                if k.endswith("/g") else v) for k, v in flat.items()}
+                if k.endswith(moved) else v) for k, v in flat.items()}
 
 
 def _models(arch):
-    jm = jbuild(jsmoke(arch).with_(dtype="float32", param_dtype="float32"))
+    jcfg, tcfg = _configs(arch)
     flat = _numpy_params(arch)
     jp = junflatten({k: jnp.asarray(v) for k, v in flat.items()})
-    tm = build(smoke_config(arch).with_(param_dtype="float32"))
-    return jm, jp, tm, params_from_jax(flat, "cpu")
+    return jbuild(jcfg), jp, build(tcfg), params_from_jax(flat, "cpu")
 
 
 def _tokens(T, seed=0):
@@ -141,6 +165,99 @@ def test_moonshot_losses_and_bk_clipped_sum_match_jax():
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     sums = _bk_against_jax("moonshot-v1-16b-a3b", 16)
     assert "blocks/mlp/experts/up/w" in sums and "dense0_0/mlp/up/w" in sums
+
+
+def test_gpt2_init_keys_shapes_dtypes_match_jax():
+    """The GPT2-class block's params: the JAX package's keys, shapes and
+    dtypes (LayerNorm scale and shift, a GELU MLP's single up leaf), the
+    scales ones and the shifts zeros as there."""
+    jcfg, tcfg = _configs("gpt2-100m")
+    jp = jbuild(jcfg).init(jax.random.PRNGKey(0))
+    want = {k: (tuple(v.shape), str(v.dtype))
+            for k, v in jflatten(jp).items()}
+    flat = params_to_numpy(build(tcfg).init(0, "cpu"))
+    got = {k: (tuple(v.shape), str(v.dtype)) for k, v in flat.items()}
+    assert got == want
+    for k in ("blocks/ln1", "blocks/ln2", "final_norm"):
+        np.testing.assert_array_equal(flat[k + "/g"], 1.0)
+        np.testing.assert_array_equal(flat[k + "/b"], 0.0)
+    assert flat["blocks/mlp/up/w"].shape == (2, 64, 128)
+
+
+@pytest.mark.parametrize("T", [16, 33])
+def test_gpt2_losses_taps_and_records_match_jax(T):
+    """LayerNorm + GELU: per-sample losses, masked too, and the tap /
+    record keys, shapes and dtypes of ``tap_act_structs`` (the shifts, as
+    the scales, on the psp route: no tap)."""
+    jm, jp, tm, tp = _models("gpt2-100m")
+    toks = _tokens(T)
+    mask = np.ones((B, T), np.float32)
+    mask[1, T // 2:] = 0.0
+    for batch in ({"tokens": toks}, {"tokens": toks, "mask": mask}):
+        want = np.asarray(jm.apply(jp, {k: jnp.asarray(v)
+                                        for k, v in batch.items()},
+                                   JTape.null()))
+        got = tm.apply(tp, {k: torch.from_numpy(v)
+                            for k, v in batch.items()}, Tape.null())
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    jtaps, jacts = jtap_act_structs(jm.apply, jp, {"tokens": toks})
+    taps, acts = tap_act_structs(tm.apply, tp,
+                                 {"tokens": torch.from_numpy(toks)})
+    norm = lambda d: {k: (tuple(v.shape), str(v.dtype)) for k, v in d.items()}
+    tnorm = lambda d: {k: (tuple(s), str(dt).replace("torch.", ""))
+                       for k, (s, dt) in d.items()}
+    assert tnorm(taps) == norm(jtaps) and tnorm(acts) == norm(jacts)
+    assert not any("ln" in k or "final_norm" in k for k in taps)
+
+
+def test_gpt2_bk_clipped_sum_matches_jax():
+    """bk-mixopt's norms and clipped sums of the GPT2-class block, the
+    LayerNorm shifts' and the GELU MLP's among them."""
+    got = _bk_against_jax("gpt2-100m", 16)
+    assert got["blocks/ln1/b"].shape == (2, 64)
+    assert float(got["final_norm/b"].abs().max()) > 0
+    assert got["blocks/mlp/up/w"].shape == (2, 64, 128)
+
+
+def test_gpt2_prefill_and_decode_match_jax():
+    """The GPT2-class block's prefill logits, then a decode chain over the
+    same tokens, against the JAX package's."""
+    jm, jp, tm, tp = _models("gpt2-100m")
+    toks = _tokens(12, seed=2)
+    want = np.asarray(jax.jit(jm.prefill)(jp, jnp.asarray(toks)))
+    np.testing.assert_allclose(tm.prefill(tp, torch.from_numpy(toks)).numpy(),
+                               want, **TOL)
+    jc, tc = jm.init_cache(B, 16), tm.init_cache(B, 16, device="cpu")
+    jdecode = jax.jit(jm.decode_step)
+    for i in range(toks.shape[1]):
+        j, jc = jdecode(jp, jc, jnp.asarray(toks[:, i]),
+                        jnp.asarray(i, jnp.int32))
+        t, tc = tm.decode_step(tp, tc, torch.tensor(toks[:, i]), i)
+        np.testing.assert_allclose(t.numpy(), np.asarray(j),
+                                   err_msg=f"step {i}", **TOL)
+    np.testing.assert_allclose(t.numpy(), want, **TOL)
+
+
+def test_gpt2_example_config_is_the_references():
+    """The torch example's gpt2-100m is the JAX example's, field for field
+    (less the port's absent ``max_t``; bf16 params as a run on the card
+    keeps them), and its smoke reduction is :data:`GPT2`."""
+    import importlib.util as iu
+    mods = []
+    for name in ("train_dp_lm", "train_dp_lm_torch"):
+        spec = iu.spec_from_file_location(name, ROOT / "examples" /
+                                          f"{name}.py")
+        mods.append(iu.module_from_spec(spec))
+        spec.loader.exec_module(mods[-1])
+    j, t = mods[0].gpt2_100m(), mods[1].gpt2_100m()
+    for f in ("name", "family", "n_layers", "d_model", "n_heads",
+              "n_kv_heads", "head_dim", "d_ff", "vocab", "norm", "act",
+              "qkv_bias", "qk_norm", "rope_theta"):
+        assert getattr(t, f) == getattr(j, f), f
+    small = {k: v for k, v in GPT2.items() if k not in ("name", "family",
+                                                         "norm", "act")}
+    assert t.with_(**small) == ModelConfig(**GPT2).with_(
+        param_dtype=t.param_dtype)
 
 
 def test_qk_norm_takes_a_per_sample_scale():

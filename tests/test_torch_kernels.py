@@ -358,6 +358,40 @@ def test_wrappers_take_the_plain_version_only_on_cpu(call):
         call()
 
 
+def _cpu(*shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: ghost_norm(_meta(2, 3, 4), _cpu(2, 3, 5)),
+    lambda: clipped_grad(_meta(2, 3, 4), _cpu(2), _meta(2, 3, 5)),
+    lambda: grad_norm_direct(_meta(2, 3, 4), _cpu(2, 3, 5)),
+    lambda: emb_ghost_norm(_meta(2, 3, dtype=torch.int32), _cpu(2, 3, 4)),
+    lambda: emb_clipped_grad(_meta(2, 3, dtype=torch.int32), _cpu(2),
+                             _meta(2, 3, 4), 7),
+    lambda: moe_ghost_norm(_meta(2, 3, 4, 5), _cpu(2, 3, 4),
+                           _meta(2, 3, 4, 6)),
+    lambda: moe_direct_norm(_meta(2, 3, 4, 5), _meta(2, 3, 4),
+                            _cpu(2, 3, 4, 6)),
+    lambda: moe_clipped_grad(_meta(2, 3, 4, 5), _meta(2, 3, 4), _cpu(2),
+                             _meta(2, 3, 4, 6)),
+    lambda: fused_clip_grad(_meta(2, 3, 4), _meta(2, 3, 5), _cpu(2),
+                            "automatic", 1.0, 0.01),
+    lambda: flash_attention(_meta(2, 3, 4, 8), _cpu(2, 3, 2, 8),
+                            _meta(2, 3, 2, 8)),
+    lambda: wkv6(*(_meta(2, 3, 4, 8),) * 3, _cpu(2, 3, 4, 8), _meta(4, 8)),
+])
+def test_wrappers_refuse_operands_off_the_card(call):
+    """Operands that are not all on one CUDA device (nor all on the meta
+    device of a plan) are refused before any pointer goes to C, also while
+    a plan records (``kernels.meta.recording``)."""
+    from repro_torch.kernels import meta
+    with pytest.raises(ValueError, match="CUDA device"):
+        call()
+    with meta.recording(), pytest.raises(ValueError, match="CUDA device"):
+        call()
+
+
 def test_unported_direct_norm_raises_off_cpu():
     """A direct-norm plan with the mixopt cache off now reaches the
     grad_norm_direct wrapper (which refuses a tensor that is neither CPU nor

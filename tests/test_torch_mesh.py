@@ -23,6 +23,9 @@ one-process runs and the JAX package's pieces.
   quantum of the true mean, unbiased over 200 draws.
 - bf16 params on ``(2, 1)``: the clipped sums are the f32 partials summed,
   then rounded to bf16 once, as world 1 rounds its f32 sum.
+- The dry-run's train cell (``launch.steps.plan_cell``) stepped on the
+  (2, 2) world moves, on a rank, the collective bytes its plan on a
+  planning mesh counts for that rank.
 - A mesh whose size is not the world's raises, naming both; the backend is
   gloo wherever a host's ranks outnumber its cards.
 """
@@ -147,6 +150,47 @@ def _compression(out, rank, world):
                                    flatten(tree).items()}}
 
 
+def _collectives(out, rank):
+    """One step of the dry-run's train cell (``launch.steps.plan_cell``,
+    qwen2-1.5b smoke, B=8, T=16, microbatch 4) on the (2, 2) world, its
+    collectives' bytes counted as ``launch.mesh.PlanMesh`` counts them
+    (the result's bytes a rank), beside the cell's plan on a planning mesh
+    seen from the same rank."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_plan_mesh
+    from repro_torch.launch.steps import plan_cell
+    small = smoke_config("qwen2-1.5b")
+    get_config, registry.get_config = registry.get_config, lambda n: small
+    try:
+        shape = ShapeConfig("train_4k", T, B, "train")
+        mesh = make_test_mesh((2, 2))
+        moved = {"all_reduce": 0, "all_gather": 0}
+        all_reduce, all_gather = mesh.all_reduce, mesh.all_gather
+
+        def count_reduce(t, axes):
+            if mesh.axis_size(axes) > 1:
+                moved["all_reduce"] += t.numel() * t.element_size()
+            return all_reduce(t, axes)
+
+        def count_gather(t, axes):
+            n = mesh.axis_size(axes)
+            if n > 1:
+                moved["all_gather"] += n * t.numel() * t.element_size()
+            return all_gather(t, axes)
+
+        mesh.all_reduce, mesh.all_gather = count_reduce, count_gather
+        cell = plan_cell("qwen2-1.5b", shape, mesh, microbatch=4)
+        _, loss = cell.fn(*cell.make_args("cpu", 0))
+        planned = plan_cell("qwen2-1.5b", shape,
+                            make_plan_mesh((2, 2), rank=rank),
+                            microbatch=4).plan()["collectives"]
+    finally:
+        registry.get_config = get_config
+    out["collectives"] = {"moved": moved, "loss": float(loss),
+                          "planned": {k: planned[k] for k in moved}}
+
+
 def _world4(rank, port, tmp, flat0):
     torch.set_num_threads(1)
     init_distributed(rank, 4, f"tcp://localhost:{port}", "cpu")
@@ -166,6 +210,7 @@ def _world4(rank, port, tmp, flat0):
     out["oracle"] = _oracle_run(flat0, mesh=(2, 2))
     _padded(out)
     _compression(out, rank, 4)
+    _collectives(out, rank)
     if rank == 0:
         torch.save(out, os.path.join(tmp, "world4.pt"))
     dist.destroy_process_group()
@@ -361,6 +406,13 @@ def test_mesh_checkpoint_restores_in_one_process(world4, tmp_path):
     s = resumed["summary"]
     assert (s["resumed_from"], s["steps_done"]) == (4, 6)
     assert s["epsilon"] > saved["epsilon"]
+
+
+def test_planned_collectives_equal_the_sharded_step(world4):
+    got = world4[1]["collectives"]
+    assert got["moved"]["all_reduce"] > 0 and got["moved"]["all_gather"] > 0
+    assert got["planned"] == got["moved"]
+    assert math.isfinite(got["loss"])
 
 
 def test_compressed_allreduce_mean(world4):
